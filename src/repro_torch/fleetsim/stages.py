@@ -1,0 +1,621 @@
+"""The staged tick pipeline, port of ``repro.fleetsim.stages``.
+
+One engine tick is the composition
+
+    arrival → route (ToR + spine) → link-failure → server
+            → link-response → response/filter → client
+
+over the :class:`~repro_torch.fleetsim.state.FleetState` of ``G``
+configurations at once (the reference's ``vmap`` axis, written out).  The
+stages read and write the reference's layouts; what the port changes is
+only how the work is expressed:
+
+* a ``lax.switch`` over policy ids is "compute each branch, select per
+  config" (:func:`repro_torch.fleetsim.policies.route`);
+* every ``.at[].set(mode="drop")`` goes through
+  :func:`repro_torch.scatter.scatter_last` (last lane wins, out-of-range
+  rows dropped) on every device;
+* the large state tensors (queue rings, filter tables, StateT, the dedup
+  table, the histograms) are updated **in place**; callers that need the
+  old state clone it first.
+
+The reference's optional stages (coordinator, hedge timer), telemetry and
+the batch server are not ported yet: :func:`build_step` raises
+``NotImplementedError`` for them (``ROADMAP.md`` queue A).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core.header import CLO_CLONE
+from repro_torch.core.switch import SwitchState, filter_tick_vectorized
+from repro_torch.fleetsim.chaos import (
+    link_dead,
+    stage_link_failure,
+    stage_link_response,
+)
+from repro_torch.fleetsim.config import (
+    SERVICE_BIMODAL,
+    SERVICE_EXPONENTIAL,
+    SERVICE_LLM,
+    SERVICE_PARETO,
+    FleetConfig,
+)
+from repro_torch.fleetsim.policies import dedup_tick, id_mask, route_fabric
+from repro_torch.fleetsim.state import (
+    QF_BASE,
+    QF_CLIENT,
+    QF_CLO,
+    QF_FRACK,
+    QF_HOP,
+    QF_IDX,
+    QF_RID,
+    QF_TARR,
+    WF,
+    WF_CLIENT,
+    WF_CLO,
+    WF_FRACK,
+    WF_HOP,
+    WF_IDX,
+    WF_REM,
+    WF_RID,
+    WF_TARR,
+    FleetState,
+)
+from repro_torch.kernels.ops import fingerprint_filter, tickfuse_response_path
+from repro_torch.kernels.ref import fingerprint_filter_ref
+from repro_torch.scatter import scatter_add_drop, scatter_last
+from repro_torch.scenarios import registry
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32 (the value JAX computes with)."""
+    return float(np.float32(x))
+
+
+def _sum(mask: torch.Tensor) -> torch.Tensor:
+    """Per-config count of a ``(G, ...)`` mask, int32."""
+    return mask.reshape(mask.shape[0], -1).sum(dim=1, dtype=_I32)
+
+
+# --------------------------------------------------------------- sampling ---
+def _intrinsic(cfg: FleetConfig, u):
+    """Per-request base demand (shared by both copies of a clone pair),
+    from a pre-drawn uniform in [0, 1)."""
+    p = cfg.service.params
+    if cfg.service.kind == SERVICE_EXPONENTIAL:
+        return torch.full_like(u, _f32(p[0]))
+    if cfg.service.kind == SERVICE_BIMODAL:
+        short, long, p_long = p
+        return torch.where(u < p_long, _f32(long), _f32(short)).to(_F32)
+    if cfg.service.kind == SERVICE_PARETO:
+        xm, alpha, cap = p
+        u = torch.minimum(u, torch.tensor(1.0 - 1e-7, dtype=_F32,
+                                          device=u.device))
+        r = (xm / cap) ** alpha
+        return xm / jr.pow_f32(1.0 - u * (1.0 - r), _f32(1.0 / alpha))
+    if cfg.service.kind == SERVICE_LLM:
+        # prefill + generated-length × per-token decode; the bimodal
+        # generation length is intrinsic (shared by both clone copies)
+        prefill, decode, gen_short, gen_long, p_long = p
+        gen = torch.where(u < p_long, _f32(gen_long), _f32(gen_short))
+        return (prefill + gen.to(_F32) * decode).to(_F32)
+    raise ValueError(cfg.service.kind)
+
+
+def _execute(cfg: FleetConfig, u, base):
+    """One execution's runtime: per-copy randomness + the jitter spike.
+    One uniform pair feeds both (inverse CDF): ``u`` is the reference's
+    ``uniform(k_exec, base.shape + (2,))`` block, ``base`` ``(G, ...)``."""
+    if cfg.service.kind == SERVICE_EXPONENTIAL:
+        # dummy-RPC spin drawn at the server (§5.1.2)
+        dur = -jr.log1p_f32(-u[..., 0] * (1.0 - 1e-7)) * base
+    else:
+        dur = base * (0.9 + 0.2 * u[..., 0])
+    spike = u[..., 1] < cfg.service.jitter_p
+    return torch.where(spike, dur * cfg.service.jitter_mult, dur)
+
+
+def _rank_among_earlier(mask):
+    """Count of earlier True entries along the last axis."""
+    m = mask.to(torch.int64)
+    return torch.cumsum(m, dim=-1) - m
+
+
+# ------------------------------------------------------------ random draws --
+class TickDraws(NamedTuple):
+    """One tick's random numbers (the reference draws them inside the
+    tick from ``jax.random.split(state.key, 3)``)."""
+
+    key: torch.Tensor        # (G, 2) the carried key after the tick
+    u_arr: torch.Tensor      # (G, A, 6 or 7) per-lane attribute uniforms
+    u_exec: torch.Tensor     # (G, ST, R, 2) execution-time uniforms
+
+
+def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
+               ) -> list[TickDraws]:
+    """The draws of the next ``n`` ticks from the carried ``key``, exactly
+    the reference's: each tick splits its key into (next key, k_arr,
+    k_exec) and draws ``uniform(k_arr, (A, 6 or 7))`` and
+    ``uniform(k_exec, (ST, R, 2))``.  The key chain is sequential, one split
+    per tick; the uniforms of all ``n`` ticks come from two threefry passes
+    over the batched keys, which saves most of a pass per tick."""
+    chain = []
+    for _ in range(n):
+        keys = jr.split(key, 3)
+        key = keys[:, 0]
+        chain.append(keys)
+    keys = torch.stack(chain, dim=1)                 # (G, n, 3, 2)
+    st = cfg.n_racks * cfg.n_servers
+    u_arr = jr.uniform(keys[:, :, 1],
+                       (cfg.max_arrivals, 7 if cfg.n_racks > 1 else 6))
+    u_exec = jr.uniform(keys[:, :, 2],
+                        (st, min(cfg.n_workers, cfg.queue_cap), 2))
+    return [TickDraws(keys[:, i, 0], u_arr[:, i], u_exec[:, i])
+            for i in range(n)]
+
+
+# ----------------------------------------------------------------- contexts --
+class Arrivals(NamedTuple):
+    """Per-tick arrival context: admitted lanes + flattened fabric views
+    (all ``(G, A)`` unless noted; server ids are fabric-global int64)."""
+
+    tick: int
+    t_us: float              # float32 value
+    down: torch.Tensor       # (G,) bool — fabric dark this tick
+    u_exec: torch.Tensor     # (G, ST, R, 2) the server stage's uniforms
+    sstate: torch.Tensor     # (G, ST) view of StateT
+    tables: torch.Tensor     # (G, (RK+1)·T, slots) view of the tables
+    active: torch.Tensor     # admitted arrival lanes
+    grp: torch.Tensor        # GrpT index
+    fidx: torch.Tensor       # filter-table index within a group
+    client: torch.Tensor     # client id
+    base: torch.Tensor       # intrinsic service demand (µs)
+    home: torch.Tensor       # home rack
+    r1: torch.Tensor         # first uniform candidate
+    r2: torch.Tensor         # second uniform candidate
+    r2_local: torch.Tensor   # second candidate, rack-local
+
+
+class Lanes(NamedTuple):
+    """Delivery lanes headed for the server stage, ``(G, D)``;
+    ``payload`` rows are ``QF``-format queue records."""
+
+    dst: torch.Tensor        # int64 destination server
+    act: torch.Tensor        # bool
+    clo: torch.Tensor        # int32
+    payload: torch.Tensor    # (G, D, QF) float32
+
+
+class Responses(NamedTuple):
+    """Compacted completion lanes leaving the server stage, ``(G, K)``."""
+
+    active: torch.Tensor
+    rid: torch.Tensor        # int32
+    clo: torch.Tensor        # int32
+    idx: torch.Tensor        # int64
+    client: torch.Tensor     # int64
+    tarr: torch.Tensor       # float32
+    hop: torch.Tensor        # float32
+    frack: torch.Tensor      # int64
+    sid: torch.Tensor        # int64
+    qlen: torch.Tensor       # int32
+
+
+# ------------------------------------------------------------------- stages --
+def stage_arrival(cfg: FleetConfig, params, state: FleetState, xs,
+                  recover_ticks=None):
+    """Admission + attributes: recovery wipe, Poisson/trace lane masking,
+    and the per-lane attributes from the tick's one uniform block (the
+    ``n_racks == 1`` column layout matches the single-ToR engine draw for
+    draw).  ``xs`` is ``(tick, n_raw, draws)``: ``n_raw`` ``(G,)``,
+    ``draws`` the tick's :class:`TickDraws`.  ``recover_ticks``, when
+    given, is the set of ticks at which some config's failure window ends;
+    the wipe is skipped at every other tick (where it changes nothing)."""
+    RK, S, C = cfg.n_racks, cfg.n_servers, cfg.n_clients
+    ST = RK * S
+    T = cfg.n_filter_tables
+    A = cfg.max_arrivals
+    tick, n_raw, draws = xs
+    g, dev = n_raw.shape[0], n_raw.device
+    m = state.metrics
+    t_us = _f32(np.float32(tick) * np.float32(cfg.dt_us))
+    down = (tick >= params.fail_from_tick) & (tick < params.fail_until_tick)
+    # §3.6 recovery: all soft state lost, REQ_IDs restart from 1; the
+    # clients' pending-request fingerprints of lost requests go with it
+    switch = state.switch
+    if recover_ticks is None or tick in recover_ticks:
+        recover = params.fail_until_tick == tick
+        switch = switch._replace(
+            seq=torch.where(recover, 0, switch.seq).to(_I32))
+        switch.server_state.masked_fill_(recover[:, None, None], 0)
+        switch.filter_tables.masked_fill_(recover[:, None, None, None], 0)
+        state.dedup.masked_fill_(recover[:, None], 0)
+    sstate = switch.server_state.view(g, ST)
+    tables = switch.filter_tables.view(g, (RK + 1) * T, cfg.n_filter_slots)
+
+    # one uniform block covers every per-lane attribute draw (the home-
+    # rack column only exists when there is more than one rack)
+    u = draws.u_arr
+
+    # -- arrivals (Poisson count precomputed outside the tick loop) ------
+    n_arr = torch.clamp(n_raw, max=A)
+    arr_active = torch.arange(A, device=dev) < n_arr[:, None]
+    m = m._replace(n_truncated=m.n_truncated + (n_raw - n_arr),
+                   n_dropped_down=m.n_dropped_down
+                   + torch.where(down, n_arr, 0).to(_I32))
+    arr_active = arr_active & ~down[:, None]
+    m = m._replace(n_arrivals=m.n_arrivals + _sum(arr_active))
+
+    def to_int(col, n):
+        return torch.clamp((u[..., col] * n).to(torch.int64), max=n - 1)
+
+    grp = to_int(0, cfg.n_groups)
+    fidx = to_int(1, T)
+    client = to_int(2, C)
+    base = _intrinsic(cfg, u[..., 3])
+    r1 = to_int(4, S)
+    r2 = (r1 + 1 + to_int(5, S - 1)) % S
+    if RK > 1:
+        # inverse-CDF pick over the (possibly skewed) rack weights
+        cw = torch.cumsum(params.rack_weights, dim=1)
+        v = u[..., 6] * cw[:, -1:]
+        home = (cw[:, None, :] <= v[:, :, None]).sum(dim=2)
+        home = torch.clamp(home, max=RK - 1)
+    else:
+        home = torch.zeros((g, A), dtype=torch.int64, device=dev)
+    off = home * S               # local → fabric-global server ids
+    state = state._replace(switch=switch, key=draws.key, metrics=m)
+    return state, Arrivals(
+        tick=tick, t_us=t_us, down=down, u_exec=draws.u_exec, sstate=sstate,
+        tables=tables, active=arr_active, grp=grp, fidx=fidx, client=client,
+        base=base, home=home, r1=off + r1, r2=off + r2,
+        r2_local=r2)
+
+
+def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
+                group_pairs: torch.Tensor, xhop: float):
+    """ToR routing + spine placement; emits the base delivery lanes
+    (originals then clones)."""
+    RK, S = cfg.n_racks, cfg.n_servers
+    A = cfg.max_arrivals
+    g, dev = arr.active.shape[0], arr.active.device
+    m = state.metrics
+    switch = state.switch
+    arr_active = arr.active
+
+    pair = group_pairs[arr.grp] + (arr.home * S)[:, :, None]
+    dst1, dst2, cloned, clo1, clo2 = route_fabric(
+        params.policy_id, arr.sstate, pair, arr.r1, arr.r2, arr.home,
+        arr.r2_local, n_racks=RK, n_servers=S,
+        dead=link_dead(params, arr.tick))
+    xrack = cloned & ((dst1 // S) != (dst2 // S))
+    # the filter switch of a pair: its home rack ToR, or the spine
+    # (table group RK) when the copies span racks
+    frack = torch.where(xrack, RK, arr.home)
+    req_id = (switch.seq[:, None] + 1
+              + torch.arange(A, dtype=_I32, device=dev)).to(_I32)
+    switch = switch._replace(seq=(switch.seq + A).to(_I32))
+    m = m._replace(
+        n_cloned=m.n_cloned + _sum(arr_active & cloned),
+        n_interrack_cloned=m.n_interrack_cloned + _sum(arr_active & xrack))
+
+    # delivery lanes: clone copies sort after originals; the remote copy
+    # of an inter-rack pair carries its spine detour as a per-copy hop term
+    d_dst = torch.cat([dst1, dst2], dim=1)
+    d_clo = torch.cat([clo1, clo2], dim=1)
+    d_act = torch.cat([arr_active, arr_active & cloned], dim=1)
+    d_hop = torch.cat([torch.zeros((g, A), dtype=_F32, device=dev),
+                       torch.where(xrack, xhop, 0.0).to(_F32)], dim=1)
+
+    def tile(x):
+        return torch.cat([x, x], dim=1).to(_F32)
+
+    payload = torch.stack([                          # (G, D, QF)
+        tile(arr.base),
+        torch.full_like(d_hop, arr.t_us),
+        tile(req_id),
+        d_clo.to(_F32),
+        tile(arr.fidx),
+        tile(arr.client),
+        d_hop,
+        tile(frack),
+    ], dim=2)
+    state = state._replace(switch=switch, metrics=m)
+    return state, Lanes(dst=d_dst, act=d_act, clo=d_clo, payload=payload)
+
+
+def stage_server(cfg: FleetConfig, params, state: FleetState,
+                 arr: Arrivals, lanes: Lanes):
+    """Workers advance, the server-side CLO=2 drop rule, FCFS ring enqueue,
+    and dequeue of the oldest queued jobs onto the freed workers (their
+    execution times from the tick's ``arr.u_exec`` uniforms)."""
+    RK, S, W, Q = cfg.n_racks, cfg.n_servers, cfg.n_workers, cfg.queue_cap
+    ST = RK * S
+    g, dev = lanes.dst.shape[0], lanes.dst.device
+    dt = _f32(cfg.dt_us)
+    srv_ids = torch.arange(ST, device=dev)
+    m = state.metrics
+    d_dst, d_act, d_clo = lanes.dst, lanes.act, lanes.clo
+
+    def at_dst(x):               # (G, ST) per-server value of each lane
+        return torch.gather(x, 1, d_dst)
+
+    def own(rank):               # (G, ST, D) → each lane's own row
+        return torch.gather(rank, 1, d_dst[:, None, :])[:, 0]
+
+    # -- workers advance, completions (busy ⇔ REM > 0) ---------------
+    meta = state.workers.meta.view(g, ST, W, WF)
+    was_busy = meta[..., WF_REM] > 0
+    rem = torch.where(was_busy, meta[..., WF_REM] - dt, 0.0)
+    done = was_busy & (rem <= 0)                     # (G, ST, W)
+    busy_after = was_busy & ~done
+    n_free = (~busy_after).sum(dim=2)                # (G, ST)
+    rq = state.queues
+    q_head = rq.head.view(g, ST).to(torch.int64)
+    n_queued = rq.count.view(g, ST).to(torch.int64)
+
+    # -- CLO=2 drop rule --------------------------------------------
+    # A clone is dropped iff the server's wait queue is non-empty when it
+    # arrives; two passes resolve the (rare) dependence of one clone's
+    # fate on an earlier clone's (see the reference)
+    q_left = torch.clamp(n_queued - n_free, min=0)   # still waiting
+    free_left = torch.clamp(n_free - n_queued, min=0)  # still free
+    onehot = d_dst[:, None, :] == srv_ids[None, :, None]   # (G, ST, D)
+    is_clone = d_clo == CLO_CLONE
+    n_earlier = _rank_among_earlier(onehot & (d_act & ~is_clone)[:, None])
+    occupied = (at_dst(q_left) > 0) | (own(n_earlier) > at_dst(free_left))
+    drop0 = is_clone & d_act & occupied
+    keep0 = d_act & ~drop0
+    n_earlier1 = _rank_among_earlier(onehot & keep0[:, None])
+    occupied1 = (at_dst(q_left) > 0) | (own(n_earlier1)
+                                        > at_dst(free_left))
+    clone_drop = is_clone & d_act & occupied1
+    d_keep = d_act & ~clone_drop
+    m = m._replace(n_clone_drops=m.n_clone_drops + _sum(clone_drop))
+
+    # -- enqueue into the FCFS rings ---------------------------------
+    # the r-th kept lane for a server lands r slots past its tail
+    lane_m = onehot & d_keep[:, None]                # (G, ST, D)
+    rank_own = own(_rank_among_earlier(lane_m))
+    ovf = d_keep & (at_dst(n_queued) + rank_own >= Q)
+    m = m._replace(n_overflow=m.n_overflow + _sum(ovf))
+    enq_ok = d_keep & ~ovf
+    slot = (at_dst(q_head) + at_dst(n_queued) + rank_own) % Q
+    flat_q = rq.data.view(g, ST * Q, rq.data.shape[-1])
+    scatter_last(flat_q, d_dst * Q + slot, lanes.payload, enq_ok)
+    count1 = n_queued + (onehot & enq_ok[:, None]).sum(dim=2)
+
+    # -- dequeue: ring head onto free workers ------------------------
+    R = min(W, Q)
+    n_start = torch.minimum(count1, n_free)          # (G, ST)
+    r = torch.arange(R, device=dev)
+    startm = r < n_start[:, :, None]                 # (G, ST, R)
+    deq_slot = (q_head[:, :, None] + r) % Q          # (G, ST, R)
+    rows = (srv_ids[None, :, None] * Q + deq_slot).reshape(g, ST * R)
+    job = torch.gather(flat_q, 1, rows[:, :, None].expand(
+        g, ST * R, flat_q.shape[-1])).view(g, ST, R, -1)
+    # r-th free worker of each server, via rank matching (no sort)
+    wfree = ~busy_after
+    wrank = _rank_among_earlier(wfree)               # (G, ST, W)
+    sel = wfree[:, :, None, :] & (wrank[:, :, None, :]
+                                  == r[None, None, :, None])  # (G,ST,R,W)
+    wcol = (sel * torch.arange(W, device=dev)).sum(dim=3)
+    exec_dur = _execute(cfg, arr.u_exec, job[..., QF_BASE]) \
+        * params.slowdown[:, :, None]
+    wrow = srv_ids[None, :, None] * W + wcol          # (G, ST, R)
+    # responses are read from the PRE-overwrite worker metadata
+    meta_flat = torch.cat(
+        [torch.where(busy_after, rem, 0.0)[..., None], meta[..., 1:]],
+        dim=3).view(g, ST * W, WF)
+    q_count = count1 - n_start
+    resp_payload = torch.cat([                       # (G, ST·W, WF + 2)
+        meta_flat,
+        srv_ids.repeat_interleave(W).to(_F32)[None, :, None].expand(
+            g, ST * W, 1),
+        q_count.repeat_interleave(W, dim=1).to(_F32)[:, :, None]], dim=2)
+    new_meta = torch.stack([
+        exec_dur + cfg.server_overhead_us,
+        job[..., QF_TARR], job[..., QF_RID], job[..., QF_CLO],
+        job[..., QF_IDX], job[..., QF_CLIENT],
+        job[..., QF_HOP], job[..., QF_FRACK]], dim=3)  # (G, ST, R, WF)
+    scatter_last(meta_flat, wrow.reshape(g, -1),
+                 new_meta.reshape(g, ST * R, WF), startm.reshape(g, -1))
+    queues = rq._replace(
+        head=((q_head + n_start) % Q).to(_I32).view(g, RK, S),
+        count=q_count.to(_I32).view(g, RK, S))
+
+    # -- compact completions into the response lanes -----------------
+    K = min(cfg.max_responses, ST * W)
+    done_flat = done.reshape(g, ST * W)
+    n_done_all = _sum(done_flat)
+    m = m._replace(
+        n_resp=m.n_resp + n_done_all,
+        n_resp_empty=m.n_resp_empty + _sum(
+            done_flat & (q_count.repeat_interleave(W, dim=1) == 0)),
+        lost_down_resp=m.lost_down_resp
+        + torch.where(arr.down, n_done_all, 0).to(_I32))
+    rrank = _rank_among_earlier(done_flat)
+    clipped = done_flat & (rrank >= K)
+    m = m._replace(n_resp_clipped=m.n_resp_clipped + _sum(clipped))
+    resp = torch.zeros((g, K, WF + 2), dtype=_F32, device=dev)
+    scatter_last(resp, rrank, resp_payload, done_flat & ~clipped)
+    n_done = torch.clamp(n_done_all, max=K)
+    resp_active = ((torch.arange(K, device=dev) < n_done[:, None])
+                   & ~arr.down[:, None])
+
+    state = state._replace(
+        queues=queues,
+        workers=state.workers._replace(
+            meta=meta_flat.view(g, RK, S, W, WF)),
+        metrics=m)
+
+    def field(i, dtype):
+        return resp[..., i].to(dtype)
+
+    return state, Responses(
+        active=resp_active,
+        rid=field(WF_RID, _I32),
+        clo=field(WF_CLO, _I32),
+        idx=field(WF_IDX, torch.int64),
+        client=field(WF_CLIENT, torch.int64),
+        tarr=resp[..., WF_TARR],
+        hop=resp[..., WF_HOP],
+        frack=field(WF_FRACK, torch.int64),
+        sid=field(WF, torch.int64),
+        qlen=field(WF + 1, _I32))
+
+
+def stage_response_filter(cfg: FleetConfig, params, state: FleetState,
+                          arr: Arrivals, resp: Responses):
+    """Switch response path: StateT update + the fingerprint filter at each
+    pair's filter switch, one flattened-table call for the whole fabric."""
+    RK = cfg.n_racks
+    T = cfg.n_filter_tables
+    m = state.metrics
+    idx_flat = resp.frack * T + resp.idx
+    drop = _filter_responses(cfg, arr.sstate, arr.tables, resp.rid,
+                             idx_flat, resp.clo, resp.sid, resp.qlen,
+                             resp.active)
+    m = m._replace(
+        n_filtered=m.n_filtered + _sum(drop & resp.active),
+        n_spine_filtered=m.n_spine_filtered
+        + _sum(drop & resp.active & (resp.frack == RK)))
+    return state._replace(metrics=m), drop
+
+
+def stage_client(cfg: FleetConfig, params, state: FleetState,
+                 arr: Arrivals, resp: Responses, drop, const_lat):
+    """Client receiver threads: dedup of redundant copies, FCFS backlog
+    with per-response RX cost, latency recording into the per-rack
+    log-spaced histograms."""
+    RK, S, C = cfg.n_racks, cfg.n_servers, cfg.n_clients
+    g, dev = drop.shape[0], drop.device
+    dt = _f32(cfg.dt_us)
+    t0_us = _f32(cfg.warmup_us)
+    t1_us = _f32(cfg.duration_us)
+    log_g = float(np.log(cfg.hist_growth))
+    m = state.metrics
+
+    deliver = resp.active & ~drop
+    _, redundant, evicted = dedup_tick(state.dedup, resp.rid, deliver)
+    first = deliver & ~redundant
+    m = m._replace(n_redundant=m.n_redundant + _sum(redundant),
+                   n_dedup_evicted=m.n_dedup_evicted + evicted,
+                   n_completed=m.n_completed + _sum(first))
+    # receiver threads: FCFS backlog with per-response RX cost
+    cli_onehot = ((resp.client[:, None, :]
+                   == torch.arange(C, device=dev)[None, :, None])
+                  & deliver[:, None, :])             # (G, C, K)
+    pos = torch.gather(_rank_among_earlier(cli_onehot), 1,
+                       resp.client[:, None, :])[:, 0]
+    backlog_pre = torch.clamp(state.client_backlog - dt, min=0.0)
+    wait = torch.gather(backlog_pre, 1, resp.client) \
+        + (pos + 1) * cfg.client_rx_us
+    backlog = backlog_pre + cli_onehot.sum(dim=2) * cfg.client_rx_us
+    t_fin = arr.t_us + wait
+    lat = t_fin - resp.tarr + const_lat[:, None] + resp.hop
+    rec = first & (t_fin >= t0_us) & (t_fin <= t1_us)
+    bins = torch.clamp(
+        jr.log_f32(torch.clamp(lat, min=_f32(cfg.hist_lo_us))
+                   / cfg.hist_lo_us) / log_g,
+        0, cfg.hist_bins - 1).to(torch.int64)
+    # per-rack histograms, binned by the rack that served the winning
+    # response (non-recorded lanes write nothing)
+    hist = m.hist.view(g, RK * cfg.hist_bins)
+    scatter_add_drop(hist, (resp.sid // S) * cfg.hist_bins + bins, 1, rec)
+    m = m._replace(n_completed_win=m.n_completed_win + _sum(rec))
+    return state._replace(client_backlog=backlog.to(_F32), metrics=m)
+
+
+def _filter_responses(cfg, server_state, tables, rid, idx, clo, sid, qlen,
+                      active):
+    """Response path over the flattened fabric: StateT update + the
+    fingerprint filter, with the backend ``cfg.filter_backend`` selects.
+    ``server_state`` ``(G, n_racks·S)`` and ``tables`` ``(G, (n_racks+1)·
+    n_tables, n_slots)`` are updated in place; returns ``drop``."""
+    n_servers = server_state.shape[1]
+    rid = rid.to(_I32).contiguous()
+    idx = idx.to(_I32).contiguous()
+    if cfg.filter_backend == "vectorized":
+        st = SwitchState(seq=None, server_state=server_state,
+                         filter_tables=tables)
+        _, res = filter_tick_vectorized(st, rid, idx, clo, sid, qlen,
+                                        active)
+        return res.drop
+    # scan / pallas / tickfuse: inactive lanes neutralised up front (CLO=0
+    # never touches the filter; an out-of-range sid never touches StateT)
+    sid_m = torch.where(active, sid, n_servers).to(_I32).contiguous()
+    clo_m = torch.where(active, clo, 0).to(_I32).contiguous()
+    qlen = qlen.to(_I32).contiguous()
+    if cfg.filter_backend == "tickfuse":
+        # StateT write + filter in one CUDA launch (kernels/tickfuse.py)
+        return tickfuse_response_path(server_state, tables, rid, idx, clo_m,
+                                      sid_m, qlen)[2]
+    # scan / pallas: StateT via the last-lane-wins scatter, then the table
+    scatter_last(server_state, sid_m, qlen, active)
+    if cfg.filter_backend == "scan":
+        return fingerprint_filter_ref(tables, rid, idx, clo_m)[1]
+    # pallas: the CUDA fingerprint-filter kernel (kernels/fingerprint_filter)
+    return fingerprint_filter(tables, rid, idx, clo_m)[1]
+
+
+# ---------------------------------------------------------------- pipeline --
+def check_supported(cfg: FleetConfig) -> None:
+    """Raise for the reference features this slice has not ported."""
+    missing = [
+        (cfg.coordinator, "the coordinator stage (cfg.coordinator)", "A7"),
+        (cfg.hedge_timer, "the hedge-timer stage (cfg.hedge_timer)", "A7"),
+        (cfg.telemetry, "telemetry (cfg.telemetry)", "A9"),
+        (cfg.server_model == "batch",
+         'the batch server (cfg.server_model="batch")', "A10"),
+    ]
+    for on, what, item in missing:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
+
+
+def const_latency(cfg: FleetConfig, params) -> torch.Tensor:
+    """In-network constants added to every recorded latency, ``(G,)``:
+    client TX + four link hops + two pipeline passes + the spine round trip
+    when the fabric has one; client-duplicating policies pay the doubled
+    TX."""
+    return (cfg.client_tx_us + 4 * cfg.link_us + 2 * cfg.pipeline_pass_us
+            + cfg.spine_extra_us
+            + torch.where(id_mask(params.policy_id,
+                                  registry.client_dup_ids()),
+                          cfg.client_tx_us, 0.0).to(_F32))
+
+
+def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
+    """Compose the stages into the tick function the engine loops over.
+    ``params`` is a ``RunParams`` of ``(G, ...)`` tensors on the run's
+    device; ``group_pairs`` the GrpT tensor (int64) there."""
+    check_supported(cfg)
+    const_lat = const_latency(cfg, params)
+    xhop = _f32(cfg.interrack_extra_us)
+    recover_ticks = frozenset(params.fail_until_tick.tolist())
+
+    def step(state: FleetState, xs):
+        state, arr = stage_arrival(cfg, params, state, xs, recover_ticks)
+        state, lanes = stage_route(cfg, params, state, arr, group_pairs,
+                                   xhop)
+        # link failures: copies onto a dead link vanish before the servers,
+        # responses from partitioned servers vanish before the filter
+        # switch; inert windows leave every value unchanged
+        state, lanes = stage_link_failure(cfg, params, state, arr, lanes)
+        state, resp = stage_server(cfg, params, state, arr, lanes)
+        state, resp = stage_link_response(cfg, params, state, arr, resp)
+        state, drop = stage_response_filter(cfg, params, state, arr, resp)
+        return stage_client(cfg, params, state, arr, resp, drop, const_lat)
+
+    return step

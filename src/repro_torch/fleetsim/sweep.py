@@ -1,0 +1,199 @@
+"""User-facing sweep API: policies × loads × seeds in one batched run.
+
+Port of ``repro.fleetsim.sweep`` for one device: :func:`sweep_grid` builds
+the flat configuration grid and runs it through :func:`~repro_torch.
+fleetsim.engine.simulate` as one batch (the config axis ``G`` is the grid).
+Stragglers, switch-failure and link-failure windows are per-run inputs, so
+heterogeneous scenarios ride in the same batch.
+
+Not ported yet, and raising ``NotImplementedError``: the ``hedge_delays``
+axis (ROADMAP.md A7), ``shard`` (A9) and ``engine`` options (A6).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.fleetsim.chaos import check_link_failure
+from repro_torch.fleetsim.config import POLICY_IDS, FleetConfig, ServiceSpec
+from repro_torch.fleetsim.engine import (
+    RunParams,
+    check_fabric_arrays,
+    resolve_device,
+    simulate,
+)
+from repro_torch.fleetsim.metrics import FleetResult, summarize
+from repro_torch.scenarios.service import load_to_rate
+
+
+@dataclass
+class SweepResult:
+    results: list[FleetResult]
+    wall_clock_s: float          # the batched run, device synchronised
+    n_configs: int
+    simulated_requests: int
+    device: str                  # e.g. "cuda:0" or "cpu"
+    # grid-aggregate latency histogram (n_racks, hist_bins)
+    grid_hist: np.ndarray | None = field(default=None, repr=False)
+
+    @property
+    def simulated_mrps(self) -> float:
+        """Simulated request throughput of the sweep itself (aggregate
+        requests advanced per wall-clock second, in millions)."""
+        return self.simulated_requests / max(self.wall_clock_s, 1e-9) / 1e6
+
+    def select(self, policy: str | None = None,
+               load: float | None = None) -> list[FleetResult]:
+        out = self.results
+        if policy is not None:
+            out = [r for r in out if r.policy == policy]
+        if load is not None:
+            out = [r for r in out if abs(r.offered_load - load) < 1e-9]
+        return out
+
+
+def rack_skew(cfg: FleetConfig, hot_rack_weight: float = 1.0,
+              straggler_rack_mult: float = 1.0,
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """``(rack_weights, slowdown)`` for the canonical skew scenario: rack 0
+    receives ``hot_rack_weight``× the per-rack arrival share of the others,
+    and every server of the *last* rack runs ``straggler_rack_mult``×
+    slower."""
+    weights = np.ones(cfg.n_racks, np.float32)
+    weights[0] = hot_rack_weight
+    slowdown = np.ones((cfg.n_racks, cfg.n_servers), np.float32)
+    slowdown[-1, :] = straggler_rack_mult
+    return weights, slowdown.reshape(-1)
+
+
+def grid_params(cfg: FleetConfig, grid, rates, slowdown, rack_weights,
+                fail_window_ticks=None, link_failure=None) -> RunParams:
+    """Batched :class:`RunParams` (CPU tensors) for ``(policy, load, seed)``
+    grid rows."""
+    g = len(grid)
+    f0, f1 = fail_window_ticks if fail_window_ticks is not None \
+        else (cfg.n_ticks + 1, cfg.n_ticks + 1)
+    l0, l1, link_mask = check_link_failure(cfg, link_failure)
+
+    def full(v):
+        return torch.full((g,), v, dtype=torch.int32)
+
+    def rows(a):
+        return torch.from_numpy(np.broadcast_to(a, (g,) + a.shape).copy())
+
+    return RunParams(
+        policy_id=torch.tensor([POLICY_IDS[p] for p, _, _ in grid],
+                               dtype=torch.int32),
+        rate_per_us=torch.tensor([rates[ld] for _, ld, _ in grid],
+                                 dtype=torch.float32),
+        seed=torch.tensor([s for _, _, s in grid], dtype=torch.int32),
+        slowdown=rows(slowdown),
+        rack_weights=rows(rack_weights),
+        fail_from_tick=full(f0),
+        fail_until_tick=full(f1),
+        arrival_counts=torch.zeros((g, 0), dtype=torch.int32),
+        hedge_delay_ticks=full(cfg.hedge_delay_ticks),
+        link_from_tick=full(l0),
+        link_until_tick=full(l1),
+        link_mask=rows(np.asarray(link_mask, bool)))
+
+
+def plan_grid(service: ServiceSpec, policies: list[str], loads: list[float],
+              seeds: list[int], cfg: FleetConfig | None = None,
+              slowdown=None, rack_weights=None, fail_window_ticks=None,
+              link_failure=None, resize_arrival_lanes: bool = True,
+              **cfg_kw):
+    """The batched run :func:`sweep_grid` makes: ``(cfg, grid, rates,
+    params)`` with ``grid`` the ``(policy, load, seed)`` rows in batch
+    order, ``rates`` the offered rate per load and ``params`` the batched
+    :class:`RunParams` (CPU tensors)."""
+    if not isinstance(service, ServiceSpec):
+        raise TypeError(f"service must be a ServiceSpec, got "
+                        f"{type(service).__name__}")
+    if cfg is None:
+        cfg = FleetConfig(service=service, **cfg_kw)
+    else:
+        if cfg_kw:
+            raise ValueError("pass either cfg or cfg overrides, not both")
+        if cfg.service != service:
+            raise ValueError("cfg.service disagrees with the service argument")
+    if cfg.arrival != "poisson":
+        raise ValueError("sweep_grid sweeps Poisson load grids")
+    if not policies or not loads or not seeds:
+        raise ValueError("sweep_grid needs at least one policy, load, and "
+                         "seed (got "
+                         f"{len(policies)}×{len(loads)}×{len(seeds)})")
+    for p in policies:
+        if p not in POLICY_IDS:
+            raise ValueError(f"unknown policy {p!r}; have {list(POLICY_IDS)}")
+    cfg = cfg.with_policy_stages(policies)
+    rates = {ld: load_to_rate(ld, service, cfg.n_servers_total,
+                              cfg.n_workers) for ld in loads}
+    if resize_arrival_lanes:
+        cfg = cfg.with_arrival_headroom(max(rates.values()))
+    slowdown, rack_weights = check_fabric_arrays(cfg, slowdown, rack_weights)
+    grid = [(p, ld, s) for p in policies for ld in loads for s in seeds]
+    params = grid_params(cfg, grid, rates, slowdown, rack_weights,
+                         fail_window_ticks, link_failure)
+    return cfg, grid, rates, params
+
+
+def sweep_grid(
+    service: ServiceSpec,
+    policies: list[str],
+    loads: list[float],
+    seeds: list[int],
+    cfg: FleetConfig | None = None,
+    slowdown: np.ndarray | None = None,
+    rack_weights: np.ndarray | None = None,
+    fail_window_ticks: tuple[int, int] | None = None,
+    link_failure=None,
+    resize_arrival_lanes: bool = True,
+    hedge_delays: list[float] | None = None,
+    shard=None,
+    engine=None,
+    device=None,
+    **cfg_kw,
+) -> SweepResult:
+    """Run every (policy, load, seed) combination as one batched run on
+    ``device`` (CUDA by default; ``"cpu"`` for the plain path).
+
+    ``slowdown`` (``(n_racks·n_servers,)`` or ``(n_racks, n_servers)``)
+    injects stragglers, ``rack_weights`` (``(n_racks,)``) skews arrivals
+    toward hot racks (see :func:`rack_skew`), ``fail_window_ticks`` darkens
+    the fabric over ``[t0, t1)`` and wipes its soft state at recovery, and
+    ``link_failure`` kills the named links over its window — for every run.
+    ``resize_arrival_lanes=False`` keeps ``cfg.max_arrivals`` as given
+    instead of sizing the Poisson headroom for the hottest load.
+    """
+    if hedge_delays:
+        raise NotImplementedError("hedge_delays needs the hedge-timer stage, "
+                                  "not ported yet (ROADMAP.md A7)")
+    if shard is not None:
+        raise NotImplementedError("shard= is not ported yet (ROADMAP.md A9)")
+    if engine is not None:
+        raise NotImplementedError("engine= (EngineOptions, the fused "
+                                  "backend) is not ported yet (ROADMAP.md "
+                                  "A6)")
+    cfg, grid, rates, params = plan_grid(
+        service, policies, loads, seeds, cfg, slowdown, rack_weights,
+        fail_window_ticks, link_failure, resize_arrival_lanes, **cfg_kw)
+    t0 = time.perf_counter()
+    metrics = simulate(cfg, params, device=device)
+    metrics = type(metrics)(*(x.cpu().numpy() for x in metrics))
+    wall = time.perf_counter() - t0
+    results = [summarize(cfg, type(metrics)(*(a[i] for a in metrics)),
+                         policy=p, load=ld, rate_per_us=rates[ld], seed=s)
+               for i, (p, ld, s) in enumerate(grid)]
+    return SweepResult(
+        results=results,
+        wall_clock_s=wall,
+        n_configs=len(grid),
+        simulated_requests=sum(r.n_arrivals for r in results),
+        device=str(resolve_device(device)),
+        grid_hist=np.asarray(metrics.hist).sum(axis=0),
+    )

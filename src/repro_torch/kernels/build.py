@@ -1,0 +1,86 @@
+"""Build the CUDA sources in ``csrc/`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into
+``build/kernels/`` at the root of the checkout.  The file name carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+KERNELS = ("fingerprint_filter", "tickfuse")
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``PATH``, else from the CUDA toolkit's usual home."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (needed to build the CUDA kernels in "
+                       f"{CSRC}); put the CUDA toolkit's bin/ on PATH")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    """Start ``nvcc`` for one source unless its library is already built;
+    it writes to a temporary name that is renamed into place when done."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, Path(tmp), out
+
+
+def build(names=KERNELS) -> dict[str, Path]:
+    """Build the named kernels, one ``nvcc`` per source, all started
+    together; raises with the compiler's output if any build fails."""
+    jobs = {n: _start(n) for n in names}
+    errors = []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        proc, tmp, out = job
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc failed for {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: library_path(n) for n in names}
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (built first if needed)."""
+    return ctypes.CDLL(str(build((name,))[name]))

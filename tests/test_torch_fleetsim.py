@@ -1,0 +1,353 @@
+"""The port's FleetSim engine ≡ the reference, on the CPU.
+
+* one tick, stage by stage, from a mid-run reference state carried across
+  (``state_from_numpy`` / ``params_from_numpy``);
+* the 6 golden cases of ``tests/golden/fleetsim_single_tor.json`` as one
+  batched run, under each of the four filter backends;
+* a 2-rack skewed batch and a small ``sweep_grid`` against the reference;
+* the package imports neither ``jax`` nor ``repro``, and never runs on the
+  CPU unless asked to.
+
+The reference runs under ``jax.threefry_partitionable(False)``, the stream
+the goldens were captured in (set per test, never globally).
+"""
+
+import json
+import os
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.fleetsim as rf
+from repro.core.switch_jax import group_pairs_array as ref_group_pairs
+from repro.fleetsim import chaos as rchaos
+from repro.fleetsim import stages as rst
+from repro.fleetsim.engine import make_params as ref_make_params
+from repro.fleetsim.policies import id_mask as ref_id_mask
+from repro.fleetsim.state import init_fleet_state as ref_init_state
+from repro.scenarios import registry as ref_registry
+import repro_torch.fleetsim as tf
+from repro_torch import random as jr
+from repro_torch.core.switch import group_pairs_array
+from repro_torch.fleetsim import chaos as tchaos
+from repro_torch.fleetsim import stages as tst
+from repro_torch.fleetsim.engine import batched_params
+from repro_torch.fleetsim.state import to_numpy
+from repro_torch.scenarios.service import load_to_rate
+
+GOLDEN = Path(__file__).parent / "golden" / "fleetsim_single_tor.json"
+SRC = Path(__file__).resolve().parents[1] / "src"
+CPU = torch.device("cpu")
+
+
+def _pair_cfgs(**kw):
+    """The same fabric in both packages."""
+    return (rf.FleetConfig(service=rf.ServiceSpec.exponential(25.0), **kw),
+            tf.FleetConfig(service=tf.ServiceSpec.exponential(25.0), **kw))
+
+
+def _assert_tree_equal(got, want, path="", ulp_fields=()):
+    """``got`` (port, numpy leaves) equals ``want`` (reference) leaf by
+    leaf; fields named in ``ulp_fields`` may differ by a few float32 ulps
+    (see the stage test)."""
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a is None and b is None:
+            continue
+        if hasattr(a, "_fields"):
+            _assert_tree_equal(a, b, f"{path}{name}.", ulp_fields)
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, f"{path}{name}: {a.shape} vs {b.shape}"
+        if f"{path}{name}" in ulp_fields:
+            np.testing.assert_array_max_ulp(a, b, maxulp=4)
+        else:
+            assert np.array_equal(a, b), f"{path}{name}"
+
+
+# ---------------------------------------------------------- one tick, staged
+def test_one_tick_stage_by_stage_from_carried_state():
+    """Both engines start tick 200 from the same mid-run state and agree
+    after every stage.  The new jobs' remaining-time field (``workers.meta``
+    REM) may differ by a few ulps: the reference's float32 ``log1p`` is not
+    correctly rounded (about 7% of its inputs are off by one ulp), the
+    port's is; every other value is bit-exact."""
+    rcfg, tcfg = _pair_cfgs(n_racks=2, n_servers=4, n_workers=8,
+                            queue_cap=64, max_arrivals=10, n_ticks=600)
+    rate = load_to_rate(0.7, tcfg.service, tcfg.n_servers_total,
+                        tcfg.n_workers)
+    t0, n_raw = 200, 7
+    with jax.threefry_partitionable(False):
+        rp = ref_make_params(rcfg, rf.POLICY_IDS["netclone"], rate, 3,
+                             rack_weights=[0.85, 0.15])
+        gp = ref_group_pairs(rcfg.n_servers)
+        k_pois, k0 = jax.random.split(jax.random.PRNGKey(rp.seed))
+        counts = jax.random.poisson(k_pois, rp.rate_per_us * rcfg.dt_us,
+                                    (t0,)).astype(jnp.int32)
+        step = rst.build_step(rcfg, rp, gp)
+        rstate, _ = jax.jit(lambda s, xs: jax.lax.scan(step, s, xs))(
+            ref_init_state(rcfg, k0),
+            (jnp.arange(t0, dtype=jnp.int32), counts))
+        tstate = tf.state_from_numpy(tcfg, jax.device_get(rstate))
+        tparams, _ = batched_params(
+            tf.params_from_numpy(jax.device_get(rp)), CPU)
+        assert int(tstate.metrics.n_cloned[0]) > 0
+
+        def check(t_state, r_state, ulp=()):
+            _assert_tree_equal(to_numpy(t_state),
+                               jax.tree.map(lambda a: np.asarray(a)[None],
+                                            r_state), ulp_fields=ulp)
+
+        def lanes_equal(t, r, names):
+            for n in names:
+                a = getattr(t, n).numpy()[0]
+                b = np.asarray(getattr(r, n))
+                assert np.array_equal(a, b.astype(a.dtype)), n
+
+        const_r = (rcfg.client_tx_us + 4 * rcfg.link_us
+                   + 2 * rcfg.pipeline_pass_us + rcfg.spine_extra_us
+                   + jnp.where(ref_id_mask(rp.policy_id,
+                                           ref_registry.client_dup_ids()),
+                               rcfg.client_tx_us, 0.0))
+
+        def ref_tick(s, xs):
+            """The reference's tick, every stage's output kept."""
+            out = {}
+            s, arr = rst.stage_arrival(rcfg, rp, s, xs)
+            out["arrival"] = (s, arr)
+            s, arr, _, lanes = rst.stage_route(
+                rcfg, rp, s, arr, gp, jnp.float32(rcfg.interrack_extra_us))
+            out["route"] = (s, lanes)
+            s, lanes = rchaos.stage_link_failure(rcfg, rp, s, arr, lanes)
+            out["link_failure"] = lanes
+            s, resp = rst.stage_server(rcfg, rp, s, arr, lanes)
+            out["server"] = (s, resp)
+            s, resp = rchaos.stage_link_response(rcfg, rp, s, arr, resp)
+            s, drop = rst.stage_response_filter(rcfg, rp, s, arr, resp)
+            out["filter"] = (s, drop)
+            out["client"] = rst.stage_client(rcfg, rp, s, arr, resp, drop,
+                                             const_r)
+            return out
+
+        ref = jax.device_get(jax.jit(ref_tick)(
+            rstate, (jnp.int32(t0), jnp.int32(n_raw))))
+
+    xs_t = (t0, torch.tensor([n_raw], dtype=torch.int32),
+            tst.draw_ticks(tcfg, tstate.key, 1)[0])
+    ts, tarr = tst.stage_arrival(tcfg, tparams, tstate, xs_t)
+    check(ts, ref["arrival"][0])
+    lanes_equal(tarr, ref["arrival"][1], ("active", "grp", "fidx", "client",
+                                          "base", "home", "r1", "r2",
+                                          "r2_local"))
+    ts, tl = tst.stage_route(
+        tcfg, tparams, ts, tarr, group_pairs_array(tcfg.n_servers).long(),
+        tst._f32(tcfg.interrack_extra_us))
+    check(ts, ref["route"][0])
+    lanes_equal(tl, ref["route"][1], ("dst", "act", "clo", "payload"))
+    ts, tl = tchaos.stage_link_failure(tcfg, tparams, ts, tarr, tl)
+    lanes_equal(tl, ref["link_failure"], ("dst", "act", "clo", "payload"))
+    ts, tresp = tst.stage_server(tcfg, tparams, ts, tarr, tl)
+    check(ts, ref["server"][0], ulp=("workers.meta",))
+    lanes_equal(tresp, ref["server"][1], tresp._fields)
+    assert bool(tresp.active.any())
+    ts, tresp = tchaos.stage_link_response(tcfg, tparams, ts, tarr, tresp)
+    ts, tdrop = tst.stage_response_filter(tcfg, tparams, ts, tarr, tresp)
+    assert np.array_equal(tdrop.numpy()[0], ref["filter"][1])
+    check(ts, ref["filter"][0], ulp=("workers.meta",))
+    ts = tst.stage_client(tcfg, tparams, ts, tarr, tresp, tdrop,
+                          tst.const_latency(tcfg, tparams))
+    check(ts, ref["client"], ulp=("workers.meta",))
+
+
+# ----------------------------------------------------------------- goldens --
+def _golden_batch(backend):
+    g = json.loads(GOLDEN.read_text())
+    cfg = tf.FleetConfig(service=tf.ServiceSpec.exponential(25.0),
+                         filter_backend=backend, **g["cfg"])
+    runs = []
+    for c in g["cases"]:
+        rate = load_to_rate(c["load"], cfg.service, cfg.n_servers,
+                            cfg.n_workers)
+        runs.append(tf.make_params(
+            cfg, tf.POLICY_IDS[c["policy"]], rate, c["seed"],
+            slowdown=c.get("slowdown"),
+            fail_window=tuple(c["fail_window"]) if "fail_window" in c
+            else None))
+    return cfg, g["cases"], tf.stack_params(runs)
+
+
+@pytest.mark.parametrize("backend",
+                         ["vectorized", "scan", "pallas", "tickfuse"])
+def test_golden_cases_bit_exact(backend):
+    """All 6 golden cases in one batch (they differ only in per-run
+    params), every one of the 16 fields bit-exact, under each backend (on
+    the CPU ``pallas`` and ``tickfuse`` run their kernels' plain
+    versions)."""
+    cfg, cases, params = _golden_batch(backend)
+    m = tf.simulate(cfg, params, device="cpu")
+    for i, c in enumerate(cases):
+        for field, want in c["metrics"].items():
+            got = getattr(m, field)[i].numpy().reshape(-1)
+            assert np.array_equal(got, np.asarray(want).reshape(-1)), \
+                (c["policy"], field)
+
+
+# ------------------------------------------------------- fabric + sweeps ----
+def test_two_rack_skewed_batch_matches_reference():
+    """A hot rack drives inter-rack clones and spine filtering; a straggler
+    rack and a link-failure window ride in the same batch.  Every metric of
+    every config matches the reference's vmapped run."""
+    rcfg, tcfg = _pair_cfgs(n_racks=2, n_servers=4, n_workers=8,
+                            queue_cap=64, max_arrivals=10, n_ticks=800)
+    weights, slowdown = tf.rack_skew(tcfg, 5.5, 2.0)
+    runs = []
+    link = dict(start_tick=300, duration=250, servers=(1, 6))
+    for policy, load, seed, lf in [("netclone", 0.55, 0, None),
+                                   ("netclone+racksched", 0.6, 1, None),
+                                   ("netclone", 0.5, 2, link),
+                                   ("racksched", 0.6, 3, None)]:
+        rate = load_to_rate(load, tcfg.service, tcfg.n_servers_total,
+                            tcfg.n_workers)
+        runs.append(ref_make_params(
+            rcfg, rf.POLICY_IDS[policy], rate, seed, slowdown=slowdown,
+            rack_weights=weights,
+            link_failure=rchaos.LinkFailure(**lf) if lf else None))
+    with jax.threefry_partitionable(False):
+        rparams = jax.tree.map(lambda *xs: jnp.stack(xs), *runs)
+        want = jax.device_get(rf.simulate(rcfg, rparams))
+    got = tf.simulate(tcfg, tf.params_from_numpy(jax.device_get(rparams)),
+                      device="cpu")
+    assert int(got.n_interrack_cloned[0]) > 0
+    assert int(got.n_spine_filtered[0]) > 0
+    assert int(got.n_link_dropped_req[2]) > 0
+    _assert_tree_equal(to_numpy(got), want)
+    # the spine's partition view, on a mask with one fully dead rack
+    dead = np.zeros((3, tcfg.n_servers_total), bool)
+    dead[1, :tcfg.n_servers] = True
+    dead[2, 1] = True
+    assert np.array_equal(
+        tchaos.rack_dead_mask(torch.from_numpy(dead), 2, 4).numpy(),
+        np.stack([np.asarray(rchaos.rack_dead_mask(jnp.asarray(d), 2, 4))
+                  for d in dead]))
+
+
+def test_trace_arrivals_match_reference():
+    """``arrival="trace"`` replays per-tick counts instead of the Poisson
+    draw; a bursty trace (over the lane headroom at its peaks) runs the
+    same in both engines."""
+    rcfg, tcfg = _pair_cfgs(n_servers=4, n_workers=8, queue_cap=64,
+                            max_arrivals=6, n_ticks=300, arrival="trace")
+    rng = np.random.default_rng(11)
+    counts = np.where(rng.random(300) < 0.1, 9,
+                      rng.integers(0, 3, 300)).astype(np.int32)
+    rp = ref_make_params(rcfg, rf.POLICY_IDS["netclone"], 0.0, 5,
+                         arrival_counts=counts)
+    with jax.threefry_partitionable(False):
+        want = jax.device_get(rf.simulate(rcfg, rp))
+    got = tf.simulate(tcfg, tf.make_params(tcfg, tf.POLICY_IDS["netclone"],
+                                           0.0, 5, arrival_counts=counts),
+                      device="cpu")
+    assert int(got.n_truncated) > 0
+    _assert_tree_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("kind,args", [
+    ("exponential", ()), ("bimodal", ()), ("pareto", ()),
+    ("llm", (20.0, 2.0, 4.0, 16.0, 0.2))])
+def test_service_draws_match_reference(kind, args):
+    """Every service kind's intrinsic demand and execution time, from the
+    same uniforms and the same key, against the reference's samplers.
+    Where the reference calls float32 ``log1p`` / ``pow`` (exponential,
+    pareto) its result may differ by an ulp (ROADMAP C1)."""
+    rcfg = rf.FleetConfig(service=getattr(rf.ServiceSpec, kind)(*args))
+    tcfg = tf.FleetConfig(service=getattr(tf.ServiceSpec, kind)(*args))
+    u = np.random.default_rng(3).random((2, 500)).astype(np.float32)
+    u[0, :4] = [0.0, 0.5, 1.0 - 2.0 ** -24, 0.1]
+    want = np.asarray(rst._intrinsic(rcfg, jnp.asarray(u)))
+    got = tst._intrinsic(tcfg, torch.from_numpy(u)).numpy()
+    np.testing.assert_array_max_ulp(got, want, maxulp=2)
+    with jax.threefry_partitionable(False):
+        key = jax.random.PRNGKey(9)
+        want = np.asarray(rst._execute(rcfg, key, jnp.asarray(got)))
+        u_exec = jr.uniform(torch.from_numpy(
+            np.asarray(key).astype(np.int64))[None], got.shape + (2,))
+    got_exec = tst._execute(tcfg, u_exec, torch.from_numpy(got)[None])
+    np.testing.assert_array_max_ulp(got_exec[0].numpy(), want, maxulp=2)
+
+
+def test_sweep_grid_matches_reference_rows():
+    rcfg, tcfg = _pair_cfgs(n_racks=2, n_servers=4, n_workers=8,
+                            queue_cap=64, n_ticks=700)
+    kw = dict(policies=["baseline", "c-clone", "netclone"],
+              loads=[0.3, 0.85], seeds=[0])
+    weights, slowdown = tf.rack_skew(tcfg, 3.0)
+    with jax.threefry_partitionable(False):
+        want = rf.sweep_grid(rcfg.service, cfg=rcfg, rack_weights=weights,
+                             slowdown=slowdown, **kw)
+    got = tf.sweep_grid(tcfg.service, cfg=tcfg, rack_weights=weights,
+                        slowdown=slowdown, device="cpu", **kw)
+    assert got.n_configs == want.n_configs == 6
+    assert got.simulated_requests == want.simulated_requests
+    for a, b in zip(got.results, want.results):
+        for field in a.__dataclass_fields__:
+            assert getattr(a, field) == pytest.approx(
+                getattr(b, field), rel=0, abs=0, nan_ok=True), field
+    assert np.array_equal(got.grid_hist, want.grid_hist)
+
+
+def test_unported_features_raise():
+    cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16,
+                         n_ticks=2000)
+    params = tf.make_params(cfg, 0, 0.1, 0)
+    for flag in (dict(coordinator=True), dict(hedge_timer=True),
+                 dict(telemetry=True), dict(server_model="batch")):
+        with pytest.raises(NotImplementedError):
+            tf.simulate(replace(cfg, **flag), params, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tf.make_params(cfg, tf.POLICY_IDS["laedge"], 0.1, 0)
+    with pytest.raises(NotImplementedError):
+        tf.simulate(cfg, params, device="cpu", options=object())
+    with pytest.raises(NotImplementedError):
+        tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
+                      hedge_delays=[50.0], device="cpu")
+
+
+def test_package_is_jax_free_and_never_falls_back_to_cpu():
+    """Importing the port pulls in neither ``jax`` nor ``repro``; without a
+    card ``simulate`` raises instead of running on the CPU."""
+    code = """
+import sys
+import torch
+import repro_torch.fleetsim as tf
+from repro_torch import random as jr
+from repro_torch.core.switch import group_pairs_array
+import repro_torch.kernels.ops, repro_torch.kernels.build
+import repro_torch.random, repro_torch.core.switch
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16, n_ticks=10)
+params = tf.make_params(cfg, 0, 0.1, 0)
+if not torch.cuda.is_available():
+    try:
+        tf.simulate(cfg, params)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+    else:
+        raise AssertionError("simulate ran without a card")
+m = tf.simulate(cfg, params, device="cpu")
+assert int(m.n_arrivals) >= 0
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
