@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import random as jr
 from repro_torch.core.switch import group_pairs_array
+from repro_torch.device import resolve_device
 from repro_torch.fleetsim.config import FleetConfig
 from repro_torch.fleetsim.stages import build_step, check_supported, \
     draw_ticks
@@ -158,17 +159,6 @@ def params_from_numpy(tree) -> RunParams:
     numpy arrays or scalars (e.g. from ``jax.device_get``); the fields keep
     their shapes and the reference's dtypes."""
     return RunParams(*(torch.from_numpy(np.array(x)) for x in tree))
-
-
-def resolve_device(device=None) -> torch.device:
-    """The run's device: CUDA unless the caller names another.  Never falls
-    back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port's plain PyTorch path on the CPU")
-    return dev
 
 
 def batched_params(params: RunParams, device) -> tuple[RunParams, bool]:

@@ -20,10 +20,10 @@ import torch
 
 from repro_torch.fleetsim.chaos import check_link_failure
 from repro_torch.fleetsim.config import POLICY_IDS, FleetConfig, ServiceSpec
+from repro_torch.device import resolve_device
 from repro_torch.fleetsim.engine import (
     RunParams,
     check_fabric_arrays,
-    resolve_device,
     simulate,
 )
 from repro_torch.fleetsim.metrics import FleetResult, summarize

@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the switch response-path kernels.
+"""Plain PyTorch versions of the port's kernels: the switch response-path
+filters (B1, B2) and flash attention (B3).
 
-Each walks the response lanes in order with a Python loop, vectorised over
+Each filter walks the response lanes in order with a Python loop, vectorised over
 the config axis ``G`` — exactly the lane-sequential semantics of the CUDA
 kernels beside them (and of the reference's Pallas kernels), and exact on
 any device.  Like the kernels, they update ``tables`` (and
@@ -18,6 +19,56 @@ import torch
 
 from repro_torch.core.tables import HASH_MULT, MASK32
 from repro_torch.scatter import scatter_last
+
+# ------------------------------------------------------------- attention ----
+#: above this KV length the queries are processed in chunks so the
+#: (Sq × Skv) score matrix is never fully materialised (memory only: the
+#: result is the same)
+ATTN_CHUNK_THRESHOLD = 8192
+ATTN_Q_CHUNK = 2048
+
+
+def _attention_block(q, k, v, sm_scale, causal, window, row_offset, skv):
+    """One query block against the full K/V with masking, as the reference's
+    XLA oracle: scores in float32 from the inputs' exact values, softmax in
+    float32, ``P`` rounded to q's dtype before ``P·V``, which accumulates in
+    float32.  Returns float32."""
+    sq = q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    rows = row_offset + torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols >= rows - window
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float())
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                  sm_scale: float | None = None):
+    """Multi-head attention, the plain version of kernel B3 (the reference's
+    ``repro.kernels.ref.attention_ref``).  q ``(B, H, Sq, D)``, k/v ``(B,
+    Hkv, Skv, D)``; GQA repeats each kv head ``H / Hkv`` times.  Rows align
+    at the end (``offset = Skv - Sq``, the decode convention); the output is
+    in q's dtype."""
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if hkv != h:
+        k = torch.repeat_interleave(k, h // hkv, dim=1)
+        v = torch.repeat_interleave(v, h // hkv, dim=1)
+    offset = skv - sq  # align ends (decode case)
+    if skv <= ATTN_CHUNK_THRESHOLD or sq % ATTN_Q_CHUNK:
+        out = _attention_block(q, k, v, sm_scale, causal, window, offset, skv)
+        return out.to(q.dtype)
+    chunks = [_attention_block(q[:, :, start:start + ATTN_Q_CHUNK], k, v,
+                               sm_scale, causal, window, offset + start, skv)
+              for start in range(0, sq, ATTN_Q_CHUNK)]
+    return torch.cat(chunks, dim=2).to(q.dtype)
 
 
 def fingerprint_slot(req_id: torch.Tensor, n_slots: int) -> torch.Tensor:

@@ -1,0 +1,104 @@
+"""Carry parameters and decode caches across between the reference's
+pytree layout and the port's.
+
+The reference stacks the layers of each scan group along a leading period
+axis (``blocks/stack/p{j}/...``, plus unstacked ``pro_{i}`` and
+``epi_{i}``; :func:`repro_torch.models.lm.scan_groups`); the port keeps one
+entry per layer.  Leaf names are the same on both sides.  The reference's
+trees come in with numpy leaves (``jax.device_get`` or ``np.asarray`` on
+each leaf); the port's tensors come out on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.attention import KVCache
+from repro_torch.models.lm import check_supported, scan_groups
+
+
+def _layer_keys(cfg) -> list[tuple[str, str | None, int | None]]:
+    """Where layer ``i`` sits in the reference's tree: ``(group key, period
+    slot, period index)`` — ``("pro_0", None, None)`` or ``("stack", "p1",
+    7)``."""
+    g = scan_groups(cfg)
+    keys = [(f"pro_{i}", None, None) for i in range(len(g.prologue))]
+    for t in range(g.n_periods):
+        keys += [("stack", f"p{j}", t) for j in range(len(g.period))]
+    keys += [(f"epi_{i}", None, None) for i in range(len(g.epilogue))]
+    return keys
+
+
+def _map(tree, fn):
+    """``fn`` on every leaf of nested dicts and tuples (``KVCache``s keep
+    their type); ``None`` stays ``None``."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(v, fn) for v in tree))
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def _tensor(x) -> torch.Tensor:
+    """A CPU tensor of ``x``'s values and dtype; numpy has no bfloat16 of
+    its own, so an ``ml_dtypes`` bfloat16 array goes through float32
+    (exact both ways)."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _layers(cfg, tree: dict) -> list:
+    """The reference's per-layer subtrees of ``tree``, in layer order, as
+    port tensors: a stacked group's leaves indexed at the layer's period."""
+    check_supported(cfg)
+    out = []
+    for key, slot, t in _layer_keys(cfg):
+        sub = tree[key] if slot is None else tree[key][slot]
+        if t is not None:
+            sub = _map(sub, lambda x, t=t: np.asarray(x)[t])
+        out.append(_map(sub, _tensor))
+    return out
+
+
+def params_from_numpy(cfg, tree: dict) -> dict:
+    """The port's parameters (CPU tensors, the reference's dtypes) from the
+    reference's ``init_params`` pytree with numpy leaves."""
+    return {"embed": _map(tree["embed"], _tensor),
+            "final_norm": _map(tree["final_norm"], _tensor),
+            "blocks": _layers(cfg, tree["blocks"])}
+
+
+def cache_from_numpy(cfg, tree: dict) -> list:
+    """The port's per-layer caches (CPU tensors) from the reference's cache
+    pytree (``KVCache`` leaves as numpy arrays)."""
+    return [KVCache(*c) for c in _layers(cfg, tree)]
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def cache_to_numpy(cfg, cache: list) -> dict:
+    """The reference's cache layout, with numpy leaves, from the port's
+    per-layer caches: stacked groups gain their leading period axis, and
+    bfloat16 leaves come out as float32 (exact)."""
+    check_supported(cfg)
+    out: dict = {}
+    stacked: dict = {}
+    for c, (key, slot, _) in zip(cache, _layer_keys(cfg)):
+        c = _map(c, _numpy)
+        if slot is None:
+            out[key] = c
+        else:
+            stacked.setdefault(slot, []).append(c)
+    if stacked:
+        out["stack"] = {slot: KVCache(*(None if f[0] is None else np.stack(f)
+                                        for f in zip(*rows)))
+                        for slot, rows in stacked.items()}
+    return out

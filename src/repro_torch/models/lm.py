@@ -1,0 +1,267 @@
+"""Decoder-only language model, port of ``repro.models.lm`` for the layer
+kinds the port has: ``attn`` and ``attn_local`` mixers with a gated or plain
+dense FFN.
+
+The reference compiles the layer list into scan groups (prologue, a
+``lax.scan`` over stacked periods, epilogue); eager PyTorch has nothing to
+gain from a scan, so here the layers are a plain list, ``params["blocks"]
+[i]`` and ``cache[i]`` for layer ``i``.  :func:`scan_groups` stays, because
+it names where each layer sits in the reference's pytree
+(:mod:`repro_torch.models.convert`).  The other mixers (``mla``, ``ssm``,
+``rec``), MoE FFNs and the encoder-decoder raise ``NotImplementedError``
+naming their ROADMAP item; ``loss_fn`` waits for the training slice.
+
+Modes: ``train``/``eval`` (full forward), ``prefill`` (returns per-layer
+caches), ``decode`` (one token against the caches, updated in place).
+Every entry point runs on the CUDA device unless the caller passes
+``device="cpu"``; the parameters must already be on that device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import (
+    ModelConfig,
+    apply_norm,
+    embed_tokens,
+    init_embed,
+    init_norm,
+    unembed,
+)
+
+LayerSpec = tuple[str, str]  # (mixer, ffn)
+
+_NOT_PORTED = {
+    "mla": "the MLA mixer (ROADMAP A11)",
+    "ssm": "the mamba2 mixer and kernel B4 ssd_scan (ROADMAP A11, B4)",
+    "rec": "the RG-LRU mixer and kernel B5 lru_scan (ROADMAP A11, B5)",
+    "moe": "the MoE FFN (ROADMAP A11)",
+    "encdec": "whisper's encoder-decoder (ROADMAP A11)",
+}
+
+
+# ============================================================ layer specs ===
+def layer_specs(cfg: ModelConfig) -> tuple[LayerSpec, ...]:
+    specs = []
+    for i, mixer in enumerate(cfg.layer_kinds):
+        if mixer == "ssm":
+            ffn = "none"
+        elif cfg.moe is not None and i >= cfg.moe.first_dense_layers:
+            ffn = "moe"
+        else:
+            ffn = "glu"
+        specs.append((mixer, ffn))
+    return tuple(specs)
+
+
+class ScanGroups(NamedTuple):
+    prologue: tuple[LayerSpec, ...]
+    period: tuple[LayerSpec, ...]   # specs of one scanned super-layer
+    n_periods: int
+    epilogue: tuple[LayerSpec, ...]
+
+
+def scan_groups(cfg: ModelConfig) -> ScanGroups:
+    """The reference's grouping of the layer list (its pytree layout)."""
+    specs = layer_specs(cfg)
+    n = len(specs)
+    n_pro = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    period_len = len(cfg.pattern) if cfg.pattern else 1
+    if not cfg.scan_layers:
+        return ScanGroups(specs, (), 0, ())
+    n_main = ((n - n_pro) // period_len) * period_len
+    n_periods = n_main // period_len
+    period = specs[n_pro: n_pro + period_len] if n_periods else ()
+    return ScanGroups(prologue=specs[:n_pro], period=tuple(period),
+                      n_periods=n_periods,
+                      epilogue=specs[n_pro + n_main:])
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot build yet."""
+    if cfg.arch_type == "encdec":
+        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['encdec']} is "
+                                  "not ported yet")
+    for mixer, ffn in layer_specs(cfg):
+        for kind in (mixer, ffn):
+            if kind in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet")
+
+
+# ================================================================= init =====
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, device) -> dict:
+    mixer, ffn = spec
+    p: dict[str, Any] = {"pre_norm": init_norm(cfg, device),
+                         "attn": attn.init_attention(cfg, gen, device)}
+    if ffn != "none":
+        p["post_norm"] = init_norm(cfg, device)
+        p["mlp"] = ffn_mod.init_mlp(cfg, gen, device, d_ff=cfg.d_ff)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
+                device=None) -> dict:
+    """Random parameters: ``{"embed", "final_norm", "blocks": [layer, ...]}``
+    drawn from ``seed`` (or the given generator) on ``device`` (CUDA unless
+    named; ``"meta"`` gives shapes only)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    elif dev.type == "meta":
+        gen = None
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return {"embed": init_embed(cfg, gen, dev),
+            "final_norm": init_norm(cfg, dev),
+            "blocks": [_init_layer(cfg, spec, gen, dev)
+                       for spec in layer_specs(cfg)]}
+
+
+def cast_params(cfg: ModelConfig, params: dict) -> dict:
+    """A copy of ``params`` with every matrix and bias (each leaf of two or
+    more dims) in the activation dtype; the norm scales stay as they are.
+    The model casts those leaves to the activation dtype at each use, as
+    the reference does, so the numbers are the same; the copy only spares
+    the casts (and the weight reads they cost) on every step."""
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree.to(cfg.activation_dtype) if tree.dim() >= 2 else tree
+    return cast(params)
+
+
+# ================================================================ caches =====
+def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                      s_max: int, device):
+    mixer, _ = spec
+    # local attention only ever needs window+1 positions
+    if mixer == "attn_local" and cfg.window is not None:
+        s_max = min(s_max, cfg.window + 1)
+    return attn.init_kv_cache(cfg, batch, s_max, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device=None) -> list:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [_init_layer_cache(cfg, spec, batch, s_max, dev)
+            for spec in layer_specs(cfg)]
+
+
+# ================================================================ forward ====
+def _window_of(cfg: ModelConfig, mixer: str) -> int | None:
+    return cfg.window if mixer == "attn_local" else None
+
+
+def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
+                 cache, mode: str, pos):
+    mixer, ffn = spec
+    h = apply_norm(cfg, p["pre_norm"], x)
+    if mode == "decode":
+        y, new_cache = attn.attention_decode(
+            cfg, p["attn"], h, pos, cache, window=_window_of(cfg, mixer))
+    else:
+        y, new_cache = attn.attention_forward(
+            cfg, p["attn"], h, positions, window=_window_of(cfg, mixer),
+            make_cache=(mode == "prefill"))
+    x = x + y
+    if ffn != "none":
+        h2 = apply_norm(cfg, p["post_norm"], x)
+        x = x + ffn_mod.mlp_forward(cfg, p["mlp"], h2)
+    return x, new_cache
+
+
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
+             positions: torch.Tensor, cache: list | None = None,
+             mode: str = "train", pos: torch.Tensor | None = None):
+    """Shared trunk: embeddings already applied; returns (x, caches, aux).
+    ``aux`` is the MoE auxiliary loss, zero for the dense layers."""
+    check_supported(cfg)
+    new_cache = []
+    for i, spec in enumerate(layer_specs(cfg)):
+        x, nc = _apply_layer(cfg, spec, params["blocks"][i], x, positions,
+                             None if cache is None else cache[i], mode, pos)
+        new_cache.append(nc)
+    x = apply_norm(cfg, params["final_norm"], x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    keep = mode not in ("train", "eval")
+    return x, (new_cache if keep else None), aux
+
+
+def _inputs(params: dict, device, *tensors):
+    """Resolve the run's device, check the parameters live there, and move
+    the integer inputs onto it."""
+    dev = resolve_device(device)
+    have = params["embed"]["tokens"].device
+    if have.type != dev.type:
+        raise ValueError(f"parameters are on {have}, the run on {dev}; "
+                         "init or move them onto the run's device")
+    return [torch.as_tensor(t, device=have) for t in tensors]
+
+
+# ================================================================ entry ======
+def forward(cfg: ModelConfig, params: dict, tokens, positions=None,
+            eval_mode: bool = False, *, device=None):
+    """Full forward: tokens (B, S) → logits (B, S, V) + aux loss.  The
+    dense layers route the same way in both modes; ``eval_mode`` is kept for
+    the reference's signature."""
+    (tokens,) = _inputs(params, device, tokens)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    x, _, aux = backbone(cfg, params, x, positions,
+                         mode="eval" if eval_mode else "train")
+    return unembed(cfg, params["embed"], x), aux
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens, s_max: int | None = None,
+            *, device=None):
+    """Prefill: returns (logits of the last position (B, 1, V), caches
+    padded to ``s_max``)."""
+    (tokens,) = _inputs(params, device, tokens)
+    b, s = tokens.shape
+    s_max = s_max or s
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    x, caches, _ = backbone(cfg, params, x, positions, mode="prefill")
+    logits = unembed(cfg, params["embed"], x[:, -1:, :])
+    if s_max > s:
+        caches = _pad_caches(cfg, caches, s, s_max)
+    return logits, caches
+
+
+def _pad_caches(cfg: ModelConfig, caches: list, s: int, s_max: int) -> list:
+    """Zero-pad every cache leaf whose sequence axis (axis 1) has length
+    ``s`` to ``s_max`` — the reference's rule, which also pads a ring cache
+    whose length happens to be ``s``."""
+    def pad(leaf):
+        if leaf is not None and leaf.dim() >= 3 and leaf.shape[1] == s:
+            widths = [0, 0] * (leaf.dim() - 2) + [0, s_max - s]
+            return F.pad(leaf, widths)
+        return leaf
+    return [type(c)(*(pad(leaf) for leaf in c)) for c in caches]
+
+
+def decode_step(cfg: ModelConfig, params: dict, tokens, pos, cache: list,
+                *, device=None):
+    """One decode step: tokens (B, 1), pos (B,) → (logits (B, 1, V), cache).
+    The caches are updated in place and returned."""
+    tokens, pos = _inputs(params, device, tokens, pos)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    x, new_cache, _ = backbone(cfg, params, x, pos[:, None], cache=cache,
+                               mode="decode", pos=pos)
+    return unembed(cfg, params["embed"], x), new_cache

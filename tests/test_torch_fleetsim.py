@@ -320,8 +320,10 @@ def test_unported_features_raise():
 
 
 def test_package_is_jax_free_and_never_falls_back_to_cpu():
-    """Importing the port pulls in neither ``jax`` nor ``repro``; without a
-    card ``simulate`` raises instead of running on the CPU."""
+    """Importing the port (the FleetSim engine, the kernels, the model
+    stack, the serving tier and its driver) pulls in neither ``jax`` nor
+    ``repro``; without a card ``simulate`` raises instead of running on the
+    CPU."""
     code = """
 import sys
 import torch
@@ -330,6 +332,8 @@ from repro_torch import random as jr
 from repro_torch.core.switch import group_pairs_array
 import repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.random, repro_torch.core.switch
+import repro_torch.models, repro_torch.models.convert, repro_torch.configs
+import repro_torch.serve, repro_torch.launch.serve
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
