@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it: FleetSim's sweep,
-the qwen2.5-3b model stack and the NetClone serving tier.
+the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b) and the
+NetClone serving tier.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -30,7 +31,21 @@ Phases (each fails the run on error; nothing is caught):
 8. the serving tier at full width: ``launch/serve.py``'s defaults (4
    replicas of 2 slots, 48 requests over 80 ticks, a 20-tick straggler)
    under ``netclone`` (B1 on every tick with completions, each launch
-   replayed against the plain filter) and under ``baseline``.
+   replayed against the plain filter) and under ``baseline``;
+9. the SSD scan (kernel B4) and the RG-LRU scan (kernel B5) against their
+   plain versions at the reference test sweep's shapes (float32, with h0)
+   and at mamba2-370m's and recurrentgemma-9b's full prefill shapes (bf16,
+   B4's b and c broadcast over heads), timed beside their bounds and plain
+   versions; B3 at recurrentgemma-9b's local-attention shape the same way;
+10. mamba2-370m at full width and depth (48 layers, random weights from
+    seed 0, bf16 activations): a 4 x 32,768-token prefill through B4 (48
+    launches, counted by the wrapper and the profiler) held to the same
+    prefill through the plain scan, 16 decode steps (no B4), and prefill
+    128 + decode 8 against the forward over 256 tokens;
+11. recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU through
+    B5, 12 local attention through B3): a 4 x 4,096-token prefill held to
+    the plain prefill (logits, LRU states, ring KV caches), 16 decode
+    steps, and prefill 255 + decode 1 against prefill 256.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -39,6 +54,7 @@ and nothing of the reference package ``repro``.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -84,6 +100,24 @@ QWEN_FA = (PREFILL_B, 16, 2, PREFILL_S, 128, True, None, "bfloat16")
 # reference's max |value| (36 layers round to bf16 at different points)
 MODEL_RTOL = 5e-2
 
+# phase 9: the reference's scan test shapes (tests/test_kernels.py:118-188)
+# with h0, in float32 at its tolerances, then the full-width shapes in bf16
+SSD_CASES = ((1, 256, 2, 64, 64, 64), (2, 128, 1, 32, 128, 128),
+             (1, 512, 3, 16, 32, 128), (1, 128, 2, 16, 16, 32))
+LRU_CASES = ((2, 256, 256), (1, 512, 128), (1, 128, 384))
+SSD_TOL, LRU_TOL = 2e-3, 1e-4
+# mamba2-370m's prefill (x (B, S, H, P), N) and recurrentgemma-9b's (x
+# (B, S, D)) at phases 10-11's token counts
+MAMBA_B, MAMBA_S, MAMBA_DECODE = 4, 32768, 16
+SSD_FULL = (MAMBA_B, MAMBA_S, 32, 64, 128)
+LRU_FULL = (PREFILL_B, PREFILL_S, 4096)
+GRIFFIN_FA = (PREFILL_B, 16, 1, PREFILL_S, 256, True, 2048, "bfloat16")
+# bf16 scans: kernel and plain version compute in float32 from the same
+# bf16 inputs and round y once, so they differ by about one bf16 step
+# (2^-8 of the value) where the float32 sums straddle a rounding boundary;
+# held to 1e-2 of the plain version's max |value|
+SCAN_BF16_RTOL = 1e-2
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -108,22 +142,35 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_kernels(torch, fn, tries: int = 3):
     """Run ``fn`` under ``torch.profiler`` and return ``{kernel name:
-    (launches, device microseconds)}`` for every kernel on the card.  A
-    session that records no device event at all (seen once on the card,
-    after several earlier sessions in the process) is run again, up to
-    ``tries`` times; the result may still be empty."""
-    from torch.profiler import ProfilerActivity, profile
+    (launches, device microseconds)}`` for every kernel on the card in one
+    call of ``fn``.  ``fn`` runs twice: the profiler's warm-up step takes
+    the first call (a session can miss its first kernels; one lost a whole
+    layer of a prefill) and the second is recorded.  A session that records
+    no device event at all (seen on the card after several earlier
+    sessions in the process) is run again, up to ``tries`` times; the
+    result may still be empty."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     out = {}
+
+    def collect(prof):
+        # kernels only: the schedule's own step range is listed on the
+        # device too, spanning the whole step
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")):
+                out[e.key] = (e.count, e.self_device_time_total)
+
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                out[e.key] = (e.count, e.self_device_time_total)
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=collect) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
         if out:
             break
     return out
@@ -132,7 +179,27 @@ def device_kernels(torch, fn, tries: int = 3):
 # the CUDA kernel behind each wrapper, as the profiler names it
 DEVICE_SYMBOL = {"fingerprint_filter": "fingerprint_filter_kernel",
                  "tickfuse_response_path": "tickfuse_kernel",
-                 "flash_attention": "flash_attention"}
+                 "flash_attention": "flash_attention",
+                 "ssd_scan": "ssd_scan_kernel",
+                 "lru_scan": "lru_scan_kernel"}
+
+
+def launches_in(kernels: dict, name: str) -> int:
+    """Launches of ``name``'s CUDA kernel in a profile."""
+    return sum(n for key, (n, _) in kernels.items()
+               if DEVICE_SYMBOL[name] in key)
+
+
+def device_us(torch, fn, name: str, reps: int) -> tuple[float, str]:
+    """Device microseconds per launch of ``name``'s kernel in ``fn`` (one
+    launch a call): from the profiler over ``reps`` calls, or, when the
+    profiler records none of its launches, from CUDA events around single
+    calls (the best of 5)."""
+    prof = device_kernels(torch, lambda: [fn() for _ in range(reps)])
+    if any(DEVICE_SYMBOL[name] in key for key in prof):
+        return device_us_per_launch(prof, DEVICE_SYMBOL[name]), "profiler"
+    return (1e3 * min(cuda_ms(fn, 1) for _ in range(5)),
+            "CUDA events around single launches; the profiler recorded none")
 
 
 def device_us_per_launch(kernels: dict, name: str) -> float:
@@ -212,9 +279,7 @@ def check_kernels(torch, inputs_mod, ref, ops):
         args = [torch.from_numpy(x[n].copy()).cuda() for n in names]
         ms = cuda_ms(lambda: fn(*args), 2000)
         plain_ms = cuda_ms(lambda: plain(*args), 20)
-        dev_us = device_us_per_launch(
-            device_kernels(torch, lambda: [fn(*args) for _ in range(200)]),
-            DEVICE_SYMBOL[name])
+        dev_us, dev_how = device_us(torch, lambda: fn(*args), name, 200)
         nbytes = bound_bytes(x, g, n_tables, n_slots, n_servers, lane_bytes,
                              state_t)
         n_ops = 12 * g * k            # hash, compare, select per lane
@@ -227,7 +292,7 @@ def check_kernels(torch, inputs_mod, ref, ops):
                           max_abs_err=err[name], bytes=nbytes)
         log(f"phase 2: {name}: kernel {ms:.6f} ms per call (wrapper "
             f"included, CUDA events over 2000 calls), {dev_us:.3f} us on "
-            f"the device per launch (profiler), plain {plain_ms:.6f} ms, "
+            f"the device per launch ({dev_how}), plain {plain_ms:.6f} ms, "
             f"bound {rows[name]['bound_ms']:.8f} ms ({nbytes} B)")
     return rows
 
@@ -268,6 +333,11 @@ def reset(kernels):
         fn.launches = 0
 
 
+def only(kernels, **want) -> dict:
+    """The launch counts expected when only the named kernels ran."""
+    return {n: want.get(n, 0) for n in kernels}
+
+
 # ------------------------------------------------------------ phases 6-8 --
 DEV = "cuda"   # where phases 6-8 put every tensor and run every entry point
 
@@ -282,12 +352,16 @@ def qkv_on_card(torch, case, seed):
 
 def attention_bound(case) -> tuple[float, str, int, int]:
     """(bound ms, what bounds it, FLOPs, bytes) of one call: q·kᵀ and P·V
-    over the pairs the mask keeps (causal: S(S+1)/2 per head), each input
-    read once and the output written once."""
+    over the pairs the mask keeps (causal: S(S+1)/2 per head; causal with a
+    window w: min(i, w) + 1 for row i), each input read once and the
+    output written once."""
     b, h, hkv, s, d, causal, window, dtype = case
-    pairs = s * (s + 1) // 2 if causal else s * s
-    if window is not None:
-        raise ValueError("the bound is written for the unwindowed cases")
+    if not causal:
+        pairs = s * s
+    elif window is None:
+        pairs = s * (s + 1) // 2
+    else:
+        pairs = sum(min(i, window) + 1 for i in range(s))
     flops = 4 * b * h * d * pairs
     size = 2 if dtype == "bfloat16" else 4
     nbytes = size * d * s * (2 * b * h + 2 * b * hkv)
@@ -321,16 +395,8 @@ def check_flash_attention(torch, ref, ops):
         del got, want
     q, k, v = qkv_on_card(torch, QWEN_FA, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
-    prof = device_kernels(torch, lambda: [ops.flash_attention(q, k, v)
-                                          for _ in range(5)])
-    if any(DEVICE_SYMBOL["flash_attention"] in key for key in prof):
-        dev_us = device_us_per_launch(prof, DEVICE_SYMBOL["flash_attention"])
-        dev_how = "profiler"
-    else:
-        dev_us = 1e3 * min(cuda_ms(lambda: ops.flash_attention(q, k, v), 1)
-                           for _ in range(5))
-        dev_how = "CUDA events around single launches; the profiler " \
-            "recorded none"
+    dev_us, dev_how = device_us(torch, lambda: ops.flash_attention(q, k, v),
+                                "flash_attention", 5)
     plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
@@ -407,53 +473,18 @@ def run_model(torch, lm, kernels, get_config):
         raise AssertionError("phase 7: non-finite prefill logits")
 
     # 16 greedy decode steps after the prefill
-    nxt = logits[:, -1].argmax(-1)[:, None]
-    step_s = []
-    for i in range(DECODE_STEPS):
-        pos = torch.full((PREFILL_B,), PREFILL_S + i, dtype=torch.int32,
-                         device=DEV)
-        t0 = time.perf_counter()
-        lg, caches = lm.decode_step(cfg, params, nxt, pos, caches,
-                                    device=DEV)
-        nxt = lg[:, -1].argmax(-1)[:, None]
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        if not torch.isfinite(lg).all():
-            raise AssertionError(f"phase 7: non-finite logits at step {i}")
-    if kernels["flash_attention"].launches != cfg.n_layers:
-        raise AssertionError("phase 7: decode launched B3")
-    step_ms = 1e3 * sum(step_s[1:]) / (len(step_s) - 1)
-    pos = torch.full((PREFILL_B,), PREFILL_S - 1, dtype=torch.int32,
-                     device=DEV)
-    prof = device_kernels(torch, lambda: [
-        lm.decode_step(cfg, params, nxt, pos, caches, device=DEV)
-        for _ in range(4)])
-    busy_ms = sum(us for _, us in prof.values()) / 1e3 / 4
-    n_launch = sum(n for n, _ in prof.values()) / 4
-    idle = (f"device idle {100 * (1 - busy_ms / step_ms):.1f}%" if prof
-            else "device idle not measured (the profiler recorded no "
-            "device event)")
-    log(f"phase 7: {DECODE_STEPS} decode steps (batch {PREFILL_B}, cache "
-        f"{s_max}): {step_ms:.2f} ms per step (host clock, steps 2-"
-        f"{DECODE_STEPS}), {n_launch:.0f} kernel launches and "
-        f"{busy_ms:.3f} ms device busy per step (profiler): {idle}")
-    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]
-    for key, (n, us) in top:
-        log(f"phase 7:   {us / 1e3 / 4:.4f} ms/step {n / 4:.0f} "
-            f"launches/step  {key[:90]}")
+    reset(kernels)
+    caches = decode_steps(torch, lm, cfg, params, caches,
+                          logits[:, -1].argmax(-1)[:, None], PREFILL_S,
+                          DECODE_STEPS, "phase 7")
+    if {n: fn.launches for n, fn in kernels.items()} != only(kernels):
+        raise AssertionError("phase 7: decode launched a kernel")
     del caches
 
-    # prefill/decode consistency at full width: 255 + 1 against 256
-    t256 = tokens[:1, :256]
-    _, c255 = lm.prefill(cfg, params, t256[:, :255], s_max=256,
-                         device=DEV)
-    lg_dec, _ = lm.decode_step(cfg, params, t256[:, 255:], torch.full(
-        (1,), 255, dtype=torch.int32, device=DEV), c255, device=DEV)
-    lg_full, _ = lm.prefill(cfg, params, t256, device=DEV)
-    r = worst_rel(lg_dec, lg_full)
-    log(f"phase 7: prefill 255 + decode 1 vs prefill 256: logits max "
-        f"|diff| / max |logit| {r:.3g} (tolerance {MODEL_RTOL}), same "
-        f"argmax {bool(lg_dec.argmax() == lg_full.argmax())}")
+    # prefill/decode consistency at full width
+    r, what = consistency(torch, lm, cfg, params, tokens[:1, :256])
+    log(f"phase 7: {what}: logits max |diff| / max |logit| {r:.3g} "
+        f"(tolerance {MODEL_RTOL})")
     if not r <= MODEL_RTOL:
         raise AssertionError("phase 7: decode disagrees with prefill")
     return cfg, params, counts["flash_attention"]
@@ -547,6 +578,394 @@ def run_serving(torch, cfg, params, kernels, ref):
     log("phase 8: netclone and baseline generated the same tokens")
 
 
+# ----------------------------------------------------------- phases 9-11 --
+def scan_inputs(torch, kind, shape, dtype, seed, h0=True, broadcast=False):
+    """Inputs of one scan call, made on the card from ``seed``: x, a in
+    [lo, 1), b, c (SSD; ``broadcast`` gives them as a view over heads, as
+    the model does), optional h0 in float32."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEV) * scale
+
+    def decay(lo, *shape):
+        return lo + (1 - lo) * torch.rand(shape, generator=g, device=DEV)
+
+    if kind == "ssd":
+        b, s, h, p, n = shape
+        x, a = rn(b, s, h, p), decay(0.2, b, s, h)
+        if broadcast:
+            bc = rn(b, s, 2 * n, scale=0.3).to(dt)
+            bm = bc[..., :n][:, :, None, :].expand(b, s, h, n)
+            cm = bc[..., n:][:, :, None, :].expand(b, s, h, n)
+        else:
+            bm, cm = (rn(b, s, h, n, scale=0.3).to(dt) for _ in range(2))
+        args = [x.to(dt), a.to(dt), bm, cm]
+        return args + [rn(b, h, p, n, scale=0.1) if h0 else None]
+    b, s, d = shape
+    args = [rn(b, s, d).to(dt), decay(0.5, b, s, d).to(dt)]
+    return args + [rn(b, d, scale=0.1) if h0 else None]
+
+
+def scan_bound(kind, args) -> tuple[float, str, float, int]:
+    """(bound ms, what bounds it, FLOPs, bytes) of one scan call on
+    ``args``: each input read once (b and c by the bytes they hold, one
+    head's worth when broadcast), y and the final state written once.
+    SSD's operations are its chunked form on the tensor cores at 128-step
+    chunks (C·Bᵀ and the masked product with X, 2L²(N+P) a chunk, the
+    state's contribution and update, 4LNP), at the bf16 rate; the LRU's
+    are one FMA an element at the float32 rate."""
+    x, a = args[0], args[1]
+    size = x.element_size()
+    nbytes = 2 * x.numel() * size + a.numel() * a.element_size()
+    if kind == "ssd":
+        b, s, h, p = x.shape
+        n = args[2].shape[-1]
+        nbytes += sum((t.numel() // h if t.stride(2) == 0 else t.numel())
+                      * size for t in args[2:4])
+        nbytes += 4 * b * h * p * n * (2 if args[4] is not None else 1)
+        ell = min(128, s)
+        flops = b * h * (s // ell) * (2 * ell * ell * (n + p)
+                                      + 4 * ell * n * p)
+        ops_ms = flops / BF16_OPS_PER_S * 1e3
+    else:
+        b, s, d = x.shape
+        nbytes += 4 * b * d * (2 if args[2] is not None else 1)
+        flops = 2 * x.numel()
+        ops_ms = flops / SCALAR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def check_scans(torch, ref, ssd_scan, lru_scan, ops):
+    """Phase 9: B4 and B5 against their plain versions at the reference's
+    test shapes (float32, with h0) and at the full-width shapes (bf16, B4's
+    b and c as the model's broadcast view), then timed there beside the
+    bound and the plain version; B3 at recurrentgemma-9b's local-attention
+    shape (window 2048, head dim 256, one kv head) the same way."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, err = {}, {"ssd_scan": 0.0, "lru_scan": 0.0}
+    cases = ([("ssd", c[:5], "float32", c[5]) for c in SSD_CASES]
+             + [("lru", c, "float32", None) for c in LRU_CASES]
+             + [("ssd", SSD_FULL, "bfloat16", 128),
+                ("lru", LRU_FULL, "bfloat16", None)])
+    for i, (kind, shape, dtype, chunk) in enumerate(cases):
+        full = dtype == "bfloat16"
+        args = scan_inputs(torch, kind, shape, dtype, seed=200 + i,
+                           broadcast=full)
+        if kind == "ssd":
+            got = ssd_scan(*args[:4], args[4], chunk=chunk)
+            torch.cuda.synchronize()
+            want = ref.ssd_scan_ref(*args[:4], args[4], chunk=chunk)
+        else:
+            got = lru_scan(*args)
+            torch.cuda.synchronize()
+            want = ref.lru_scan_ref(*args)
+        name = f"{kind}_scan"
+        d = max((g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want))
+        if full:
+            tol = SCAN_BF16_RTOL * max(w.float().abs().max().item()
+                                       for w in want)
+            how = f"{SCAN_BF16_RTOL} of max |value|"
+        else:
+            tol = SSD_TOL if kind == "ssd" else LRU_TOL
+            how = "the reference's test tolerance"
+        if not d <= tol:
+            raise AssertionError(f"phase 9: {name} differs from its plain "
+                                 f"version by {d} at {shape} {dtype}")
+        err[name] = max(err[name], d)
+        log(f"phase 9: {name} vs plain at {shape} {dtype}"
+            f"{' (b/c broadcast over heads)' if full and kind == 'ssd' else ''}"
+            f": max |diff| {d:.3g} (y and final state; tolerance {tol:.3g}, "
+            f"{how})")
+        del got, want
+        if not full:
+            continue
+        if kind == "ssd":
+            def fn():
+                return ssd_scan(*args[:4], chunk=128)
+
+            def plain():
+                return ref.ssd_scan_ref(*args[:4], chunk=128)
+            reps, plain_reps = 10, 2
+        else:
+            def fn():
+                return lru_scan(*args[:2])
+
+            def plain():
+                return ref.lru_scan_ref(*args[:2])
+            reps, plain_reps = 50, 3
+        timed = args[:4] + [None] if kind == "ssd" else args[:2] + [None]
+        ms = cuda_ms(fn, reps)
+        dev_us, dev_how = device_us(torch, fn, name, 3)
+        plain_ms = cuda_ms(plain, plain_reps)
+        bound, by, flops, nbytes = scan_bound(kind, timed)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, library_ms=None, dev_us=dev_us)
+        log(f"phase 9: {name} at {shape} bf16: {ms:.4f} ms per call (CUDA "
+            f"events over {reps} calls), {dev_us:.1f} us on the device per "
+            f"launch ({dev_how}), bound {bound:.4f} ms ({by}: {flops:.4g} "
+            f"FLOP, {nbytes} B) = {100 * bound / ms:.2f}% of it; plain "
+            f"{plain_ms:.3f} ms; no single torch call computes the scan")
+        del args
+    for name in rows:
+        rows[name]["max_abs_err"] = err[name]
+
+    # B3 at recurrentgemma-9b's local-attention layers
+    q, k, v = qkv_on_card(torch, GRIFFIN_FA, seed=11)
+    window = GRIFFIN_FA[6]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    d = (got.float() - want.float()).abs().max().item()
+    if not d <= FA_TOL["bfloat16"]:
+        raise AssertionError(f"phase 9: B3 differs from its plain version "
+                             f"by {d} at {GRIFFIN_FA}")
+    del got, want
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                             window=window), 5)
+    dev_us, dev_how = device_us(torch, lambda: ops.flash_attention(
+        q, k, v, causal=True, window=window), "flash_attention", 2)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True,
+                                                 window=window), 2)
+    s = q.shape[2]
+    i = torch.arange(s, device=DEV)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] >= i[:, None] - window)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=band, enable_gqa=True), 5)
+    bound, by, flops, nbytes = attention_bound(GRIFFIN_FA)
+    log(f"phase 9: B3 at recurrentgemma-9b's local-attention shape q "
+        f"{tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal window "
+        f"{window}: max |diff| to plain {d:.3g} (tolerance "
+        f"{FA_TOL['bfloat16']}); {ms:.4f} ms per call (CUDA events over 5 "
+        f"calls), {dev_us:.1f} us on the device per launch ({dev_how}), "
+        f"bound {bound:.4f} ms ({by}: {flops:.4g} FLOP, {nbytes} B) = "
+        f"{100 * bound / ms:.2f}% of it; plain {plain_ms:.3f} ms; SDPA with "
+        f"the band as a boolean mask {library_ms:.4f} ms")
+    return rows
+
+
+def cast_in_place(lm, cfg, params) -> None:
+    """Swap ``params``' float32 leaves for ``cast_params``' copies one layer
+    at a time, so the float32 tree and its copy never sit on the card
+    together."""
+    params["embed"] = lm.cast_params(cfg, params["embed"])
+    for i, block in enumerate(params["blocks"]):
+        params["blocks"][i] = lm.cast_params(cfg, block)
+        del block
+
+
+def states_rel(got, want) -> float:
+    """worst_rel over every tensor field of two lists of caches."""
+    return max(worst_rel(a, b) for c, c_p in zip(got, want)
+               for a, b in zip(c, c_p) if a is not None)
+
+
+def profile_prefill(torch, lm, cfg, params, tokens, s_max, label):
+    """One prefill under the profiler: launches by kernel and where the
+    device time goes."""
+    prof = device_kernels(torch, lambda: lm.prefill(
+        cfg, params, tokens, s_max=s_max, device=DEV))
+    busy = sum(us for _, us in prof.values()) / 1e3
+    log(f"{label}: profiled prefill: {sum(n for n, _ in prof.values())} "
+        f"kernel launches, {busy:.1f} ms device busy; by kernel:")
+    for key, (n, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"{label}:   {us / 1e3:.2f} ms {n} launches  {key[:90]}")
+    return prof
+
+
+def decode_steps(torch, lm, cfg, params, caches, nxt, start, steps, label):
+    """``steps`` greedy decode steps from position ``start``; returns the
+    caches and ms per step (host clock, steps after the first), and logs
+    the device's share of a profiled step."""
+    step_s = []
+    b = nxt.shape[0]
+    for i in range(steps):
+        pos = torch.full((b,), start + i, dtype=torch.int32, device=DEV)
+        t0 = time.perf_counter()
+        lg, caches = lm.decode_step(cfg, params, nxt, pos, caches,
+                                    device=DEV)
+        nxt = lg[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{label}: non-finite logits at step {i}")
+    step_ms = 1e3 * sum(step_s[1:]) / (len(step_s) - 1)
+    pos = torch.full((b,), start, dtype=torch.int32, device=DEV)
+    prof = device_kernels(torch, lambda: [
+        lm.decode_step(cfg, params, nxt, pos, caches, device=DEV)
+        for _ in range(4)])
+    busy_ms = sum(us for _, us in prof.values()) / 1e3 / 4
+    n_launch = sum(n for n, _ in prof.values()) / 4
+    idle = (f"device idle {100 * (1 - busy_ms / step_ms):.1f}%" if prof
+            else "device idle not measured (the profiler recorded no "
+            "device event)")
+    log(f"{label}: {steps} decode steps (batch {b}): {step_ms:.2f} ms per "
+        f"step (host clock, steps 2-{steps}), {n_launch:.0f} kernel "
+        f"launches and {busy_ms:.3f} ms device busy per step (profiler): "
+        f"{idle}")
+    for key, (n, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]:
+        log(f"{label}:   {us / 1e3 / 4:.4f} ms/step {n / 4:.0f} "
+            f"launches/step  {key[:90]}")
+    return caches
+
+
+def run_recurrent(torch, lm, kernels, get_config, arch, batch, seq, label):
+    """Phases 10-11: ``arch`` at full width and depth, random weights from
+    seed 0 in float32 held as ``cast_params``' copy, bf16 activations: a
+    ``batch`` x ``seq`` prefill through the kernels (launches counted by
+    the wrappers and by the profiler) held to the plain-kernel prefill,
+    decode steps (no scan kernel launched), and the consistency check.
+    Returns the scan kernel's launches per prefill."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, 0, device=DEV)
+    cast_in_place(lm, cfg, params)
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.name}: {cfg.n_layers} layers "
+        f"({dict(collections.Counter(cfg.layer_kinds))}), d_model "
+        f"{cfg.d_model}, {cfg.n_params():,} parameters, random init (seed "
+        f"0) in {cfg.param_dtype}, held as cast_params' copy "
+        f"({time.perf_counter() - t0:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
+    scan = "ssd_scan" if cfg.ssm is not None else "lru_scan"
+    n_scan = cfg.layer_kinds.count("ssm" if cfg.ssm is not None else "rec")
+    n_fa = sum(k.startswith("attn") for k in cfg.layer_kinds)
+    want = only(kernels, **{scan: n_scan, "flash_attention": n_fa})
+    g = torch.Generator(device=DEV).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=g,
+                           device=DEV)
+    s_max = seq + DECODE_STEPS
+    lm.prefill(cfg, params, tokens[:, :256], s_max=256, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, tokens, s_max=s_max,
+                                device=DEV)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    if counts != want:
+        raise AssertionError(f"{label}: prefill launches {counts}, "
+                             f"expected {want}")
+    log(f"{label}: prefill {batch} x {seq} tokens: {prefill_s * 1e3:.1f} "
+        f"ms, {batch * seq / prefill_s:,.0f} tokens/s, launches {counts}, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+        f" GiB")
+    prof = profile_prefill(torch, lm, cfg, params, tokens, s_max, label)
+    seen = {n: launches_in(prof, n) for n in (scan, "flash_attention")}
+    if prof and seen != {scan: n_scan, "flash_attention": n_fa}:
+        raise AssertionError(f"{label}: the profile shows {seen} launches")
+    log(f"{label}: the profiler saw {seen} launches in one prefill"
+        if prof else f"{label}: the profiler recorded no device event")
+
+    # kernel vs plain: each layer on the same input (the kernel prefill's),
+    # then the whole prefill in float32 activations.  In bf16 the two
+    # whole prefills drift apart: one bf16 step of difference per layer
+    # compounds through the random-weight layers, so that drift is logged,
+    # not held to the tolerance
+    r_layer = compare_layers(torch, lm, cfg, params, tokens)
+    log(f"{label}: kernel vs plain layer by layer on the same input ("
+        f"{batch} x {seq}, bf16): worst layer output (residual stream) "
+        f"max |diff| / max |value| {r_layer[0]:.3g}, worst cache field "
+        f"{r_layer[1]:.3g} "
+        f"(tolerance {MODEL_RTOL})")
+    cfg32 = cfg.replace(dtype="float32")
+    lg_k, c_k = lm.prefill(cfg32, params, tokens[:1], device=DEV)
+    lg_p, c_p = lm.prefill(cfg32.replace(attn_impl="xla"), params,
+                           tokens[:1], device=DEV)
+    r32 = (worst_rel(lg_k, lg_p), states_rel(c_k, c_p))
+    log(f"{label}: kernel vs plain prefill in float32 activations (1 x "
+        f"{seq}): logits max |diff| / max |logit| {r32[0]:.3g}, caches "
+        f"({cfg.n_layers} layers, every field) {r32[1]:.3g} (tolerance "
+        f"{MODEL_RTOL})")
+    del lg_k, c_k, lg_p, c_p
+    if not max(r_layer + r32) <= MODEL_RTOL:
+        raise AssertionError(f"{label}: kernel prefill differs from the "
+                             "plain prefill")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite prefill logits")
+    logits_p, caches_p = lm.prefill(cfg.replace(attn_impl="xla"), params,
+                                    tokens, s_max=s_max, device=DEV)
+    agree = (logits.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
+    log(f"{label}: kernel vs plain whole prefill in bf16 (reported, not "
+        f"held): logits {worst_rel(logits, logits_p):.3g}, caches "
+        f"{states_rel(caches, caches_p):.3g}, argmax agreement {agree:.2f}")
+    del logits_p, caches_p
+
+    reset(kernels)
+    caches = decode_steps(torch, lm, cfg, params, caches,
+                          logits[:, -1].argmax(-1)[:, None], seq,
+                          DECODE_STEPS, label)
+    if {n: fn.launches for n, fn in kernels.items()} != only(kernels):
+        raise AssertionError(f"{label}: decode launched a kernel")
+    del caches, logits
+
+    # prefill/decode consistency at full width, in float32 activations
+    # (held) and in bf16 (reported)
+    for c_cfg in (cfg32, cfg):
+        r, what = consistency(torch, lm, c_cfg, params, tokens[:1, :256])
+        held = c_cfg is cfg32
+        log(f"{label}: {what} in {c_cfg.dtype}: logits max |diff| / max "
+            f"|logit| {r:.3g}" + (f" (tolerance {MODEL_RTOL})" if held
+                                  else " (reported, not held)"))
+        if held and not r <= MODEL_RTOL:
+            raise AssertionError(f"{label}: decode disagrees with prefill")
+    return counts[scan]
+
+
+def consistency(torch, lm, cfg, params, t256) -> tuple[float, str]:
+    """Decode after a prefill against the full-sequence result: 255 + 1
+    against a 256-token prefill, or for mamba2, whose scan needs whole
+    128-step chunks, 128 + 8 decode steps against the forward over 256
+    tokens at positions 128-135."""
+    if cfg.ssm is not None:
+        full, _ = lm.forward(cfg, params, t256, device=DEV)
+        _, c = lm.prefill(cfg, params, t256[:, :128], s_max=256, device=DEV)
+        r = 0.0
+        for i in range(128, 136):
+            lg, c = lm.decode_step(cfg, params, t256[:, i:i + 1], torch.full(
+                (1,), i, dtype=torch.int32, device=DEV), c, device=DEV)
+            r = max(r, worst_rel(lg[:, 0], full[:, i]))
+        return r, "prefill 128 + decode 8 vs forward 256 at positions 128-135"
+    _, c = lm.prefill(cfg, params, t256[:, :255], s_max=256, device=DEV)
+    lg, _ = lm.decode_step(cfg, params, t256[:, 255:], torch.full(
+        (1,), 255, dtype=torch.int32, device=DEV), c, device=DEV)
+    full, _ = lm.prefill(cfg, params, t256, device=DEV)
+    return worst_rel(lg, full), "prefill 255 + decode 1 vs prefill 256"
+
+
+def compare_layers(torch, lm, cfg, params, tokens) -> tuple[float, float]:
+    """Each layer of the prefill through the kernels and through the plain
+    versions on the same input, the kernel path's: the worst relative
+    difference of a layer's output (the residual stream after it) and of
+    a cache field."""
+    from repro_torch.models.common import embed_tokens
+
+    plain = cfg.replace(attn_impl="xla")
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=DEV)[None].expand(b, s)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    worst_y = worst_c = 0.0
+    for spec, p in zip(lm.layer_specs(cfg), params["blocks"]):
+        out_k, c_k = lm._apply_layer(cfg, spec, p, x, positions, None,
+                                     "prefill", None)
+        out_p, c_p = lm._apply_layer(plain, spec, p, x, positions, None,
+                                     "prefill", None)
+        worst_y = max(worst_y, worst_rel(out_k, out_p))
+        worst_c = max(worst_c, states_rel([c_k], [c_p]))
+        x = out_k
+    return worst_y, worst_c
+
+
 def main() -> int:
     import torch
 
@@ -562,13 +981,17 @@ def main() -> int:
     from repro_torch.fleetsim import engine
     from repro_torch.fleetsim.sweep import plan_grid
     from repro_torch.kernels import build, inputs, ops, ref
+    from repro_torch.kernels import lru_scan as lru_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
     kernels = {"fingerprint_filter": ops.fingerprint_filter,
                "tickfuse_response_path": ops.tickfuse_response_path,
-               "flash_attention": ops.flash_attention}
+               "flash_attention": ops.flash_attention,
+               "ssd_scan": ssd_mod.ssd_scan,
+               "lru_scan": lru_mod.lru_scan}
     t_start = time.perf_counter()
 
     # -- phase 1: build + device ------------------------------------------
@@ -625,8 +1048,7 @@ def main() -> int:
     sw = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg)
     counts = {n: fn.launches for n, fn in kernels.items()}
     sweep_launches = dict(counts)
-    if counts != {"fingerprint_filter": 0, "flash_attention": 0,
-                  "tickfuse_response_path": SWEEP_TICKS}:
+    if counts != only(kernels, tickfuse_response_path=SWEEP_TICKS):
         raise AssertionError(f"phase 4 launches {counts}, expected "
                              f"{SWEEP_TICKS} of tickfuse_response_path")
     cticks = sw.n_configs * SWEEP_TICKS
@@ -691,8 +1113,7 @@ def main() -> int:
                        rack_weights=weights, slowdown=slowdown)
     counts = {n: fn.launches for n, fn in kernels.items()}
     rack_launches = dict(counts)
-    if counts != {"fingerprint_filter": RACK_TICKS, "flash_attention": 0,
-                  "tickfuse_response_path": 0}:
+    if counts != only(kernels, fingerprint_filter=RACK_TICKS):
         raise AssertionError(f"phase 5 launches {counts}")
     for r in rk.results:
         log(f"phase 5: {r.policy} load {r.offered_load}: per-rack p99_us "
@@ -738,6 +1159,22 @@ def main() -> int:
     # -- phase 8: the serving tier at full width ---------------------------
     run_serving(torch, cfg, params, kernels, ref)
     del params
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the SSD and RG-LRU scans (B4, B5) vs plain ----------------
+    rows.update(check_scans(torch, ref, ssd_mod.ssd_scan, lru_mod.lru_scan,
+                            ops))
+
+    # -- phase 10: mamba2-370m prefill + decode at full width ---------------
+    ssd_launches = run_recurrent(torch, lm, kernels, get_config,
+                                 "mamba2-370m", MAMBA_B, MAMBA_S,
+                                 "phase 10")
+    torch.cuda.empty_cache()
+
+    # -- phase 11: recurrentgemma-9b prefill + decode at full width ---------
+    lru_launches = run_recurrent(torch, lm, kernels, get_config,
+                                 "recurrentgemma-9b", PREFILL_B, PREFILL_S,
+                                 "phase 11")
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -746,17 +1183,22 @@ def main() -> int:
     replaces = {"fingerprint_filter":
                 "src/repro/kernels/fingerprint_filter.py:64",
                 "tickfuse_response_path": "src/repro/kernels/tickfuse.py:86",
-                "flash_attention": "src/repro/kernels/flash_attention.py:98"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:98",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:76",
+                "lru_scan": "src/repro/kernels/lru_scan.py:51"}
     sources = {"fingerprint_filter":
                "src/repro_torch/kernels/csrc/fingerprint_filter.cu",
                "tickfuse_response_path":
                "src/repro_torch/kernels/csrc/tickfuse.cu",
                "flash_attention":
-               "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "lru_scan": "src/repro_torch/kernels/csrc/lru_scan.cu"}
     launches = {"fingerprint_filter": rack_launches["fingerprint_filter"],
                 "tickfuse_response_path":
                 sweep_launches["tickfuse_response_path"],
-                "flash_attention": prefill_launches}
+                "flash_attention": prefill_launches,
+                "ssd_scan": ssd_launches, "lru_scan": lru_launches}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": sources[n],
          "replaces": replaces[n], "launches": launches[n],

@@ -43,25 +43,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "float_convert.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per CTA
 constexpr int kBK = 32;        // kv rows per tile
 constexpr int kThreads = 256;  // 16 x 16: ty picks rows, tx picks columns
 constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // A score after masking: -inf past the last key (it must contribute
 // nothing, even to a row with no key yet), -1e30 outside the causal or

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the switch response-path
-filters (B1, B2) and flash attention (B3).
+filters (B1, B2), flash attention (B3) and the SSD (B4) and RG-LRU (B5)
+scans.
 
 Each filter walks the response lanes in order with a Python loop, vectorised over
 the config axis ``G`` — exactly the lane-sequential semantics of the CUDA
@@ -119,3 +120,102 @@ def tickfuse_ref(server_state, tables, req_id, idx, clo, sid, qlen):
                  torch.ones(sid.shape, dtype=torch.bool, device=sid.device))
     _, drop = fingerprint_filter_ref(tables, req_id, idx, clo)
     return server_state, tables, drop
+
+
+# ------------------------------------------------------------- SSD scan -----
+def ssd_scan_naive(x, a, b_mat, c_mat, h0=None):
+    """Step-by-step SSD recurrence (the test oracle), per head:
+
+        H_t = a_t · H_{t-1} + x_t ⊗ b_t        (H_t ∈ R^{P×N}, float32)
+        y_t = H_t · c_t
+
+    x ``(B, S, H, P)``, a ``(B, S, H)``, b/c ``(B, S, H, N)``, h0 ``(B, H,
+    P, N)``.  Returns ``(y in x's dtype, final state in float32)``."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        carry = carry * a[:, t, :, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", x[:, t].float(), b_mat[:, t].float())
+        ys.append(torch.einsum("bhpn,bhn->bhp", carry, c_mat[:, t].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), carry
+
+
+def ssd_scan_ref(x, a, b_mat, c_mat, h0=None, chunk: int = 128):
+    """Chunked SSD, the plain version of kernel B4 (the reference's XLA
+    model path, ``repro.kernels.ref.ssd_scan_ref``): within each chunk the
+    decay-masked ``(C Bᵀ) X`` product, across chunks the carried state.
+    The reference combines the chunk carries with a log-depth associative
+    scan; here a loop over chunks does the same sums in order.  Log-decay
+    is clamped at 1e-37, as the Pallas kernel clamps it.  Same shapes and
+    result as :func:`ssd_scan_naive`."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError("seq not divisible by chunk")
+    nc = s // chunk
+    f32 = torch.float32
+    xc = x.to(f32).reshape(bsz, nc, chunk, h, p)
+    ac = a.to(f32).reshape(bsz, nc, chunk, h)
+    bc = b_mat.to(f32).reshape(bsz, nc, chunk, h, n)
+    cc = c_mat.to(f32).reshape(bsz, nc, chunk, h, n)
+
+    cum = torch.cumsum(torch.log(torch.clamp(ac, min=1e-37)), dim=2)
+    sc = torch.einsum("bclhn,bcmhn->bchlm", cc, bc)     # (B,NC,H,L,L)
+    cum_h = cum.transpose(2, 3)                         # (B,NC,H,L)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    # exp() never sees the (positive, overflowing) upper triangle
+    dt_ts = torch.where(mask, cum_h[..., :, None] - cum_h[..., None, :], 0.0)
+    m = torch.where(mask, torch.exp(dt_ts), 0.0)
+    y = torch.einsum("bchlm,bcmhp->bclhp", sc * m, xc)  # intra-chunk
+    del sc, dt_ts, m
+
+    a_tot = torch.exp(cum[:, :, -1, :])                 # (B,NC,H)
+    w = torch.exp(cum[:, :, -1:, :] - cum)              # (B,NC,L,H) <= 1
+    s_c = torch.einsum("bclhp,bclhn->bchpn", xc * w[..., None], bc)
+    state = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+             if h0 is None else h0.to(f32))
+    h_prev = torch.empty_like(s_c)                      # state entering c
+    for c in range(nc):
+        h_prev[:, c] = state
+        state = state * a_tot[:, c, :, None, None] + s_c[:, c]
+    y = y + torch.einsum("bclhn,bchpn->bclhp", cc * torch.exp(cum)[..., None],
+                         h_prev)                        # inter-chunk
+    return y.reshape(bsz, s, h, p).to(x.dtype), state
+
+
+# ------------------------------------------------------------- LRU scan -----
+def lru_scan_naive(x, a, h0=None):
+    """Step-by-step diagonal recurrence ``h_t = a_t ⊙ h_{t-1} + x_t`` in
+    float32 (the test oracle).  x, a ``(B, S, D)``, h0 ``(B, D)``.  Returns
+    ``(h in x's dtype, final state in float32)``."""
+    bsz, s, d = x.shape
+    carry = (torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    hs = []
+    for t in range(s):
+        carry = carry * a[:, t].float() + x[:, t].float()
+        hs.append(carry)
+    return torch.stack(hs, dim=1).to(x.dtype), carry
+
+
+def lru_scan_ref(x, a, h0=None):
+    """The diagonal recurrence in log depth, the plain version of kernel
+    B5 (the reference's ``lru_scan_ref``, an associative scan): a
+    Hillis-Steele doubling scan over the sequence with the combine
+    ``(a_l, h_l) ∘ (a_r, h_r) = (a_l·a_r, h_l·a_r + h_r)``, h0 folded into
+    the first step.  Same shapes and result as :func:`lru_scan_naive`."""
+    af = a.float().clone()
+    hs = x.float().clone()
+    if h0 is not None:
+        hs[:, 0] += af[:, 0] * h0.float()
+    shift = 1
+    while shift < x.shape[1]:
+        hs[:, shift:] = hs[:, shift:] + af[:, shift:] * hs[:, :-shift]
+        af[:, shift:] = af[:, shift:] * af[:, :-shift]
+        shift *= 2
+    return hs.to(x.dtype), hs[:, -1].clone()

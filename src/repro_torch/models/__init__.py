@@ -1,6 +1,7 @@
-"""Model stack, port of ``repro.models``: the unified config and the dense
-decoder (GQA/MQA attention, gated or plain MLP).  MLA, MoE, the recurrent
-mixers and whisper's encoder-decoder are still to be ported (ROADMAP A11)."""
+"""Model stack, port of ``repro.models``: the unified config, the dense
+decoder (GQA/MQA attention, gated or plain MLP) and the recurrent mixers
+(mamba2, RG-LRU).  MLA, MoE and whisper's encoder-decoder are still to be
+ported (ROADMAP A11)."""
 
 from repro_torch.models.common import (
     EncoderConfig,

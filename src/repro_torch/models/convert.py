@@ -4,7 +4,9 @@ pytree layout and the port's.
 The reference stacks the layers of each scan group along a leading period
 axis (``blocks/stack/p{j}/...``, plus unstacked ``pro_{i}`` and
 ``epi_{i}``; :func:`repro_torch.models.lm.scan_groups`); the port keeps one
-entry per layer.  Leaf names are the same on both sides.  The reference's
+entry per layer.  Leaf names are the same on both sides, and so are the
+caches' fields: ``KVCache`` for attention layers, ``SSMState`` for mamba2
+and ``LRUState`` for RG-LRU layers.  The reference's
 trees come in with numpy leaves (``jax.device_get`` or ``np.asarray`` on
 each leaf); the port's tensors come out on the CPU.
 """
@@ -15,7 +17,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import KVCache
-from repro_torch.models.lm import check_supported, scan_groups
+from repro_torch.models.lm import check_supported, layer_specs, scan_groups
+from repro_torch.models.recurrent import LRUState, SSMState
+
+#: the port's cache type of each mixer
+_CACHE_TYPE = {"attn": KVCache, "attn_local": KVCache, "ssm": SSMState,
+               "rec": LRUState}
 
 
 def _layer_keys(cfg) -> list[tuple[str, str | None, int | None]]:
@@ -75,8 +82,10 @@ def params_from_numpy(cfg, tree: dict) -> dict:
 
 def cache_from_numpy(cfg, tree: dict) -> list:
     """The port's per-layer caches (CPU tensors) from the reference's cache
-    pytree (``KVCache`` leaves as numpy arrays)."""
-    return [KVCache(*c) for c in _layers(cfg, tree)]
+    pytree (its ``KVCache``, ``SSMState`` and ``LRUState`` with numpy
+    leaves)."""
+    return [_CACHE_TYPE[mixer](*c)
+            for (mixer, _), c in zip(layer_specs(cfg), _layers(cfg, tree))]
 
 
 def _numpy(x: torch.Tensor) -> np.ndarray:
@@ -98,7 +107,8 @@ def cache_to_numpy(cfg, cache: list) -> dict:
         else:
             stacked.setdefault(slot, []).append(c)
     if stacked:
-        out["stack"] = {slot: KVCache(*(None if f[0] is None else np.stack(f)
-                                        for f in zip(*rows)))
+        out["stack"] = {slot: type(rows[0])(*(None if f[0] is None
+                                               else np.stack(f)
+                                               for f in zip(*rows)))
                         for slot, rows in stacked.items()}
     return out

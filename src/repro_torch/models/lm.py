@@ -1,20 +1,21 @@
 """Decoder-only language model, port of ``repro.models.lm`` for the layer
 kinds the port has: ``attn`` and ``attn_local`` mixers with a gated or plain
-dense FFN.
+dense FFN, the mamba2 ``ssm`` mixer (no FFN) and the RG-LRU ``rec`` mixer.
 
 The reference compiles the layer list into scan groups (prologue, a
 ``lax.scan`` over stacked periods, epilogue); eager PyTorch has nothing to
 gain from a scan, so here the layers are a plain list, ``params["blocks"]
 [i]`` and ``cache[i]`` for layer ``i``.  :func:`scan_groups` stays, because
 it names where each layer sits in the reference's pytree
-(:mod:`repro_torch.models.convert`).  The other mixers (``mla``, ``ssm``,
-``rec``), MoE FFNs and the encoder-decoder raise ``NotImplementedError``
-naming their ROADMAP item; ``loss_fn`` waits for the training slice.
+(:mod:`repro_torch.models.convert`).  The ``mla`` mixer, MoE FFNs and the
+encoder-decoder raise ``NotImplementedError`` naming their ROADMAP item;
+``loss_fn`` waits for the training slice.
 
 Modes: ``train``/``eval`` (full forward), ``prefill`` (returns per-layer
-caches), ``decode`` (one token against the caches, updated in place).
-Every entry point runs on the CUDA device unless the caller passes
-``device="cpu"``; the parameters must already be on that device.
+caches), ``decode`` (one token against the caches; attention caches are
+updated in place, recurrent states replaced).  Every entry point runs on
+the CUDA device unless the caller passes ``device="cpu"``; the parameters
+must already be on that device.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import recurrent as rec_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (
     ModelConfig,
     apply_norm,
@@ -40,8 +43,6 @@ LayerSpec = tuple[str, str]  # (mixer, ffn)
 
 _NOT_PORTED = {
     "mla": "the MLA mixer (ROADMAP A11)",
-    "ssm": "the mamba2 mixer and kernel B4 ssd_scan (ROADMAP A11, B4)",
-    "rec": "the RG-LRU mixer and kernel B5 lru_scan (ROADMAP A11, B5)",
     "moe": "the MoE FFN (ROADMAP A11)",
     "encdec": "whisper's encoder-decoder (ROADMAP A11)",
 }
@@ -99,8 +100,15 @@ def check_supported(cfg: ModelConfig) -> None:
 # ================================================================= init =====
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, device) -> dict:
     mixer, ffn = spec
-    p: dict[str, Any] = {"pre_norm": init_norm(cfg, device),
-                         "attn": attn.init_attention(cfg, gen, device)}
+    p: dict[str, Any] = {"pre_norm": init_norm(cfg, device)}
+    if mixer in ("attn", "attn_local"):
+        p["attn"] = attn.init_attention(cfg, gen, device)
+    elif mixer == "ssm":
+        p["mixer"] = rec_mod.init_mamba2(cfg, gen, device)
+    elif mixer == "rec":
+        p["mixer"] = rec_mod.init_rglru(cfg, gen, device)
+    else:
+        raise ValueError(f"unknown mixer {mixer}")
     if ffn != "none":
         p["post_norm"] = init_norm(cfg, device)
         p["mlp"] = ffn_mod.init_mlp(cfg, gen, device, d_ff=cfg.d_ff)
@@ -126,18 +134,29 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
                        for spec in layer_specs(cfg)]}
 
 
-def cast_params(cfg: ModelConfig, params: dict) -> dict:
-    """A copy of ``params`` with every matrix and bias (each leaf of two or
-    more dims) in the activation dtype; the norm scales stay as they are.
-    The model casts those leaves to the activation dtype at each use, as
-    the reference does, so the numbers are the same; the copy only spares
-    the casts (and the weight reads they cost) on every step."""
-    def cast(tree):
+#: matrices the reference reads at float32 somewhere (mamba2's and the
+#: RG-LRU's conv weights in decode, the RG-LRU's gate matrices always);
+#: :func:`cast_params` leaves them as they are
+FLOAT32_LEAVES = frozenset({"conv_w", "w_rec_gate", "w_input_gate"})
+
+
+def cast_params(cfg: ModelConfig, params):
+    """A copy of ``params`` (the whole tree or a subtree, such as one
+    layer) with every matrix and bias (each leaf of two or more dims) in
+    the activation dtype, except :data:`FLOAT32_LEAVES`: the reference also
+    reads those in float32, where a rounded copy would change the numbers.
+    The norm scales and the other vectors stay as they are.  The model
+    casts weights to the activation dtype at each use, as the reference
+    does, so the copy gives the float32 tree's numbers; it only spares the
+    casts (and the weight reads they cost) on every step."""
+    def cast(tree, name=None):
         if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
+            return {k: cast(v, k) for k, v in tree.items()}
         if isinstance(tree, list):
             return [cast(v) for v in tree]
-        return tree.to(cfg.activation_dtype) if tree.dim() >= 2 else tree
+        if tree.dim() < 2 or name in FLOAT32_LEAVES:
+            return tree
+        return tree.to(cfg.activation_dtype)
     return cast(params)
 
 
@@ -145,6 +164,10 @@ def cast_params(cfg: ModelConfig, params: dict) -> dict:
 def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       s_max: int, device):
     mixer, _ = spec
+    if mixer == "ssm":
+        return rec_mod.init_ssm_state(cfg, batch, device)
+    if mixer == "rec":
+        return rec_mod.init_lru_state(cfg, batch, device)
     # local attention only ever needs window+1 positions
     if mixer == "attn_local" and cfg.window is not None:
         s_max = min(s_max, cfg.window + 1)
@@ -168,13 +191,26 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
                  cache, mode: str, pos):
     mixer, ffn = spec
     h = apply_norm(cfg, p["pre_norm"], x)
-    if mode == "decode":
+    make_cache = mode == "prefill"
+    if mixer == "ssm":
+        if mode == "decode":
+            y, new_cache = rec_mod.mamba2_decode(cfg, p["mixer"], h, cache)
+        else:
+            y, new_cache = rec_mod.mamba2_forward(cfg, p["mixer"], h,
+                                                  make_cache=make_cache)
+    elif mixer == "rec":
+        if mode == "decode":
+            y, new_cache = rec_mod.rglru_decode(cfg, p["mixer"], h, cache)
+        else:
+            y, new_cache = rec_mod.rglru_forward(cfg, p["mixer"], h,
+                                                 make_cache=make_cache)
+    elif mode == "decode":
         y, new_cache = attn.attention_decode(
             cfg, p["attn"], h, pos, cache, window=_window_of(cfg, mixer))
     else:
         y, new_cache = attn.attention_forward(
             cfg, p["attn"], h, positions, window=_window_of(cfg, mixer),
-            make_cache=(mode == "prefill"))
+            make_cache=make_cache)
     x = x + y
     if ffn != "none":
         h2 = apply_norm(cfg, p["post_norm"], x)
@@ -245,21 +281,28 @@ def prefill(cfg: ModelConfig, params: dict, tokens, s_max: int | None = None,
 
 
 def _pad_caches(cfg: ModelConfig, caches: list, s: int, s_max: int) -> list:
-    """Zero-pad every cache leaf whose sequence axis (axis 1) has length
-    ``s`` to ``s_max`` — the reference's rule, which also pads a ring cache
-    whose length happens to be ``s``."""
+    """Zero-pad the attention caches' sequence axis (axis 1 of every
+    ``KVCache`` leaf whose length there is ``s``) to ``s_max``; this also
+    pads a ring cache whose length happens to be ``s``, as the reference
+    does.  Recurrent states stay untouched, as the reference's comment says
+    they do: its rule pads any leaf with ``s`` on that axis, so it also
+    pads an SSD state when ``s`` equals the head count or a conv buffer
+    when ``s`` equals ``d_conv - 1``, and its next decode step raises
+    (ROADMAP C3)."""
     def pad(leaf):
         if leaf is not None and leaf.dim() >= 3 and leaf.shape[1] == s:
             widths = [0, 0] * (leaf.dim() - 2) + [0, s_max - s]
             return F.pad(leaf, widths)
         return leaf
-    return [type(c)(*(pad(leaf) for leaf in c)) for c in caches]
+    return [KVCache(*(pad(leaf) for leaf in c)) if isinstance(c, KVCache)
+            else c for c in caches]
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens, pos, cache: list,
                 *, device=None):
     """One decode step: tokens (B, 1), pos (B,) → (logits (B, 1, V), cache).
-    The caches are updated in place and returned."""
+    The attention caches are updated in place, the recurrent states
+    replaced; the new list is returned."""
     tokens, pos = _inputs(params, device, tokens, pos)
     x = embed_tokens(cfg, params["embed"], tokens)
     x, new_cache, _ = backbone(cfg, params, x, pos[:, None], cache=cache,

@@ -333,6 +333,8 @@ from repro_torch.core.switch import group_pairs_array
 import repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.random, repro_torch.core.switch
 import repro_torch.models, repro_torch.models.convert, repro_torch.configs
+import repro_torch.models.recurrent
+import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan
 import repro_torch.serve, repro_torch.launch.serve
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -314,7 +314,7 @@ def test_every_arch_resolves_and_unported_layers_raise(arch):
         kinds.add("moe")
     if cfg.arch_type == "encdec":
         kinds.add("encdec")
-    if kinds & {"mla", "ssm", "rec", "moe", "encdec"}:
+    if kinds & {"mla", "moe", "encdec"}:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             family_of(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
