@@ -8,7 +8,8 @@ NetClone serving tier.
 Phases (each fails the run on error; nothing is caught):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together) and print the card;
+   ``nvcc`` per source, all started together), print the card and B3's
+   TMA + ``wgmma`` kernel's registers, shared memory and spill bytes;
 2. hold each kernel bit-exact against its plain PyTorch version at the main
    path's shapes, on random and adversarial lanes, and time both;
 3. run the 6 golden cases of ``tests/golden/fleetsim_single_tor.json`` as
@@ -22,8 +23,10 @@ Phases (each fails the run on error; nothing is caught):
    to 0.95, through B1, then the first ticks of the same grid under ``scan``
    held bit-equal to the kernel-backed run;
 6. flash attention (kernel B3) against its plain version at the reference
-   test sweep's shapes and at qwen2.5-3b's full prefill shape, timed beside
-   its bound, its plain version and PyTorch's SDPA;
+   test sweep's shapes, at the TMA + ``wgmma`` kernel's edge cases (head
+   dim 256 windowed and ragged, a window narrower than a tile, the model's
+   transposed views) and at qwen2.5-3b's full prefill shape, timed there
+   beside its bound, its plain version and PyTorch's SDPA;
 7. qwen2.5-3b at full width and depth (36 layers, random weights from
    seed 0, bf16 activations): a 4 x 4,096-token prefill through B3 held to
    the same prefill through the plain attention, 16 decode steps, and
@@ -36,7 +39,8 @@ Phases (each fails the run on error; nothing is caught):
    plain versions at the reference test sweep's shapes (float32, with h0)
    and at mamba2-370m's and recurrentgemma-9b's full prefill shapes (bf16,
    B4's b and c broadcast over heads), timed beside their bounds and plain
-   versions; B3 at recurrentgemma-9b's local-attention shape the same way;
+   versions; B3 at recurrentgemma-9b's local-attention shape the same way,
+   beside SDPA with the band as a mask and SDPA causal without the window;
 10. mamba2-370m at full width and depth (48 layers, random weights from
     seed 0, bf16 activations): a 4 x 32,768-token prefill through B4 (48
     launches, counted by the wrapper and the profiler) held to the same
@@ -91,6 +95,22 @@ FA_CASES = (
     (1, 2, 2, 256, 64, True, None, "bfloat16"),
     (3, 2, 2, 128, 32, True, None, "float32"),
 )
+# the TMA + wgmma kernel's edge cases: head dim 256 MQA with a window and
+# ragged, a window narrower than a tile with GQA, bidirectional at a
+# longer sequence, and sequences shorter than a CTA's 128 rows (a 4-token
+# prompt; one warpgroup's rows), whose other rows lie wholly past Sq
+FA_EDGE_CASES = (
+    (1, 4, 1, 512, 256, True, 128, "bfloat16"),
+    (1, 4, 1, 255, 256, True, None, "bfloat16"),
+    (2, 8, 2, 512, 64, True, 16, "bfloat16"),
+    (1, 4, 4, 1024, 128, False, None, "bfloat16"),
+    (2, 4, 2, 4, 128, True, None, "bfloat16"),
+    (1, 4, 1, 64, 256, True, None, "bfloat16"),
+)
+# the model's (B, S, H, D) tensors transposed to (B, H, S, D), at head dim
+# 256 (recurrentgemma-9b's heads) and 128 (qwen2.5-3b's)
+FA_VIEW_CASES = ((2, 16, 1, 256, 256, True, None, "bfloat16"),
+                 (2, 16, 2, 256, 128, True, None, "bfloat16"))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # phase 7: prefill_32k's 32 x 32,768 tokens cut to 4 x 4,096 by the run's
 # time limit; decode steps after it
@@ -342,10 +362,17 @@ def only(kernels, **want) -> dict:
 DEV = "cuda"   # where phases 6-8 put every tensor and run every entry point
 
 
-def qkv_on_card(torch, case, seed):
+def qkv_on_card(torch, case, seed, transposed=False):
+    """q, k, v of ``case`` on the card from ``seed``; ``transposed``: as
+    the model passes them, (B, S, H, D) tensors transposed to (B, H, S,
+    D)."""
     b, h, hkv, s, d, _, _, dtype = case
     g = torch.Generator(device=DEV).manual_seed(seed)
     dt = getattr(torch, dtype)
+    if transposed:
+        return [torch.randn(shape, generator=g, device=DEV).to(dt)
+                .transpose(1, 2)
+                for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
     return [torch.randn(shape, generator=g, device=DEV).to(dt)
             for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
 
@@ -372,26 +399,33 @@ def attention_bound(case) -> tuple[float, str, int, int]:
 
 
 def check_flash_attention(torch, ref, ops):
-    """Phase 6: B3 vs its plain version at the test sweep's shapes and at
-    qwen's prefill shape, then timed there beside the bound, the plain
-    version and SDPA."""
+    """Phase 6: B3 vs its plain version at the test sweep's shapes, at the
+    TMA + wgmma kernel's edge cases and at qwen's prefill shape, then timed
+    there beside the bound, the plain version and SDPA."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel_for
 
     torch.backends.cuda.matmul.allow_tf32 = False
     err = 0.0
-    for i, case in enumerate(FA_CASES + (QWEN_FA,)):
+    cases = ([(c, False) for c in FA_CASES + FA_EDGE_CASES]
+             + [(c, True) for c in FA_VIEW_CASES] + [(QWEN_FA, False)])
+    for i, (case, transposed) in enumerate(cases):
         causal, window, dtype = case[5:]
-        q, k, v = qkv_on_card(torch, case, seed=100 + i)
+        q, k, v = qkv_on_card(torch, case, seed=100 + i,
+                              transposed=transposed)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         d = (got.float() - want.float()).abs().max().item()
         if not d <= FA_TOL[dtype]:
             raise AssertionError(f"phase 6: B3 differs from its plain "
-                                 f"version by {d} at {case}")
+                                 f"version by {d} at {case}"
+                                 f"{' (transposed views)' if transposed else ''}")
         err = max(err, d)
-        log(f"phase 6: B3 vs plain at {case}: max |diff| {d:.3g} "
-            f"(tolerance {FA_TOL[dtype]})")
+        log(f"phase 6: B3 ({kernel_for(q.dtype, case[4])} kernel) vs plain "
+            f"at {case}{' as transposed (B, S, H, D) views' if transposed else ''}"
+            f": max |diff| {d:.3g} (tolerance {FA_TOL[dtype]})")
         del got, want
     q, k, v = qkv_on_card(torch, QWEN_FA, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
@@ -738,6 +772,10 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
     band = (i[None, :] <= i[:, None]) & (i[None, :] >= i[:, None] - window)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=band, enable_gqa=True), 5)
+    # a second yardstick: a flash kernel of the library doing the whole
+    # causal triangle, more work than the band
+    causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 5)
     bound, by, flops, nbytes = attention_bound(GRIFFIN_FA)
     log(f"phase 9: B3 at recurrentgemma-9b's local-attention shape q "
         f"{tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal window "
@@ -746,7 +784,8 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
         f"calls), {dev_us:.1f} us on the device per launch ({dev_how}), "
         f"bound {bound:.4f} ms ({by}: {flops:.4g} FLOP, {nbytes} B) = "
         f"{100 * bound / ms:.2f}% of it; plain {plain_ms:.3f} ms; SDPA with "
-        f"the band as a boolean mask {library_ms:.4f} ms")
+        f"the band as a boolean mask {library_ms:.4f} ms; SDPA causal "
+        f"without the window (the whole triangle) {causal_ms:.4f} ms")
     return rows
 
 
@@ -1006,6 +1045,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind}")
+    from repro_torch.kernels.flash_attention import (WGMMA_HEAD_DIMS,
+                                                     wgmma_attributes)
+    for d in WGMMA_HEAD_DIMS:
+        a = wgmma_attributes(d)
+        log(f"phase 1: B3's TMA + wgmma kernel at head dim {d}: "
+            f"{a['registers']} registers a thread (before setmaxnreg), "
+            f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
+            f"shared memory, {a['local_bytes']} B local (spill) a thread")
 
     # -- phase 2: kernels vs plain -----------------------------------------
     rows = check_kernels(torch, inputs, ref, ops)

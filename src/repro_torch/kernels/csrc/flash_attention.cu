@@ -4,7 +4,7 @@
 // `flash_attention` (`_fa_kernel`), which walks a (batch, q_heads, q_blocks,
 // kv_blocks) grid in order on one core and carries the running max m, sum l
 // and accumulator acc in VMEM scratch across the kv axis.  Here one CTA owns
-// a block of 64 query rows of one (batch, head) and loops over the kv tiles
+// a block of query rows of one (batch, head) and loops over the kv tiles
 // itself, keeping m, l and acc in registers; CTAs run in parallel.
 //
 // Semantics, as `_fa_kernel`:
@@ -17,33 +17,55 @@
 //   Columns past Skv (a ragged last tile) are -inf and contribute nothing.
 //
 // What bounds it on an H100: operations.  Causal prefill at qwen2.5-3b's
-// shape (B=4, H=16, S=4096, D=128) does 2·B·H·S²·D = 2.75e11 FLOP on
-// 151 MB of q, k, v and out, 0.278 ms at 989 TFLOP/s against 0.045 ms at
-// 3.35 TB/s.  Two kernels, chosen by the wrapper from the inputs:
+// shape (B=4, H=16, S=4096, D=128) does 4·B·H·D per in-band (query, key)
+// pair, 2.75e11 FLOP on 151 MB of q, k, v and out: 0.278 ms at 989 TFLOP/s
+// against 0.045 ms at 3.35 TB/s.  recurrentgemma-9b's local attention (H=16,
+// one kv head, S=4096, D=256, window 2048) does 4.13e11 FLOP: 0.417 ms.
+// Only the tensor cores reach that rate, and only through `wgmma`.  Two
+// kernels, chosen by the wrapper from the inputs:
 //
-// * `flash_attention_mma_kernel` (bf16, head dim 64 or 128, the prefill
-//   path): the products run on the tensor cores as `mma.sync` m16n8k16
-//   with bf16 operands and float32 accumulators.  Four warps own 16 query
-//   rows each; q stays in registers as A fragments; k (row-major) and v
-//   (transposed) tiles of 64 keys are staged in padded shared memory so
-//   the B-fragment loads hit distinct banks; the score accumulators become
-//   P·V's A fragments in registers (P rounded to bf16, as attention_ref
-//   rounds it).  sm_scale is applied to the float32 scores, after the
-//   product, as attention_ref does.  No cp.async/TMA pipelining and no
-//   wgmma yet: the loads and the products of a tile do not overlap.
-// * `flash_attention_kernel` (float32, and bf16 at other head dims): the
-//   tiles are staged in shared memory as float32 and every product is a
-//   scalar FMA on a 4 x 2 (scores) and 4 x D/16 (output) register tile
-//   per thread, so it runs on the CUDA cores; float32 inputs need it (the
-//   tensor cores would round them), and q is scaled in float32 before the
-//   product, as `_fa_kernel` does.
+// * `flash_attention_wgmma_kernel` (bf16 at head dims 64, 128 and 256: every
+//   prefill of the port) is built for Hopper.  A CTA of three warpgroups
+//   owns 128 query rows of one (batch, head).  Warpgroup 2 is the producer:
+//   one of its threads loads Q once and keeps a two-stage ring of K and V
+//   tiles (128 keys, or 64 at D 256) full with TMA, on full/empty
+//   `mbarrier`s, so loads overlap the products.  Warpgroups 0 and 1 each
+//   own 64 rows: S = Q·Kᵀ is a `wgmma` with both operands in shared
+//   memory, the online softmax runs in registers, and O += P·V is a
+//   `wgmma` with P taken from S's accumulators (rounded to bf16, as
+//   attention_ref rounds it) and V read MN-major through the transpose-B
+//   flag.  `setmaxnreg` moves the producer's registers to the consumers (O
+//   is 64 x 256 float32 at D 256, 128 registers a thread).  Tiles are
+//   128-byte-swizzled slabs of 64 columns, the layout TMA writes and
+//   `wgmma` reads.  The tensor cores are kept busy two ways, together
+//   measured faster on the card than the kernel without them (PERF.md):
+//   within a warpgroup, S of the next tile and P·V of this one are issued
+//   together and the softmax runs while P·V does; between the two
+//   warpgroups, named barriers hand over the turn to issue products, so
+//   one's softmax runs under the other's products.  K and V tiles are
+//   released separately, K as soon as S is done.  The mask runs only on
+//   the tiles that the band's edge or the last key crosses, and the
+//   softmax is exp2 with sm_scale·log2(e) folded into one FMA.  O leaves
+//   through shared memory and a TMA store.  The tile schedule is mirrored
+//   in Python by `tile_schedule` in kernels/flash_attention.py, which the
+//   CPU tests check.
+// * `flash_attention_kernel` (float32, and bf16 at head dims 16, 32 and 96,
+//   which no path of the port runs): the tiles are staged in shared memory
+//   as float32 and every product is a scalar FMA on a 4 x 2 (scores) and
+//   4 x D/16 (output) register tile per thread, so it runs on the CUDA
+//   cores; float32 inputs need it (the tensor cores would round them), and
+//   q is scaled in float32 before the product, as `_fa_kernel` does.
 
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "float_convert.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -207,230 +229,557 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- mma.sync --
-constexpr int kMmaBQ = 64;       // query rows per CTA: 16 per warp
-constexpr int kMmaBK = 64;       // keys per tile
-constexpr int kMmaThreads = 128;
-constexpr int kPad = 8;          // bf16 pad per shared row (16 bytes)
+// ------------------------------------------------------- TMA + wgmma ----
+// Mirrored by `tile_schedule` in kernels/flash_attention.py: keep the two in
+// step.
+constexpr int kWgRows = 64;                // query rows per consumer warpgroup
+constexpr int kCtaRows = 2 * kWgRows;      // query rows per CTA
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = 3 * kWgThreads;  // consumers 0, 1; producer 2
+constexpr int kSlabCols = 64;              // bf16 columns of a 128-byte slab
+constexpr int kRowBytes = 128;             // one row of a slab
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskedLog2 = kMasked * kLog2e;  // -1e30 in log2 units
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Shared memory of one CTA at head dim D: Q (128 rows), then a ring of
+// STAGES K tiles and STAGES V tiles of BK keys, each stored as D / 64 slabs
+// of (rows x 128 bytes), 128-byte swizzled; then the mbarriers.
+template <int D>
+struct WgmmaTile {
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static constexpr int BK = D == 256 ? 64 : 128;  // keys per tile
+  static constexpr int SLABS = D / kSlabCols;
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr uint32_t Q_BYTES = kCtaRows * D * 2;
+  static constexpr uint32_t KV_BYTES = BK * D * 2;   // one K or one V tile
+  static constexpr uint32_t Q_SLAB = kCtaRows * kRowBytes;
+  static constexpr uint32_t KV_SLAB = BK * kRowBytes;
+  static constexpr int N_BARS = 1 + 4 * STAGES;
+  // + 1024: the slabs start on a 1024-byte boundary (the swizzle's period)
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 8 * N_BARS +
+                              1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The logical dim (0 seq, 1 head, 2 batch) that sits at TMA dim 1 + i of a
+// tensor map is field i (2 bits) of its `order` (see `encode_map`).
+__device__ __forceinline__ int at_dim(int order, int i, int s, int h, int b) {
+  const int which = (order >> (2 * i)) & 3;
+  return which == 0 ? s : (which == 1 ? h : b);
+}
+
+// TMA: the box at (column col, sequence row s, head h, batch b) of `map`
+// into shared memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int order, uint32_t bar, int col,
+                                         int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+      "r"(at_dim(order, 0, s, h, b)), "r"(at_dim(order, 1, s, h, b)),
+      "r"(at_dim(order, 2, s, h, b))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int order,
+                                          uint32_t src, int col, int s, int h,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(at_dim(order, 0, s, h, b)),
+      "r"(at_dim(order, 1, s, h, b)), "r"(at_dim(order, 2, s, h, b))
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (in 16-byte units), and
+// layout type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// the wait (the asm that issues a wgmma does not say when it completes).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+// The CTA's mbarriers, 8 bytes each: Q full, then K full, V full, K empty
+// and V empty for each stage of the ring.
+template <int STAGES>
+struct Barriers {
+  uint32_t base;
+  __device__ uint32_t q_full() const { return base; }
+  __device__ uint32_t k_full(int st) const { return base + 8 * (1 + st); }
+  __device__ uint32_t v_full(int st) const {
+    return base + 8 * (1 + STAGES + st);
+  }
+  __device__ uint32_t k_empty(int st) const {
+    return base + 8 * (1 + 2 * STAGES + st);
+  }
+  __device__ uint32_t v_empty(int st) const {
+    return base + 8 * (1 + 3 * STAGES + st);
+  }
+};
 
-// d += a · b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// d 16x8 float32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lane t gets, of
-// matrix i, the elements (2·(t%4), t/4) and (2·(t%4)+1, t/4) in register i;
-// lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
+// One consumer warpgroup's view of the CTA's kv tiles; `it` counts tiles
+// from the CTA's first, kb = kb_lo + it.  Accumulator layout (wgmma's D
+// matrix): warp w of the warpgroup holds rows 16w + group and 16w + group
+// + 8 (lane = 4·group + tig); register 4j + e is column 8j + 2·tig + (e & 1)
+// of row 16w + group + 8·(e >> 1).
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  // k and v tiles, [key][d] with padded rows, bf16
-  return sizeof(__nv_bfloat16) * 2 * kMmaBK * (D + kPad);
+struct Consumer {
+  using T = WgmmaTile<D>;
+  static constexpr int BK = T::BK;
+  Barriers<T::STAGES> bars;
+  uint32_t q_wg, k_s, v_s;
+  int kb_lo, skv, causal, window, r_lo, row0, tig, lane;
+  float scale_log2;
+
+  __device__ int stage(int it) const { return it % T::STAGES; }
+  __device__ uint32_t parity(int it) const { return (it / T::STAGES) & 1; }
+  __device__ void wait_k(int it) const {
+    mbar_wait(bars.k_full(stage(it)), parity(it));
+  }
+  __device__ void wait_v(int it) const {
+    mbar_wait(bars.v_full(stage(it)), parity(it));
+  }
+  // hand a K or V tile back to the producer (each consumer warp arrives
+  // once)
+  __device__ void release_k(int it) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars.k_empty(stage(it)));
+  }
+  __device__ void release_v(int it) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars.v_empty(stage(it)));
+  }
+  // a tile this warpgroup does not compute: released once it has landed
+  __device__ void pass(int it) const {
+    wait_k(it);
+    wait_v(it);
+    release_k(it);
+    release_v(it);
+  }
+
+  // Tile kb lies wholly outside the band of the 64 rows from `rows`.
+  __device__ bool outside(int kb, int rows) const {
+    const int k0 = kb * BK;
+    return (causal && k0 > rows + kWgRows - 1) ||
+           (window >= 0 && k0 + BK - 1 < rows - window);
+  }
+  // The tiles [x, y) of the CTA's [kb_lo, kb_hi) that the 64 rows from
+  // `rows` compute: the band is contiguous, so the others sit at the ends.
+  __device__ int2 own_tiles(int kb_hi, int rows) const {
+    int lo = kb_lo, hi = kb_hi;
+    while (lo < hi && outside(lo, rows)) ++lo;
+    while (hi > lo && outside(hi - 1, rows)) --hi;
+    return make_int2(lo, hi);
+  }
+  // Tile kb lies wholly inside this warpgroup's band and before Skv: it
+  // needs no mask.
+  __device__ bool inside(int kb) const {
+    const int k0 = kb * BK;
+    return k0 + BK <= skv && (!causal || k0 + BK - 1 <= r_lo) &&
+           (window < 0 || k0 >= r_lo + kWgRows - 1 - window);
+  }
+
+  // S = Q·Kᵀ of tile `it` (64 x BK, K-major operands, 16 columns of D a
+  // step), one wgmma group
+  __device__ void issue_s(float (&s)[BK / 2], int it) const {
+    const uint32_t k_st = k_s + stage(it) * T::KV_BYTES;
+#pragma unroll
+    for (int j = 0; j < T::SLABS; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < kSlabCols / 16; ++kk) {
+        const uint64_t a =
+            smem_desc(q_wg + j * T::Q_SLAB + kk * 32, 16, 1024);
+        const uint64_t b =
+            smem_desc(k_st + j * T::KV_SLAB + kk * 32, 16, 1024);
+        wgmma_ss<BK>(s, a, b, (j | kk) != 0);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+
+  // O += P·V of tile `it`: V [key][d] is MN-major for this product; 16
+  // keys a step (2,048 bytes into every slab), the next 64 columns one
+  // slab on; one wgmma group
+  __device__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[BK / 16][4],
+                           int it) const {
+    const uint32_t v_st = v_s + stage(it) * T::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_tb<D>(o, p[kk],
+                     smem_desc(v_st + kk * 16 * kRowBytes, T::KV_SLAB, 1024),
+                     1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+
+  // The online softmax of tile kb in log2 units: updates m and l (l a
+  // partial sum over this thread's columns), turns s into P and gives each
+  // row's rescale factor for O.  A row's BK columns live in a lane quad.
+  __device__ void softmax(float (&s)[BK / 2], int kb, float (&m)[2],
+                          float (&l)[2], float (&alpha)[2]) const {
+    float mx[2] = {m[0], m[1]};
+    const bool plain = inside(kb);
+    if (plain) {
+      float raw[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        raw[(i >> 1) & 1] = fmaxf(raw[(i >> 1) & 1], s[i]);
+      mx[0] = fmaxf(mx[0], raw[0] * scale_log2);
+      mx[1] = fmaxf(mx[1], raw[1] * scale_log2);
+    } else {
+      const int k0 = kb * BK;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const int row = row0 + 8 * r;
+        const int col = k0 + (i >> 2) * 8 + 2 * tig + (i & 1);
+        float t = s[i] * scale_log2;
+        if (col >= skv)
+          t = -INFINITY;
+        else if ((causal && col > row) || (window >= 0 && col < row - window))
+          t = kMaskedLog2;
+        s[i] = t;
+        mx[r] = fmaxf(mx[r], t);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = fast_exp2(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    float ps[2] = {0.f, 0.f};
+    if (plain) {
+      // sm_scale·log2(e) and the max folded into one FMA
+      const float nm[2] = {-m[0], -m[1]};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = fast_exp2(fmaf(s[i], scale_log2, nm[(i >> 1) & 1]));
+        ps[(i >> 1) & 1] += s[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = fast_exp2(s[i] - m[(i >> 1) & 1]);
+        ps[(i >> 1) & 1] += s[i];
+      }
+    }
+    l[0] = alpha[0] * l[0] + ps[0];
+    l[1] = alpha[1] * l[1] + ps[1];
+  }
+};
+
+// O's rows times their softmax rescale factors
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 }
 
-// Fragment layout of m16n8k16 (lane = 4 * group + tig): A holds rows
-// group and group + 8 at columns 2·tig + {0, 1} and + 8; B holds column
-// (n) group at rows (k) 2·tig + {0, 1} and + 8; C/D hold rows group and
-// group + 8 at columns 2·tig + {0, 1}.  A padded shared row (D + 8 bf16)
-// puts the 8 rows a fragment load touches on distinct banks.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               __nv_bfloat16* __restrict__ out, int n_heads,
-                               int q_per_kv, int sq, int skv, int64_t q_sb,
-                               int64_t q_sh, int64_t q_ss, int64_t k_sb,
-                               int64_t k_sh, int64_t k_ss, int64_t v_sb,
-                               int64_t v_sh, int64_t v_ss, float sm_scale,
-                               int causal, int window) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int KS = D + kPad;        // k_s and v_s row stride (elements)
-  constexpr int NKD = D / 16;         // k-steps of q·kᵀ
-  constexpr int NT = kMmaBK / 8;      // score n-tiles per tile
-  constexpr int NO = D / 8;           // output n-tiles
-  constexpr int V8 = D / 8;           // 16-byte vectors per k/v row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kMmaBK * KS;
+// P as A fragments of O += P·V: score n-tiles 2kk and 2kk + 1 are keys
+// 16kk..16kk + 15, rounded to bf16
+template <int BK>
+__device__ __forceinline__ void to_a_fragments(const float (&s)[BK / 2],
+                                               uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal blocks first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q_start = qb * kMmaBQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+// Named barriers 3 and 4 pass the turn to issue products between the two
+// consumer warpgroups: warpgroup w waits on 3 + w, the other arrives there.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(3 + wg), "n"(2 * kWgThreads)
+               : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(3 + (1 - wg)),
+               "n"(2 * kWgThreads)
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// One consumer warpgroup: 64 query rows against the CTA's kv tiles.
+// * The products of consecutive tiles overlap the softmax: S of tile i + 1
+//   and P·V of tile i are issued together, and the softmax of tile i + 1
+//   runs while P·V is still on the tensor cores.  O's rescale for tile i
+//   runs while S of tile i + 1 is.
+// * The two warpgroups take turns to issue their products (warpgroup 0
+//   first), so that one's softmax runs while the other's products are on
+//   the tensor cores.  A warpgroup issues in n + 1 rounds for n tiles; the
+//   one with fewer pads with empty rounds, so both take as many.
+template <int D>
+__device__ __forceinline__ void wgmma_consumer(
+    int wg, uint32_t q_s, uint32_t k_s, uint32_t v_s,
+    Barriers<WgmmaTile<D>::STAGES> bars, const CUtensorMap* o_map,
+    int o_order, int h, int b, int q0, int kb_lo, int kb_hi, int skv,
+    float scale_log2, int causal, int window) {
+  using T = WgmmaTile<D>;
+  constexpr int BK = T::BK;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
   const int group = lane / 4;
-  const int tig = lane % 4;
+  Consumer<D> c;
+  c.bars = bars;
+  c.q_wg = q_s + wg * kWgRows * kRowBytes;
+  c.k_s = k_s;
+  c.v_s = v_s;
+  c.kb_lo = kb_lo;
+  c.skv = skv;
+  c.causal = causal;
+  c.window = window;
+  c.r_lo = q0 + wg * kWgRows;
+  c.row0 = c.r_lo + warp * 16 + group;  // and row0 + 8
+  c.tig = lane % 4;
+  c.lane = lane;
+  c.scale_log2 = scale_log2;
 
-  const __nv_bfloat16* qp = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kp = k + b * k_sb + (h / q_per_kv) * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + (h / q_per_kv) * v_sh;
+  const int2 mine = c.own_tiles(kb_hi, c.r_lo);
+  const int2 other = c.own_tiles(kb_hi, q0 + (1 - wg) * kWgRows);
+  const int n_mine = mine.y - mine.x, n_other = other.y - other.x;
+  for (int kb = kb_lo; kb < mine.x; ++kb) c.pass(kb - kb_lo);
 
-  // this warp's 16 query rows as A fragments, straight from device memory
-  const int row0 = q_start + warp * 16 + group;   // and row0 + 8
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  uint32_t qf[NKD][4];
+  float o[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < NKD; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + (r & 1) * 8;
-      const int col = kk * 16 + 2 * tig + (r >> 1) * 8;
-      const bool ok = row < sq;
-      const __nv_bfloat16* src = qp + row * q_ss + col;
-      qf[kk][r] = pack_bf16(ok ? src[0] : zero, ok ? src[1] : zero);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // m in log2 units; l a partial sum over this thread's columns, summed
+  // over the lane quad once at the end
+  float m[2] = {kMaskedLog2, kMaskedLog2}, l[2] = {0.f, 0.f};
+  float s[BK / 2], alpha[2];
+  uint32_t p[BK / 16][4];
+  if (wg == 1) turn_pass(1);
+  if (n_mine > 0) {
+    mbar_wait(bars.q_full(), 0);
+    int it = mine.x - kb_lo;
+    c.wait_k(it);
+    turn_wait(wg);
+    wgmma_fence();
+    c.issue_s(s, it);
+    turn_pass(wg);
+    wgmma_wait_all();
+    fence_regs(s);
+    c.release_k(it);
+    c.softmax(s, mine.x, m, l, alpha);
+    to_a_fragments<BK>(s, p);
+    for (int kb = mine.x + 1; kb < mine.y; ++kb, ++it) {
+      c.wait_k(it + 1);
+      turn_wait(wg);
+      wgmma_fence();
+      c.issue_s(s, it + 1);
+      rescale<D>(o, alpha);
+      c.wait_v(it);
+      wgmma_fence();
+      c.issue_pv(o, p, it);
+      turn_pass(wg);
+      wgmma_wait_all_but_one();  // S
+      fence_regs(s);
+      c.release_k(it + 1);
+      c.softmax(s, kb, m, l, alpha);
+      wgmma_wait_all();  // P·V
+      fence_regs(o);
+      c.release_v(it);
+      to_a_fragments<BK>(s, p);
     }
+    c.wait_v(it);
+    rescale<D>(o, alpha);
+    turn_wait(wg);
+    wgmma_fence();
+    c.issue_pv(o, p, it);
+    turn_pass(wg);
+    wgmma_wait_all();
+    fence_regs(o);
+    c.release_v(it);
   }
-
-  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  int kb_lo = 0;
-  int kb_hi = (skv + kMmaBK - 1) / kMmaBK;
-  if (causal) kb_hi = min(kb_hi, (q_start + kMmaBQ - 1) / kMmaBK + 1);
-  if (window >= 0 && q_start - window > 0)
-    kb_lo = (q_start - window) / kMmaBK;
-
-  for (int kb = kb_lo; kb < kb_hi; ++kb) {
-    const int k_start = kb * kMmaBK;
-    __syncthreads();  // the last tile's readers are done
-    for (int i = tid; i < kMmaBK * V8; i += kMmaThreads) {
-      const int c = i / V8, d = (i % V8) * 8;
-      const int col = k_start + c;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (col < skv) {
-        kv = *reinterpret_cast<const uint4*>(kp + col * k_ss + d);
-        vv = *reinterpret_cast<const uint4*>(vp + col * v_ss + d);
-      }
-      *reinterpret_cast<uint4*>(k_s + c * KS + d) = kv;
-      *reinterpret_cast<uint4*>(v_s + c * KS + d) = vv;
-    }
-    __syncthreads();
-
-    // scores: 16 rows x 64 keys per warp
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (nt * 8 + group) * KS + 2 * tig;
-#pragma unroll
-      for (int kk = 0; kk < NKD; ++kk) {
-        mma_bf16(s[nt], qf[kk],
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-      }
-    }
-
-    // mask, online softmax; each row's 64 columns live in one lane quad
-    float mc[2] = {kMasked, kMasked};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k_start + nt * 8 + 2 * tig + (e & 1);
-        s[nt][e] = mask_score(s[nt][e] * sm_scale, row, col, skv, causal,
-                              window);
-        mc[e >> 1] = fmaxf(mc[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
-      mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
-      const float mn = fmaxf(m[r], mc[r]);
-      alpha[r] = expf(m[r] - mn);
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
-        ps[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
-      l[r] = alpha[r] * l[r] + ps[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // o += P·V: two score n-tiles make one A fragment of 16 keys
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      // B fragments of output n-tiles j, j + 1: v rows kk·16 + 0..15
-      // (lanes 0-15, then 16-31 one n-tile on), transposed on load
-#pragma unroll
-      for (int j = 0; j < NO; j += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, v_s + (kk * 16 + (lane & 15)) * KS +
-                                  (j + (lane >> 4)) * 8);
-        mma_bf16(o[j], pa, vb[0], vb[1]);
-        mma_bf16(o[j + 1], pa, vb[2], vb[3]);
-      }
-    }
+  for (int r = n_mine ? n_mine + 1 : 0; r < (n_other ? n_other + 1 : 0);
+       ++r) {
+    turn_wait(wg);
+    turn_pass(wg);
   }
+  if (wg == 0) turn_wait(0);  // warpgroup 1's last pass
+  for (int kb = mine.y; kb < kb_hi; ++kb) c.pass(kb - kb_lo);
 
+  // normalise, stage O as bf16 in this warpgroup's Q rows (its last read
+  // of them is done) in the swizzled slab layout, and store it with TMA
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
-    if (row >= sq) continue;
-    const float li = l[r] == 0.f ? 1.f : l[r];
-    __nv_bfloat16* op = out + ((int64_t)(b * n_heads + h) * sq + row) * D;
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const int col = j * 8 + 2 * tig;
-      op[col] = __float2bfloat16(o[j][2 * r] / li);
-      op[col + 1] = __float2bfloat16(o[j][2 * r + 1] / li);
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + group + 8 * r;
+      const uint32_t addr = c.q_wg + (j / 8) * T::Q_SLAB + row * kRowBytes +
+                            (((j % 8) ^ (row % 8)) * 16) + c.tig * 4;
+      const uint32_t val = pack_bf16(o[4 * j + 2 * r] * inv[r],
+                                     o[4 * j + 2 * r + 1] * inv[r]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(val)
+                   : "memory");
     }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWgThreads)
+               : "memory");
+  if (tid == 0) {
+#pragma unroll
+    for (int j = 0; j < T::SLABS; ++j)
+      tma_store(o_map, o_order, c.q_wg + j * T::Q_SLAB, j * kSlabCols,
+                c.r_lo, h, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap o_map,
+                                 int4 orders, int q_per_kv, int sq, int skv,
+                                 float scale_log2, int causal, int window) {
+  using T = WgmmaTile<D>;
+  constexpr int BK = T::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + T::Q_BYTES;  // stage i at + i · KV_BYTES
+  const uint32_t v_s = k_s + T::STAGES * T::KV_BYTES;
+  const Barriers<T::STAGES> bars{v_s + T::STAGES * T::KV_BYTES};
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kCtaRows;  // heaviest first
+  // the kv tiles inside this CTA's band
+  int kb_lo = 0;
+  int kb_hi = (skv + BK - 1) / BK;
+  if (causal) kb_hi = min(kb_hi, (q0 + kCtaRows - 1) / BK + 1);
+  if (window >= 0 && q0 - window > 0) kb_lo = (q0 - window) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars.q_full(), 1);
+#pragma unroll
+    for (int i = 0; i < T::STAGES; ++i) {
+      mbar_init(bars.k_full(i), 1);
+      mbar_init(bars.v_full(i), 1);
+      // one arrival from each consumer warp
+      mbar_init(bars.k_empty(i), 8);
+      mbar_init(bars.v_empty(i), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != 2 * kWgThreads) return;
+    const int hk = h / q_per_kv;
+    mbar_expect_tx(bars.q_full(), T::Q_BYTES);
+#pragma unroll
+    for (int j = 0; j < T::SLABS; ++j)
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+        tma_load(q_s + j * T::Q_SLAB + w * kWgRows * kRowBytes, &q_map,
+                 orders.x, bars.q_full(), j * kSlabCols, q0 + w * kWgRows, h,
+                 b);
+    for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
+      const int st = it % T::STAGES;
+      const uint32_t ph = (it / T::STAGES) & 1;  // a fresh ring is empty
+      mbar_wait(bars.k_empty(st), ph ^ 1);
+      mbar_expect_tx(bars.k_full(st), T::KV_BYTES);
+#pragma unroll
+      for (int j = 0; j < T::SLABS; ++j)
+        tma_load(k_s + st * T::KV_BYTES + j * T::KV_SLAB, &k_map, orders.y,
+                 bars.k_full(st), j * kSlabCols, kb * BK, hk, b);
+      mbar_wait(bars.v_empty(st), ph ^ 1);
+      mbar_expect_tx(bars.v_full(st), T::KV_BYTES);
+#pragma unroll
+      for (int j = 0; j < T::SLABS; ++j)
+        tma_load(v_s + st * T::KV_BYTES + j * T::KV_SLAB, &v_map, orders.z,
+                 bars.v_full(st), j * kSlabCols, kb * BK, hk, b);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    wgmma_consumer<D>(wg, q_s, k_s, v_s, bars, &o_map, orders.w, h, b, q0,
+                      kb_lo, kb_hi, skv, scale_log2, causal, window);
   }
 }
 
@@ -451,22 +800,114 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// Error codes of the C interface beyond cudaError_t's: no encoder, or the
+// encoder's CUresult + kEncodeFailed.
+constexpr int kNoEncoder = 199999;
+constexpr int kEncodeFailed = 200000;
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (B, H, S, D) tensor (element strides st = (b, h, s), unit d
+// stride) as a 4-D TMA map: dim 0 is d, dims 1-3 are s, h and b in the order
+// of their strides, increasing (for the model's transposed (B, S, H, D)
+// views that is h, s, b).  The box is 64 columns x `rows` rows of one head
+// and batch, 128-byte swizzled; rows past S read as zeros and are not
+// stored.  *order gets the logical dim (0 s, 1 h, 2 b) at TMA dims 1-3,
+// two bits each.
+int encode_map(CUtensorMap* map, int* order, const void* ptr, int batch,
+               int heads, int seq, int d, const int64_t* st, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const uint64_t ext[3] = {(uint64_t)seq, (uint64_t)heads, (uint64_t)batch};
+  uint64_t bytes[3] = {2 * (uint64_t)st[2], 2 * (uint64_t)st[1],
+                       2 * (uint64_t)st[0]};
+  // a dim of extent 1 is only ever at coordinate 0: give it a stride past
+  // the others, so it sorts last
+  uint64_t past = 2 * (uint64_t)d;
+  for (int i = 0; i < 3; ++i)
+    if (ext[i] > 1 && bytes[i] * ext[i] > past) past = bytes[i] * ext[i];
+  past = (past + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i)
+    if (ext[i] == 1) bytes[i] = past;
+  int idx[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)  // insertion sort, stable
+    for (int j = i; j > 0 && bytes[idx[j]] < bytes[idx[j - 1]]; --j) {
+      const int t = idx[j];
+      idx[j] = idx[j - 1];
+      idx[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)d, ext[idx[0]], ext[idx[1]], ext[idx[2]]};
+  cuuint64_t strides[3] = {bytes[idx[0]], bytes[idx[1]], bytes[idx[2]]};
+  cuuint32_t box[4] = {kSlabCols, 1, 1, 1};
+  for (int i = 0; i < 3; ++i)
+    if (idx[i] == 0) box[1 + i] = rows;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;
+  *order = idx[0] | (idx[1] << 2) | (idx[2] << 4);
+  return 0;
+}
+
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               int batch, int n_heads, int n_kv_heads, int sq, int skv,
-               const int64_t* st, float sm_scale, int causal, int window,
-               cudaStream_t stream) {
-  auto kern = flash_attention_mma_kernel<D>;
-  constexpr size_t smem = mma_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, n_heads, batch);
-  kern<<<grid, kMmaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, n_heads,
-      n_heads / n_kv_heads, sq, skv, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], sm_scale, causal, window);
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int batch, int n_heads, int n_kv_heads, int sq, int skv,
+                 const int64_t* st, float sm_scale, int causal, int window,
+                 cudaStream_t stream) {
+  using T = WgmmaTile<D>;
+  CUtensorMap maps[4];
+  int orders[4];
+  const int64_t out_st[3] = {(int64_t)n_heads * sq * D, (int64_t)sq * D, D};
+  int e = encode_map(&maps[0], &orders[0], q, batch, n_heads, sq, D, st,
+                     kWgRows);
+  if (!e)
+    e = encode_map(&maps[1], &orders[1], k, batch, n_kv_heads, skv, D,
+                   st + 3, T::BK);
+  if (!e)
+    e = encode_map(&maps[2], &orders[2], v, batch, n_kv_heads, skv, D,
+                   st + 6, T::BK);
+  if (!e)
+    e = encode_map(&maps[3], &orders[3], out, batch, n_heads, sq, D, out_st,
+                   kWgRows);
+  if (e) return e;
+  auto kern = flash_attention_wgmma_kernel<D>;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (a != cudaSuccess) return (int)a;
+  const dim3 grid(n_heads, batch, (sq + kCtaRows - 1) / kCtaRows);
+  kern<<<grid, kWgmmaThreads, T::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3],
+      make_int4(orders[0], orders[1], orders[2], orders[3]),
+      n_heads / n_kv_heads, sq, skv, sm_scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -482,13 +923,20 @@ int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
   switch (d) {
     FA_CASE(16)
     FA_CASE(32)
-    FA_CASE(64)
     FA_CASE(96)
-    FA_CASE(128)
-    FA_CASE(256)
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (std::is_same<T, float>::value) {  // bf16 here: TMA + wgmma
+    switch (d) {
+      FA_CASE(64)
+      FA_CASE(128)
+      FA_CASE(256)
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 #undef FA_CASE
 }
 
@@ -496,9 +944,11 @@ int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 float32, 1 bfloat16.  strides: q, k, v each (batch, head, seq),
 // in elements; the head-dim stride is 1.  window < 0: no window.  bf16 at
-// head dim 64 or 128 takes the tensor-core kernel, which reads k and v in
-// 16-byte vectors: their base addresses and strides must be multiples of
-// 16 bytes (the wrapper sees to it).
+// head dim 64, 128 or 256 takes the TMA + wgmma kernel, which needs the
+// base addresses of q, k and v and their strides in multiples of 16 bytes,
+// and no stride 0 on a dim longer than 1 (the wrapper sees to it).  Returns
+// 0, a cudaError_t, or (TMA map encoding) kNoEncoder / kEncodeFailed +
+// CUresult.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int dtype,
                                       int batch, int n_heads, int n_kv_heads,
@@ -510,15 +960,45 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0)
     return launch_dim<float>(d, q, k, v, out, batch, n_heads, n_kv_heads, sq,
                              skv, strides, sm_scale, causal, window, s);
-  if (dtype == 1 && d == 64)
-    return launch_mma<64>(q, k, v, out, batch, n_heads, n_kv_heads, sq, skv,
-                          strides, sm_scale, causal, window, s);
-  if (dtype == 1 && d == 128)
-    return launch_mma<128>(q, k, v, out, batch, n_heads, n_kv_heads, sq, skv,
-                           strides, sm_scale, causal, window, s);
+#define FA_WGMMA(DIM)                                                       \
+  if (dtype == 1 && d == DIM)                                               \
+    return launch_wgmma<DIM>(q, k, v, out, batch, n_heads, n_kv_heads, sq, \
+                             skv, strides, sm_scale, causal, window, s);
+  FA_WGMMA(64)
+  FA_WGMMA(128)
+  FA_WGMMA(256)
+#undef FA_WGMMA
   if (dtype == 1)
     return launch_dim<__nv_bfloat16>(d, q, k, v, out, batch, n_heads,
                                      n_kv_heads, sq, skv, strides, sm_scale,
                                      causal, window, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The TMA + wgmma kernel's build at head dim d (64, 128 or 256): attrs gets
+// registers a thread, static shared bytes, the dynamic shared bytes it is
+// launched with, local (spill) bytes a thread, and max threads a block.
+extern "C" int flash_attention_wgmma_attributes(int d, int* attrs) {
+  cudaFuncAttributes fa;
+  cudaError_t e;
+  int dyn;
+  if (d == 64) {
+    e = cudaFuncGetAttributes(&fa, flash_attention_wgmma_kernel<64>);
+    dyn = WgmmaTile<64>::SMEM;
+  } else if (d == 128) {
+    e = cudaFuncGetAttributes(&fa, flash_attention_wgmma_kernel<128>);
+    dyn = WgmmaTile<128>::SMEM;
+  } else if (d == 256) {
+    e = cudaFuncGetAttributes(&fa, flash_attention_wgmma_kernel<256>);
+    dyn = WgmmaTile<256>::SMEM;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return (int)e;
+  attrs[0] = fa.numRegs;
+  attrs[1] = (int)fa.sharedSizeBytes;
+  attrs[2] = dyn;
+  attrs[3] = (int)fa.localSizeBytes;
+  attrs[4] = fa.maxThreadsPerBlock;
+  return 0;
 }

@@ -2,12 +2,15 @@
 
 Port of the TPU kernel ``repro.kernels.flash_attention``: blocked
 online-softmax attention with causal and/or sliding-window masks and GQA by
-index.  The kernel (``csrc/flash_attention.cu``) gives each CTA 64 query
-rows of one (batch, head) and loops over the kv tiles inside the band: on
-the tensor cores for bf16 at head dims 64 and 128 (prefill), with scalar
-FMAs for float32 and the other head dims.  On a CPU tensor the wrapper
-runs the plain version (:func:`repro_torch.kernels.ref.attention_ref`); on
-a CUDA tensor it launches the kernel or raises.
+index.  ``csrc/flash_attention.cu`` holds two kernels, and
+:func:`kernel_for` says which one takes an input: bf16 at head dims 64, 128
+and 256 (every prefill of the port) runs on the Hopper kernel, which loads
+tiles with TMA and multiplies with ``wgmma`` on the tensor cores (128 query
+rows a CTA, its kv tiles as :func:`tile_schedule` lists them); float32,
+and bf16 at the other head dims, run on the scalar-FMA kernel.  On a CPU
+tensor the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it
+launches the kernel or raises.
 
 The wrapper keeps the reference kernel's contract, so both packages accept
 the same inputs: ``Sq`` and ``Skv`` divisible by ``min(256, S)`` (its
@@ -31,17 +34,82 @@ _I = ctypes.c_int
 #: the reference kernel's default block size, which fixes its contract
 BLOCK = 256
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-#: bf16 at these head dims runs on the tensor cores (``mma.sync``); every
-#: other input on the scalar-FMA kernel
-MMA_HEAD_DIMS = (64, 128)
+#: bf16 at these head dims runs on the TMA + ``wgmma`` kernel; every other
+#: input on the scalar-FMA kernel
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the Hopper kernel's blocks: query rows per consumer warpgroup, two
+#: warpgroups a CTA
+WG_ROWS = 64
+CTA_ROWS = 2 * WG_ROWS
+#: error codes of the C interface beyond ``cudaError_t``'s
+_NO_ENCODER, _ENCODE_FAILED = 199999, 200000
 
 
-def _vector_aligned(t: torch.Tensor) -> bool:
-    """Every row of ``t`` starts on a 16-byte boundary."""
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The CUDA kernel that takes ``dtype`` inputs at head dim ``d``:
+    ``"wgmma"`` (TMA + ``wgmma`` on the tensor cores) or ``"scalar"``
+    (scalar FMAs; float32, which the tensor cores would round, and bf16 at
+    the head dims the Hopper kernel is not built for)."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "scalar"
+
+
+def block_k(d: int) -> int:
+    """Keys per kv tile of the Hopper kernel at head dim ``d``: 128, or 64
+    at head dim 256, where O takes 128 registers a thread and K and V
+    tiles 32 KB each."""
+    return 64 if d == 256 else 128
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """TMA can read ``t`` in place: a 16-byte-aligned base, and every
+    (batch, head, seq) stride of a dim longer than 1 a positive multiple of
+    16 bytes."""
     size = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
-        t.stride(i) * size % 16 == 0 for i in range(3))
+        t.shape[i] == 1 or (t.stride(i) > 0 and t.stride(i) * size % 16 == 0)
+        for i in range(3))
+
+
+def tile_schedule(sq: int, skv: int, d: int, causal: bool,
+                  window: int | None) -> list[dict]:
+    """The Hopper kernel's schedule, as ``flash_attention_wgmma_kernel`` and
+    ``wgmma_consumer`` compute it: for each CTA (query block ``qb`` of
+    :data:`CTA_ROWS` rows) the kv tiles ``[kb_lo, kb_hi)`` its producer
+    loads, and for each of its two consumer warpgroups (:data:`WG_ROWS`
+    rows each) the tiles it computes, as ``(kb, masked)``: a tile wholly
+    outside the warpgroup's band is skipped, one wholly inside it (and
+    before Skv) runs without the mask."""
+    bk = block_k(d)
+    w = -1 if window is None else window
+    out = []
+    for qb in range(-(-sq // CTA_ROWS)):
+        q0 = qb * CTA_ROWS
+        kb_lo, kb_hi = 0, -(-skv // bk)
+        if causal:
+            kb_hi = min(kb_hi, (q0 + CTA_ROWS - 1) // bk + 1)
+        if w >= 0 and q0 - w > 0:
+            kb_lo = (q0 - w) // bk
+        groups = []
+        for wg in range(2):
+            r_lo = q0 + wg * WG_ROWS
+            r_hi = r_lo + WG_ROWS - 1
+            tiles = []
+            for kb in range(kb_lo, kb_hi):
+                k0 = kb * bk
+                outside = ((causal and k0 > r_hi)
+                           or (w >= 0 and k0 + bk - 1 < r_lo - w))
+                inside = (k0 + bk <= skv
+                          and (not causal or k0 + bk - 1 <= r_lo)
+                          and (w < 0 or k0 >= r_hi - w))
+                if not outside:
+                    tiles.append((kb, not inside))
+            groups.append(tiles)
+        out.append({"qb": qb, "kb_lo": kb_lo, "kb_hi": kb_hi,
+                    "warpgroups": groups})
+    return out
 
 
 @functools.cache
@@ -51,7 +119,24 @@ def _lib():
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
         _I, _I, _P]
     lib.flash_attention_launch.restype = _I
+    lib.flash_attention_wgmma_attributes.argtypes = [_I, _P]
+    lib.flash_attention_wgmma_attributes.restype = _I
     return lib
+
+
+def wgmma_attributes(d: int) -> dict:
+    """The TMA + ``wgmma`` kernel's build at head dim ``d`` (64, 128 or
+    256), from ``cudaFuncGetAttributes``: registers a thread, static and
+    dynamic shared memory, local (spill) bytes a thread, max threads a
+    block.  Needs a card."""
+    lib = _lib()
+    attrs = (ctypes.c_int * 5)()
+    err = lib.flash_attention_wgmma_attributes(d, attrs)
+    if err:
+        raise RuntimeError(f"flash_attention_wgmma_attributes({d}) failed: "
+                           f"cudaError_t {err}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes", "max_threads"), attrs))
 
 
 def check_attention_args(q, k, v, causal: bool, window) -> None:
@@ -101,11 +186,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"head dim {d} not built; the kernel takes "
                          f"{HEAD_DIMS}")
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
-    if q.dtype == torch.bfloat16 and d in MMA_HEAD_DIMS:
-        # the tensor-core kernel reads k and v in 16-byte vectors
-        k, v = (t if _vector_aligned(t)
-                else t.clone(memory_format=torch.contiguous_format)
-                for t in (k, v))
+    if kernel_for(q.dtype, d) == "wgmma":
+        # TMA reads q, k and v in place only where they are aligned
+        q, k, v = (t if tma_ready(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     lib = _lib()
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 9)(*(t.stride(i) for t in (q, k, v)
@@ -117,6 +202,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
             ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
             int(causal), -1 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _ENCODE_FAILED})")
+    if err == _NO_ENCODER:
+        raise RuntimeError("flash_attention: no cuTensorMapEncodeTiled "
+                           "entry point (CUDA 12.0 or later is needed)")
     if err:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"cudaGetLastError() = {err}")

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fingerprint_filter import fingerprint_filter
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.inputs import filter_lanes
 from repro_torch.kernels.tickfuse import tickfuse_response_path
@@ -248,9 +249,111 @@ def test_flash_attention_keeps_the_reference_contract():
     assert flash_attention.launches == before  # CPU tensors launch nothing
 
 
+#: (sq, skv, d, causal, window): causal at both tile sizes, windows
+#: narrower than a tile and wider than the sequence, bidirectional, a
+#: ragged 255 rows, and bidirectional cross-length attention
+SCHEDULE_CASES = [
+    (512, 512, 128, True, None),
+    (512, 512, 256, True, None),
+    (512, 512, 64, True, 16),
+    (512, 512, 256, True, 100),
+    (1024, 1024, 256, True, 300),
+    (256, 256, 128, True, 4096),
+    (512, 512, 128, False, None),
+    (255, 255, 256, True, None),
+    (255, 255, 128, True, 16),
+    (256, 512, 128, False, None),
+    (512, 256, 256, False, None),
+]
+
+
+@pytest.mark.parametrize("sq,skv,d,causal,window", SCHEDULE_CASES)
+def test_tile_schedule_covers_the_band(sq, skv, d, causal, window):
+    """The Hopper kernel's tile schedule (its Python mirror): every (row,
+    col) pair that the mask keeps lies in a tile that the row's warpgroup
+    computes, and every tile it computes without the mask keeps all its
+    pairs."""
+    bk = fa_mod.block_k(d)
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(skv)[None, :]
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= cols <= rows
+    if window is not None:
+        keep &= cols >= rows - window
+    sched = fa_mod.tile_schedule(sq, skv, d, causal, window)
+    assert len(sched) == -(-sq // fa_mod.CTA_ROWS)
+    visited = np.zeros((sq, skv), bool)
+    for block in sched:
+        for wg, tiles in enumerate(block["warpgroups"]):
+            r0 = block["qb"] * fa_mod.CTA_ROWS + wg * fa_mod.WG_ROWS
+            r = slice(r0, min(r0 + fa_mod.WG_ROWS, sq))
+            kbs = [kb for kb, _ in tiles]
+            assert kbs == sorted(kbs)
+            assert all(block["kb_lo"] <= kb < block["kb_hi"] for kb in kbs)
+            for kb, masked in tiles:
+                c = slice(kb * bk, min((kb + 1) * bk, skv))
+                visited[r, c] = True
+                if not masked:
+                    assert kb * bk + bk <= skv
+                    assert keep[r, c].all(), (block["qb"], wg, kb)
+    assert not (keep & ~visited).any()
+
+
+def test_tile_schedule_skips_tiles_outside_the_band():
+    """Causal at qwen2.5-3b's sequence: a CTA loads only the tiles up to
+    its diagonal, and at head dim 256 (64-key tiles) its first warpgroup
+    skips the last one; a 2,048 window starts a late block's tiles at its
+    lower edge."""
+    sched = fa_mod.tile_schedule(4096, 4096, 128, True, None)
+    assert [b["kb_hi"] for b in sched] == list(range(1, 33))
+    assert all(b["kb_lo"] == 0 for b in sched)
+    # one masked tile a warpgroup: the diagonal
+    assert all(sum(m for _, m in t) == 1
+               for b in sched for t in b["warpgroups"])
+    band = fa_mod.tile_schedule(4096, 4096, 256, True, 2048)
+    last = band[-1]
+    assert (last["kb_lo"], last["kb_hi"]) == (30, 64)
+    wg0, wg1 = last["warpgroups"]
+    assert wg0[-1][0] == 62 and wg1[0][0] == 31
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "scalar"),
+    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 96, "scalar"),
+    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
+    (torch.float32, 256, "scalar")])
+def test_kernel_routing(dtype, d, kernel):
+    """Which CUDA kernel each dtype and head dim goes to: bf16 at 64, 128
+    and 256 to the TMA + wgmma kernel, everything else to the scalar one."""
+    assert fa_mod.kernel_for(dtype, d) == kernel
+
+
+def test_tma_alignment_checks():
+    """TMA reads q, k and v in place only from 16-byte-aligned bases and
+    strides; the wrapper copies anything else."""
+    t = torch.zeros(2, 4, 64, 128, dtype=torch.bfloat16)
+    assert fa_mod.tma_ready(t)
+    # the model's (B, S, H, D) tensors, transposed
+    assert fa_mod.tma_ready(t.permute(0, 2, 1, 3).contiguous()
+                            .transpose(1, 2))
+    # a base 2 bytes off a 16-byte boundary
+    flat = torch.zeros(1 + 2 * 64 * 128, dtype=torch.bfloat16)
+    assert not fa_mod.tma_ready(flat[1:].view(1, 2, 64, 128))
+    # a sequence stride of 136 bytes
+    wide = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16)
+    assert not fa_mod.tma_ready(wide[..., :64])
+    # a broadcast (stride 0) head dim longer than 1
+    one = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16)
+    assert not fa_mod.tma_ready(one.expand(1, 4, 64, 64))
+    # a dim of extent 1 may have any stride
+    assert fa_mod.tma_ready(one.expand(1, 1, 64, 64))
+
+
 #: the reference's sweep plus qwen2.5-3b's heads (16 q, 2 kv, D 128) at a
-#: ragged 255 rows, the tensor-core kernel (bf16, D 64 and 128) windowed
-#: and bidirectional, and the scalar kernel at the other head dims
+#: ragged 255 rows, the TMA + wgmma kernel (bf16, D 64, 128 and 256)
+#: windowed and bidirectional, and the scalar kernel at the other head dims
 FA_CUDA_CASES = FA_CASES + [
     (1, 16, 2, 255, 128, True, None, "bfloat16"),
     (1, 4, 2, 512, 64, True, 128, "bfloat16"),
@@ -258,6 +361,13 @@ FA_CUDA_CASES = FA_CASES + [
     (2, 4, 4, 256, 96, True, None, "bfloat16"),
     (1, 2, 1, 256, 256, True, None, "float32"),
     (1, 2, 2, 256, 16, False, None, "float32"),
+    (1, 4, 1, 512, 256, True, 128, "bfloat16"),     # D 256 MQA, window
+    (1, 4, 1, 255, 256, True, None, "bfloat16"),    # D 256 ragged
+    (2, 8, 2, 512, 64, True, 16, "bfloat16"),       # D 64 GQA, window 16
+    (1, 4, 4, 1024, 128, False, None, "bfloat16"),  # D 128 bidirectional
+    (2, 4, 2, 4, 128, True, None, "bfloat16"),      # a 4-token prompt
+    (1, 4, 1, 64, 256, True, None, "bfloat16"),     # one warpgroup's rows
+    (1, 2, 2, 100, 64, False, None, "bfloat16"),    # ragged, bidirectional
 ]
 
 
@@ -281,14 +391,16 @@ def test_cuda_flash_attention_matches_plain_version(b, h, hkv, s, d, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_cuda_flash_attention_reads_transposed_views(dtype):
+@pytest.mark.parametrize("dtype,d,hkv", [("bfloat16", 128, 2),
+                                         ("float32", 128, 2),
+                                         ("bfloat16", 256, 1)])
+def test_cuda_flash_attention_reads_transposed_views(dtype, d, hkv):
     """The model passes q, k, v as ``(B, S, H, D)`` tensors transposed to
     ``(B, H, S, D)``; the kernel reads them through their strides."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, ts = _qkv(2, 16, 2, 256, 128, dtype, seed=11)
+    _, ts = _qkv(2, 16, hkv, 256, d, dtype, seed=11)
     q, k, v = (t.transpose(1, 2).contiguous().cuda().transpose(1, 2)
                for t in ts)
     assert not q.is_contiguous()
