@@ -8,8 +8,9 @@ NetClone serving tier.
 Phases (each fails the run on error; nothing is caught):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together), print the card and B3's
-   TMA + ``wgmma`` kernel's registers, shared memory and spill bytes;
+   ``nvcc`` per source, all started together), print the card and the
+   registers, shared memory and spill bytes of B3's and B4's TMA +
+   ``wgmma`` kernels;
 2. hold each kernel bit-exact against its plain PyTorch version at the main
    path's shapes, on random and adversarial lanes, and time both;
 3. run the 6 golden cases of ``tests/golden/fleetsim_single_tor.json`` as
@@ -36,16 +37,20 @@ Phases (each fails the run on error; nothing is caught):
    under ``netclone`` (B1 on every tick with completions, each launch
    replayed against the plain filter) and under ``baseline``;
 9. the SSD scan (kernel B4) and the RG-LRU scan (kernel B5) against their
-   plain versions at the reference test sweep's shapes (float32, with h0)
-   and at mamba2-370m's and recurrentgemma-9b's full prefill shapes (bf16,
-   B4's b and c broadcast over heads), timed beside their bounds and plain
-   versions; B3 at recurrentgemma-9b's local-attention shape the same way,
-   beside SDPA with the band as a mask and SDPA causal without the window;
+   plain versions at the reference test sweep's shapes (float32, with h0:
+   B4's step kernel), at B4's chunked kernel's edge cases (bf16: ragged
+   lengths, a zero decay mid-chunk) and at mamba2-370m's and
+   recurrentgemma-9b's full prefill shapes (bf16, B4's b and c broadcast
+   over heads: the chunked kernel), each case logging which B4 kernel ran,
+   timed beside their bounds and plain versions; B3 at recurrentgemma-9b's
+   local-attention shape the same way, beside SDPA with the band as a mask
+   and SDPA causal without the window;
 10. mamba2-370m at full width and depth (48 layers, random weights from
     seed 0, bf16 activations): a 4 x 32,768-token prefill through B4 (48
-    launches, counted by the wrapper and the profiler) held to the same
-    prefill through the plain scan, 16 decode steps (no B4), and prefill
-    128 + decode 8 against the forward over 256 tokens;
+    launches, all on the chunked kernel, counted by the wrapper and the
+    profiler) held to the same prefill through the plain scan, 16 decode
+    steps (no B4), and prefill 128 + decode 8 against the forward over 256
+    tokens;
 11. recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU through
     B5, 12 local attention through B3): a 4 x 4,096-token prefill held to
     the plain prefill (logits, LRU states, ring KV caches), 16 decode
@@ -124,6 +129,11 @@ MODEL_RTOL = 5e-2
 # with h0, in float32 at its tolerances, then the full-width shapes in bf16
 SSD_CASES = ((1, 256, 2, 64, 64, 64), (2, 128, 1, 32, 128, 128),
              (1, 512, 3, 16, 32, 128), (1, 128, 2, 16, 16, 32))
+# B4's chunked kernel at mamba2's P and N (bf16): lengths that are no
+# multiple of its 64-step chunks (the C5 contract admits any S below 128),
+# and a zero decay mid-chunk: b, s, h, p, n, zero decay
+SSD_EDGE_CASES = ((2, 72, 3, 64, 128, False), (2, 100, 3, 64, 128, False),
+                  (1, 256, 2, 64, 128, True))
 LRU_CASES = ((2, 256, 256), (1, 512, 128), (1, 128, 384))
 SSD_TOL, LRU_TOL = 2e-3, 1e-4
 # mamba2-370m's prefill (x (B, S, H, P), N) and recurrentgemma-9b's (x
@@ -200,8 +210,9 @@ def device_kernels(torch, fn, tries: int = 3):
 DEVICE_SYMBOL = {"fingerprint_filter": "fingerprint_filter_kernel",
                  "tickfuse_response_path": "tickfuse_kernel",
                  "flash_attention": "flash_attention",
-                 "ssd_scan": "ssd_scan_kernel",
+                 "ssd_scan": "ssd_scan",  # the step and chunked kernels
                  "lru_scan": "lru_scan_kernel"}
+SSD_CHUNKED_SYMBOL = "ssd_scan_chunked_kernel"
 
 
 def launches_in(kernels: dict, name: str) -> int:
@@ -351,6 +362,8 @@ def golden_batch(tf, backend):
 def reset(kernels):
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "chunked_launches"):
+            fn.chunked_launches = 0
 
 
 def only(kernels, **want) -> dict:
@@ -613,10 +626,12 @@ def run_serving(torch, cfg, params, kernels, ref):
 
 
 # ----------------------------------------------------------- phases 9-11 --
-def scan_inputs(torch, kind, shape, dtype, seed, h0=True, broadcast=False):
+def scan_inputs(torch, kind, shape, dtype, seed, h0=True, broadcast=False,
+                zero_decay=False):
     """Inputs of one scan call, made on the card from ``seed``: x, a in
-    [lo, 1), b, c (SSD; ``broadcast`` gives them as a view over heads, as
-    the model does), optional h0 in float32."""
+    [lo, 1) (SSD: ``zero_decay`` zeroes every head's decay at step 100 and
+    the last head's at step 37), b, c (SSD; ``broadcast`` gives them as a
+    view over heads, as the model does), optional h0 in float32."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     dt = getattr(torch, dtype)
 
@@ -629,6 +644,9 @@ def scan_inputs(torch, kind, shape, dtype, seed, h0=True, broadcast=False):
     if kind == "ssd":
         b, s, h, p, n = shape
         x, a = rn(b, s, h, p), decay(0.2, b, s, h)
+        if zero_decay:
+            a[:, 100] = 0.0
+            a[:, 37, -1] = 0.0
         if broadcast:
             bc = rn(b, s, 2 * n, scale=0.3).to(dt)
             bm = bc[..., :n][:, :, None, :].expand(b, s, h, n)
@@ -642,14 +660,15 @@ def scan_inputs(torch, kind, shape, dtype, seed, h0=True, broadcast=False):
     return args + [rn(b, d, scale=0.1) if h0 else None]
 
 
-def scan_bound(kind, args) -> tuple[float, str, float, int]:
+def scan_bound(kind, args, ell=128) -> tuple[float, str, float, int]:
     """(bound ms, what bounds it, FLOPs, bytes) of one scan call on
     ``args``: each input read once (b and c by the bytes they hold, one
     head's worth when broadcast), y and the final state written once.
-    SSD's operations are its chunked form on the tensor cores at 128-step
-    chunks (C·Bᵀ and the masked product with X, 2L²(N+P) a chunk, the
-    state's contribution and update, 4LNP), at the bf16 rate; the LRU's
-    are one FMA an element at the float32 rate."""
+    SSD's operations are its chunked form on the tensor cores at ``ell``-
+    step chunks, the chunk length of the kernel that runs (C·Bᵀ and the
+    masked product with X, 2L²(N+P) a chunk, the state's contribution and
+    update, 4LNP), at the bf16 rate; the LRU's are one FMA an element at
+    the float32 rate."""
     x, a = args[0], args[1]
     size = x.element_size()
     nbytes = 2 * x.numel() * size + a.numel() * a.element_size()
@@ -659,7 +678,7 @@ def scan_bound(kind, args) -> tuple[float, str, float, int]:
         nbytes += sum((t.numel() // h if t.stride(2) == 0 else t.numel())
                       * size for t in args[2:4])
         nbytes += 4 * b * h * p * n * (2 if args[4] is not None else 1)
-        ell = min(128, s)
+        ell = min(ell, s)
         flops = b * h * (s // ell) * (2 * ell * ell * (n + p)
                                       + 4 * ell * n * p)
         ops_ms = flops / BF16_OPS_PER_S * 1e3
@@ -675,25 +694,43 @@ def scan_bound(kind, args) -> tuple[float, str, float, int]:
 
 def check_scans(torch, ref, ssd_scan, lru_scan, ops):
     """Phase 9: B4 and B5 against their plain versions at the reference's
-    test shapes (float32, with h0) and at the full-width shapes (bf16, B4's
-    b and c as the model's broadcast view), then timed there beside the
-    bound and the plain version; B3 at recurrentgemma-9b's local-attention
-    shape (window 2048, head dim 256, one kv head) the same way."""
+    test shapes (float32, with h0: B4's step kernel), at B4's chunked
+    kernel's edge cases (bf16: ragged lengths, a zero decay mid-chunk) and
+    at the full-width shapes (bf16, B4's b and c as the model's broadcast
+    view: the chunked kernel), each B4 case checked to take the kernel
+    ``kernel_for`` names; then timed at full width beside the bound and the
+    plain version; B3 at recurrentgemma-9b's local-attention shape (window
+    2048, head dim 256, one kv head) the same way."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan as ssd_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows, err = {}, {"ssd_scan": 0.0, "lru_scan": 0.0}
-    cases = ([("ssd", c[:5], "float32", c[5]) for c in SSD_CASES]
-             + [("lru", c, "float32", None) for c in LRU_CASES]
-             + [("ssd", SSD_FULL, "bfloat16", 128),
-                ("lru", LRU_FULL, "bfloat16", None)])
-    for i, (kind, shape, dtype, chunk) in enumerate(cases):
-        full = dtype == "bfloat16"
+    # (kind, shape, dtype, chunk, full width, zero decay)
+    cases = ([("ssd", c[:5], "float32", c[5], False, False)
+              for c in SSD_CASES]
+             + [("lru", c, "float32", None, False, False) for c in LRU_CASES]
+             + [("ssd", c[:5], "bfloat16", 128, False, c[5])
+                for c in SSD_EDGE_CASES]
+             + [("ssd", SSD_FULL, "bfloat16", 128, True, False),
+                ("lru", LRU_FULL, "bfloat16", None, True, False)])
+    for i, (kind, shape, dtype, chunk, full, zero) in enumerate(cases):
         args = scan_inputs(torch, kind, shape, dtype, seed=200 + i,
-                           broadcast=full)
+                           broadcast=full, zero_decay=zero)
+        route = ""
         if kind == "ssd":
+            kernel = ssd_mod.kernel_for(args[0].dtype, shape[3], shape[4])
+            before = ssd_scan.chunked_launches
             got = ssd_scan(*args[:4], args[4], chunk=chunk)
             torch.cuda.synchronize()
+            took = ssd_scan.chunked_launches - before
+            if took != (kernel == "chunked"):
+                raise AssertionError(f"phase 9: B4 at {shape} {dtype} took "
+                                     f"{took} chunked launches, routed to "
+                                     f"the {kernel} kernel")
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"phase 9: B4 non-finite at {shape}")
+            route = f" ({kernel} kernel{', a zero decay' if zero else ''})"
             want = ref.ssd_scan_ref(*args[:4], args[4], chunk=chunk)
         else:
             got = lru_scan(*args)
@@ -702,7 +739,7 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
         name = f"{kind}_scan"
         d = max((g.float() - w.float()).abs().max().item()
                 for g, w in zip(got, want))
-        if full:
+        if dtype == "bfloat16":
             tol = SCAN_BF16_RTOL * max(w.float().abs().max().item()
                                        for w in want)
             how = f"{SCAN_BF16_RTOL} of max |value|"
@@ -713,7 +750,7 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
             raise AssertionError(f"phase 9: {name} differs from its plain "
                                  f"version by {d} at {shape} {dtype}")
         err[name] = max(err[name], d)
-        log(f"phase 9: {name} vs plain at {shape} {dtype}"
+        log(f"phase 9: {name} vs plain at {shape} {dtype}{route}"
             f"{' (b/c broadcast over heads)' if full and kind == 'ssd' else ''}"
             f": max |diff| {d:.3g} (y and final state; tolerance {tol:.3g}, "
             f"{how})")
@@ -738,7 +775,9 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
         ms = cuda_ms(fn, reps)
         dev_us, dev_how = device_us(torch, fn, name, 3)
         plain_ms = cuda_ms(plain, plain_reps)
-        bound, by, flops, nbytes = scan_bound(kind, timed)
+        chunked = kind == "ssd" and kernel == "chunked"
+        bound, by, flops, nbytes = scan_bound(
+            kind, timed, ssd_mod.CHUNK if chunked else 128)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by, library_ms=None, dev_us=dev_us)
         log(f"phase 9: {name} at {shape} bf16: {ms:.4f} ms per call (CUDA "
@@ -894,14 +933,29 @@ def run_recurrent(torch, lm, kernels, get_config, arch, batch, seq, label):
     if counts != want:
         raise AssertionError(f"{label}: prefill launches {counts}, "
                              f"expected {want}")
+    routed = ""
+    if scan == "ssd_scan":
+        # bf16 mamba2 (P 64, N 128): every B4 launch takes the chunked kernel
+        chunked = kernels[scan].chunked_launches
+        if chunked != n_scan:
+            raise AssertionError(f"{label}: {chunked} of {n_scan} B4 "
+                                 "launches took the chunked kernel")
+        routed = f" (B4: {chunked} of {n_scan} on the chunked kernel)"
     log(f"{label}: prefill {batch} x {seq} tokens: {prefill_s * 1e3:.1f} "
-        f"ms, {batch * seq / prefill_s:,.0f} tokens/s, launches {counts}, "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
-        f" GiB")
+        f"ms, {batch * seq / prefill_s:,.0f} tokens/s, launches {counts}"
+        f"{routed}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     prof = profile_prefill(torch, lm, cfg, params, tokens, s_max, label)
     seen = {n: launches_in(prof, n) for n in (scan, "flash_attention")}
     if prof and seen != {scan: n_scan, "flash_attention": n_fa}:
         raise AssertionError(f"{label}: the profile shows {seen} launches")
+    if prof and scan == "ssd_scan":
+        on_chunked = sum(n for key, (n, _) in prof.items()
+                         if SSD_CHUNKED_SYMBOL in key)
+        if on_chunked != n_scan:
+            raise AssertionError(f"{label}: the profile shows {on_chunked} "
+                                 f"launches of {SSD_CHUNKED_SYMBOL}")
+        seen[SSD_CHUNKED_SYMBOL] = on_chunked
     log(f"{label}: the profiler saw {seen} launches in one prefill"
         if prof else f"{label}: the profiler recorded no device event")
 
@@ -1050,6 +1104,12 @@ def main() -> int:
     for d in WGMMA_HEAD_DIMS:
         a = wgmma_attributes(d)
         log(f"phase 1: B3's TMA + wgmma kernel at head dim {d}: "
+            f"{a['registers']} registers a thread (before setmaxnreg), "
+            f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
+            f"shared memory, {a['local_bytes']} B local (spill) a thread")
+    for n in ssd_mod.CHUNKED_STATE_DIMS:
+        a = ssd_mod.chunked_attributes(n)
+        log(f"phase 1: B4's chunked TMA + wgmma kernel at state width {n}: "
             f"{a['registers']} registers a thread (before setmaxnreg), "
             f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
             f"shared memory, {a['local_bytes']} B local (spill) a thread")

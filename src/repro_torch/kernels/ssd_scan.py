@@ -2,17 +2,24 @@
 
 Port of the TPU kernel ``repro.kernels.ssd_scan``: per head, ``H_t = a_t·
 H_{t-1} + x_t ⊗ b_t`` and ``y_t = H_t·c_t`` with the ``P × N`` state in
-float32, the decay clamped at 1e-37 and the final state returned.  The
-kernel (``csrc/ssd_scan.cu``) gives each CTA a block of state rows of one
-(batch, head) and walks the sequence step by step on the CUDA cores.  On a
-CPU tensor the wrapper runs the plain version (:func:`repro_torch.kernels.
-ref.ssd_scan_ref`, the chunked form); on a CUDA tensor it launches the
-kernel or raises.
+float32, the decay clamped at 1e-37 and the final state returned.
+``csrc/ssd_scan.cu`` holds two kernels, and :func:`kernel_for` says which
+one takes an input, from its dtype and shape alone: bf16 at ``P = 64`` and
+``N`` 64 or 128 (mamba2-370m's prefill) runs on the chunked Hopper kernel,
+which loads :data:`CHUNK`-step chunks (as :func:`chunk_plan` lists them)
+with TMA and computes the chunked (SSD) form with ``wgmma`` on the tensor
+cores; float32, and bf16 at other widths, run on the step kernel, which
+walks the sequence step by step on the CUDA cores.  On a CPU tensor the
+wrapper runs the plain version (:func:`repro_torch.kernels.ref.
+ssd_scan_ref`, the chunked form); on a CUDA tensor it launches the kernel
+or raises.
 
 Length contract: the reference's Pallas kernel needs ``S`` divisible by
 ``min(chunk, S)`` and its XLA path (which always chunks at 128) by
 ``min(128, S)``; this wrapper raises on both devices unless both hold, so
 it accepts exactly what both of the reference's paths accept (ROADMAP C5).
+The chunked kernel's own chunk length is its design choice: the sums
+differ from the plain version's 128-step chunks by rounding only.
 """
 
 from __future__ import annotations
@@ -29,19 +36,83 @@ _I = ctypes.c_int
 
 #: the chunk the reference's XLA path always uses (``ref.ssd_scan_ref``)
 XLA_CHUNK = 128
-#: state widths N the kernel is built for (16 state columns a thread; the
-#: N / 16 threads of a row pair within one warp)
+#: state widths N the kernels are built for (the step kernel: 16 state
+#: columns a thread; the N / 16 threads of a row pair within one warp)
 STATE_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: bf16 at head dim P = CHUNKED_P and these state widths runs on the
+#: chunked kernel (TMA + ``wgmma``); every other input on the step kernel
+CHUNKED_P = 64
+CHUNKED_STATE_DIMS = (64, 128)
+#: steps a chunk of the chunked kernel (``kChunk`` in csrc/ssd_scan.cu)
+CHUNK = 64
+#: error codes of the C interface beyond ``cudaError_t``'s
+_NO_ENCODER, _ENCODE_FAILED = 199999, 200000
+
+
+def kernel_for(dtype: torch.dtype, p: int, n: int) -> str:
+    """The CUDA kernel that takes ``dtype`` inputs at head dim ``p`` and
+    state width ``n``: ``"chunked"`` (TMA + ``wgmma`` on the tensor cores)
+    or ``"step"`` (step by step on the CUDA cores: float32, which the
+    tensor cores would round, and bf16 at the widths the chunked kernel is
+    not built for).  Raises for a state width neither kernel is built
+    for."""
+    if n not in STATE_DIMS:
+        raise ValueError(f"state width N={n} not built; the kernels take "
+                         f"{STATE_DIMS}")
+    if dtype == torch.bfloat16 and p == CHUNKED_P \
+            and n in CHUNKED_STATE_DIMS:
+        return "chunked"
+    return "step"
+
+
+def chunk_plan(s: int) -> list[tuple[int, int, int]]:
+    """The chunked kernel's chunks of a length-``s`` sequence, in the order
+    its CTA walks them: ``(start, stop, padded)`` with steps ``[start,
+    stop)`` and ``padded`` rows past ``s`` that TMA reads as zeros and the
+    kernel counts as decay 1, so the chunk's decay is taken at its last
+    valid step ``stop - 1``."""
+    return [(t, min(t + CHUNK, s), max(t + CHUNK - s, 0))
+            for t in range(0, s, CHUNK)]
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """TMA can read the ``(B, S, H, W)`` tensor ``t`` in place: a 16-byte-
+    aligned base, a unit inner stride, and each (batch, seq, head) stride of
+    a dim longer than 1 a positive multiple of 16 bytes, or 0 for the head
+    (b and c broadcast over heads)."""
+    size = t.element_size()
+    if t.data_ptr() % 16 or t.stride(3) != 1:
+        return False
+    return all(t.shape[i] == 1 or (i == 2 and t.stride(i) == 0)
+               or (t.stride(i) > 0 and t.stride(i) * size % 16 == 0)
+               for i in range(3))
 
 
 @functools.cache
 def _lib():
     lib = build.load("ssd_scan")
-    lib.ssd_scan_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _P, _P]
-    lib.ssd_scan_launch.restype = _I
+    for fn in (lib.ssd_scan_launch, lib.ssd_scan_chunked_launch):
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P]
+        fn.restype = _I
+    lib.ssd_scan_chunked_attributes.argtypes = [_I, _P]
+    lib.ssd_scan_chunked_attributes.restype = _I
     return lib
+
+
+def chunked_attributes(n: int) -> dict:
+    """The chunked kernel's build at state width ``n`` (64 or 128), from
+    ``cudaFuncGetAttributes``: registers a thread, static and dynamic
+    shared memory, local (spill) bytes a thread, max threads a block.
+    Needs a card."""
+    attrs = (ctypes.c_int * 5)()
+    err = _lib().ssd_scan_chunked_attributes(n, attrs)
+    if err:
+        raise RuntimeError(f"ssd_scan_chunked_attributes({n}) failed: "
+                           f"cudaError_t {err}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes", "max_threads"), attrs))
 
 
 def check_ssd_args(x, a, b_mat, c_mat, h0, chunk: int) -> None:
@@ -76,23 +147,26 @@ def check_ssd_args(x, a, b_mat, c_mat, h0, chunk: int) -> None:
                          "it (the reference's Pallas and XLA paths)")
 
 
-def ssd_scan(x, a, b_mat, c_mat, h0=None, *, chunk: int = 128):
-    """x ``(B, S, H, P)``, a ``(B, S, H)``, b/c ``(B, S, H, N)`` (any
-    strides: the model passes b and c broadcast over heads), optional h0
-    ``(B, H, P, N)``; float32 or bfloat16.  Returns ``(y (B, S, H, P) in
-    x's dtype, final state (B, H, P, N) float32)``."""
-    check_ssd_args(x, a, b_mat, c_mat, h0, chunk)
-    if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, a, b_mat, c_mat, h0, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch(kernel: str, x, a, b_mat, c_mat, h0):
+    """One launch of ``kernel`` (``"chunked"`` or ``"step"``) on CUDA
+    tensors that :func:`check_ssd_args` accepted; returns ``(y, final
+    state)``.  The wrapper's route is :func:`kernel_for`'s; this entry
+    also lets a benchmark time the step kernel where the chunked one
+    runs."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[3]
-    if n not in STATE_DIMS:
-        raise ValueError(f"state width N={n} not built; the kernel takes "
-                         f"{STATE_DIMS}")
+    if kernel not in ("chunked", "step"):
+        raise ValueError(f"unknown SSD kernel {kernel!r}")
+    if kernel == "chunked" and kernel_for(x.dtype, p, n) != "chunked":
+        raise ValueError(f"the chunked kernel takes bf16 at P={CHUNKED_P}, "
+                         f"N in {CHUNKED_STATE_DIMS}; got {x.dtype}, P={p}, "
+                         f"N={n}")
     x, b_mat, c_mat = (t if t.stride(3) == 1 else t.contiguous()
                        for t in (x, b_mat, c_mat))
+    if kernel == "chunked":
+        # TMA reads x, b and c in place only where they are aligned
+        x, b_mat, c_mat = (t if tma_ready(t) else t.contiguous()
+                           for t in (x, b_mat, c_mat))
     if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
@@ -100,18 +174,45 @@ def ssd_scan(x, a, b_mat, c_mat, h0=None, *, chunk: int = 128):
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (x, a, b_mat,
                                                             c_mat)
                                       for i in range(3)))
+    lib = _lib()
+    fn = lib.ssd_scan_chunked_launch if kernel == "chunked" \
+        else lib.ssd_scan_launch
     with torch.cuda.device(x.device):
-        err = _lib().ssd_scan_launch(
-            x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_t.data_ptr(), _DTYPE_CODE[x.dtype], bsz, s, h, p, n,
-            ctypes.cast(strides, ctypes.c_void_p),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(x.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+                 c_mat.data_ptr(), None if h0 is None else h0.data_ptr(),
+                 y.data_ptr(), h_t.data_ptr(), _DTYPE_CODE[x.dtype], bsz, s,
+                 h, p, n, ctypes.cast(strides, ctypes.c_void_p),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"ssd_scan: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _ENCODE_FAILED})")
+    if err == _NO_ENCODER:
+        raise RuntimeError("ssd_scan: no cuTensorMapEncodeTiled entry point "
+                           "(CUDA 12.0 or later is needed)")
     if err:
-        raise RuntimeError(f"ssd_scan launch failed: cudaGetLastError() = "
-                           f"{err}")
-    ssd_scan.launches += 1
+        raise RuntimeError(f"ssd_scan ({kernel} kernel) launch failed: "
+                           f"cudaGetLastError() = {err}")
     return y, h_t
 
 
+def ssd_scan(x, a, b_mat, c_mat, h0=None, *, chunk: int = 128):
+    """x ``(B, S, H, P)``, a ``(B, S, H)``, b/c ``(B, S, H, N)`` (any
+    strides: the model passes b and c broadcast over heads), optional h0
+    ``(B, H, P, N)``; float32 or bfloat16.  Returns ``(y (B, S, H, P) in
+    x's dtype, final state (B, H, P, N) float32)``.  ``ssd_scan.launches``
+    counts the kernel launches, ``ssd_scan.chunked_launches`` those that
+    took the chunked kernel."""
+    check_ssd_args(x, a, b_mat, c_mat, h0, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, a, b_mat, c_mat, h0, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    kernel = kernel_for(x.dtype, x.shape[3], b_mat.shape[3])
+    out = _launch(kernel, x, a, b_mat, c_mat, h0)
+    ssd_scan.launches += 1
+    ssd_scan.chunked_launches += kernel == "chunked"
+    return out
+
+
 ssd_scan.launches = 0
+ssd_scan.chunked_launches = 0

@@ -17,14 +17,19 @@ Tolerances: the reference's own, 2e-3 for SSD (its chunked form and the
 step form sum in different orders) and 1e-4 for LRU, in float32.  In
 bfloat16 both sides compute in float32 from the same rounded inputs and
 round y once, so they differ by at most about one bfloat16 step where a
-float32 sum straddles a rounding boundary: held to 1e-2 of max |y|.
+float32 sum straddles a rounding boundary: held to 1e-2 of max |y|.  The
+chunked SSD kernel (bf16 on the tensor cores) also rounds S⊙M, X⊙w and
+its operand copy of the state to bf16; a CPU emulation of exactly those
+rounding points is held to the step-by-step oracle at the same 1e-2.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.lru_scan import lru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -44,10 +49,11 @@ def _round(a, dtype):
     return torch.from_numpy(a).to(getattr(torch, dtype)).float().numpy()
 
 
-def _ssd_inputs(b, s, h, p, n, seed=0, dtype="float32", h0=True):
+def _ssd_inputs(b, s, h, p, n, seed=0, dtype="float32", h0=True,
+                decay_lo=0.2):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal((b, s, h, p)),
-            rng.uniform(0.2, 1.0, (b, s, h)),
+            rng.uniform(decay_lo, 1.0, (b, s, h)),
             rng.standard_normal((b, s, h, n)) * 0.3,
             rng.standard_normal((b, s, h, n)) * 0.3]
     arrs = [_round(a.astype(np.float32), dtype) for a in arrs]
@@ -192,6 +198,126 @@ def test_ssd_ops_impls_agree_on_cpu():
                                        cm.contiguous()), "float32", "ssd")
 
 
+@pytest.mark.parametrize("dtype,p,n,want", [
+    (torch.bfloat16, 64, 128, "chunked"),   # mamba2-370m's prefill
+    (torch.bfloat16, 64, 64, "chunked"),
+    (torch.float32, 64, 128, "step"),       # the tensor cores would round
+    (torch.float32, 64, 64, "step"),
+    (torch.bfloat16, 64, 16, "step"),
+    (torch.bfloat16, 64, 256, "step"),
+    (torch.bfloat16, 32, 128, "step"),
+    (torch.bfloat16, 16, 32, "step"),
+    (torch.bfloat16, 3, 16, "step"),
+])
+def test_ssd_kernel_routing(dtype, p, n, want):
+    """The kernel an input takes depends on its dtype and shape alone."""
+    assert ssd_mod.kernel_for(dtype, p, n) == want
+
+
+@pytest.mark.parametrize("n", [8, 48, 512])
+def test_ssd_routing_raises_outside_the_built_state_widths(n):
+    """No kernel is built for N outside STATE_DIMS: the wrapper's route
+    raises for a CUDA tensor instead of picking one."""
+    assert n not in ssd_mod.STATE_DIMS
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="not built"):
+            ssd_mod.kernel_for(dtype, 64, n)
+
+
+@pytest.mark.parametrize("s", [8, 72, 100, 128, 32768])
+def test_ssd_chunk_plan(s):
+    """The chunked kernel's chunks cover [0, S) in order, 64 steps each;
+    only the last may be ragged, and its padded rows end it, so its last
+    valid step is S - 1."""
+    plan = ssd_mod.chunk_plan(s)
+    assert len(plan) == -(-s // ssd_mod.CHUNK)
+    assert plan[0][0] == 0 and plan[-1][1] == s
+    for (start, stop, padded), nxt in zip(plan, plan[1:] + [None]):
+        assert stop - start + padded == ssd_mod.CHUNK
+        if nxt is not None:
+            assert nxt[0] == stop and padded == 0
+    assert plan[-1][2] == (-s) % ssd_mod.CHUNK
+    assert plan[-1][1] - 1 == s - 1
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _emulate_chunked(x, a, b_mat, c_mat, h0=None, chunk=ssd_mod.CHUNK):
+    """The chunked kernel's arithmetic on the CPU: chunks of ``chunk``
+    steps (a ragged tail padded with zeros and decay 1), cum in log2,
+    everything in float32 except the three operands the kernel rounds to
+    bf16: S⊙M, X⊙w and the copy of the carried state in C·H_prevᵀ."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    xc = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk, h, p)
+    bc = F.pad(b_mat.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk,
+                                                            h, n)
+    cc = F.pad(c_mat.float(), (0, 0, 0, 0, 0, pad)).reshape(bsz, nc, chunk,
+                                                            h, n)
+    ac = F.pad(a.float(), (0, 0, 0, pad), value=1.0).reshape(bsz, nc, chunk,
+                                                            h)
+    cum = torch.cumsum(torch.log2(torch.clamp(ac, min=1e-37)), dim=2)
+    state = (torch.zeros((bsz, h, p, n)) if h0 is None else h0.float())
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ys = []
+    for c in range(nc):
+        cu = cum[:, c].transpose(1, 2)                    # (B, H, L)
+        xq, bq, cq = (t[:, c].transpose(1, 2) for t in (xc, bc, cc))
+        sc = cq @ bq.transpose(-1, -2)                    # (B, H, L, L)
+        expo = torch.where(below, cu[..., :, None] - cu[..., None, :],
+                           -torch.inf)
+        y = _bf16(sc * torch.exp2(expo)) @ xq
+        y = y + torch.exp2(cu)[..., None] * (cq @ _bf16(state).transpose(
+            -1, -2))
+        ys.append(y.transpose(1, 2))                      # (B, L, H, P)
+        last = cu[..., -1:]
+        w = torch.exp2(last - cu)[..., None]              # (B, H, L, 1)
+        state = (torch.exp2(last)[..., None] * state
+                 + _bf16(xq * w).transpose(-1, -2) @ bq)
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y.to(x.dtype), state
+
+
+#: the emulation's cases: the reference's SSD shapes, mamba2's P and N at
+#: ragged lengths and at S = 4,096 (with the reference tests' decays and
+#: with slow decays, whose long-lived state leans hardest on the bf16 copy
+#: of H): b, s, h, p, n, lowest decay
+EMULATION_CASES = [c[:5] + (0.2,) for c in SSD_CASES] + [
+    (1, 72, 2, 64, 128, 0.2), (2, 100, 2, 64, 128, 0.2),
+    (1, 4096, 2, 64, 128, 0.2), (1, 4096, 2, 64, 128, 0.95)]
+
+
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("b,s,h,p,n,decay_lo", EMULATION_CASES)
+def test_ssd_chunked_rounding_plan_meets_the_bf16_tolerance(b, s, h, p, n,
+                                                            decay_lo, h0):
+    """The precision plan of the chunked kernel, before any card: its
+    rounding points on bf16 inputs stay within 1e-2 of max |value| of the
+    step-by-step oracle, for y and the final state."""
+    arrs, state = _ssd_inputs(b, s, h, p, n, seed=s + p + n,
+                              dtype="bfloat16", h0=h0, decay_lo=decay_lo)
+    ts, t0 = _torch(arrs, state, "bfloat16")
+    got = _emulate_chunked(*ts, t0)
+    assert got[0].dtype == torch.bfloat16 and got[1].shape == (b, h, p, n)
+    _close(got, ref.ssd_scan_naive(*ts, t0), "bfloat16", "ssd")
+
+
+def test_ssd_chunked_rounding_plan_with_a_zero_decay():
+    """A zero decay mid-chunk restarts the state (the 1e-37 clamp), and
+    the emulated kernel stays finite and within tolerance."""
+    arrs, state = _ssd_inputs(1, 256, 2, 64, 128, seed=6, dtype="bfloat16")
+    arrs[1][:, 100] = 0.0
+    arrs[1][:, 37, 1] = 0.0
+    ts, t0 = _torch(arrs, state, "bfloat16")
+    got = _emulate_chunked(*ts, t0)
+    assert all(torch.isfinite(t).all() for t in got)
+    _close(got, ref.ssd_scan_naive(*ts, t0), "bfloat16", "ssd")
+
+
 # ================================================================ LRU scan ===
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
@@ -295,6 +421,82 @@ def test_cuda_ssd_scan_reads_a_broadcast_view(dtype):
     assert bm.stride(2) == 0
     got = ssd_scan(x, a, bm, cm, chunk=128)
     _close(got, ref.ssd_scan_ref(x, a, bm, cm, chunk=128), dtype, "ssd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("s", [72, 100])
+def test_cuda_ssd_chunked_kernel_at_ragged_lengths(s, h0):
+    """Lengths the C5 contract admits that are no multiple of the chunked
+    kernel's 64 steps: TMA zero-fills the last chunk past S, whose steps
+    count as decay 1, so the final state is taken at the last valid
+    step."""
+    _card()
+    arrs, state = _ssd_inputs(2, s, 3, 64, 128, seed=s, dtype="bfloat16",
+                              h0=h0)
+    ts, t0 = _torch(arrs, state, "bfloat16", "cuda")
+    before = ssd_scan.chunked_launches
+    got = ssd_scan(*ts, t0)
+    torch.cuda.synchronize()
+    assert ssd_scan.chunked_launches == before + 1
+    _close(got, ref.ssd_scan_naive(*ts, t0), "bfloat16", "ssd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+def test_cuda_ssd_chunked_kernel_with_a_zero_decay(n):
+    """A zero decay mid-chunk: the clamped log-decay restarts the state,
+    and every value stays finite on the card."""
+    _card()
+    arrs, state = _ssd_inputs(1, 256, 2, 64, n, seed=7, dtype="bfloat16")
+    arrs[1][:, 100] = 0.0
+    arrs[1][:, 37, 1] = 0.0
+    ts, t0 = _torch(arrs, state, "bfloat16", "cuda")
+    got = ssd_scan(*ts, t0)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in got)
+    _close(got, ref.ssd_scan_naive(*ts, t0), "bfloat16", "ssd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_cuda_ssd_chunked_kernel_reads_the_models_conv_slices(h0):
+    """b and c as mamba2_forward hands them: column slices of one conv_out
+    tensor (B, S, d_inner + 2N), broadcast over heads with stride 0, read
+    in place by TMA."""
+    _card()
+    b, s, h, p, n = 2, 256, 4, 64, 128
+    d_inner = h * p
+    g = torch.Generator(device="cuda").manual_seed(8)
+    conv_out = (0.3 * torch.randn((b, s, d_inner + 2 * n), generator=g,
+                                  device="cuda")).to(torch.bfloat16)
+    x = torch.randn((b, s, h, p), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    a = (0.2 + 0.8 * torch.rand((b, s, h), generator=g,
+                                device="cuda")).to(torch.bfloat16)
+    bm = conv_out[..., d_inner:d_inner + n][:, :, None, :].expand(b, s, h, n)
+    cm = conv_out[..., d_inner + n:][:, :, None, :].expand(b, s, h, n)
+    assert bm.stride(2) == 0 and ssd_mod.tma_ready(bm) \
+        and ssd_mod.tma_ready(cm)
+    state = 0.1 * torch.randn((b, h, p, n), generator=g, device="cuda") \
+        if h0 else None
+    before = ssd_scan.chunked_launches
+    got = ssd_scan(x, a, bm, cm, state)
+    torch.cuda.synchronize()
+    assert ssd_scan.chunked_launches == before + 1
+    _close(got, ref.ssd_scan_naive(x, a, bm.contiguous(), cm.contiguous(),
+                                   state), "bfloat16", "ssd")
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_raises_outside_the_built_state_widths():
+    _card()
+    arrs, state = _ssd_inputs(1, 64, 2, 16, 48, dtype="bfloat16")
+    ts, t0 = _torch(arrs, state, "bfloat16", "cuda")
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="not built"):
+        ssd_scan(*ts, t0)
+    assert ssd_scan.launches == before
 
 
 @pytest.mark.cuda
