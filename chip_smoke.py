@@ -11,36 +11,43 @@ Phases (each fails the run on error; nothing is caught):
    ``nvcc`` per source, all started together), print the card and the
    registers, shared memory and spill bytes of B3's and B4's TMA +
    ``wgmma`` kernels;
-2. hold each kernel bit-exact against its plain PyTorch version at the main
-   path's shapes, on random and adversarial lanes, and time both;
+2. hold B1, B2 and B2's staged entry point bit-exact against their plain
+   PyTorch versions at the main path's shapes (default sweep, 4-rack
+   fabric, serving dispatcher), on random lanes and on every edge-lane case
+   of ``kernels/inputs.py``; then time each per call, on the device, and
+   replayed from a CUDA graph (checked against the plain version applied
+   as often), beside the floor: an empty kernel through B1's launch path;
 3. run the 6 golden cases of ``tests/golden/fleetsim_single_tor.json`` as
    one batch under the ``pallas`` (kernel B1), ``tickfuse`` (kernel B2) and
    ``vectorized`` filter backends and compare every field with the JSON;
 4. the main path at full width: ``sweep_grid`` over the default
    ``FleetConfig`` (5 policies × 8 loads × 5 seeds = 200 configs) through
-   B2, then the first ticks of the same grid under ``scan`` (the plain lane
-   loop) held bit-equal to the kernel-backed run;
+   B2's staged entry point, then the first ticks of the same grid under
+   ``scan`` (the plain lane loop) held bit-equal to the kernel-backed run;
 5. the README's 4-rack fabric with a hot rack and a straggler rack, loads up
    to 0.95, through B1, then the first ticks of the same grid under ``scan``
    held bit-equal to the kernel-backed run;
 6. flash attention (kernel B3) against its plain version at the reference
    test sweep's shapes, at the TMA + ``wgmma`` kernel's edge cases (head
    dim 256 windowed and ragged, a window narrower than a tile, the model's
-   transposed views) and at qwen2.5-3b's full prefill shape, timed there
-   beside its bound, its plain version and PyTorch's SDPA;
+   transposed views), at 300 and 384 tokens on both kernels, and at
+   qwen2.5-3b's full prefill shape, timed there beside its bound, its plain
+   version and PyTorch's SDPA;
 7. qwen2.5-3b at full width and depth (36 layers, random weights from
    seed 0, bf16 activations): a 4 x 4,096-token prefill through B3 held to
-   the same prefill through the plain attention, 16 decode steps, and
-   prefill/decode consistency (255 + 1 tokens against 256);
+   the same prefill through the plain attention, a 1 x 300-token prefill
+   held the same way, 16 decode steps, and prefill/decode consistency (255
+   + 1 tokens against 256);
 8. the serving tier at full width: ``launch/serve.py``'s defaults (4
    replicas of 2 slots, 48 requests over 80 ticks, a 20-tick straggler)
    under ``netclone`` (B1 on every tick with completions, each launch
    replayed against the plain filter) and under ``baseline``;
 9. the SSD scan (kernel B4) and the RG-LRU scan (kernel B5) against their
-   plain versions at the reference test sweep's shapes (float32, with h0:
-   B4's step kernel), at B4's chunked kernel's edge cases (bf16: ragged
-   lengths, a zero decay mid-chunk) and at mamba2-370m's and
-   recurrentgemma-9b's full prefill shapes (bf16, B4's b and c broadcast
+   plain versions at the reference test sweep's shapes, B5 also at (2, 333,
+   192) (float32, with h0: B4's step kernel), at B4's chunked kernel's
+   edge cases (bf16: ragged lengths, a zero decay mid-chunk) and at
+   mamba2-370m's and recurrentgemma-9b's full prefill shapes (bf16, B4's
+   b and c broadcast
    over heads: the chunked kernel), each case logging which B4 kernel ran,
    timed beside their bounds and plain versions; B3 at recurrentgemma-9b's
    local-attention shape the same way, beside SDPA with the band as a mask
@@ -116,6 +123,13 @@ FA_EDGE_CASES = (
 # 256 (recurrentgemma-9b's heads) and 128 (qwen2.5-3b's)
 FA_VIEW_CASES = ((2, 16, 1, 256, 256, True, None, "bfloat16"),
                  (2, 16, 2, 256, 128, True, None, "bfloat16"))
+# prompt lengths no multiple of the Pallas kernel's 256-row blocks, which
+# the port takes as the reference's XLA path does (ROADMAP C6): qwen2.5-3b's
+# heads on the TMA + wgmma kernel (bf16) and on the scalar kernel (float32)
+FA_C6_CASES = ((1, 16, 2, 300, 128, True, None, "bfloat16"),
+               (1, 16, 2, 384, 128, True, None, "bfloat16"),
+               (1, 16, 2, 300, 128, True, None, "float32"),
+               (1, 16, 2, 384, 128, True, None, "float32"))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # phase 7: prefill_32k's 32 x 32,768 tokens cut to 4 x 4,096 by the run's
 # time limit; decode steps after it
@@ -134,7 +148,9 @@ SSD_CASES = ((1, 256, 2, 64, 64, 64), (2, 128, 1, 32, 128, 128),
 # and a zero decay mid-chunk: b, s, h, p, n, zero decay
 SSD_EDGE_CASES = ((2, 72, 3, 64, 128, False), (2, 100, 3, 64, 128, False),
                   (1, 256, 2, 64, 128, True))
-LRU_CASES = ((2, 256, 256), (1, 512, 128), (1, 128, 384))
+# the LRU cases end with a length and a width the Pallas kernel's blocks
+# reject (ROADMAP C6)
+LRU_CASES = ((2, 256, 256), (1, 512, 128), (1, 128, 384), (2, 333, 192))
 SSD_TOL, LRU_TOL = 2e-3, 1e-4
 # mamba2-370m's prefill (x (B, S, H, P), N) and recurrentgemma-9b's (x
 # (B, S, D)) at phases 10-11's token counts
@@ -208,7 +224,10 @@ def device_kernels(torch, fn, tries: int = 3):
 
 # the CUDA kernel behind each wrapper, as the profiler names it
 DEVICE_SYMBOL = {"fingerprint_filter": "fingerprint_filter_kernel",
+                 # both entry points of B2 launch tickfuse_kernel<...>
                  "tickfuse_response_path": "tickfuse_kernel",
+                 "tickfuse_masked": "MaskedLanes",
+                 "filter_floor": "filter_noop_kernel",
                  "flash_attention": "flash_attention",
                  "ssd_scan": "ssd_scan",  # the step and chunked kernels
                  "lru_scan": "lru_scan_kernel"}
@@ -241,10 +260,24 @@ def device_us_per_launch(kernels: dict, name: str) -> float:
 
 
 # (name, configs G, lanes K, tables, slots per table, servers): the default
-# single-rack sweep (phase 4) and the 4-rack fabric's 9-config grid (phase
-# 5), whose tables 8-9 are the spine's filter group
+# single-rack sweep (phase 4), the 4-rack fabric's 9-config grid (phase 5),
+# whose tables 8-9 are the spine's filter group, and the serving
+# dispatcher's one switch (phase 8: two tables of 4,096 slots, 4 replicas,
+# 1-4 lanes a tick)
 SHAPES = (("default", 200, 32, 4, 1024, 6),
-          ("4-rack", 9, 32, 10, 1024, 24))
+          ("4-rack", 9, 32, 10, 1024, 24),
+          ("serving", 1, 4, 2, 4096, 4))
+B1_ARGS = ("tables", "rid", "idx", "clo")
+B2_ARGS = ("server_state", "tables", "rid", "idx", "clo", "sid", "qlen")
+# bytes a lane reads: rid, idx, clo (B1); sid, qlen too (B2); active (1 B)
+# and idx and sid in int64 (B2's staged entry point)
+LANE_BYTES = {"fingerprint_filter": 12, "tickfuse_response_path": 20,
+              "tickfuse_masked": 29}
+# calls a CUDA graph holds in phase 2's replay timing
+GRAPH_CALLS = 100
+# phase 4's launches per tick measured before B2's staged entry point took
+# the lane preparation (two torch.where and two casts) into the kernel
+TICK_LAUNCHES_BEFORE = 676
 
 
 def bound_bytes(x: dict, g: int, n_tables: int, n_slots: int,
@@ -267,64 +300,164 @@ def bound_bytes(x: dict, g: int, n_tables: int, n_slots: int,
     return nbytes
 
 
+def filter_entries(torch, ops, ref, x, seed):
+    """The three entry points of B1 and B2 on card copies of ``x``: ``(name,
+    kernel call, plain call, the state tensors both update)``, each call
+    taking an optional ``out``.  B2's staged entry point gets the lanes as
+    the staged engine hands them over: an ``active`` mask (80% of the
+    lanes), ``idx`` and ``sid`` in int64."""
+    c = {n: torch.from_numpy(a.copy()).cuda() for n, a in x.items()}
+    active = torch.from_numpy(
+        np.random.default_rng(seed).random(x["rid"].shape) < 0.8).cuda()
+    masked = (c["rid"], c["idx"].long(), c["clo"], c["sid"].long(),
+              c["qlen"], active)
+    b1 = [c[n] for n in B1_ARGS]
+    b2 = [c[n] for n in B2_ARGS]
+    return (
+        ("fingerprint_filter",
+         lambda out=None: ops.fingerprint_filter(*b1, out=out),
+         lambda: ref.fingerprint_filter_ref(*b1), c),
+        ("tickfuse_response_path",
+         lambda out=None: ops.tickfuse_response_path(*b2, out=out),
+         lambda: ref.tickfuse_ref(*b2), c),
+        ("tickfuse_masked",
+         lambda out=None: ops.tickfuse_masked(c["server_state"], c["tables"],
+                                              *masked, out=out),
+         lambda: ref.tickfuse_masked_ref(c["server_state"], c["tables"],
+                                         *masked), c))
+
+
+def diff_from(torch, c, fn, plain) -> int:
+    """The largest difference between ``fn``'s and ``plain``'s outputs
+    (state tables and drop) from the same starting tables."""
+    start = {n: c[n].clone() for n in ("server_state", "tables")}
+    got = [t.clone() for t in fn()]
+    torch.cuda.synchronize()
+    for n, t in start.items():
+        c[n].copy_(t)
+    want = [t.clone() for t in plain()]
+    for n, t in start.items():
+        c[n].copy_(t)
+    return max((a.long() - b.long()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def capture(torch, fn, drop):
+    """A CUDA graph of :data:`GRAPH_CALLS` calls of ``fn(out=drop)``."""
+    fn(out=drop)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn(out=drop)
+    return graph
+
+
+def graph_replay_us(torch, c, fn, plain, drop) -> float:
+    """Capture :data:`GRAPH_CALLS` calls of ``fn(out=drop)`` in one CUDA
+    graph, replay it once from the current tables and check the result
+    against ``plain`` applied as many times; then microseconds per call of
+    20 replays (CUDA events)."""
+    start = {n: c[n].clone() for n in ("server_state", "tables")}
+    graph = capture(torch, fn, drop)
+    for n, t in start.items():
+        c[n].copy_(t)
+    graph.replay()
+    torch.cuda.synchronize()
+    got = {n: c[n].clone() for n in start}
+    got_drop = drop.clone()
+    for n, t in start.items():
+        c[n].copy_(t)
+    for _ in range(GRAPH_CALLS):
+        *_, want_drop = plain()
+    if not (all(torch.equal(got[n], c[n]) for n in start)
+            and torch.equal(got_drop, want_drop)):
+        raise AssertionError("phase 2: the graph's replay differs from the "
+                             f"plain version applied {GRAPH_CALLS} times")
+    return 1e3 * cuda_ms(graph.replay, 20) / GRAPH_CALLS
+
+
 def check_kernels(torch, inputs_mod, ref, ops):
-    """Phase 2: both kernels vs their plain versions, bit-exact, at the
-    main path's shapes (``SHAPES``), then timed at the default sweep's."""
-    b1 = ("tables", "rid", "idx", "clo")
-    b2 = ("server_state", "tables", "rid", "idx", "clo", "sid", "qlen")
-    err = {"fingerprint_filter": 0, "tickfuse_response_path": 0}
+    """Phase 2: B1, B2 and B2's staged entry point vs their plain versions,
+    bit-exact, at the main path's shapes (``SHAPES``) and on every edge-lane
+    case of ``inputs.EDGE_CASES``; then, at the default sweep's shape, each
+    timed per call (wrapper included, with and without a preallocated
+    ``drop``), on the device (profiler) and replayed from a CUDA graph of
+    :data:`GRAPH_CALLS` calls (after checking the replay against the plain
+    version applied as many times), beside the floor: an empty kernel on
+    B1's grid launched through B1's whole path."""
+    from repro_torch.kernels.fingerprint_filter import filter_floor
+
+    err = {"fingerprint_filter": 0, "tickfuse_response_path": 0,
+           "tickfuse_masked": 0}
     for label, g, k, n_tables, n_slots, n_servers in SHAPES:
-        for seed in range(4):
-            x = inputs_mod.filter_lanes(g, k, n_tables, n_slots, n_servers,
-                                        seed)
-
-            def dev(names):
-                return [torch.from_numpy(x[n].copy()).cuda() for n in names]
-
-            for name, fn, plain, names in (
-                    ("fingerprint_filter", ops.fingerprint_filter,
-                     ref.fingerprint_filter_ref, b1),
-                    ("tickfuse_response_path", ops.tickfuse_response_path,
-                     ref.tickfuse_ref, b2)):
-                got = fn(*dev(names))
-                torch.cuda.synchronize()
-                want = plain(*dev(names))
-                for a, b in zip(got, want):
-                    d = (a.long() - b.long()).abs().max().item()
-                    err[name] = max(err[name], d)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise AssertionError(f"{name}: kernel != plain version "
-                                         f"({label} shape, seed {seed})")
-        log(f"phase 2: both kernels bit-exact vs plain at the {label} shape: "
-            f"G={g} K={k} tables=({g},{n_tables},{n_slots}) "
-            f"n_servers={n_servers}")
+        batches = [(f"random lanes, seed {seed}", inputs_mod.filter_lanes(
+            g, k, n_tables, n_slots, n_servers, seed)) for seed in range(4)]
+        batches += [(f"edge lanes {case}, seed {seed}", inputs_mod.edge_lanes(
+            case, g, n_tables, n_slots, n_servers, seed))
+            for case in inputs_mod.EDGE_CASES for seed in range(2)]
+        for i, (what, x) in enumerate(batches):
+            for name, fn, plain, c in filter_entries(torch, ops, ref, x, i):
+                d = diff_from(torch, c, fn, plain)
+                err[name] = max(err[name], d)
+                if d:
+                    raise AssertionError(f"phase 2: {name}: kernel != plain "
+                                         f"version ({label} shape, {what})")
+        log(f"phase 2: B1, B2 and B2's staged entry point bit-exact vs plain "
+            f"at the {label} shape (G={g} K={k} tables=({g},{n_tables},"
+            f"{n_slots}) n_servers={n_servers}) on {len(batches)} batches: "
+            f"random lanes (seeds 0-3) and the edge lanes "
+            f"{list(inputs_mod.EDGE_CASES)} (seeds 0-1)")
 
     _, g, k, n_tables, n_slots, n_servers = SHAPES[0]
     x = inputs_mod.filter_lanes(g, k, n_tables, n_slots, n_servers, 99)
+    drop = torch.empty((g, k), dtype=torch.bool, device="cuda")
+    entries = filter_entries(torch, ops, ref, x, 99)
+    b1 = [entries[0][3][n] for n in B1_ARGS]
+
+    def floor(out=None):
+        return filter_floor(*b1, out=out)
+
+    # host-clock timings before any profiler session, which can leave
+    # later launches slower; then graph replays, then the profiler
+    timed = [(name, fn) for name, fn, _, _ in entries] + [("floor", floor)]
+    per_call = {name: (cuda_ms(fn, 2000), cuda_ms(lambda: fn(out=drop), 2000))
+                for name, fn in timed}
+    graph_us = {name: graph_replay_us(torch, c, fn, plain, drop)
+                for name, fn, plain, c in entries}
+    graph_us["floor"] = 1e3 * cuda_ms(capture(torch, floor, drop).replay,
+                                      20) / GRAPH_CALLS
+    dev = {name: device_us(torch, fn, "filter_floor" if name == "floor"
+                           else name, 200) for name, fn in timed}
     rows = {}
-    for name, fn, plain, names, lane_bytes, state_t in (
-            ("fingerprint_filter", ops.fingerprint_filter,
-             ref.fingerprint_filter_ref, b1, 12, False),
-            ("tickfuse_response_path", ops.tickfuse_response_path,
-             ref.tickfuse_ref, b2, 20, True)):
-        args = [torch.from_numpy(x[n].copy()).cuda() for n in names]
-        ms = cuda_ms(lambda: fn(*args), 2000)
-        plain_ms = cuda_ms(lambda: plain(*args), 20)
-        dev_us, dev_how = device_us(torch, lambda: fn(*args), name, 200)
-        nbytes = bound_bytes(x, g, n_tables, n_slots, n_servers, lane_bytes,
-                             state_t)
+    for name, fn, plain, c in entries:
+        plain_ms = cuda_ms(plain, 20)
+        nbytes = bound_bytes(x, g, n_tables, n_slots, n_servers,
+                             LANE_BYTES[name], name != "fingerprint_filter")
         n_ops = 12 * g * k            # hash, compare, select per lane
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / SCALAR_OPS_PER_S * 1e3
+        ms, ms_out = per_call[name]
         rows[name] = dict(ms=ms, plain_ms=plain_ms,
                           bound_ms=max(bytes_ms, ops_ms),
                           bound_by="bytes" if bytes_ms >= ops_ms
                           else "operations",
                           max_abs_err=err[name], bytes=nbytes)
         log(f"phase 2: {name}: kernel {ms:.6f} ms per call (wrapper "
-            f"included, CUDA events over 2000 calls), {dev_us:.3f} us on "
-            f"the device per launch ({dev_how}), plain {plain_ms:.6f} ms, "
-            f"bound {rows[name]['bound_ms']:.8f} ms ({nbytes} B)")
+            f"included, CUDA events over 2000 calls), {ms_out:.6f} ms with "
+            f"a preallocated drop (out=), {dev[name][0]:.3f} us on the "
+            f"device per launch ({dev[name][1]}), {graph_us[name]:.3f} us "
+            f"per call replayed from a CUDA graph of {GRAPH_CALLS} calls "
+            f"(replay checked against the plain version applied "
+            f"{GRAPH_CALLS} times), plain {plain_ms:.6f} ms, bound "
+            f"{rows[name]['bound_ms']:.8f} ms ({nbytes} B)")
+    log(f"phase 2: floor (an empty kernel on B1's grid through B1's launch "
+        f"path): {per_call['floor'][0]:.6f} ms per call, "
+        f"{per_call['floor'][1]:.6f} ms with out=, {dev['floor'][0]:.3f} us "
+        f"on the device per launch ({dev['floor'][1]}), "
+        f"{graph_us['floor']:.3f} us per call replayed from a CUDA graph of "
+        f"{GRAPH_CALLS} calls")
+    del rows["tickfuse_masked"]
     return rows
 
 
@@ -421,7 +554,7 @@ def check_flash_attention(torch, ref, ops):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     err = 0.0
-    cases = ([(c, False) for c in FA_CASES + FA_EDGE_CASES]
+    cases = ([(c, False) for c in FA_CASES + FA_EDGE_CASES + FA_C6_CASES]
              + [(c, True) for c in FA_VIEW_CASES] + [(QWEN_FA, False)])
     for i, (case, transposed) in enumerate(cases):
         causal, window, dtype = case[5:]
@@ -518,6 +651,23 @@ def run_model(torch, lm, kernels, get_config):
     del logits_p, caches_p
     if not torch.isfinite(logits).all():
         raise AssertionError("phase 7: non-finite prefill logits")
+
+    # a prompt of 300 tokens, no multiple of the Pallas kernel's blocks
+    # (ROADMAP C6): through B3 against the plain attention
+    t300 = tokens[:1, :300]
+    lg_k, c_k = lm.prefill(cfg, params, t300, device=DEV)
+    lg_p, c_p = lm.prefill(cfg.replace(attn_impl="xla"), params, t300,
+                           device=DEV)
+    r300 = (worst_rel(lg_k, lg_p),
+            max(max(worst_rel(a.k, b.k), worst_rel(a.v, b.v))
+                for a, b in zip(c_k, c_p)))
+    log(f"phase 7: B3 prefill of 1 x 300 tokens vs plain-attention prefill: "
+        f"logits max |diff| / max |logit| {r300[0]:.3g}, KV caches "
+        f"{r300[1]:.3g} (tolerance {MODEL_RTOL})")
+    if not (max(r300) <= MODEL_RTOL and torch.isfinite(lg_k).all()):
+        raise AssertionError("phase 7: the 300-token prefill differs from "
+                             "the plain prefill")
+    del lg_k, c_k, lg_p, c_p
 
     # 16 greedy decode steps after the prefill
     reset(kernels)
@@ -1152,17 +1302,23 @@ def main() -> int:
     log(f"phase 4: n_ticks cut from {FULL_TICKS} to {SWEEP_TICKS} by the "
         f"run's time limit")
     reset(kernels)
+    ops.tickfuse_masked.launches = 0
     sw = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg)
     counts = {n: fn.launches for n, fn in kernels.items()}
     sweep_launches = dict(counts)
     if counts != only(kernels, tickfuse_response_path=SWEEP_TICKS):
         raise AssertionError(f"phase 4 launches {counts}, expected "
                              f"{SWEEP_TICKS} of tickfuse_response_path")
+    if ops.tickfuse_masked.launches != SWEEP_TICKS:
+        raise AssertionError(f"phase 4: {ops.tickfuse_masked.launches} of "
+                             f"{SWEEP_TICKS} B2 launches through the staged "
+                             "entry point")
     cticks = sw.n_configs * SWEEP_TICKS
     log(f"phase 4: {sw.n_configs} configs x {SWEEP_TICKS} ticks in "
         f"{sw.wall_clock_s:.2f} s: {cticks / sw.wall_clock_s:.1f} "
         f"config-ticks/s, {sw.wall_clock_s / SWEEP_TICKS * 1e3:.3f} ms/tick, "
-        f"B2 launches {counts['tickfuse_response_path']}")
+        f"B2 launches {counts['tickfuse_response_path']} (all through its "
+        f"staged entry point, tickfuse_masked)")
     for r in sw.results:
         # a dedup-table eviction can count a request's second response as
         # a completion too (the reference's n_dedup_evicted), so
@@ -1198,7 +1354,8 @@ def main() -> int:
     b2_us = device_us_per_launch(prof,
                                  DEVICE_SYMBOL["tickfuse_response_path"])
     log(f"phase 4: profile of {PROFILE_TICKS} ticks: {n_launch:.0f} kernel "
-        f"launches per tick, {busy_ms:.3f} ms device busy per tick of "
+        f"launches per tick ({TICK_LAUNCHES_BEFORE} before B2's staged entry "
+        f"point), {busy_ms:.3f} ms device busy per tick of "
         f"{tick_ms:.3f} ms wall (unprofiled sweep): device idle "
         f"{100 * (1 - busy_ms / tick_ms):.1f}%; B2 {b2_us:.3f} us per "
         f"launch")

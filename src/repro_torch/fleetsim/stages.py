@@ -67,7 +67,7 @@ from repro_torch.fleetsim.state import (
     WF_TARR,
     FleetState,
 )
-from repro_torch.kernels.ops import fingerprint_filter, tickfuse_response_path
+from repro_torch.kernels.ops import fingerprint_filter, tickfuse_masked
 from repro_torch.kernels.ref import fingerprint_filter_ref
 from repro_torch.scatter import scatter_add_drop, scatter_last
 from repro_torch.scenarios import registry
@@ -475,16 +475,18 @@ def stage_server(cfg: FleetConfig, params, state: FleetState,
 
 
 def stage_response_filter(cfg: FleetConfig, params, state: FleetState,
-                          arr: Arrivals, resp: Responses):
+                          arr: Arrivals, resp: Responses, out=None):
     """Switch response path: StateT update + the fingerprint filter at each
-    pair's filter switch, one flattened-table call for the whole fabric."""
+    pair's filter switch, one flattened-table call for the whole fabric.
+    ``out``: a ``(G, K)`` bool buffer the ``pallas`` and ``tickfuse``
+    backends write the drop flags into."""
     RK = cfg.n_racks
     T = cfg.n_filter_tables
     m = state.metrics
     idx_flat = resp.frack * T + resp.idx
     drop = _filter_responses(cfg, arr.sstate, arr.tables, resp.rid,
                              idx_flat, resp.clo, resp.sid, resp.qlen,
-                             resp.active)
+                             resp.active, out)
     m = m._replace(
         n_filtered=m.n_filtered + _sum(drop & resp.active),
         n_spine_filtered=m.n_spine_filtered
@@ -537,11 +539,18 @@ def stage_client(cfg: FleetConfig, params, state: FleetState,
 
 
 def _filter_responses(cfg, server_state, tables, rid, idx, clo, sid, qlen,
-                      active):
+                      active, out=None):
     """Response path over the flattened fabric: StateT update + the
     fingerprint filter, with the backend ``cfg.filter_backend`` selects.
     ``server_state`` ``(G, n_racks·S)`` and ``tables`` ``(G, (n_racks+1)·
-    n_tables, n_slots)`` are updated in place; returns ``drop``."""
+    n_tables, n_slots)`` are updated in place; returns ``drop`` (in ``out``
+    under ``pallas`` and ``tickfuse``, when given)."""
+    if cfg.filter_backend == "tickfuse":
+        # StateT write + filter in one CUDA launch, which reads the lanes
+        # as they are and neutralises the inactive ones itself
+        # (kernels/tickfuse.py)
+        return tickfuse_masked(server_state, tables, rid, idx, clo, sid,
+                               qlen, active, out=out)[2]
     n_servers = server_state.shape[1]
     rid = rid.to(_I32).contiguous()
     idx = idx.to(_I32).contiguous()
@@ -551,21 +560,17 @@ def _filter_responses(cfg, server_state, tables, rid, idx, clo, sid, qlen,
         _, res = filter_tick_vectorized(st, rid, idx, clo, sid, qlen,
                                         active)
         return res.drop
-    # scan / pallas / tickfuse: inactive lanes neutralised up front (CLO=0
-    # never touches the filter; an out-of-range sid never touches StateT)
+    # scan / pallas: inactive lanes neutralised up front (CLO=0 never
+    # touches the filter; an out-of-range sid never touches StateT), StateT
+    # via the last-lane-wins scatter, then the table
     sid_m = torch.where(active, sid, n_servers).to(_I32).contiguous()
     clo_m = torch.where(active, clo, 0).to(_I32).contiguous()
     qlen = qlen.to(_I32).contiguous()
-    if cfg.filter_backend == "tickfuse":
-        # StateT write + filter in one CUDA launch (kernels/tickfuse.py)
-        return tickfuse_response_path(server_state, tables, rid, idx, clo_m,
-                                      sid_m, qlen)[2]
-    # scan / pallas: StateT via the last-lane-wins scatter, then the table
     scatter_last(server_state, sid_m, qlen, active)
     if cfg.filter_backend == "scan":
         return fingerprint_filter_ref(tables, rid, idx, clo_m)[1]
     # pallas: the CUDA fingerprint-filter kernel (kernels/fingerprint_filter)
-    return fingerprint_filter(tables, rid, idx, clo_m)[1]
+    return fingerprint_filter(tables, rid, idx, clo_m, out=out)[1]
 
 
 # ---------------------------------------------------------------- pipeline --
@@ -604,8 +609,11 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
     const_lat = const_latency(cfg, params)
     xhop = _f32(cfg.interrack_extra_us)
     recover_ticks = frozenset(params.fail_until_tick.tolist())
+    # the kernel backends write every tick's drop flags into one buffer
+    drop_out = None
 
     def step(state: FleetState, xs):
+        nonlocal drop_out
         state, arr = stage_arrival(cfg, params, state, xs, recover_ticks)
         state, lanes = stage_route(cfg, params, state, arr, group_pairs,
                                    xhop)
@@ -615,7 +623,11 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
         state, lanes = stage_link_failure(cfg, params, state, arr, lanes)
         state, resp = stage_server(cfg, params, state, arr, lanes)
         state, resp = stage_link_response(cfg, params, state, arr, resp)
-        state, drop = stage_response_filter(cfg, params, state, arr, resp)
+        if drop_out is None and cfg.filter_backend in ("pallas", "tickfuse"):
+            drop_out = torch.empty(resp.active.shape, dtype=torch.bool,
+                                   device=resp.active.device)
+        state, drop = stage_response_filter(cfg, params, state, arr, resp,
+                                            drop_out)
         return stage_client(cfg, params, state, arr, resp, drop, const_lat)
 
     return step

@@ -12,11 +12,14 @@ tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it
 launches the kernel or raises.
 
-The wrapper keeps the reference kernel's contract, so both packages accept
-the same inputs: ``Sq`` and ``Skv`` divisible by ``min(256, S)`` (its
-default blocks), and causal or windowed attention only with ``Sq == Skv``
-— the Pallas kernel aligns causal rows at the start, ``attention_ref`` at
-the end, and the two agree only there (ROADMAP C2).
+The wrapper takes every length the reference's model path takes off a
+TPU, where ``impl="auto"`` resolves to its XLA oracle: both kernels clip
+their last query tile at ``Sq`` and zero-fill keys past ``Skv``, so ``Sq``
+and ``Skv`` need not divide by the Pallas kernel's 256-row blocks.  It
+keeps one rule of the reference's kernel: causal or windowed attention
+only with ``Sq == Skv`` — the Pallas kernel aligns causal rows at the
+start, ``attention_ref`` at the end, and the two agree only there
+(ROADMAP C2).
 """
 
 from __future__ import annotations
@@ -31,8 +34,6 @@ from repro_torch.kernels import build, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: the reference kernel's default block size, which fixes its contract
-BLOCK = 256
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 #: bf16 at these head dims runs on the TMA + ``wgmma`` kernel; every other
 #: input on the scalar-FMA kernel
@@ -140,8 +141,8 @@ def wgmma_attributes(d: int) -> dict:
 
 
 def check_attention_args(q, k, v, causal: bool, window) -> None:
-    """Shapes, dtypes, devices and the block contract; raises on what the
-    kernel (and the reference's kernel) does not take."""
+    """Shapes, dtypes, devices and the C2 rule; raises on what the kernel
+    does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, h, sq, d = q.shape
@@ -157,9 +158,8 @@ def check_attention_args(q, k, v, causal: bool, window) -> None:
                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
-    if sq % min(BLOCK, sq) or skv % min(BLOCK, skv):
-        raise ValueError("sequence lengths must be divisible by block sizes "
-                         f"(min({BLOCK}, S)); got Sq={sq}, Skv={skv}")
+    if sq == 0 or skv == 0:
+        raise ValueError(f"empty sequence: Sq={sq}, Skv={skv}")
     if (causal or window is not None) and sq != skv:
         raise ValueError(
             f"causal or windowed attention needs Sq == Skv (got {sq} and "

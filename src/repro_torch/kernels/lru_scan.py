@@ -8,10 +8,11 @@ issued ahead of the dependent FMA.  On a CPU tensor the wrapper runs the
 plain version (:func:`repro_torch.kernels.ref.lru_scan_ref`); on a CUDA
 tensor it launches the kernel or raises.
 
-Length contract: the reference's Pallas kernel needs ``S`` divisible by
-``min(256, S)`` and ``D`` by ``min(128, D)`` (its default chunk and channel
-block); its XLA path takes any length.  This wrapper raises on both
-devices unless both divisions hold (ROADMAP C5).
+Length contract: any ``S, D >= 1``, as the reference's model path takes
+them off a TPU, where ``impl="auto"`` resolves to its XLA path.  (The
+reference's Pallas kernel also needs ``S`` divisible by ``min(256, S)``
+and ``D`` by ``min(128, D)``, its default chunk and channel block; the
+CUDA kernel guards ``t < S`` and ``d < D`` instead, ROADMAP C6.)
 """
 
 from __future__ import annotations
@@ -26,9 +27,6 @@ from repro_torch.kernels import build, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: the reference kernel's default chunk and channel block, which fix its
-#: contract
-CHUNK, BLOCK_D = 256, 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -42,8 +40,8 @@ def _lib():
 
 
 def check_lru_args(x, a, h0) -> None:
-    """Shapes, dtypes, devices and the length contract; raises on what the
-    kernel (or the reference's Pallas kernel) does not take."""
+    """Shapes, dtypes and devices; raises on what the kernel does not
+    take."""
     if x.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"x and a must be one (B, S, D) shape, got "
                          f"{tuple(x.shape)} and {tuple(a.shape)}")
@@ -56,10 +54,8 @@ def check_lru_args(x, a, h0) -> None:
                         f"{list(_DTYPE_CODE)}, got {x.dtype} and {a.dtype}")
     if a.device != x.device or (h0 is not None and h0.device != x.device):
         raise ValueError("x, a and h0 must be on one device")
-    if s == 0 or d == 0 or s % min(CHUNK, s) or d % min(BLOCK_D, d):
-        raise ValueError(f"S must divide by chunk and D by block_d: S={s} "
-                         f"by min({CHUNK}, S), D={d} by min({BLOCK_D}, D) "
-                         "(the reference's Pallas kernel)")
+    if s == 0 or d == 0:
+        raise ValueError(f"empty scan: S={s}, D={d}")
 
 
 def lru_scan(x, a, h0=None):

@@ -7,7 +7,8 @@ from repro_torch.kernels.fingerprint_filter import fingerprint_filter
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels import lru_scan as _lru
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.tickfuse import tickfuse_response_path
+from repro_torch.kernels.tickfuse import tickfuse_masked, \
+    tickfuse_response_path
 
 
 def attention(q, k, v, *, causal=True, window=None, sm_scale=None,
@@ -17,7 +18,10 @@ def attention(q, k, v, *, causal=True, window=None, sm_scale=None,
     ``impl`` as in the reference: ``"auto"`` and ``"pallas"`` take kernel
     B3 (:func:`flash_attention`: the CUDA kernel on a CUDA tensor, its plain
     version on a CPU tensor); ``"xla"`` names the reference's XLA oracle,
-    whose port is :func:`~repro_torch.kernels.ref.attention_ref`."""
+    whose port is :func:`~repro_torch.kernels.ref.attention_ref`.  Every
+    path takes any sequence length, as the reference's ``"auto"`` does off
+    a TPU; causal or windowed attention needs ``Sq == Skv`` on the kernel
+    path (ROADMAP C2)."""
     if impl == "xla":
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   sm_scale=sm_scale)
@@ -52,8 +56,8 @@ def lru_scan(x, a, h0=None, *, impl: str = "auto"):
     """RG-LRU diagonal recurrence; returns ``(y, final_state)``.
     ``"auto"`` and ``"pallas"`` take kernel B5 (:func:`repro_torch.kernels.
     lru_scan.lru_scan`); ``"xla"`` its plain version
-    :func:`~repro_torch.kernels.ref.lru_scan_ref`.  Both hold B5's length
-    contract."""
+    :func:`~repro_torch.kernels.ref.lru_scan_ref`.  Both take any ``S, D
+    >= 1``, as the reference's ``"auto"`` does off a TPU."""
     if _impl(impl) == "xla":
         _lru.check_lru_args(x, a, h0)
         return _ref.lru_scan_ref(x, a, h0)
@@ -61,4 +65,5 @@ def lru_scan(x, a, h0=None, *, impl: str = "auto"):
 
 
 __all__ = ["attention", "fingerprint_filter", "flash_attention",
-           "lru_scan", "ssd_scan", "tickfuse_response_path"]
+           "lru_scan", "ssd_scan", "tickfuse_masked",
+           "tickfuse_response_path"]

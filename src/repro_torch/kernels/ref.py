@@ -122,6 +122,20 @@ def tickfuse_ref(server_state, tables, req_id, idx, clo, sid, qlen):
     return server_state, tables, drop
 
 
+def tickfuse_masked_ref(server_state, tables, req_id, idx, clo, sid, qlen,
+                        active):
+    """The plain version of B2's staged entry point: the staged engine's
+    lanes (``active`` bool, ``idx`` and ``sid`` int64, the rest int32)
+    neutralised as the stage neutralised them (an inactive lane gets
+    ``clo = 0`` and ``sid = n_servers``; ``idx`` and ``sid`` cast to
+    int32), then :func:`tickfuse_ref`."""
+    n_servers = server_state.shape[1]
+    return tickfuse_ref(
+        server_state, tables, req_id, idx.to(torch.int32),
+        torch.where(active, clo, 0).to(torch.int32),
+        torch.where(active, sid, n_servers).to(torch.int32), qlen)
+
+
 # ------------------------------------------------------------- SSD scan -----
 def ssd_scan_naive(x, a, b_mat, c_mat, h0=None):
     """Step-by-step SSD recurrence (the test oracle), per head:

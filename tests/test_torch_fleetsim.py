@@ -199,6 +199,58 @@ def test_golden_cases_bit_exact(backend):
                 (c["policy"], field)
 
 
+@pytest.mark.parametrize("case", ["random", "one_slot", "rid_zero",
+                                  "sid_out", "one_server", "k33"])
+def test_tickfuse_masked_matches_the_staged_neutralisation(case):
+    """B2's staged entry point (``tickfuse_masked``: the stage's lanes as
+    they are, an ``active`` mask, ``idx`` and ``sid`` in int64) on the CPU
+    gives what the staged path gave before it: inactive lanes neutralised
+    with ``torch.where`` and cast to int32, then ``tickfuse_response_path``;
+    and the stage's ``tickfuse`` and ``pallas`` branches, writing into a
+    reused ``out``, give the ``scan`` branch's drops and tables."""
+    from repro_torch.kernels import inputs
+    from repro_torch.kernels.ops import tickfuse_masked, \
+        tickfuse_response_path
+    g, n_tables, n_slots, n_servers = 9, 10, 1024, 24
+    for seed in range(4):
+        x = (inputs.filter_lanes(g, 32, n_tables, n_slots, n_servers, seed)
+             if case == "random" else
+             inputs.edge_lanes(case, g, n_tables, n_slots, n_servers, seed))
+        t = {n: torch.from_numpy(a) for n, a in x.items()}
+        active = torch.from_numpy(
+            np.random.default_rng(seed).random(x["rid"].shape) < 0.8)
+        idx64, sid64 = t["idx"].long(), t["sid"].long()
+
+        def state():
+            return t["server_state"].clone(), t["tables"].clone()
+
+        s1, t1 = state()
+        out = torch.empty(active.shape, dtype=torch.bool)
+        _, _, d1 = tickfuse_masked(s1, t1, t["rid"], idx64, t["clo"], sid64,
+                                   t["qlen"], active, out=out)
+        assert d1 is out
+        d1 = d1.clone()
+        s2, t2 = state()
+        _, _, d2 = tickfuse_response_path(
+            s2, t2, t["rid"], idx64.to(torch.int32),
+            torch.where(active, t["clo"], 0).to(torch.int32),
+            torch.where(active, sid64, n_servers).to(torch.int32), t["qlen"])
+        assert torch.equal(s1, s2) and torch.equal(t1, t2)
+        assert torch.equal(d1, d2)
+        for backend in ("tickfuse", "pallas", "scan"):
+            cfg = tf.FleetConfig(filter_backend=backend)
+            s3, t3 = state()
+            out.fill_(False)
+            d3 = tst._filter_responses(cfg, s3, t3, t["rid"], idx64,
+                                       t["clo"], sid64, t["qlen"], active,
+                                       out)
+            assert torch.equal(s3, s1) and torch.equal(t3, t1), backend
+            assert torch.equal(d3, d1), backend
+    with pytest.raises(TypeError):
+        tickfuse_masked(s1, t1, t["rid"], t["idx"], t["clo"], sid64,
+                        t["qlen"], active)
+
+
 # ------------------------------------------------------- fabric + sweeps ----
 def test_two_rack_skewed_batch_matches_reference():
     """A hot rack drives inter-rack clones and spine filtering; a straggler

@@ -19,11 +19,14 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fingerprint_filter import fingerprint_filter
+from repro_torch.kernels.fingerprint_filter import emulate_warps, \
+    filter_floor, fingerprint_filter, match_any
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.inputs import filter_lanes
-from repro_torch.kernels.tickfuse import tickfuse_response_path
+from repro_torch.kernels.inputs import EDGE_CASES, OUTSIDE_REFERENCE, \
+    edge_lanes, filter_lanes
+from repro_torch.kernels.tickfuse import tickfuse_masked, \
+    tickfuse_response_path
 
 G, K = 5, 32
 
@@ -140,6 +143,132 @@ def test_wrappers_check_their_inputs():
                                *good[1:], _t(x["sid"]), _t(x["qlen"]))
 
 
+def test_wrappers_write_into_out():
+    x = _lanes(6)
+    out = torch.ones((G, K), dtype=torch.bool)
+    _, d1 = fingerprint_filter(_t(x["tables"]), _t(x["rid"]), _t(x["idx"]),
+                               _t(x["clo"]), out=out)
+    assert d1 is out
+    assert torch.equal(out, ref.fingerprint_filter_ref(
+        _t(x["tables"]), _t(x["rid"]), _t(x["idx"]), _t(x["clo"]))[1])
+    names = ("server_state", "tables", "rid", "idx", "clo", "sid", "qlen")
+    _, _, d2 = tickfuse_response_path(*(_t(x[n]) for n in names), out=out)
+    assert d2 is out
+    assert torch.equal(out, ref.tickfuse_ref(*(_t(x[n]) for n in names))[2])
+    for bad in (out[:, :5], out.int(), out.t().contiguous().t()):
+        with pytest.raises(ValueError, match="out"):
+            fingerprint_filter(_t(x["tables"]), _t(x["rid"]), _t(x["idx"]),
+                               _t(x["clo"]), out=bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        filter_floor(_t(x["tables"]), _t(x["rid"]), _t(x["idx"]),
+                     _t(x["clo"]))
+
+
+# ------------------------------------------------- the kernels' warp plan --
+#: (G, n_tables, n_slots, n_servers): the default sweep, the 4-rack fabric,
+#: and the serving dispatcher (one switch, two tables of 4,096 slots, four
+#: replicas)
+PLAN_SHAPES = {"default": (200, 4, 1024, 6), "4-rack": (9, 10, 1024, 24),
+               "serving": (1, 2, 4096, 4)}
+B2_NAMES = ("server_state", "tables", "rid", "idx", "clo", "sid", "qlen")
+
+
+def _plan_lanes(case, shape, seed):
+    if case == "random":
+        return filter_lanes(shape[0], 32, *shape[1:], seed=seed)
+    if case == "serving":       # the dispatcher's 1-4 lanes a tick
+        return filter_lanes(shape[0], 1 + seed, *shape[1:], seed=seed)
+    return edge_lanes(case, *shape, seed=seed)
+
+
+def _emulated(x):
+    """(server_state, tables, drop) of B2's warp plan and (tables, drop) of
+    B1's, on copies of ``x``."""
+    s, t = x["server_state"].copy(), x["tables"].copy()
+    d = emulate_warps(t, x["rid"], x["idx"], x["clo"], s, x["sid"],
+                      x["qlen"])
+    t1 = x["tables"].copy()
+    d1 = emulate_warps(t1, x["rid"], x["idx"], x["clo"])
+    return (s, t, d), (t1, d1)
+
+
+def test_match_any_groups_lanes_by_key():
+    keys = [5, 7, 5, ("own", 3), 7, 5]
+    assert match_any(keys) == [0b100101, 0b010010, 0b100101, 0b001000,
+                               0b010010, 0b100101]
+
+
+@pytest.mark.parametrize("case", ["random", "serving", *EDGE_CASES])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_warp_plan_matches_plain_versions(shape, case):
+    """The CUDA kernels' warp plan (``emulate_warps``: keys, ``match_any``
+    groups, the leader's in-order walk, last-lane-wins StateT, 32-lane
+    passes) is bit-exact with the lane-sequential plain versions, seeds
+    0-3, on random lanes, the serving dispatcher's 1-4 lanes and every
+    edge-lane case."""
+    for seed in range(4):
+        x = _plan_lanes(case, PLAN_SHAPES[shape], seed)
+        (s, t, d), (t1, d1) = _emulated(x)
+        ws, wt, wd = ref.tickfuse_ref(*(_t(x[n]) for n in B2_NAMES))
+        assert np.array_equal(s, ws.numpy())
+        assert np.array_equal(t, wt.numpy())
+        assert np.array_equal(d, wd.numpy())
+        w1t, w1d = ref.fingerprint_filter_ref(
+            *(_t(x[n]) for n in ("tables", "rid", "idx", "clo")))
+        assert np.array_equal(t1, w1t.numpy())
+        assert np.array_equal(d1, w1d.numpy())
+
+
+@pytest.mark.parametrize(
+    "case", ["random", "serving",
+             *(c for c in EDGE_CASES if c not in OUTSIDE_REFERENCE)])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_warp_plan_matches_pallas(shape, case):
+    """The warp plan against the reference's Pallas kernels (interpret
+    mode), on up to four configs of each batch, seeds 0-3.  Out-of-range
+    table and server indices are outside the reference kernels' contract
+    (they index out of bounds there), so those two cases are held to the
+    plain versions only."""
+    jnp, ref_ff, ref_tf, _ = _reference()
+    for seed in range(4):
+        x = _plan_lanes(case, PLAN_SHAPES[shape], seed)
+        (s, t, d), (t1, d1) = _emulated(x)
+        for g in range(min(4, x["rid"].shape[0])):
+            want = ref_tf(*(jnp.asarray(x[n][g]) for n in B2_NAMES),
+                          block=32)
+            for got, w in zip((s, t, d), want):
+                assert np.array_equal(got[g], np.asarray(w))
+            want = ref_ff(*(jnp.asarray(x[n][g])
+                            for n in ("tables", "rid", "idx", "clo")),
+                          block=32)
+            for got, w in zip((t1, d1), want):
+                assert np.array_equal(got[g], np.asarray(w))
+
+
+def test_edge_lanes_hold_their_edge():
+    """Each edge-lane batch really holds what its name says."""
+    from repro_torch.core.tables import fingerprint_hash
+    g, n_tables, n_slots, n_servers = PLAN_SHAPES["default"]
+    x = {c: edge_lanes(c, g, n_tables, n_slots, n_servers, seed=0)
+         for c in EDGE_CASES}
+    one = x["one_slot"]
+    slots = fingerprint_hash(one["rid"].astype(np.int64), n_slots)
+    assert (slots == slots[0, 0]).all() and (one["clo"] > 0).all()
+    assert (one["idx"] == one["idx"][:, :1]).all()
+    three = x["rid_thrice"]
+    assert (three["rid"][:, [11, 20]] == three["rid"][:, [3]]).all()
+    assert (x["rid_zero"]["rid"] == 0).any()
+    oor = x["out_of_range"]
+    assert ((oor["idx"] < 0) & (oor["clo"] > 0)).any()
+    assert ((oor["idx"] >= n_tables) & (oor["clo"] > 0)).any()
+    assert (oor["clo"] < 0).any()
+    sid = x["sid_out"]["sid"]
+    assert (sid < 0).any() and (sid > n_servers).any()
+    assert (x["one_server"]["sid"] == x["one_server"]["sid"][:, :1]).all()
+    for c, k in EDGE_CASES.items():
+        assert x[c]["rid"].shape == (g, k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["fingerprint_filter", "tickfuse"])
 @pytest.mark.parametrize("shape", [(200, 32, 4, 1024, 6),
@@ -163,6 +292,115 @@ def test_cuda_kernel_matches_plain_version(kernel, shape):
     want = plain(*(_t(x[n], "cuda") for n in names))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+
+
+def _masked(x, seed):
+    """``x``'s lanes as the staged engine hands them to B2: an ``active``
+    mask, ``idx`` and ``sid`` in int64, every tensor a strided view."""
+    rng = np.random.default_rng(seed)
+    active = rng.random(x["rid"].shape) < 0.8
+
+    def strided(a, dtype):
+        wide = torch.zeros(a.shape + (2,), dtype=dtype)
+        wide[..., 1] = torch.from_numpy(a.astype(np.int64)).to(dtype)
+        return wide[..., 1]
+
+    return (strided(active, torch.bool), strided(x["rid"], torch.int32),
+            strided(x["idx"], torch.int64), strided(x["clo"], torch.int32),
+            strided(x["sid"], torch.int64), strided(x["qlen"], torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", *EDGE_CASES])
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_cuda_kernels_at_the_edge_lanes(shape, case):
+    """B1, B2 and B2's staged entry point bit-exact with their plain
+    versions on every edge-lane case."""
+    _card()
+    for seed in range(2):
+        x = _plan_lanes(case, PLAN_SHAPES[shape], seed)
+        b1 = ("tables", "rid", "idx", "clo")
+        got = fingerprint_filter(*(_t(x[n], "cuda") for n in b1))
+        want = ref.fingerprint_filter_ref(*(_t(x[n], "cuda") for n in b1))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = tickfuse_response_path(*(_t(x[n], "cuda") for n in B2_NAMES))
+        want = ref.tickfuse_ref(*(_t(x[n], "cuda") for n in B2_NAMES))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        lanes = [t.cuda() for t in _masked(x, seed)]
+        active, rest = lanes[0], lanes[1:]
+        got = tickfuse_masked(_t(x["server_state"], "cuda"),
+                              _t(x["tables"], "cuda"), *rest, active)
+        want = ref.tickfuse_masked_ref(_t(x["server_state"], "cuda"),
+                                       _t(x["tables"], "cuda"), *rest,
+                                       active)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_replay_from_a_cuda_graph():
+    """100 calls of B1, B2 and B2's staged entry point captured in one CUDA
+    graph each, with a preallocated ``drop``; the replayed tables equal
+    the plain version applied 100 times."""
+    _card()
+    x = filter_lanes(200, 32, 4, 1024, 6, seed=7)
+    args = {n: _t(x[n], "cuda") for n in x}
+    active, *rest = (t.cuda() for t in _masked(x, 7))
+    drop = torch.empty((200, 32), dtype=torch.bool, device="cuda")
+    calls = {
+        "fingerprint_filter": (
+            lambda: fingerprint_filter(args["tables"], args["rid"],
+                                       args["idx"], args["clo"], out=drop),
+            lambda s, t: ref.fingerprint_filter_ref(
+                t, args["rid"], args["idx"], args["clo"])),
+        "tickfuse": (
+            lambda: tickfuse_response_path(
+                *(args[n] for n in B2_NAMES), out=drop),
+            lambda s, t: ref.tickfuse_ref(
+                s, t, *(args[n] for n in B2_NAMES[2:]))),
+        "tickfuse_masked": (
+            lambda: tickfuse_masked(args["server_state"], args["tables"],
+                                    *rest, active, out=drop),
+            lambda s, t: ref.tickfuse_masked_ref(s, t, *rest, active)),
+    }
+    for name, (fn, plain) in calls.items():
+        s0 = args["server_state"].clone()
+        t0 = args["tables"].clone()
+        fn()                                 # built and loaded before
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(100):
+                fn()
+        args["server_state"].copy_(s0)
+        args["tables"].copy_(t0)
+        graph.replay()
+        torch.cuda.synchronize()
+        s, t = s0.clone(), t0.clone()
+        for _ in range(100):
+            *_, d = plain(s, t)
+        assert torch.equal(args["tables"], t), name
+        assert torch.equal(drop, d), name
+        if name != "fingerprint_filter":
+            assert torch.equal(args["server_state"], s), name
+        args["server_state"].copy_(s0)
+        args["tables"].copy_(t0)
+
+
+@pytest.mark.cuda
+def test_cuda_floor_launch_touches_nothing():
+    _card()
+    x = filter_lanes(200, 32, 4, 1024, 6, seed=8)
+    args = [_t(x[n], "cuda") for n in ("tables", "rid", "idx", "clo")]
+    before = [a.clone() for a in args]
+    filter_floor(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(args, before))
 
 
 # ========================================================= flash attention ===
@@ -227,10 +465,15 @@ def test_attention_plain_query_chunking_changes_nothing(monkeypatch):
 
 
 def test_flash_attention_keeps_the_reference_contract():
-    """Causal or windowed attention with Sq != Skv raises (the Pallas kernel
-    and attention_ref align causal rows differently there, ROADMAP C2);
-    sequence lengths follow the reference's block contract; bidirectional
-    cross-length attention is fine."""
+    """The contract of the reference's model path off a TPU, where
+    ``impl="auto"`` resolves to its XLA oracle (ROADMAP C6): any sequence
+    length runs, so 300 and 384 tokens (no multiple of the Pallas kernel's
+    256-row blocks) match the reference's ``attention_ref``.  Causal or
+    windowed attention with Sq != Skv still raises (the Pallas kernel and
+    attention_ref align causal rows differently there, ROADMAP C2);
+    bidirectional cross-length attention is fine."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import ref as jref
     _, (q, k, v) = _qkv(1, 2, 2, 256, 32, "float32", seed=4, skv=512)
     before = flash_attention.launches
     with pytest.raises(ValueError, match="C2"):
@@ -239,9 +482,16 @@ def test_flash_attention_keeps_the_reference_contract():
         flash_attention(q, k, v, causal=False, window=64)
     out = flash_attention(q, k, v, causal=False)
     assert out.shape == q.shape
-    _, (q2, k2, v2) = _qkv(1, 2, 2, 384, 32, "float32", seed=5)
-    with pytest.raises(ValueError, match="divisible"):
-        flash_attention(q2, k2, v2)
+    for s, window in ((300, None), (384, None), (300, 64)):
+        arrs, ts = _qkv(1, 4, 2, s, 32, "float32", seed=s)
+        got = flash_attention(*ts, causal=True, window=window)
+        want = jref.attention_ref(*(jnp.asarray(a) for a in arrs),
+                                  causal=True, window=window)
+        assert got.shape == (1, 4, s, 32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=FA_TOL["float32"], rtol=0)
+    with pytest.raises(ValueError, match="empty"):
+        flash_attention(q[:, :, :0], k[:, :, :0], v[:, :, :0])
     with pytest.raises(TypeError):
         flash_attention(q.double(), k.double(), v.double(), causal=False)
     with pytest.raises(ValueError, match="multiple"):
@@ -368,6 +618,14 @@ FA_CUDA_CASES = FA_CASES + [
     (2, 4, 2, 4, 128, True, None, "bfloat16"),      # a 4-token prompt
     (1, 4, 1, 64, 256, True, None, "bfloat16"),     # one warpgroup's rows
     (1, 2, 2, 100, 64, False, None, "bfloat16"),    # ragged, bidirectional
+    # prompt lengths no multiple of the Pallas kernel's blocks (ROADMAP
+    # C6), on the TMA + wgmma kernel and on the scalar one
+    (1, 16, 2, 300, 128, True, None, "bfloat16"),
+    (1, 16, 2, 384, 128, True, None, "bfloat16"),
+    (1, 4, 1, 300, 256, True, 128, "bfloat16"),
+    (1, 4, 2, 300, 128, True, None, "float32"),
+    (1, 4, 2, 384, 64, True, None, "float32"),
+    (1, 4, 2, 300, 96, True, None, "bfloat16"),
 ]
 
 

@@ -271,6 +271,33 @@ def test_bfloat16_prefill_and_decode_match_reference(model):
     _close(lg, lg_r, 5e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [300, 384])
+def test_prefill_of_unblocked_lengths_matches_reference(model, s, dtype):
+    """ROADMAP C6: prompts of 300 and 384 tokens, no multiple of the
+    Pallas kernel's 256-row blocks, prefill through ``impl="auto"`` (the
+    plain B3 on the CPU) as the reference's prefill does off a TPU (its
+    XLA path).  Logits and the KV cache, at the whole-model tolerances
+    above: 1e-4 in float32, 5e-2 in bfloat16."""
+    _, _, _, _, tree = model
+    cfg_r = ref_get_config(ARCH, smoke=True, dtype=dtype)
+    cfg = get_config(ARCH, smoke=True, dtype=dtype)
+    assert cfg.attn_impl == "auto"
+    p_ref = jax.tree.map(jnp.asarray, tree)
+    p = convert.params_from_numpy(cfg, tree)
+    tok = np.random.default_rng(s).integers(
+        0, cfg.vocab_size, (1, s)).astype(np.int32)
+    lg_r, c_r = ref_lm.prefill(cfg_r, p_ref, jnp.asarray(tok), s_max=s + 4)
+    lg, c = lm.prefill(cfg, p, torch.from_numpy(tok), s_max=s + 4,
+                       device="cpu")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    _close(lg, lg_r, tol)
+    got = convert.cache_to_numpy(cfg, c)
+    for f in ("k", "v"):
+        _close(getattr(got["stack"]["p0"], f),
+               getattr(c_r["stack"]["p0"], f), tol)
+
+
 def test_cast_params_keeps_the_numbers(model):
     _, _, _, p, _ = model
     cfg = get_config(ARCH, smoke=True, dtype="bfloat16")

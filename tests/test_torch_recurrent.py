@@ -309,6 +309,43 @@ def test_local_attention_ring_buffer_beyond_window():
                                    atol=3e-3, err_msg=f"pos {i}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [300, 384])
+def test_prefill_of_unblocked_lengths_matches_reference(s, dtype):
+    """ROADMAP C6: recurrentgemma-9b prefills of 300 and 384 tokens (no
+    multiple of the Pallas kernels' 256-step blocks) through
+    ``impl="auto"`` (the plain B3 and B5 on the CPU) match the reference's
+    prefill off a TPU (its XLA paths): logits and every state and cache,
+    at 1e-4 in float32 and the bfloat16 tolerances above.  mamba2's SSD
+    keeps its chunk rule in both packages (C5): 300 tokens raise in each,
+    384 run."""
+    cfg_r, cfg, p_ref, p, _ = _model("recurrentgemma-9b", seed=2,
+                                     dtype=dtype)
+    assert cfg.attn_impl == "auto"
+    tok = _tokens(cfg, seed=s, n=s, b=1)
+    lg_r, c_r = ref_lm.prefill(cfg_r, p_ref, jnp.asarray(tok), s_max=s + 4)
+    lg, c = lm.prefill(cfg, p, torch.from_numpy(tok), s_max=s + 4,
+                       device="cpu")
+    if dtype == "float32":
+        _close(lg, lg_r, 1e-4)
+        _same_caches(cfg, c, c_r, 1e-4)
+    else:
+        _close(lg, lg_r, 5e-2)
+        _same_caches(cfg, c, c_r, 5e-2, scaled=True)
+    if dtype == "float32":
+        cfg_r, cfg, p_ref, p, _ = _model("mamba2-370m", seed=2)
+        tok = _tokens(cfg, seed=s, n=s, b=1)
+        if s % 128:
+            with pytest.raises(ValueError):
+                ref_lm.prefill(cfg_r, p_ref, jnp.asarray(tok))
+            with pytest.raises(ValueError):
+                lm.prefill(cfg, p, torch.from_numpy(tok), device="cpu")
+        else:
+            lg_r, _ = ref_lm.prefill(cfg_r, p_ref, jnp.asarray(tok))
+            lg, _ = lm.prefill(cfg, p, torch.from_numpy(tok), device="cpu")
+            _close(lg, lg_r, 1e-4)
+
+
 # ====================================================== faults of the ref ===
 @pytest.mark.parametrize("arch,s,raises", [
     ("mamba2-370m", 8, TypeError),         # s == H: the SSD state

@@ -4,7 +4,9 @@ The port's four plain scans (``repro_torch.kernels.ref``) are held to the
 reference's oracles (``repro.kernels.ref``) and to its Pallas kernels in
 interpret mode (their default off a TPU), at the reference's own test
 shapes (``tests/test_kernels.py``), with and without h0, in float32 and
-bfloat16; the wrappers and ``ops`` keep the reference's length contracts.
+bfloat16; the SSD wrapper and ``ops`` keep the reference's length
+contracts, the LRU wrapper takes any length, as the reference's XLA path
+does.
 The CUDA cases need a card (marker ``cuda``) and skip without one; the
 reference is imported only by the tests that use it, so on a machine with
 a card and no ``jax``
@@ -347,23 +349,27 @@ def test_lru_log_depth_matches_naive_at_an_odd_length():
 
 
 def test_lru_wrapper_keeps_the_pallas_contract():
-    """S by min(256, S) and D by min(128, D), as the Pallas kernel needs;
-    the XLA path takes any length, but ops and the wrapper raise for what
-    either path rejects, on the CPU too."""
+    """The contract of the reference's model path off a TPU, where
+    ``impl="auto"`` resolves to its XLA path (ROADMAP C6): any S, D >= 1.
+    Lengths and widths the Pallas kernel's blocks reject (S 333, D 192)
+    run through the wrapper and both ``ops`` impls and match the
+    reference's ``lru_scan_ref``; an empty scan raises."""
+    from repro.kernels import ref as jref
     before = lru_scan.launches
-    for s, d, ok in ((333, 32, False), (512, 192, False), (255, 64, True),
-                     (512, 384, True)):
-        arrs, state = _lru_inputs(1, s, d, seed=s)
+    for b, s, d in ((1, 333, 32), (1, 512, 192), (2, 333, 192),
+                    (1, 255, 64), (1, 512, 384)):
+        arrs, state = _lru_inputs(b, s, d, seed=s)
         ts, t0 = _torch(arrs, state, "float32")
+        js, j0 = _jax(arrs, state, "float32")
+        want = jref.lru_scan_ref(*js, j0)
         for fn in (lambda: lru_scan(*ts, t0),
                    lambda: ops.lru_scan(*ts, t0, impl="xla"),
                    lambda: ops.lru_scan(*ts, t0)):
-            if ok:
-                y, h_t = fn()
-                assert y.shape == (1, s, d) and h_t.shape == (1, d)
-            else:
-                with pytest.raises(ValueError, match="divide"):
-                    fn()
+            y, h_t = fn()
+            assert y.shape == (b, s, d) and h_t.shape == (b, d)
+            _close((y, h_t), want, "float32", "lru")
+    with pytest.raises(ValueError, match="empty"):
+        lru_scan(ts[0][:, :0], ts[1][:, :0])
     with pytest.raises(TypeError):
         lru_scan(ts[0], ts[1].double())
     with pytest.raises(ValueError):
@@ -503,12 +509,14 @@ def test_cuda_ssd_scan_raises_outside_the_built_state_widths():
 @pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
 @pytest.mark.parametrize("b,s,d,dtype", [c[:3] + (dt,) for c in LRU_CASES
                                          + [(2, 255, 64, 0, 0),
-                                            (2, 40, 100, 0, 0)]
+                                            (2, 40, 100, 0, 0),
+                                            (2, 333, 192, 0, 0)]
                                          for dt in ("float32", "bfloat16")])
 def test_cuda_lru_scan_matches_plain_version(b, s, d, dtype, h0):
     """The reference's shapes, a length that is no multiple of the
-    kernel's 32-step look-ahead, and a width that is no multiple of its
-    64-thread blocks."""
+    kernel's 32-step look-ahead, a width that is no multiple of its
+    64-thread blocks, and a length and width the Pallas kernel's blocks
+    reject (ROADMAP C6)."""
     _card()
     arrs, state = _lru_inputs(b, s, d, seed=s + d, dtype=dtype, h0=h0)
     ts, t0 = _torch(arrs, state, dtype, "cuda")
