@@ -18,15 +18,20 @@ Phases (each fails the run on error; nothing is caught):
    replayed from a CUDA graph (checked against the plain version applied
    as often), beside the floor: an empty kernel through B1's launch path;
 3. run the 6 golden cases of ``tests/golden/fleetsim_single_tor.json`` as
-   one batch under the ``pallas`` (kernel B1), ``tickfuse`` (kernel B2) and
-   ``vectorized`` filter backends and compare every field with the JSON;
-4. the main path at full width: ``sweep_grid`` over the default
+   one batch on the staged engine under the ``pallas`` (kernel B1),
+   ``tickfuse`` (kernel B2) and ``vectorized`` filter backends and compare
+   every field with the JSON;
+4. the main path at full width on the staged engine
+   (``engine=EngineOptions(backend="staged")``, one host call a tick, so
+   the wrappers count every launch): ``sweep_grid`` over the default
    ``FleetConfig`` (5 policies × 8 loads × 5 seeds = 200 configs) through
    B2's staged entry point, then the first ticks of the same grid under
-   ``scan`` (the plain lane loop) held bit-equal to the kernel-backed run;
+   ``scan`` (the plain lane loop) held bit-equal to the kernel-backed run,
+   both replayed from the fused backend's CUDA graphs;
 5. the README's 4-rack fabric with a hot rack and a straggler rack, loads up
-   to 0.95, through B1, then the first ticks of the same grid under ``scan``
-   held bit-equal to the kernel-backed run;
+   to 0.95, through B1 on the staged engine, then the first ticks of the
+   same grid under ``scan`` held bit-equal to the kernel-backed run, as in
+   phase 4;
 6. flash attention (kernel B3) against its plain version at the reference
    test sweep's shapes, at the TMA + ``wgmma`` kernel's edge cases (head
    dim 256 windowed and ragged, a window narrower than a tile, the model's
@@ -61,7 +66,20 @@ Phases (each fails the run on error; nothing is caught):
 11. recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU through
     B5, 12 local attention through B3): a 4 x 4,096-token prefill held to
     the plain prefill (logits, LRU states, ring KV caches), 16 decode
-    steps, and prefill 255 + decode 1 against prefill 256.
+    steps, and prefill 255 + decode 1 against prefill 256;
+12. the fused backend (each block of 64 ticks replayed from a CUDA graph):
+    (a) the 6 golden cases under ``pallas``, ``tickfuse`` and
+    ``vectorized`` at K = 512 and K = 300 (a tail), every field bit-exact;
+    (b) phase 4's sweep through ``sweep_grid(engine=EngineOptions(backend=
+    "fused"))``, every row and the grid histogram bit-identical to phase
+    4's staged sweep, timed beside it (config-ticks/s, ms a tick, the
+    graph's capture and instantiation, device busy a tick and the idle
+    share from a profile of replays, whose B2 launches must equal the
+    ticks replayed); (c) ``cross_validate`` at the base of
+    ``src/repro/scenarios/library/validate_grid.json`` (4 servers × 8
+    workers, Exp(25 µs) with its 1% × 15 jitter, seed 0, the five always-on
+    policies × loads 0.2, 0.5, 0.8, 20,000 DES requests a point): every
+    point within the documented tolerances.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -92,6 +110,12 @@ SCAN_CHECK_TICKS = 2_000
 PROFILE_TICKS = 40
 RACK_TICKS = 4_000
 RACK_CHECK_TICKS = 1_000
+# phase 12: graph replays in the profiled window (of the sweep's 64-tick
+# graph), and validate_grid.json's base and DES requests a point
+# (validate.main's default)
+PROFILE_REPLAYS = 8
+XVAL_LOADS = (0.2, 0.5, 0.8)
+XVAL_REQUESTS = 20_000
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -472,6 +496,19 @@ def assert_same_state(tf, st_a, st_b, what: str) -> None:
     for name in ("dedup", "client_backlog", "key"):
         if not np.array_equal(getattr(a, name), getattr(b, name)):
             raise AssertionError(f"{what} at {name}")
+
+
+def replayed_state(cfg, params, n_ticks: int):
+    """The state of a batched run (``params`` on the card) after its first
+    ``n_ticks`` ticks, every tick replayed from the fused backend's CUDA
+    graph (blocks of ``graph_ticks(n_ticks)`` ticks)."""
+    from repro_torch.fleetsim import engine, fused
+
+    state, step, n_raw = engine.init_run(cfg, params)
+    blocks = fused.TickBlocks(cfg, step, n_raw, state,
+                              fused.graph_ticks(n_ticks))
+    blocks.run(n_ticks // blocks.n)
+    return blocks.state
 
 
 def golden_batch(tf, backend):
@@ -1209,6 +1246,138 @@ def compare_layers(torch, lm, cfg, params, tokens) -> tuple[float, float]:
     return worst_y, worst_c
 
 
+# ---------------------------------------------------------------- phase 12 --
+def check_golden(m, cases, what: str) -> None:
+    m = type(m)(*(x.cpu().numpy() for x in m))
+    for i, c in enumerate(cases):
+        for field, want in c["metrics"].items():
+            got = np.asarray(getattr(m, field)[i]).reshape(-1)
+            if not np.array_equal(got, np.asarray(want).reshape(-1)):
+                raise AssertionError(f"golden {i} ({c['policy']}) {field} "
+                                     f"differs {what}")
+
+
+def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
+              seeds) -> None:
+    """Phase 12: the fused backend, each block of ticks replayed from a CUDA
+    graph: the goldens, phase 4's sweep (``sw``, its staged run) and
+    ``cross_validate``."""
+    from repro_torch.core.workloads import ExponentialService
+    from repro_torch.fleetsim import engine, fused
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.fleetsim.sweep import plan_grid
+    from repro_torch.fleetsim.validate import cross_validate
+
+    # (a) the goldens under every filter backend, with and without a tail
+    for backend in ("tickfuse", "pallas", "vectorized"):
+        for k in (512, 300):
+            cfg_g, cases, params = golden_batch(tf, backend)
+            st = fused.GraphStats()
+            t0 = time.perf_counter()
+            m, ran = engine.run(cfg_g, params, "cuda", EngineOptions(
+                backend="fused", ticks_per_chunk=k), st)
+            check_golden(m, cases, f"under fused {backend} K={k}")
+            dt = time.perf_counter() - t0
+            if ran != "fused" or st.replays == 0:
+                raise AssertionError(f"phase 12: {backend} K={k} ran {ran} "
+                                     f"with {st.replays} graph replays")
+            log(f"phase 12: goldens under fused, {backend}, K={k}: 6 cases "
+                f"x 16 fields bit-exact ({cfg_g.n_ticks} ticks, {dt:.2f} s; "
+                f"graph of {st.ticks} ticks replayed {st.replays} times, "
+                f"warm-up {st.warmup_s:.3f} s, capture {st.capture_s:.3f} s, "
+                f"instantiate {st.instantiate_s:.3f} s)")
+
+    # (b) phase 4's sweep on the fused backend, bit-identical to the staged
+    fz = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg,
+                       engine=EngineOptions(backend="fused"))
+    if fz.backend != "fused" or len(fz.results) != len(sw.results):
+        raise AssertionError(f"phase 12: the sweep ran {fz.backend}")
+    for a, b in zip(fz.results, sw.results):
+        # every field, floats by their exact repr (NaN equal to NaN)
+        if json.dumps(a.__dict__) != json.dumps(b.__dict__):
+            raise AssertionError(f"phase 12: fused row {a.row()} != staged "
+                                 f"{b.row()}")
+    if not np.array_equal(fz.grid_hist, sw.grid_hist):
+        raise AssertionError("phase 12: fused grid histogram != staged")
+    n_ticks = cfg.n_ticks
+    cticks = sw.n_configs * n_ticks
+    staged_ms = sw.wall_clock_s / n_ticks * 1e3
+    fused_ms = fz.wall_clock_s / n_ticks * 1e3
+    g = fz.graph
+    log(f"phase 12: {fz.n_configs} configs x {n_ticks} ticks under fused: "
+        f"all {len(fz.results)} rows and the grid histogram bit-identical "
+        f"to phase 4's staged sweep")
+    log(f"phase 12: fused {fz.wall_clock_s:.2f} s: "
+        f"{cticks / fz.wall_clock_s:.1f} config-ticks/s, {fused_ms:.3f} "
+        f"ms/tick (graph set-up apart: {fz.compile_s:.3f} s); staged (phase "
+        f"4) {sw.wall_clock_s:.2f} s: {cticks / sw.wall_clock_s:.1f} "
+        f"config-ticks/s, {staged_ms:.3f} ms/tick; "
+        f"{staged_ms / fused_ms:.2f}x")
+    log(f"phase 12: graph of {g.ticks} ticks replayed {g.replays} times; "
+        f"warm-up {g.warmup_s:.3f} s, capture {g.capture_s:.3f} s, "
+        f"instantiate {g.instantiate_s:.3f} s; "
+        f"{n_ticks - g.replays * g.ticks} ticks on the staged loop")
+
+    # where a replayed tick's time goes: a profile of graph replays on the
+    # same grid, after one marker kernel (a session can miss its first
+    # kernels; the marker's 1 of ~670 x 512 launches is counted in);
+    # B2's launches counted by the profiler
+    cfg_k, _, _, params = plan_grid(cfg.service, policies, loads, seeds,
+                                    cfg=cfg)
+    params, _ = engine.batched_params(params, torch.device("cuda"))
+    state, step, n_raw = engine.init_run(cfg_k, params)
+    blocks = fused.TickBlocks(cfg_k, step, n_raw, state, g.ticks)
+    marker = torch.zeros(1, device="cuda")
+
+    def replays():
+        marker.add_(1)
+        blocks.run(PROFILE_REPLAYS)
+
+    prof = device_kernels(torch, replays)
+    ticks = PROFILE_REPLAYS * g.ticks
+    n_b2 = launches_in(prof, "tickfuse_response_path")
+    if n_b2 != ticks:
+        raise AssertionError(f"phase 12: the profile counts {n_b2} B2 "
+                             f"launches in {ticks} replayed ticks")
+    busy_ms = sum(us for _, us in prof.values()) / 1e3 / ticks
+    n_launch = sum(n for n, _ in prof.values()) / ticks
+    b2_us = device_us_per_launch(prof,
+                                 DEVICE_SYMBOL["tickfuse_response_path"])
+    log(f"phase 12: profile of {PROFILE_REPLAYS} replays ({ticks} ticks): "
+        f"B2 launches {n_b2} (= ticks replayed, counted by the profiler), "
+        f"{n_launch:.1f} kernels per tick, {busy_ms:.3f} ms device busy per "
+        f"tick of {fused_ms:.3f} ms wall (unprofiled sweep): device idle "
+        f"{100 * (1 - busy_ms / fused_ms):.1f}% (staged, phase 4: "
+        f"{staged_busy_ms:.3f} of {staged_ms:.3f} ms, idle "
+        f"{100 * (1 - staged_busy_ms / staged_ms):.1f}%); B2 {b2_us:.3f} us "
+        f"per launch")
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:6]
+    for key, (n, us) in top:
+        log(f"phase 12:   {us / 1e3 / ticks:.4f} ms/tick "
+            f"{n / ticks:.0f} launches/tick  {key[:90]}")
+    del blocks, state
+
+    # (c) cross-validation against the DES at validate_grid.json's base
+    report = {}
+    t0 = time.perf_counter()
+    checks = cross_validate(ExponentialService(25.0), policies,
+                            list(XVAL_LOADS), n_servers=4, n_workers=8,
+                            n_requests=XVAL_REQUESTS, seed=0, report=report)
+    dt = time.perf_counter() - t0
+    fl = report["fleet"]
+    for c in checks:
+        log("phase 12: " + ("[PASS] " if c.ok else "[FAIL] ") + c.describe())
+    log(f"phase 12: cross_validate: {sum(c.ok for c in checks)}/"
+        f"{len(checks)} points within tolerance in {dt:.1f} s: FleetSim "
+        f"{fl.n_configs} configs on {fl.backend} in {fl.wall_clock_s:.1f} s "
+        f"(graph set-up {fl.compile_s:.2f} s, {fl.graph.replays} replays of "
+        f"{fl.graph.ticks} ticks), DES {report['des_s']:.1f} s on the host "
+        f"({XVAL_REQUESTS} requests a point)")
+    if not all(c.ok for c in checks):
+        raise AssertionError("phase 12: a cross-validation point is out of "
+                             "tolerance")
+
+
 def main() -> int:
     import torch
 
@@ -1222,6 +1391,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.fleetsim as tf
     from repro_torch.fleetsim import engine
+    from repro_torch.fleetsim.options import EngineOptions
     from repro_torch.fleetsim.sweep import plan_grid
     from repro_torch.kernels import build, inputs, ops, ref
     from repro_torch.kernels import lru_scan as lru_mod
@@ -1268,22 +1438,19 @@ def main() -> int:
     rows = check_kernels(torch, inputs, ref, ops)
 
     # -- phase 3: goldens on the card --------------------------------------
+    # phases 3-5 run the staged engine, where every launch is a wrapper
+    # call (the default on a card, 'auto', is the fused backend: phase 12)
+    staged = EngineOptions(backend="staged")
     for backend, kernel in (("pallas", "fingerprint_filter"),
                             ("tickfuse", "tickfuse_response_path"),
                             ("vectorized", None)):
         cfg, cases, params = golden_batch(tf, backend)
         reset(kernels)
         t0 = time.perf_counter()
-        m = tf.simulate(cfg, params)
-        m = type(m)(*(x.cpu().numpy() for x in m))
+        m = tf.simulate(cfg, params, options=staged)
+        check_golden(m, cases, f"under {backend}")
         dt = time.perf_counter() - t0
         counts = {n: fn.launches for n, fn in kernels.items()}
-        for i, c in enumerate(cases):
-            for field, want in c["metrics"].items():
-                got = np.asarray(getattr(m, field)[i]).reshape(-1)
-                if not np.array_equal(got, np.asarray(want).reshape(-1)):
-                    raise AssertionError(f"golden {i} ({c['policy']}) "
-                                         f"{field} differs under {backend}")
         want_counts = {n: cfg.n_ticks if n == kernel else 0
                        for n in kernels}
         if counts != want_counts:
@@ -1303,7 +1470,8 @@ def main() -> int:
         f"run's time limit")
     reset(kernels)
     ops.tickfuse_masked.launches = 0
-    sw = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg)
+    sw = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg,
+                       engine=staged)
     counts = {n: fn.launches for n, fn in kernels.items()}
     sweep_launches = dict(counts)
     if counts != only(kernels, tickfuse_response_path=SWEEP_TICKS):
@@ -1335,13 +1503,13 @@ def main() -> int:
                                     cfg=cfg)
     params, _ = engine.batched_params(params, torch.device("cuda"))
     t0 = time.perf_counter()
-    st_k = engine._simulate_core(cfg_k, params, n_steps=SCAN_CHECK_TICKS)
-    st_s = engine._simulate_core(replace(cfg_k, filter_backend="scan"),
-                                 params, n_steps=SCAN_CHECK_TICKS)
+    st_k = replayed_state(cfg_k, params, SCAN_CHECK_TICKS)
+    st_s = replayed_state(replace(cfg_k, filter_backend="scan"), params,
+                          SCAN_CHECK_TICKS)
     assert_same_state(tf, st_k, st_s, "phase 4: scan != tickfuse")
     log(f"phase 4: first {SCAN_CHECK_TICKS} ticks of the grid under scan "
-        f"bit-equal to tickfuse (whole state and all metrics, "
-        f"{time.perf_counter() - t0:.1f} s)")
+        f"bit-equal to tickfuse (whole state and all metrics; both replayed "
+        f"from CUDA graphs, {time.perf_counter() - t0:.1f} s)")
 
     # where a tick's time goes: a profiled window of the same grid
     state, step, n_raw = engine.init_run(cfg_k, params)
@@ -1349,6 +1517,7 @@ def main() -> int:
     prof = device_kernels(torch, lambda: engine.advance(
         cfg_k, state, step, n_raw, 5, 5 + PROFILE_TICKS))
     busy_ms = sum(us for _, us in prof.values()) / 1e3 / PROFILE_TICKS
+    sweep_cfg, staged_busy_ms = cfg, busy_ms
     n_launch = sum(n for n, _ in prof.values()) / PROFILE_TICKS
     tick_ms = sw.wall_clock_s / SWEEP_TICKS * 1e3
     b2_us = device_us_per_launch(prof,
@@ -1374,7 +1543,7 @@ def main() -> int:
     rack_policies = ["baseline", "netclone", "netclone+racksched"]
     rack_loads = [0.5, 0.8, 0.95]
     rk = tf.sweep_grid(cfg.service, rack_policies, rack_loads, [0], cfg=cfg,
-                       rack_weights=weights, slowdown=slowdown)
+                       rack_weights=weights, slowdown=slowdown, engine=staged)
     counts = {n: fn.launches for n, fn in kernels.items()}
     rack_launches = dict(counts)
     if counts != only(kernels, fingerprint_filter=RACK_TICKS):
@@ -1400,9 +1569,9 @@ def main() -> int:
         rack_weights=weights, slowdown=slowdown)
     params, _ = engine.batched_params(params, torch.device("cuda"))
     t0 = time.perf_counter()
-    st_k = engine._simulate_core(cfg_k, params, n_steps=RACK_CHECK_TICKS)
-    st_s = engine._simulate_core(replace(cfg_k, filter_backend="scan"),
-                                 params, n_steps=RACK_CHECK_TICKS)
+    st_k = replayed_state(cfg_k, params, RACK_CHECK_TICKS)
+    st_s = replayed_state(replace(cfg_k, filter_backend="scan"), params,
+                          RACK_CHECK_TICKS)
     assert_same_state(tf, st_k, st_s, "phase 5: scan != pallas")
     n_spine = int(st_k.metrics.n_spine_filtered.sum())
     if n_spine == 0:
@@ -1410,8 +1579,8 @@ def main() -> int:
                              f"{RACK_CHECK_TICKS} ticks")
     log(f"phase 5: first {RACK_CHECK_TICKS} ticks of the grid under scan "
         f"bit-equal to pallas (whole state and all metrics; "
-        f"{n_spine} responses spine-filtered; "
-        f"{time.perf_counter() - t0:.1f} s)")
+        f"{n_spine} responses spine-filtered; both replayed from CUDA "
+        f"graphs, {time.perf_counter() - t0:.1f} s)")
 
     # -- phase 6: flash attention vs plain ---------------------------------
     rows["flash_attention"] = check_flash_attention(torch, ref, ops)
@@ -1439,6 +1608,11 @@ def main() -> int:
     lru_launches = run_recurrent(torch, lm, kernels, get_config,
                                  "recurrentgemma-9b", PREFILL_B, PREFILL_S,
                                  "phase 11")
+    torch.cuda.empty_cache()
+
+    # -- phase 12: the fused backend, replayed from CUDA graphs -------------
+    run_fused(torch, tf, sw, staged_busy_ms, sweep_cfg, policies, loads,
+              seeds)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -4,8 +4,8 @@
 The config modules are the reference's pure dataclasses, copied.  Every
 arch resolves; building a model whose layers the port lacks yet raises
 ``NotImplementedError`` naming its ROADMAP item (``repro_torch.models.lm.
-check_supported``).  The reference's ``netclone_cluster`` (the DES testbed's
-cluster constants) is not a model config and is not carried over.
+check_supported``).  ``netclone_cluster`` (the DES testbed's cluster
+constants) is not a model config and is not in the registry.
 """
 
 from __future__ import annotations

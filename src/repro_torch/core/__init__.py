@@ -1,2 +1,4 @@
-"""Switch data plane: header constants, Algorithm-1 tables, and the batched
-tensor form of the switch tick (:mod:`repro_torch.core.switch`)."""
+"""NetClone's switch data plane and the discrete-event simulator: header
+fields and packets, the Algorithm-1 tables, the switch in its exact scalar
+form and its batched tensor form (:mod:`repro_torch.core.switch`), the
+DES policies, workloads and simulator (numpy copies of ``repro.core``)."""

@@ -1,4 +1,13 @@
-"""Batched tensor form of the NetClone data plane.
+"""The NetClone switch data plane: the batched tensor form the engines use,
+and the exact scalar form the discrete-event simulator drives.
+
+:class:`NetCloneSwitch` (with :class:`SwitchCosts`) is the port's copy of
+``repro.core.switch``: Algorithm 1 line by line on one packet at a time,
+over the numpy tables of :mod:`repro_torch.core.tables`.  It lives in this
+module so ``from repro_torch.core.switch import NetCloneSwitch`` mirrors the
+reference's import.
+
+The rest of the module is the batched tensor form of the data plane.
 
 Port of ``repro.core.switch_jax`` with the config axis written out: every
 state tensor and every lane tensor carries a leading ``G`` axis, and a
@@ -23,11 +32,14 @@ The response filter has three forms:
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.tables import GroupTable
+from repro_torch.core.header import CLO_CLONE, CLO_NONE, CLO_ORIG, Request, \
+    Response
+from repro_torch.core.tables import FilterTables, GroupTable, StateTable
 from repro_torch.kernels.ref import fingerprint_filter_ref, fingerprint_slot
 from repro_torch.scatter import scatter_last
 
@@ -145,3 +157,92 @@ def wipe(state: SwitchState) -> SwitchState:
     return SwitchState(seq=torch.zeros_like(state.seq),
                        server_state=torch.zeros_like(state.server_state),
                        filter_tables=torch.zeros_like(state.filter_tables))
+
+
+# ------------------------------------------------------ exact scalar form --
+@dataclass(slots=True)
+class SwitchCosts:
+    """Per-pass latency model of the pipeline (µs).  A Tofino pass is a few
+    hundred ns; a recirculated clone pays one extra pass (§3.4)."""
+
+    pipeline_pass: float = 0.4
+    recirculation: float = 0.4
+
+
+class NetCloneSwitch:
+    """Switch state + Algorithm 1, one packet at a time.
+
+    ``process_request``/``process_response`` return *decisions* (where
+    copies go, whether a response is dropped); the caller applies transport
+    costs."""
+
+    def __init__(
+        self,
+        n_servers: int,
+        n_filter_tables: int = 2,
+        n_filter_slots: int = 2 ** 17,
+        costs: SwitchCosts | None = None,
+        cloning_enabled: bool = True,
+        filtering_enabled: bool = True,
+    ):
+        self.grp_table = GroupTable(n_servers)
+        self.state_table = StateTable(n_servers)
+        self.filter_tables = FilterTables(n_filter_tables, n_filter_slots)
+        self.costs = costs or SwitchCosts()
+        self.cloning_enabled = cloning_enabled
+        self.filtering_enabled = filtering_enabled
+        self.seq = 0  # global REQ_ID sequence (Alg. 1 line 2); 0 reserved
+        # observability
+        self.n_cloned = 0
+        self.n_requests = 0
+
+    # -- request path (Alg. 1 lines 1-13) --------------------------------
+    def process_request(self, req: Request) -> list[tuple[Request, float]]:
+        """Returns [(packet, switch_delay_µs), ...], one entry per emitted
+        copy.  The clone pays the recirculation pass on top of the normal
+        pipeline pass."""
+        self.n_requests += 1
+        self.seq += 1
+        req.req_id = self.seq
+        s1, s2 = self.grp_table.lookup(req.grp)
+        req.dst = s1  # AddrT[Srv1] (line 5)
+        base = self.costs.pipeline_pass
+        if self.cloning_enabled and self.state_table.is_idle_pair(s1, s2):
+            req.clo = CLO_ORIG  # line 7
+            clone = Request(
+                req_id=req.req_id,
+                grp=req.grp,
+                clo=CLO_CLONE,  # line 12 (set on recirculation)
+                idx=req.idx,
+                dst=s2,         # AddrT[pkt.sid] (line 13)
+                t_arrival=req.t_arrival,
+                service=req.service,
+                client_id=req.client_id,
+                key=req.key,
+                op=req.op,
+            )
+            self.n_cloned += 1
+            return [(req, base), (clone, base + self.costs.recirculation)]
+        req.clo = CLO_NONE
+        return [(req, base)]
+
+    # -- response path (Alg. 1 lines 14-26) ------------------------------
+    def process_response(self, resp: Response) -> tuple[bool, float]:
+        """Returns (drop, switch_delay_µs)."""
+        # lines 15-16: always refresh both state copies
+        self.state_table.update(resp.sid, resp.state)
+        drop = False
+        if resp.clo != CLO_NONE and self.filtering_enabled:
+            drop = self.filter_tables.process(resp.req_id, resp.idx)
+        return drop, self.costs.pipeline_pass
+
+    # -- failure handling (§3.6) -----------------------------------------
+    def fail(self) -> None:
+        """Switch failure: all soft state is lost; REQ_ID restarts from 0."""
+        self.state_table.wipe()
+        self.filter_tables.wipe()
+        self.seq = 0
+
+    def remove_server(self, sid: int) -> None:
+        """Control-plane reaction to a server failure."""
+        self.grp_table.remove_server(sid)

@@ -3,10 +3,13 @@ ticks advances a batch of ``G`` fabrics at once.
 
 The reference scans :func:`~repro.fleetsim.stages.build_step` with
 ``lax.scan`` and sweeps it with ``vmap``; the port writes the config axis
-out (every state tensor leads with ``G``) and loops over the ticks on the
-host, one batched tick at a time.  Every random number comes from the
-port's bit-exact threefry stream (:mod:`repro_torch.random`), so a run
-draws what the reference's run draws.
+out (every state tensor leads with ``G``).  Its staged backend loops over
+the ticks on the host, one batched tick at a time (:func:`advance`); the
+fused backend (:mod:`repro_torch.fleetsim.fused`) replays chunks of the
+same ticks from a CUDA graph.  ``EngineOptions`` picks one
+(:func:`resolve_options`).  Every random number comes from the port's
+bit-exact threefry stream (:mod:`repro_torch.random`), so a run draws what
+the reference's run draws.
 
 :func:`simulate` runs on the CUDA device by default; without one it raises
 unless the caller passes ``device="cpu"``.
@@ -202,13 +205,54 @@ def advance(cfg: FleetConfig, state: FleetState, step, n_raw, start: int,
     return state
 
 
-def _simulate_core(cfg: FleetConfig, params: RunParams,
-                   n_steps: int | None = None) -> FleetState:
-    """Run a batched ``params`` (on its device) for ``cfg.n_ticks`` ticks,
-    or only the first ``n_steps`` of them; returns the final state."""
+def _simulate_core(cfg: FleetConfig, params: RunParams) -> FleetState:
+    """Run a batched ``params`` (on its device) for ``cfg.n_ticks`` ticks on
+    the staged loop; returns the final state."""
     state, step, n_raw = init_run(cfg, params)
-    n = cfg.n_ticks if n_steps is None else min(n_steps, cfg.n_ticks)
-    return advance(cfg, state, step, n_raw, 0, n)
+    return advance(cfg, state, step, n_raw, 0, cfg.n_ticks)
+
+
+def resolve_options(cfg: FleetConfig, options, device) -> tuple[str, int]:
+    """The concrete ``(backend, K)`` of a run on ``device`` under
+    ``options`` (an :class:`~repro_torch.fleetsim.options.EngineOptions`
+    or ``None``); ``K`` is 0 on the staged backend."""
+    from repro_torch.fleetsim.options import EngineOptions
+
+    opts = EngineOptions() if options is None else options
+    if not isinstance(opts, EngineOptions):
+        raise TypeError(f"options must be an EngineOptions, got "
+                        f"{type(opts).__name__}")
+    backend = opts.resolve_backend(cfg, device)
+    if opts.telemetry or opts.shard is not None:
+        raise NotImplementedError(
+            "EngineOptions telemetry= and shard= (FleetScope telemetry, the "
+            "sharded runner) are not ported to PyTorch yet (ROADMAP.md A9)")
+    if backend == "staged":
+        return backend, 0
+    from repro_torch.fleetsim.fused import resolve_chunk
+
+    return backend, resolve_chunk(cfg, opts.ticks_per_chunk)
+
+
+def run(cfg: FleetConfig, params: RunParams, device=None, options=None,
+        stats=None) -> tuple[Metrics, str]:
+    """:func:`simulate`, returning the concrete backend beside the
+    metrics; ``stats`` (a :class:`~repro_torch.fleetsim.fused.GraphStats`)
+    receives a fused run's graph costs."""
+    dev = resolve_device(device)
+    backend, k = resolve_options(cfg, options, dev)
+    check_supported(cfg)
+    p, batched = batched_params(params, dev)
+    for pid in torch.unique(p.policy_id).tolist():
+        check_policy_stages(cfg, pid)
+    if backend == "fused":
+        from repro_torch.fleetsim.fused import fused_core
+
+        metrics = fused_core(cfg, p, k, stats).metrics
+    else:
+        metrics = _simulate_core(cfg, p).metrics
+    return (metrics if batched else Metrics(*(x[0] for x in metrics)),
+            backend)
 
 
 def simulate(cfg: FleetConfig, params: RunParams, *, device=None,
@@ -217,20 +261,11 @@ def simulate(cfg: FleetConfig, params: RunParams, *, device=None,
 
     ``params`` with scalar fields runs one fabric; a leading sweep axis runs
     the whole batch at once.  ``device`` defaults to CUDA; pass
-    ``device="cpu"`` for the plain PyTorch path on the CPU.  Returns the
-    run's :class:`Metrics` (with the batch axis when ``params`` had one),
-    on the run's device.
-
-    ``options`` (the reference's ``EngineOptions``: fused backend,
-    telemetry, sharding, donation) is not ported yet and raises."""
-    if options is not None:
-        raise NotImplementedError(
-            "EngineOptions (fused backend, telemetry, shard, donate) is not "
-            "ported to PyTorch yet (ROADMAP.md A6, A9)")
-    check_supported(cfg)
-    dev = resolve_device(device)
-    p, batched = batched_params(params, dev)
-    for pid in torch.unique(p.policy_id).tolist():
-        check_policy_stages(cfg, pid)
-    metrics = _simulate_core(cfg, p).metrics
-    return metrics if batched else Metrics(*(x[0] for x in metrics))
+    ``device="cpu"`` for the plain PyTorch path on the CPU.  ``options``
+    is an :class:`~repro_torch.fleetsim.options.EngineOptions`: the default
+    (``backend='auto'``) runs the fused backend on CUDA (each chunk of
+    ticks replayed from a CUDA graph) and the staged loop on the CPU;
+    ``telemetry=`` and ``shard=`` raise (ROADMAP.md A9).  Returns the run's
+    :class:`Metrics` (with the batch axis when ``params`` had one), on the
+    run's device."""
+    return run(cfg, params, device, options)[0]

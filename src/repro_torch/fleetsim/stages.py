@@ -98,8 +98,7 @@ def _intrinsic(cfg: FleetConfig, u):
         return torch.where(u < p_long, _f32(long), _f32(short)).to(_F32)
     if cfg.service.kind == SERVICE_PARETO:
         xm, alpha, cap = p
-        u = torch.minimum(u, torch.tensor(1.0 - 1e-7, dtype=_F32,
-                                          device=u.device))
+        u = torch.clamp(u, max=_f32(1.0 - 1e-7))
         r = (xm / cap) ** alpha
         return xm / jr.pow_f32(1.0 - u * (1.0 - r), _f32(1.0 / alpha))
     if cfg.service.kind == SERVICE_LLM:
@@ -166,10 +165,13 @@ def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
 # ----------------------------------------------------------------- contexts --
 class Arrivals(NamedTuple):
     """Per-tick arrival context: admitted lanes + flattened fabric views
-    (all ``(G, A)`` unless noted; server ids are fabric-global int64)."""
+    (all ``(G, A)`` unless noted; server ids are fabric-global int64).
+    ``tick`` and ``t_us`` are Python numbers on the staged loop and 0-d
+    device tensors inside a captured chunk (:mod:`repro_torch.fleetsim.
+    fused`)."""
 
-    tick: int
-    t_us: float              # float32 value
+    tick: int | torch.Tensor
+    t_us: float | torch.Tensor   # float32 value
     down: torch.Tensor       # (G,) bool — fabric dark this tick
     u_exec: torch.Tensor     # (G, ST, R, 2) the server stage's uniforms
     sstate: torch.Tensor     # (G, ST) view of StateT
@@ -211,15 +213,28 @@ class Responses(NamedTuple):
 
 
 # ------------------------------------------------------------------- stages --
+def tick_time(cfg: FleetConfig, tick):
+    """A tick's start time in µs as float32: ``float32(tick) ·
+    float32(dt_us)``, the reference's product.  ``tick`` is a Python int or
+    a 0-d integer tensor; the two give the same bits (the int converts
+    exactly below 2^24, and the product of two float32 values is exact in
+    float64, so it rounds once either way)."""
+    if isinstance(tick, torch.Tensor):
+        return tick.to(_F32) * _f32(cfg.dt_us)
+    return _f32(np.float32(tick) * np.float32(cfg.dt_us))
+
+
 def stage_arrival(cfg: FleetConfig, params, state: FleetState, xs,
                   recover_ticks=None):
     """Admission + attributes: recovery wipe, Poisson/trace lane masking,
     and the per-lane attributes from the tick's one uniform block (the
     ``n_racks == 1`` column layout matches the single-ToR engine draw for
-    draw).  ``xs`` is ``(tick, n_raw, draws)``: ``n_raw`` ``(G,)``,
-    ``draws`` the tick's :class:`TickDraws`.  ``recover_ticks``, when
-    given, is the set of ticks at which some config's failure window ends;
-    the wipe is skipped at every other tick (where it changes nothing)."""
+    draw).  ``xs`` is ``(tick, n_raw, draws)``: ``tick`` a Python int or a
+    0-d device tensor, ``n_raw`` ``(G,)``, ``draws`` the tick's
+    :class:`TickDraws`.  ``recover_ticks``, when given, is the set of ticks
+    at which some config's failure window ends; at a Python-int tick
+    outside it the wipe is skipped (it changes nothing there).  A tensor
+    tick always applies the masked wipe."""
     RK, S, C = cfg.n_racks, cfg.n_servers, cfg.n_clients
     ST = RK * S
     T = cfg.n_filter_tables
@@ -227,18 +242,22 @@ def stage_arrival(cfg: FleetConfig, params, state: FleetState, xs,
     tick, n_raw, draws = xs
     g, dev = n_raw.shape[0], n_raw.device
     m = state.metrics
-    t_us = _f32(np.float32(tick) * np.float32(cfg.dt_us))
+    t_us = tick_time(cfg, tick)
     down = (tick >= params.fail_from_tick) & (tick < params.fail_until_tick)
     # §3.6 recovery: all soft state lost, REQ_IDs restart from 1; the
     # clients' pending-request fingerprints of lost requests go with it
     switch = state.switch
-    if recover_ticks is None or tick in recover_ticks:
+    if (recover_ticks is None or isinstance(tick, torch.Tensor)
+            or tick in recover_ticks):
         recover = params.fail_until_tick == tick
         switch = switch._replace(
             seq=torch.where(recover, 0, switch.seq).to(_I32))
-        switch.server_state.masked_fill_(recover[:, None, None], 0)
-        switch.filter_tables.masked_fill_(recover[:, None, None, None], 0)
-        state.dedup.masked_fill_(recover[:, None], 0)
+        # zeroed by a 0/1 factor: the same ints as a masked fill, and on
+        # the CPU far cheaper than a fill under a broadcast mask
+        keep = (~recover).to(_I32)
+        switch.server_state.mul_(keep[:, None, None])
+        switch.filter_tables.mul_(keep[:, None, None, None])
+        state.dedup.mul_(keep[:, None])
     sstate = switch.server_state.view(g, ST)
     tables = switch.filter_tables.view(g, (RK + 1) * T, cfg.n_filter_slots)
 
@@ -321,7 +340,8 @@ def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
 
     payload = torch.stack([                          # (G, D, QF)
         tile(arr.base),
-        torch.full_like(d_hop, arr.t_us),
+        (arr.t_us.expand(d_hop.shape) if isinstance(arr.t_us, torch.Tensor)
+         else torch.full_like(d_hop, arr.t_us)),
         tile(req_id),
         d_clo.to(_F32),
         tile(arr.fidx),
@@ -609,11 +629,16 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
     const_lat = const_latency(cfg, params)
     xhop = _f32(cfg.interrack_extra_us)
     recover_ticks = frozenset(params.fail_until_tick.tolist())
-    # the kernel backends write every tick's drop flags into one buffer
+    # the kernel backends write every tick's drop flags into one buffer,
+    # allocated here so a captured chunk (fused.py) never allocates it
     drop_out = None
+    if cfg.filter_backend in ("pallas", "tickfuse"):
+        k = min(cfg.max_responses, cfg.n_servers_total * cfg.n_workers)
+        drop_out = torch.empty((params.policy_id.shape[0], k),
+                               dtype=torch.bool,
+                               device=params.policy_id.device)
 
     def step(state: FleetState, xs):
-        nonlocal drop_out
         state, arr = stage_arrival(cfg, params, state, xs, recover_ticks)
         state, lanes = stage_route(cfg, params, state, arr, group_pairs,
                                    xhop)
@@ -623,9 +648,6 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
         state, lanes = stage_link_failure(cfg, params, state, arr, lanes)
         state, resp = stage_server(cfg, params, state, arr, lanes)
         state, resp = stage_link_response(cfg, params, state, arr, resp)
-        if drop_out is None and cfg.filter_backend in ("pallas", "tickfuse"):
-            drop_out = torch.empty(resp.active.shape, dtype=torch.bool,
-                                   device=resp.active.device)
         state, drop = stage_response_filter(cfg, params, state, arr, resp,
                                             drop_out)
         return stage_client(cfg, params, state, arr, resp, drop, const_lat)

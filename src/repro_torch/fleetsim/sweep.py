@@ -6,8 +6,11 @@ fleetsim.engine.simulate` as one batch (the config axis ``G`` is the grid).
 Stragglers, switch-failure and link-failure windows are per-run inputs, so
 heterogeneous scenarios ride in the same batch.
 
-Not ported yet, and raising ``NotImplementedError``: the ``hedge_delays``
-axis (ROADMAP.md A7), ``shard`` (A9) and ``engine`` options (A6).
+``engine`` (an :class:`~repro_torch.fleetsim.options.EngineOptions`)
+selects the backend, and the result records the concrete one: on CUDA the
+default is the fused backend, whose ticks replay from a CUDA graph.  Not
+ported yet, and raising ``NotImplementedError``: the ``hedge_delays`` axis
+(ROADMAP.md A7) and ``shard`` (A9).
 """
 
 from __future__ import annotations
@@ -21,11 +24,8 @@ import torch
 from repro_torch.fleetsim.chaos import check_link_failure
 from repro_torch.fleetsim.config import POLICY_IDS, FleetConfig, ServiceSpec
 from repro_torch.device import resolve_device
-from repro_torch.fleetsim.engine import (
-    RunParams,
-    check_fabric_arrays,
-    simulate,
-)
+from repro_torch.fleetsim.engine import RunParams, check_fabric_arrays, run
+from repro_torch.fleetsim.fused import GraphStats
 from repro_torch.fleetsim.metrics import FleetResult, summarize
 from repro_torch.scenarios.service import load_to_rate
 
@@ -33,10 +33,18 @@ from repro_torch.scenarios.service import load_to_rate
 @dataclass
 class SweepResult:
     results: list[FleetResult]
-    wall_clock_s: float          # the batched run, device synchronised
+    # the batched run, device synchronised, without the fused backend's
+    # graph set-up (compile_s)
+    wall_clock_s: float
     n_configs: int
     simulated_requests: int
     device: str                  # e.g. "cuda:0" or "cpu"
+    # the concrete engine backend the sweep ran ('staged' | 'fused')
+    backend: str = "staged"
+    # the fused backend's graph set-up on CUDA: warm-up, capture and
+    # instantiation (GraphStats.setup_s); 0 otherwise
+    compile_s: float = 0.0
+    graph: GraphStats | None = field(default=None, repr=False)
     # grid-aggregate latency histogram (n_racks, hist_bins)
     grid_hist: np.ndarray | None = field(default=None, repr=False)
 
@@ -169,23 +177,23 @@ def sweep_grid(
     ``link_failure`` kills the named links over its window — for every run.
     ``resize_arrival_lanes=False`` keeps ``cfg.max_arrivals`` as given
     instead of sizing the Poisson headroom for the hottest load.
+    ``engine`` (:class:`~repro_torch.fleetsim.options.EngineOptions`)
+    selects the backend (default ``'auto'``: fused on CUDA, staged on the
+    CPU); the result's ``backend`` records the one that ran.
     """
     if hedge_delays:
         raise NotImplementedError("hedge_delays needs the hedge-timer stage, "
                                   "not ported yet (ROADMAP.md A7)")
     if shard is not None:
         raise NotImplementedError("shard= is not ported yet (ROADMAP.md A9)")
-    if engine is not None:
-        raise NotImplementedError("engine= (EngineOptions, the fused "
-                                  "backend) is not ported yet (ROADMAP.md "
-                                  "A6)")
     cfg, grid, rates, params = plan_grid(
         service, policies, loads, seeds, cfg, slowdown, rack_weights,
         fail_window_ticks, link_failure, resize_arrival_lanes, **cfg_kw)
+    stats = GraphStats()
     t0 = time.perf_counter()
-    metrics = simulate(cfg, params, device=device)
+    metrics, backend = run(cfg, params, device, engine, stats)
     metrics = type(metrics)(*(x.cpu().numpy() for x in metrics))
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - stats.setup_s
     results = [summarize(cfg, type(metrics)(*(a[i] for a in metrics)),
                          policy=p, load=ld, rate_per_us=rates[ld], seed=s)
                for i, (p, ld, s) in enumerate(grid)]
@@ -195,5 +203,8 @@ def sweep_grid(
         n_configs=len(grid),
         simulated_requests=sum(r.n_arrivals for r in results),
         device=str(resolve_device(device)),
+        backend=backend,
+        compile_s=stats.setup_s,
+        graph=stats if stats.ticks else None,
         grid_hist=np.asarray(metrics.hist).sum(axis=0),
     )

@@ -59,8 +59,12 @@ def scatter_add_drop(target: torch.Tensor, index: torch.Tensor,
     index = index.long()
     valid = valid & (index >= 0) & (index < n)
     idx = torch.where(valid, index, 0)
-    add = torch.where(valid, torch.as_tensor(values, dtype=target.dtype,
-                                             device=target.device),
+    if not isinstance(values, torch.Tensor):
+        # filled on the device: a host-to-device copy of a Python number
+        # would break a CUDA graph capture
+        values = torch.full((), values, dtype=target.dtype,
+                            device=target.device)
+    add = torch.where(valid, values.to(target.dtype),
                       torch.zeros((), dtype=target.dtype,
                                   device=target.device))
     return target.scatter_add_(1, idx, add.expand(idx.shape))

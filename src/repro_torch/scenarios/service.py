@@ -1,14 +1,22 @@
 """Service-time specification shared by the engine and its sweeps.
 
-The port's copy of ``repro.scenarios.service.ServiceSpec`` (without the
-conversions to and from the reference's DES service processes) and of
-``repro.core.workloads.load_to_rate``.
+The port's copy of ``repro.scenarios.service.ServiceSpec``, with its
+conversions to and from the DES service processes of
+:mod:`repro_torch.core.workloads`, and of ``load_to_rate``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import asdict, dataclass
+
+from repro_torch.core.workloads import (
+    BimodalService,
+    BoundedParetoService,
+    ExponentialService,
+    LLMBimodalService,
+    ServiceProcess,
+)
 
 SERVICE_EXPONENTIAL = "exponential"
 SERVICE_BIMODAL = "bimodal"
@@ -111,6 +119,35 @@ class ServiceSpec:
                    (float(prefill), float(decode), float(gen_short),
                     float(gen_long), float(p_long)),
                    mean=float(mean), **kw)
+
+    @classmethod
+    def from_process(cls, svc: ServiceProcess) -> "ServiceSpec":
+        """Map a DES service process onto its array-form spec."""
+        kw = dict(jitter_p=svc.jitter_p, jitter_mult=svc.jitter_mult)
+        if isinstance(svc, ExponentialService):
+            return cls.exponential(svc.mean, **kw)
+        if isinstance(svc, LLMBimodalService):
+            return cls.llm(svc.prefill, svc.decode, svc.gen_short,
+                           svc.gen_long, svc.p_long, **kw)
+        if isinstance(svc, BimodalService):
+            return cls.bimodal(svc.short, svc.long, svc.p_long, **kw)
+        if isinstance(svc, BoundedParetoService):
+            return cls.pareto(svc.xm, svc.alpha, svc.cap, **kw)
+        raise TypeError(f"no fleetsim mapping for {type(svc).__name__}")
+
+    def to_process(self) -> ServiceProcess:
+        """The equivalent DES service process (inverse of
+        :meth:`from_process`)."""
+        kw = dict(jitter_p=self.jitter_p, jitter_mult=self.jitter_mult)
+        if self.kind == SERVICE_EXPONENTIAL:
+            return ExponentialService(self.params[0], **kw)
+        if self.kind == SERVICE_BIMODAL:
+            return BimodalService(*self.params, **kw)
+        if self.kind == SERVICE_PARETO:
+            return BoundedParetoService(*self.params, **kw)
+        if self.kind == SERVICE_LLM:
+            return LLMBimodalService(*self.params, **kw)
+        raise ValueError(f"unknown service kind {self.kind!r}")
 
     def to_json(self) -> dict:
         d = asdict(self)

@@ -355,6 +355,12 @@ def test_sweep_grid_matches_reference_rows():
 
 
 def test_unported_features_raise():
+    """What later slices port still raises: the optional stages and the
+    batch server, telemetry, shard, the hedge-delay axis and
+    ``cross_validate_spec``."""
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.fleetsim.validate import cross_validate_spec
+
     cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16,
                          n_ticks=2000)
     params = tf.make_params(cfg, 0, 0.1, 0)
@@ -364,18 +370,25 @@ def test_unported_features_raise():
             tf.simulate(replace(cfg, **flag), params, device="cpu")
     with pytest.raises(NotImplementedError):
         tf.make_params(cfg, tf.POLICY_IDS["laedge"], 0.1, 0)
-    with pytest.raises(NotImplementedError):
-        tf.simulate(cfg, params, device="cpu", options=object())
+    for opts in (EngineOptions(telemetry=True), EngineOptions(shard=1)):
+        with pytest.raises(NotImplementedError, match="A9"):
+            tf.simulate(cfg, params, device="cpu", options=opts)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
+                      shard=2, device="cpu")
     with pytest.raises(NotImplementedError):
         tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
                       hedge_delays=[50.0], device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        cross_validate_spec(None)
 
 
 def test_package_is_jax_free_and_never_falls_back_to_cpu():
-    """Importing the port (the FleetSim engine, the kernels, the model
-    stack, the serving tier and its driver) pulls in neither ``jax`` nor
+    """Importing the port (the FleetSim engine and its fused backend and
+    options, the DES and cross-validation, the kernels, the model stack,
+    the serving tier and its driver) pulls in neither ``jax`` nor
     ``repro``; without a card ``simulate`` raises instead of running on the
-    CPU."""
+    CPU, under the default options and under the fused backend."""
     code = """
 import sys
 import torch
@@ -388,18 +401,23 @@ import repro_torch.models, repro_torch.models.convert, repro_torch.configs
 import repro_torch.models.recurrent
 import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan
 import repro_torch.serve, repro_torch.launch.serve
+import repro_torch.fleetsim.options, repro_torch.fleetsim.fused
+import repro_torch.fleetsim.validate, repro_torch.core.simulator
+import repro_torch.core.hedging, repro_torch.configs.netclone_cluster
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16, n_ticks=10)
 params = tf.make_params(cfg, 0, 0.1, 0)
+from repro_torch.fleetsim.options import EngineOptions
 if not torch.cuda.is_available():
-    try:
-        tf.simulate(cfg, params)
-    except RuntimeError as e:
-        assert "device='cpu'" in str(e)
-    else:
-        raise AssertionError("simulate ran without a card")
+    for opts in (None, EngineOptions(backend="fused")):
+        try:
+            tf.simulate(cfg, params, options=opts)
+        except RuntimeError as e:
+            assert "device='cpu'" in str(e)
+        else:
+            raise AssertionError("simulate ran without a card")
 m = tf.simulate(cfg, params, device="cpu")
 assert int(m.n_arrivals) >= 0
 print("ok")

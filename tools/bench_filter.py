@@ -19,8 +19,9 @@ with ``git archive``): its ``fingerprint_filter.cu`` and ``tickfuse.cu``
 are built with the same flags (they have the same C interface), checked
 bit-exact against this tree's kernels on the same lanes, and timed in
 turns with them (parent, this, this, parent) in the same process.
-``--sweep-ticks N`` also times phase 4's 200-config sweep through B2 for N
-ticks in a fresh process of each tree, in turns with ``--parent``.
+``--sweep-ticks N`` also times phase 4's 200-config staged sweep through
+B2 for N ticks in a fresh process of each tree, in turns with
+``--parent``.
 """
 
 from __future__ import annotations
@@ -45,20 +46,26 @@ from repro_torch.kernels import tickfuse as tf
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = (200, 32, 4, 1024, 6)        # G, K, n_tables, n_slots, n_servers
 GRAPH_CALLS, GRAPH_REPLAYS, BACK_TO_BACK = 100, 20, 2000
-#: phase 4's sweep through B2 (``tickfuse``) in a fresh process of one
-#: tree: the default grid, one warm-up run of 100 ticks, then the timed run
-#: of ``argv[1]`` ticks
+#: phase 4's sweep through B2 (``tickfuse``) on the staged engine in a
+#: fresh process of one tree: the default grid, one warm-up run of 100
+#: ticks, then the timed run of ``argv[1]`` ticks.  A tree without
+#: ``EngineOptions`` has only the staged engine.
 SWEEP = """
 import json, sys
 from dataclasses import replace
 import repro_torch.fleetsim as tf
 from repro_torch.kernels import build
+try:
+    from repro_torch.fleetsim.options import EngineOptions
+    kw = {"engine": EngineOptions(backend="staged")}
+except ImportError:
+    kw = {}
 build.build(("tickfuse",))
 grid = (["baseline", "c-clone", "netclone", "racksched", "netclone+racksched"],
         [0.1, 0.2, 0.35, 0.5, 0.65, 0.8, 0.9, 0.95], [0, 1, 2, 3, 4])
 cfg = tf.FleetConfig(filter_backend="tickfuse", n_ticks=int(sys.argv[1]))
-tf.sweep_grid(cfg.service, *grid, cfg=replace(cfg, n_ticks=100))
-sw = tf.sweep_grid(cfg.service, *grid, cfg=cfg)
+tf.sweep_grid(cfg.service, *grid, cfg=replace(cfg, n_ticks=100), **kw)
+sw = tf.sweep_grid(cfg.service, *grid, cfg=cfg, **kw)
 print(json.dumps({"config_ticks_per_s": sw.n_configs * cfg.n_ticks
                   / sw.wall_clock_s,
                   "ms_per_tick": 1e3 * sw.wall_clock_s / cfg.n_ticks}))
