@@ -75,11 +75,28 @@ Phases (each fails the run on error; nothing is caught):
     4's staged sweep, timed beside it (config-ticks/s, ms a tick, the
     graph's capture and instantiation, device busy a tick and the idle
     share from a profile of replays, whose B2 launches must equal the
-    ticks replayed); (c) ``cross_validate`` at the base of
-    ``src/repro/scenarios/library/validate_grid.json`` (4 servers × 8
-    workers, Exp(25 µs) with its 1% × 15 jitter, seed 0, the five always-on
-    policies × loads 0.2, 0.5, 0.8, 20,000 DES requests a point): every
-    point within the documented tolerances.
+    ticks replayed); (c) ``cross_validate_spec`` over the bundled
+    ``validate_grid.json`` (4 servers × 8 workers, Exp(25 µs) with its 1%
+    × 15 jitter, seed 0, the seven two-engine policies — LÆDGE and hedge
+    through the optional stages — × loads 0.2, 0.5, 0.8: one G = 21 batch
+    on the fused backend, 20,000 DES requests a point): all 21 points
+    within the documented tolerances, each printed beside the reference's
+    own row (``tools/validate_grid_reference.json``, from
+    ``tools/reference_validate.py`` on the CPU);
+13. the Scenario layer and the optional stages: (a) the scenario CLI's
+    ``--list`` and a JSON round trip of every library file; (b)
+    ``golden_single_tor.json`` through ``Scenario`` bit-identical to the
+    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (3,000 ticks)
+    under B2 and ``vectorized``, and (d) LÆDGE over 2 racks (1,500 ticks)
+    under B1 and ``vectorized``, its pairs filtered at the top tier:
+    ``Metrics`` bit-identical, fused; (e) ``hedge_vs_netclone.json`` (G =
+    6, cut from 40,000 to 10,000 ticks) under B2 and ``vectorized``: rows
+    bit-identical, p99s printed; (f) a ``hedge_delays = [25, 75, 150]``
+    sweep (2,000 ticks); each of (c)-(e) also runs its first 192 ticks on
+    the staged loop, the wrapper counting one B1 or B2 launch a tick, held
+    equal to the same ticks replayed from graphs; (g) for (c) and (e): ms a
+    tick fused and staged, and a profile of replays (B2 launches counted by
+    the profiler, kernels and device busy a tick, the idle share).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -105,17 +122,37 @@ GOLDEN = ROOT / "tests" / "golden" / "fleetsim_single_tor.json"
 # phase 4's tick count: the default config runs 50,000 ticks; the cut is
 # forced by the time limit (1,200 s for the whole script, build included)
 FULL_TICKS = 50_000
-SWEEP_TICKS = 10_000           # the benchmark's own fast cap
+# below the benchmark's own fast cap of 10,000: phases 12c and 13 need the
+# time
+SWEEP_TICKS = 4_000
 SCAN_CHECK_TICKS = 2_000
 PROFILE_TICKS = 40
-RACK_TICKS = 4_000
+# cut from 4,000 to make room for phases 12c and 13
+RACK_TICKS = 2_000
 RACK_CHECK_TICKS = 1_000
 # phase 12: graph replays in the profiled window (of the sweep's 64-tick
 # graph), and validate_grid.json's base and DES requests a point
 # (validate.main's default)
 PROFILE_REPLAYS = 8
-XVAL_LOADS = (0.2, 0.5, 0.8)
 XVAL_REQUESTS = 20_000
+# the reference's own rows of phase 12c (tools/reference_validate.py, run
+# on the CPU in the goldens' PRNG stream)
+XVAL_REFERENCE = ROOT / "tools" / "validate_grid_reference.json"
+# phase 13: LÆDGE at one rack (4 x 8, load 0.5) and two (load 0.1, where
+# its CPU lets it clone), hedge_vs_netclone.json cut from 40,000 ticks by
+# the time limit, the hedge-delay sweep, and the staged window each run is
+# held to (ticks replayed from graphs against the same ticks staged, the
+# wrappers counting every staged launch)
+LAEDGE_TICKS = 3_000
+LAEDGE_RACK_TICKS = 1_500
+HEDGE_TICKS = 10_000
+HEDGE_FULL_TICKS = 40_000
+DELAY_TICKS = 2_000
+HEDGE_DELAYS = (25.0, 75.0, 150.0)
+STAGED_WINDOW = 192
+# graph replays in phase 13's profiles (~1,000 kernels a tick: a profile
+# of 8 replays, as phase 12's, takes the profiler most of a minute)
+STAGE_PROFILE_REPLAYS = 2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -262,6 +299,33 @@ def launches_in(kernels: dict, name: str) -> int:
     """Launches of ``name``'s CUDA kernel in a profile."""
     return sum(n for key, (n, _) in kernels.items()
                if DEVICE_SYMBOL[name] in key)
+
+
+def profile_replays(torch, blocks, n_replays: int, kernel: str, what: str,
+                    tries: int = 3):
+    """A profile (:func:`device_kernels`) of ``n_replays`` replays of
+    ``blocks``' CUDA graph, after one marker kernel (a session can miss its
+    first kernels).  ``kernel`` runs once a tick, so its launches must
+    equal the ticks replayed; a session whose count falls short (the
+    profiler lost a few kernel records) is profiled again, up to
+    ``tries`` sessions, and the run fails unless one counts every launch.
+    Returns ``(profile, ticks, sessions)``."""
+    marker = torch.zeros(1, device="cuda")
+
+    def replays():
+        marker.add_(1)
+        blocks.run(n_replays)
+
+    ticks = n_replays * blocks.n
+    for session in range(1, tries + 1):
+        prof = device_kernels(torch, replays)
+        n = launches_in(prof, kernel)
+        if n == ticks:
+            return prof, ticks, session
+        log(f"{what}: profiler session {session} counted {n} {kernel} "
+            f"launches in {ticks} replayed ticks; profiling again")
+    raise AssertionError(f"{what}: no profile counted {ticks} {kernel} "
+                         f"launches in {ticks} replayed ticks")
 
 
 def device_us(torch, fn, name: str, reps: int) -> tuple[float, str]:
@@ -486,9 +550,12 @@ def check_kernels(torch, inputs_mod, ref, ops):
 
 
 def assert_same_state(tf, st_a, st_b, what: str) -> None:
-    """Fail unless two final states are equal in every tensor."""
+    """Fail unless two final states are equal in every tensor (the
+    coordinator's and the hedge wheel's too, when present)."""
     a, b = tf.to_numpy(st_a), tf.to_numpy(st_b)
-    for part in ("switch", "queues", "workers", "metrics"):
+    parts = ["switch", "queues", "workers", "metrics"]
+    parts += [p for p in ("coord", "wheel") if getattr(a, p) is not None]
+    for part in parts:
         for name in getattr(a, part)._fields:
             if not np.array_equal(getattr(getattr(a, part), name),
                                   getattr(getattr(b, part), name)):
@@ -1262,11 +1329,11 @@ def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
     """Phase 12: the fused backend, each block of ticks replayed from a CUDA
     graph: the goldens, phase 4's sweep (``sw``, its staged run) and
     ``cross_validate``."""
-    from repro_torch.core.workloads import ExponentialService
     from repro_torch.fleetsim import engine, fused
     from repro_torch.fleetsim.options import EngineOptions
     from repro_torch.fleetsim.sweep import plan_grid
-    from repro_torch.fleetsim.validate import cross_validate
+    from repro_torch.fleetsim.validate import cross_validate_spec
+    from repro_torch.scenarios import load_any
 
     # (a) the goldens under every filter backend, with and without a tail
     for backend in ("tickfuse", "pallas", "vectorized"):
@@ -1327,24 +1394,16 @@ def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
     params, _ = engine.batched_params(params, torch.device("cuda"))
     state, step, n_raw = engine.init_run(cfg_k, params)
     blocks = fused.TickBlocks(cfg_k, step, n_raw, state, g.ticks)
-    marker = torch.zeros(1, device="cuda")
-
-    def replays():
-        marker.add_(1)
-        blocks.run(PROFILE_REPLAYS)
-
-    prof = device_kernels(torch, replays)
-    ticks = PROFILE_REPLAYS * g.ticks
+    prof, ticks, sessions = profile_replays(
+        torch, blocks, PROFILE_REPLAYS, "tickfuse_response_path", "phase 12")
     n_b2 = launches_in(prof, "tickfuse_response_path")
-    if n_b2 != ticks:
-        raise AssertionError(f"phase 12: the profile counts {n_b2} B2 "
-                             f"launches in {ticks} replayed ticks")
     busy_ms = sum(us for _, us in prof.values()) / 1e3 / ticks
     n_launch = sum(n for n, _ in prof.values()) / ticks
     b2_us = device_us_per_launch(prof,
                                  DEVICE_SYMBOL["tickfuse_response_path"])
-    log(f"phase 12: profile of {PROFILE_REPLAYS} replays ({ticks} ticks): "
-        f"B2 launches {n_b2} (= ticks replayed, counted by the profiler), "
+    log(f"phase 12: profile of {PROFILE_REPLAYS} replays ({ticks} ticks, "
+        f"profiler session {sessions}): B2 launches {n_b2} (= ticks "
+        f"replayed, counted by the profiler), "
         f"{n_launch:.1f} kernels per tick, {busy_ms:.3f} ms device busy per "
         f"tick of {fused_ms:.3f} ms wall (unprofiled sweep): device idle "
         f"{100 * (1 - busy_ms / fused_ms):.1f}% (staged, phase 4: "
@@ -1357,25 +1416,294 @@ def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
             f"{n / ticks:.0f} launches/tick  {key[:90]}")
     del blocks, state
 
-    # (c) cross-validation against the DES at validate_grid.json's base
+    # (c) cross_validate_spec over validate_grid.json: the seven two-engine
+    # policies (laedge and hedge through the optional stages) x 3 loads as
+    # one G = 21 batch on the fused backend, each point beside its DES run
+    ref_rows = {}
+    if XVAL_REFERENCE.is_file():
+        for c in json.loads(XVAL_REFERENCE.read_text())["checks"]:
+            ref_rows[(c["policy"], c["load"])] = c
+    spec = load_any("validate_grid")
     report = {}
     t0 = time.perf_counter()
-    checks = cross_validate(ExponentialService(25.0), policies,
-                            list(XVAL_LOADS), n_servers=4, n_workers=8,
-                            n_requests=XVAL_REQUESTS, seed=0, report=report)
+    checks = cross_validate_spec(spec, n_requests=XVAL_REQUESTS,
+                                 report=report)
     dt = time.perf_counter() - t0
     fl = report["fleet"]
+    n_same = 0
     for c in checks:
         log("phase 12: " + ("[PASS] " if c.ok else "[FAIL] ") + c.describe())
-    log(f"phase 12: cross_validate: {sum(c.ok for c in checks)}/"
-        f"{len(checks)} points within tolerance in {dt:.1f} s: FleetSim "
-        f"{fl.n_configs} configs on {fl.backend} in {fl.wall_clock_s:.1f} s "
-        f"(graph set-up {fl.compile_s:.2f} s, {fl.graph.replays} replays of "
+        ref = ref_rows.get((c.policy, c.load))
+        if ref is not None:
+            same = all(ref[k] == v for k, v in c.__dict__.items())
+            n_same += same
+            log(f"phase 12:   reference (CPU): {ref['detail']}"
+                + ("  [every field equal]" if same else ""))
+    log(f"phase 12: cross_validate_spec(validate_grid): "
+        f"{sum(c.ok for c in checks)}/{len(checks)} points within "
+        f"tolerance in {dt:.1f} s, {n_same}/{len(ref_rows)} rows equal to "
+        f"the reference's in every field: FleetSim {fl.n_configs} configs "
+        f"x {report['n_ticks']} ticks on {fl.backend} in "
+        f"{fl.wall_clock_s:.1f} s "
+        f"({fl.wall_clock_s / report['n_ticks'] * 1e3:.3f} ms a tick; "
+        f"graph set-up {fl.compile_s:.2f} s, {fl.graph.replays} replays of "
         f"{fl.graph.ticks} ticks), DES {report['des_s']:.1f} s on the host "
         f"({XVAL_REQUESTS} requests a point)")
+    if len(checks) != 21 or fl.backend != "fused":
+        raise AssertionError(f"phase 12: {len(checks)} points on "
+                             f"{fl.backend}, expected 21 on fused")
     if not all(c.ok for c in checks):
         raise AssertionError("phase 12: a cross-validation point is out of "
                              "tolerance")
+
+
+# ---------------------------------------------------------------- phase 13 --
+def staged_window(torch, tf, ops, kernels, cfg, params, kernel: str,
+                  what: str) -> float:
+    """Run a batched run's first ``STAGED_WINDOW`` ticks on the staged loop,
+    where the wrappers count every launch (the counts set to 0 just
+    before, read just after: ``kernel`` once a tick, nothing else), and
+    hold the state to the same ticks replayed from CUDA graphs.  Returns
+    the staged ms a tick."""
+    from repro_torch.fleetsim import engine
+
+    state, step, n_raw = engine.init_run(cfg, params)
+    reset(kernels)
+    ops.tickfuse_masked.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = engine.advance(cfg, state, step, n_raw, 0, STAGED_WINDOW)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / STAGED_WINDOW * 1e3
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    if counts != only(kernels, **{kernel: STAGED_WINDOW}):
+        raise AssertionError(f"phase 13: {what}: staged launches {counts}, "
+                             f"expected {STAGED_WINDOW} of {kernel}")
+    assert_same_state(tf, state, replayed_state(cfg, params, STAGED_WINDOW),
+                      f"phase 13: {what}: replayed != staged")
+    return ms
+
+
+def replay_profile(torch, cfg, params, what: str, fused_ms: float,
+                   kernel: str) -> None:
+    """Phase 13 (g): a profile of graph replays of a run's 64-tick block:
+    ``kernel``'s launches (the profiler's count, one a tick), kernels and
+    device busy a tick, and the idle share against the run's own fused ms
+    a tick."""
+    from repro_torch.fleetsim import engine, fused
+
+    state, step, n_raw = engine.init_run(cfg, params)
+    blocks = fused.TickBlocks(cfg, step, n_raw, state, fused.GRAPH_TICKS)
+    prof, ticks, sessions = profile_replays(
+        torch, blocks, STAGE_PROFILE_REPLAYS, kernel, f"phase 13: {what}")
+    n_k = launches_in(prof, kernel)
+    busy_ms = sum(us for _, us in prof.values()) / 1e3 / ticks
+    n_launch = sum(n for n, _ in prof.values()) / ticks
+    log(f"phase 13: {what}: profile of {STAGE_PROFILE_REPLAYS} replays "
+        f"({ticks} ticks, profiler session {sessions}): {kernel} launches "
+        f"{n_k} (= ticks replayed, counted by the profiler), "
+        f"{n_launch:.1f} kernels per tick, {busy_ms:.3f} ms "
+        f"device busy per tick of {fused_ms:.3f} ms wall: device idle "
+        f"{100 * (1 - busy_ms / fused_ms):.1f}%; "
+        f"{device_us_per_launch(prof, DEVICE_SYMBOL[kernel]):.3f} us per "
+        f"{kernel} launch")
+    top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:4]
+    for key, (n, us) in top:
+        log(f"phase 13:   {us / 1e3 / ticks:.4f} ms/tick "
+            f"{n / ticks:.0f} launches/tick  {key[:90]}")
+
+
+def torch_equal(x, y) -> bool:
+    return x.shape == y.shape and bool((x == y).all())
+
+
+def run_scenario_layer(torch, tf, kernels, ops) -> None:
+    """Phase 13: the Scenario layer and the optional stages on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.fleetsim import engine, fused
+    from repro_torch.fleetsim.sweep import plan_grid
+    from repro_torch.scenarios import Scenario, SweepSpec, load_any, \
+        scenario_library
+    from repro_torch.scenarios.__main__ import main as scenarios_main
+
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    # (a) the CLI's listing, and every library file round-trips
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = scenarios_main(["--list"])
+    lib = scenario_library()
+    missing = [n for n in ["laedge", "hedge", *lib] if n not in buf.getvalue()]
+    if rc != 0 or missing or len(lib) != 8:
+        raise AssertionError(f"phase 13: --list rc {rc}, missing {missing}")
+    for name in lib:
+        obj = load_any(name)
+        if type(obj).from_json(json.loads(json.dumps(obj.to_json()))) != obj:
+            raise AssertionError(f"phase 13: {name} does not round-trip")
+    log(f"phase 13: --list names the 8 registered policies and {len(lib)} "
+        f"library files; every file round-trips through JSON "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # (b) the golden scenario file through Scenario, fused on the card
+    g = json.loads(GOLDEN.read_text())
+    case = next(c for c in g["cases"]
+                if c["policy"] == "netclone" and c["seed"] == 0)
+    st = fused.GraphStats()
+    _, m = Scenario.from_file("golden_single_tor").fleet_metrics(
+        device=cuda, stats=st)
+    for field, want in case["metrics"].items():
+        got = getattr(m, field).cpu().numpy().reshape(-1)
+        if not np.array_equal(got, np.asarray(want).reshape(-1)):
+            raise AssertionError(f"phase 13: golden_single_tor {field}")
+    if st.replays == 0:
+        raise AssertionError("phase 13: the golden scenario replayed no graph")
+    log(f"phase 13: golden_single_tor.json through Scenario: 16 fields "
+        f"bit-identical to tests/golden/fleetsim_single_tor.json (fused, "
+        f"{st.replays} graph replays; {time.perf_counter() - t_phase:.1f} s "
+        f"into the phase)")
+
+    def scenario_pair(sc, backend, **over):
+        """The scenario under ``backend`` and under ``vectorized``, fused:
+        ``(cfg, metrics, fused ms a tick)`` of the kernel run."""
+        out = {}
+        for fb in (backend, "vectorized"):
+            st = fused.GraphStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg, m = sc.fleet_metrics(device=cuda, stats=st,
+                                      filter_backend=fb, **over)
+            wall = time.perf_counter() - t0 - st.setup_s
+            if st.replays == 0:
+                raise AssertionError(f"phase 13: {sc.name} {fb} replayed "
+                                     "no graph")
+            out[fb] = (cfg, m, wall / cfg.n_ticks * 1e3, st)
+        cfg, m, ms, st = out[backend]
+        for name, x, y in zip(m._fields, m, out["vectorized"][1]):
+            if not torch_equal(x, y):
+                raise AssertionError(f"phase 13: {sc.name}: {backend} != "
+                                     f"vectorized at {name}")
+        return cfg, m, ms, st
+
+    # (c) LÆDGE, one rack of 4 x 8 at load 0.5, under B2
+    lae = Scenario(name="laedge_1rack", policy="laedge", load=0.5, servers=4,
+                   workers=8, n_ticks=LAEDGE_TICKS)
+    cfg_c, m, lae_ms, st = scenario_pair(lae, "tickfuse")
+    params_c, _ = engine.batched_params(lae.run_params(cfg_c), cuda)
+    lae_staged_ms = staged_window(torch, tf, ops, kernels, cfg_c, params_c,
+                                  "tickfuse_response_path", "laedge 1 rack")
+    log(f"phase 13: LÆDGE 1 rack (4 x 8, load 0.5, {LAEDGE_TICKS} ticks): "
+        f"Metrics bit-identical under B2 (tickfuse) and vectorized, fused; "
+        f"queued {int(m.n_coord_queued)}, ring overflow "
+        f"{int(m.n_coord_overflow)}, completed {int(m.n_completed)}, clones "
+        f"{int(m.n_cloned)} (its CPU saturates: no credit to clone), filtered "
+        f"{int(m.n_filtered)} (all at the top tier: "
+        f"{int(m.n_spine_filtered)}); the first {STAGED_WINDOW} ticks "
+        f"staged ({STAGED_WINDOW} B2 launches counted by the wrapper) "
+        f"equal to the same ticks replayed")
+    log(f"phase 13: LÆDGE 1 rack: fused {lae_ms:.3f} ms/tick (graph set-up "
+        f"{st.setup_s:.2f} s), staged {lae_staged_ms:.3f} ms/tick over "
+        f"{STAGED_WINDOW} ticks: {lae_staged_ms / lae_ms:.2f}x")
+    if int(m.n_coord_queued) == 0 or int(m.n_completed) == 0:
+        raise AssertionError("phase 13: LÆDGE parked or completed nothing")
+
+    log(f"phase 13: (c) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) LÆDGE over 2 racks under B1: its pairs filter at the top tier,
+    # table group RK (the spine's), which no always-on 1-rack run touches
+    lae2 = Scenario(name="laedge_2rack", policy="laedge", load=0.1, racks=2,
+                    servers=4, workers=8, n_ticks=LAEDGE_RACK_TICKS)
+    cfg_d, m, ms, st = scenario_pair(lae2, "pallas")
+    params_d, _ = engine.batched_params(lae2.run_params(cfg_d), cuda)
+    staged_window(torch, tf, ops, kernels, cfg_d, params_d,
+                  "fingerprint_filter", "laedge 2 racks")
+    n_f, n_spine = int(m.n_filtered), int(m.n_spine_filtered)
+    log(f"phase 13: LÆDGE 2 racks (load 0.1, {LAEDGE_RACK_TICKS} ticks): "
+        f"Metrics bit-identical under B1 (pallas) and vectorized, fused "
+        f"({ms:.3f} ms/tick); clones {int(m.n_cloned)}, filtered {n_f}, of "
+        f"them at frack = RK (the top tier) {n_spine}; the first "
+        f"{STAGED_WINDOW} ticks staged ({STAGED_WINDOW} B1 launches "
+        f"counted by the wrapper) equal to the same ticks replayed")
+    if n_spine == 0 or n_spine != n_f:
+        raise AssertionError(f"phase 13: LÆDGE 2 racks filtered {n_f}, "
+                             f"{n_spine} at the top tier")
+
+    log(f"phase 13: (d) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (e) hedge_vs_netclone.json (G = 6) under B2 and vectorized
+    spec = load_any("hedge_vs_netclone")
+    sws = {}
+    for fb in ("tickfuse", "vectorized"):
+        sws[fb] = spec.run_fleetsim(device=cuda, n_ticks=HEDGE_TICKS,
+                                    filter_backend=fb)
+    sw = sws["tickfuse"]
+    for a, b in zip(sw.results, sws["vectorized"].results):
+        if json.dumps(a.__dict__) != json.dumps(b.__dict__):
+            raise AssertionError(f"phase 13: hedge_vs_netclone row "
+                                 f"{a.row()} != vectorized {b.row()}")
+    if sw.backend != "fused" or len(sw.results) != 6:
+        raise AssertionError(f"phase 13: hedge_vs_netclone ran "
+                             f"{len(sw.results)} rows on {sw.backend}")
+    hedge_ms = sw.wall_clock_s / HEDGE_TICKS * 1e3
+    log(f"phase 13: hedge_vs_netclone.json, n_ticks cut from "
+        f"{HEDGE_FULL_TICKS} to {HEDGE_TICKS} by the run's time limit: "
+        f"all 6 rows bit-identical under B2 (tickfuse) and vectorized, "
+        f"fused {hedge_ms:.3f} ms/tick (graph set-up {sw.compile_s:.2f} s)")
+    for ld in spec.resolved_loads():
+        p99 = {r.policy: r.p99_us for r in sw.select(load=ld)}
+        log(f"phase 13:   load {ld}: p99_us hedge {p99['hedge']:.1f}, "
+            f"netclone {p99['netclone']:.1f}, baseline "
+            f"{p99['baseline']:.1f}")
+    hg = sw.select(policy="hedge")[0]
+    if not (hg.n_hedges_armed > 0 and hg.n_cloned > 0
+            and math.isfinite(hg.p99_us)):
+        raise AssertionError(f"phase 13: implausible hedge row {hg.row()}")
+    base = spec.base
+    cfg_e = base.fleet_config(n_ticks=HEDGE_TICKS, filter_backend="tickfuse")
+    cfg_e, _, _, params_e = plan_grid(base.service, spec.resolved_policies(),
+                                      spec.resolved_loads(),
+                                      list(spec.seeds), cfg=cfg_e)
+    params_e, _ = engine.batched_params(params_e, cuda)
+    hedge_staged_ms = staged_window(torch, tf, ops, kernels, cfg_e, params_e,
+                                    "tickfuse_response_path",
+                                    "hedge_vs_netclone")
+    log(f"phase 13: hedge_vs_netclone: staged {hedge_staged_ms:.3f} ms/tick "
+        f"over its first {STAGED_WINDOW} ticks ({STAGED_WINDOW} B2 launches "
+        f"counted by the wrapper; equal to the same ticks replayed): "
+        f"{hedge_staged_ms / hedge_ms:.2f}x the fused tick")
+
+    log(f"phase 13: (e) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (f) the hedge-delay axis: one batch, the wheel deepened to 150 us
+    dsw = SweepSpec(base=base, policies=("netclone", "hedge"),
+                    loads=spec.loads, seeds=spec.seeds,
+                    hedge_delays=HEDGE_DELAYS).run_fleetsim(
+                        device=cuda, n_ticks=DELAY_TICKS)
+    if [r.hedge_delay_us for r in dsw.select(policy="hedge")] \
+            != [d for _ in spec.loads for d in HEDGE_DELAYS]:
+        raise AssertionError("phase 13: hedge_delays rows out of order")
+    for ld in spec.loads:
+        nc = dsw.select(policy="netclone", load=ld)[0]
+        log(f"phase 13: hedge_delays sweep ({DELAY_TICKS} ticks, "
+            f"{dsw.n_configs} configs on {dsw.backend}) load {ld}: p99_us "
+            + ", ".join(f"{r.hedge_delay_us:g} us: {r.p99_us:.1f} "
+                        f"({r.n_cloned} fired, {r.n_hedges_cancelled} "
+                        "cancelled)"
+                        for r in dsw.select(policy="hedge", load=ld))
+            + f"; netclone {nc.p99_us:.1f}")
+    if not all(math.isfinite(r.p99_us) for r in dsw.results):
+        raise AssertionError("phase 13: a hedge_delays row completed nothing")
+
+    log(f"phase 13: (f) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (g) where the optional-stage tick's time goes
+    replay_profile(torch, cfg_c, params_c, "LÆDGE 1 rack", lae_ms,
+                   "tickfuse_response_path")
+    replay_profile(torch, cfg_e, params_e, "hedge_vs_netclone", hedge_ms,
+                   "tickfuse_response_path")
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1613,6 +1941,9 @@ def main() -> int:
     # -- phase 12: the fused backend, replayed from CUDA graphs -------------
     run_fused(torch, tf, sw, staged_busy_ms, sweep_cfg, policies, loads,
               seeds)
+
+    # -- phase 13: the Scenario layer, LÆDGE and the hedge timer -----------
+    run_scenario_layer(torch, tf, kernels, ops)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

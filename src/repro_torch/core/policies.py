@@ -266,17 +266,32 @@ def _netclone_nofilter_factory(n_servers, **kw):
 
 
 # --------------------------------------------------------------- registry ---
-# The builtin policies' names, ids and engine flags live in
-# ``repro_torch.scenarios.registry``; their DES factories are attached here,
-# where they are defined, and the DES-only variant is registered without an
+# Builtin registrations: name, stable array-engine id, DES factory and engine
+# flags, in the reference's order.  The array branches and stage hooks are
+# attached by ``repro_torch.fleetsim.policies``; the DES-only variant has no
 # array-engine id.
-registry.attach_des("baseline", RandomPolicy)
-registry.attach_des("c-clone", CClonePolicy)
-registry.attach_des("netclone", NetClonePolicy)
-registry.attach_des("racksched", RackSchedPolicy)
-registry.attach_des("netclone+racksched", NetCloneRackSchedPolicy)
-registry.attach_des("laedge", LaedgePolicy)
-registry.attach_des("hedge", _hedge_factory)
+registry.register(
+    "baseline", policy_id=0, des=RandomPolicy,
+    description="uniform random single copy (the paper's baseline)")
+registry.register(
+    "c-clone", policy_id=1, des=CClonePolicy, client_dup=True,
+    description="client always sends two copies; no filtering [Vulimiri+13]")
+registry.register(
+    "netclone", policy_id=2, des=NetClonePolicy, spine_clone=True,
+    description="dynamic cloning on tracked idle pairs + response filtering")
+registry.register(
+    "racksched", policy_id=3, des=RackSchedPolicy,
+    description="power-of-two-choices JSQ on piggybacked loads [OSDI'20]")
+registry.register(
+    "netclone+racksched", policy_id=4, des=NetCloneRackSchedPolicy,
+    spine_clone=True,
+    description="§3.7: idle-idle pair clones, JSQ fallback otherwise")
+registry.register(
+    "laedge", policy_id=5, des=LaedgePolicy,
+    description="LÆDGE coordinator node (CPU queue; clone iff >=2 idle)")
+registry.register(
+    "hedge", policy_id=6, des=_hedge_factory,
+    description="delayed hedging via per-request timers (Tail at Scale)")
 registry.register(
     "netclone-nofilter", des=_netclone_nofilter_factory,
     description="NetClone with response filtering disabled (Fig. 15)")

@@ -9,7 +9,10 @@ fabrics advanced tick by tick (port of ``repro.fleetsim``).
 is the fused backend, each chunk of ticks replayed from a CUDA graph, and
 on the CPU the staged tick loop.  The response filter goes through the
 hand-written CUDA kernels when ``FleetConfig.filter_backend`` is
-``"pallas"`` or ``"tickfuse"``.
+``"pallas"`` or ``"tickfuse"``.  The LÆDGE coordinator and the hedge timer
+(``FleetConfig.coordinator`` / ``hedge_timer``, turned on by the policy
+set) run on both backends; :mod:`repro_torch.fleetsim.validate` holds
+FleetSim to the DES, from a sweep or a scenario file.
 """
 
 from repro_torch.fleetsim.chaos import LinkFailure
@@ -19,15 +22,23 @@ from repro_torch.fleetsim.engine import RunParams, make_params, \
     params_from_numpy, simulate, stack_params
 from repro_torch.fleetsim.metrics import FleetResult, summarize
 from repro_torch.fleetsim.options import EngineOptions
-from repro_torch.fleetsim.state import FleetState, Metrics, \
-    state_from_numpy, to_numpy
+from repro_torch.fleetsim.shard import ShardSpec
+from repro_torch.fleetsim.state import CoordState, FabricSwitch, \
+    FleetState, HedgeWheel, Metrics, init_fleet_state, state_from_numpy, \
+    to_numpy
 from repro_torch.fleetsim.sweep import SweepResult, rack_skew, sweep_grid
+from repro_torch.fleetsim.telemetry import TelemetrySpec
+from repro_torch.fleetsim.validate import CrossCheck, \
+    cross_check_scenario, cross_validate, cross_validate_spec, \
+    shard_equivalence
 
 __all__ = [
-    "POLICY_IDS", "POLICY_NAMES", "EngineOptions", "FleetConfig",
-    "FleetResult",
-    "FleetState", "LinkFailure", "Metrics", "RunParams", "ServiceSpec",
-    "SweepResult", "make_params", "params_from_numpy", "rack_skew",
-    "simulate", "stack_params", "state_from_numpy", "summarize",
-    "sweep_grid", "to_numpy",
+    "POLICY_IDS", "POLICY_NAMES", "CoordState", "CrossCheck",
+    "EngineOptions", "FabricSwitch", "FleetConfig", "FleetResult",
+    "FleetState", "HedgeWheel", "LinkFailure", "Metrics", "RunParams",
+    "ServiceSpec", "ShardSpec", "SweepResult", "TelemetrySpec",
+    "cross_check_scenario", "cross_validate", "cross_validate_spec",
+    "init_fleet_state", "make_params", "params_from_numpy", "rack_skew",
+    "shard_equivalence", "simulate", "stack_params", "state_from_numpy",
+    "summarize", "sweep_grid", "to_numpy",
 ]

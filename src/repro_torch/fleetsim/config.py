@@ -7,15 +7,15 @@ fixes the shapes of the fleet state; per-run knobs that vary across a sweep
 tensors with a leading config axis in ``RunParams``, so one batched run
 serves a whole policy × load × seed grid.
 
-The optional stages (``coordinator``, ``hedge_timer``), ``telemetry`` and
-``server_model="batch"`` are accepted here as in the reference; the engine
-raises ``NotImplementedError`` for them until their slice of the port
-lands (``ROADMAP.md`` queue A).
+``telemetry`` and ``server_model="batch"`` are accepted here as in the
+reference; the engine raises ``NotImplementedError`` for them until their
+slice of the port lands (``ROADMAP.md`` queue A).
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from dataclasses import dataclass, replace
 
 from repro_torch.scenarios import registry
@@ -27,9 +27,46 @@ from repro_torch.scenarios.service import (  # noqa: F401  (re-exported API)
     ServiceSpec,
 )
 
-POLICY_IDS: dict[str, int] = registry.policy_id_map()
-POLICY_NAMES: dict[int, str] = registry.policy_name_map()
 
+
+class _PolicyIdView(Mapping):
+    """Live ``name → id`` view of the unified policy registry: registering
+    a policy (``repro_torch.scenarios.registry.register``) makes it appear
+    here immediately."""
+
+    def __getitem__(self, name: str) -> int:
+        return registry.policy_id_map()[name]
+
+    def __iter__(self):
+        return iter(registry.policy_id_map())
+
+    def __len__(self):
+        return len(registry.policy_id_map())
+
+    def __repr__(self):
+        return repr(registry.policy_id_map())
+
+
+class _PolicyNameView(Mapping):
+    """Live ``id → name`` reverse view of the registry."""
+
+    def __getitem__(self, policy_id: int) -> str:
+        return registry.policy_name_map()[policy_id]
+
+    def __iter__(self):
+        return iter(registry.policy_name_map())
+
+    def __len__(self):
+        return len(registry.policy_name_map())
+
+    def __repr__(self):
+        return repr(registry.policy_name_map())
+
+
+POLICY_IDS = _PolicyIdView()
+POLICY_NAMES = _PolicyNameView()
+
+# builtin ids, derived from the registry at import
 POLICY_BASELINE = POLICY_IDS["baseline"]
 POLICY_CCLONE = POLICY_IDS["c-clone"]
 POLICY_NETCLONE = POLICY_IDS["netclone"]
@@ -97,9 +134,9 @@ class FleetConfig:
     spine_hop_us: float = 0.5
     # ---- optional pipeline stages ----------------------------------------
     # Static flags: with a flag off the stage runs no ops at all; with it
-    # on, the stage's sub-state joins FleetState and the policies that need
-    # it become runnable.  Not ported yet: the engine raises
-    # NotImplementedError for any of them (ROADMAP.md A7, A9, A10).
+    # on, the stage's sub-state joins FleetState and the policies registered
+    # with the matching hook (registry coordinator / hedge_timer) become
+    # runnable.  Scenario and sweep_grid turn them on from the policy set.
     #
     # coordinator: LÆDGE-style CPU queue node hanging off the top switch —
     # a ring buffer of pending requests drained each tick by the policy's
@@ -287,7 +324,7 @@ class FleetConfig:
 
     def with_policy_stages(self, policies) -> "FleetConfig":
         """Turn on the pipeline stages the given policy names need
-        (coordinator / hedge_timer registry flags).  A config whose policy
+        (coordinator / hedge_timer registry hooks).  A config whose policy
         set needs neither is returned unchanged."""
         need_coord = any(registry.needs_coordinator(p) for p in policies)
         need_hedge = any(registry.needs_hedge_timer(p) for p in policies)

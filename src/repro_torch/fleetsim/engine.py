@@ -47,7 +47,9 @@ class RunParams(NamedTuple):
     fail_from_tick: torch.Tensor   # () int32 — fabric dark from this tick …
     fail_until_tick: torch.Tensor  # () int32 — … until this tick (wiped)
     arrival_counts: torch.Tensor   # (n_ticks,) int32 for "trace", else (0,)
-    hedge_delay_ticks: torch.Tensor  # () int32 (carried; stage not ported)
+    # () int32 — hedge-timer delay in ticks, a per-run sweep axis
+    # (sweep_grid's hedge_delays); carried but unread without the stage
+    hedge_delay_ticks: torch.Tensor
     link_from_tick: torch.Tensor   # () int32 — link-failure window …
     link_until_tick: torch.Tensor  # () int32
     link_mask: torch.Tensor        # (n_racks · S,) bool — dead links
@@ -93,27 +95,42 @@ def check_arrival_counts(cfg: FleetConfig, arrival_counts) -> np.ndarray:
 
 
 def check_policy_stages(cfg: FleetConfig, policy_id: int) -> None:
-    """A policy that needs an optional stage cannot run yet: the port has
-    not ported those stages."""
+    """A policy that needs an optional stage cannot run on a config that
+    turned it off — fail at params construction, not with silent
+    zero-traffic results.  An id no policy holds raises too."""
     name = registry.policy_name_map().get(int(policy_id))
     if name is None:
         raise ValueError(f"unknown policy id {policy_id}; have "
                          f"{registry.policy_id_map()}")
-    if registry.needs_coordinator(name) or registry.needs_hedge_timer(name):
-        raise NotImplementedError(
-            f"policy {name!r} needs the coordinator / hedge-timer stage, "
-            "which is not ported to PyTorch yet (ROADMAP.md A7)")
+    if registry.needs_coordinator(name) and not cfg.coordinator:
+        raise ValueError(
+            f"policy {name!r} needs the coordinator stage; build the "
+            "config with coordinator=True (Scenario / sweep_grid do this "
+            "automatically via FleetConfig.with_policy_stages)")
+    if registry.needs_hedge_timer(name) and not cfg.hedge_timer:
+        raise ValueError(
+            f"policy {name!r} needs the hedge_timer stage; build the "
+            "config with hedge_timer=True (Scenario / sweep_grid do this "
+            "automatically via FleetConfig.with_policy_stages)")
 
 
 def check_hedge_delay(cfg: FleetConfig,
                       hedge_delay_us: float | None) -> int:
-    """Resolve a per-run hedge delay to ticks.  The hedge-timer stage is not
-    ported (ROADMAP.md A7), so only the config's own delay is accepted."""
-    if hedge_delay_us is not None:
-        raise NotImplementedError(
-            "per-run hedge delays (hedge_delays) need the hedge-timer stage, "
-            "which is not ported to PyTorch yet (ROADMAP.md A7)")
-    return cfg.hedge_delay_ticks
+    """Resolve a per-run hedge delay to ticks and bound it by the static
+    wheel depth (shared by :func:`make_params` and ``sweep.sweep_grid``).
+    ``None`` means the config's own ``hedge_delay_us``."""
+    if hedge_delay_us is None:
+        return cfg.hedge_delay_ticks
+    if hedge_delay_us <= 0:
+        raise ValueError("hedge_delay_us must be positive")
+    ticks = max(1, round(hedge_delay_us / cfg.dt_us))
+    if cfg.hedge_timer and ticks >= cfg.wheel_slots:
+        raise ValueError(
+            f"hedge_delay_us={hedge_delay_us} is {ticks} ticks but the "
+            f"timer wheel has only {cfg.wheel_slots} slots; deepen it "
+            "first (FleetConfig.with_hedge_horizon — sweep_grid does this "
+            "automatically for its hedge_delays axis)")
+    return ticks
 
 
 def make_params(cfg: FleetConfig, policy_id: int, rate_per_us: float,

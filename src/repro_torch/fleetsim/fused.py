@@ -32,8 +32,11 @@ at replay: count replayed launches with the profiler.
 
 Every tick replays :func:`repro_torch.fleetsim.stages.build_step` in the
 staged order, so the fused backend is **bit-identical** to the staged one
-on the always-on policies for every ``K`` (``tests/test_torch_fused.py``).
-Configs with optional stages or telemetry are staged-only.
+for every ``K`` (``tests/test_torch_fused.py``), the coordinator and
+hedge-timer stages included: their sub-states (``CoordState``,
+``HedgeWheel``) ride the static buffers like the rest of the state and are
+carried unpacked across chunk boundaries.  Configs with telemetry or the
+batch server are staged-only.
 """
 
 from __future__ import annotations
@@ -252,12 +255,11 @@ def fused_core(cfg: FleetConfig, params, ticks_per_chunk: int = 0,
     packed state, advances ``K`` ticks and packs it again); the remainder
     ``n_ticks mod K`` runs as a tail.  ``stats`` receives the graph's
     costs on a CUDA run."""
-    if (cfg.coordinator or cfg.hedge_timer or cfg.telemetry
-            or cfg.server_model == "batch"):
+    if cfg.telemetry or cfg.server_model == "batch":
         raise ValueError(
-            "the fused backend supports the always-on pipeline only; "
-            "coordinator/hedge_timer/telemetry/batch-server configs run "
-            "staged (EngineOptions(backend='auto') routes them there)")
+            "the fused backend does not run telemetry or the batch server; "
+            "those configs run staged (EngineOptions(backend='auto') routes "
+            "them there)")
     k = resolve_chunk(cfg, ticks_per_chunk)
     state, step, n_raw = init_run(cfg, params)
     blocks = TickBlocks(cfg, step, n_raw, state, graph_ticks(k),

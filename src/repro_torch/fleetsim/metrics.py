@@ -43,6 +43,18 @@ class FleetResult:
     n_dropped_down: int
     n_dedup_evicted: int
     empty_queue_fraction: float
+    # staged-pipeline counters (nonzero only for coordinator / hedge runs)
+    n_coord_queued: int = 0    # requests parked at the coordinator node
+    n_coord_overflow: int = 0  # … lost to coordinator-ring exhaustion
+    n_hedges_armed: int = 0    # timer-wheel entries armed
+    n_hedges_cancelled: int = 0  # … cancelled (earlier response / fabric dark)
+    n_wheel_dropped: int = 0   # … lost to wheel-slot exhaustion
+    # the (possibly swept) hedge delay this cell ran with; 0.0 when the
+    # hedge_timer stage is off
+    hedge_delay_us: float = 0.0
+    # mean busy fraction of the batch server's decode slots; 0.0 under
+    # server_model="fcfs" (the batch server is not ported yet)
+    mean_slot_occupancy: float = 0.0
     n_link_dropped_req: int = 0
     n_link_dropped_resp: int = 0
     rack_completed: tuple[int, ...] = ()
@@ -70,6 +82,11 @@ class FleetResult:
             "spine_filtered": self.n_spine_filtered,
             "clone_drops": self.n_clone_drops,
             "redundant": self.n_redundant_at_client,
+            "coord_queued": self.n_coord_queued,
+            "coord_overflow": self.n_coord_overflow,
+            "hedges_armed": self.n_hedges_armed,
+            "hedge_delay_us": round(self.hedge_delay_us, 2),
+            "slot_occupancy": round(self.mean_slot_occupancy, 3),
             "link_dropped_req": self.n_link_dropped_req,
             "link_dropped_resp": self.n_link_dropped_resp,
             "empty_q": round(self.empty_queue_fraction, 3),
@@ -96,11 +113,17 @@ def hist_percentile(hist: np.ndarray, mids: np.ndarray, q: float) -> float:
 
 
 def summarize(cfg: FleetConfig, metrics, *, policy: str, load: float,
-              rate_per_us: float, seed: int) -> FleetResult:
+              rate_per_us: float, seed: int,
+              hedge_delay_us: float | None = None) -> FleetResult:
     """Reduce one configuration's metrics (indexed out of the sweep batch;
     tensors or numpy) to a :class:`FleetResult`.  ``metrics.hist`` is
     ``(n_racks, hist_bins)``; fabric-wide statistics come from the
-    rack-summed histogram, per-rack tails from each row."""
+    rack-summed histogram, per-rack tails from each row.
+    ``hedge_delay_us`` records the (possibly swept) per-run delay;
+    ``None`` resolves to the config's own delay when the hedge stage is
+    on, else 0.0."""
+    if hedge_delay_us is None:
+        hedge_delay_us = cfg.hedge_delay_us if cfg.hedge_timer else 0.0
 
     def host(x):
         return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
@@ -140,6 +163,12 @@ def summarize(cfg: FleetConfig, metrics, *, policy: str, load: float,
         n_dedup_evicted=n("n_dedup_evicted"),
         empty_queue_fraction=(n("n_resp_empty") / n_resp
                               if n_resp else 1.0),
+        n_coord_queued=n("n_coord_queued"),
+        n_coord_overflow=n("n_coord_overflow"),
+        n_hedges_armed=n("n_hedges_armed"),
+        n_hedges_cancelled=n("n_hedges_cancelled"),
+        n_wheel_dropped=n("n_wheel_dropped"),
+        hedge_delay_us=float(hedge_delay_us),
         n_link_dropped_req=n("n_link_dropped_req"),
         n_link_dropped_resp=n("n_link_dropped_resp"),
         rack_completed=tuple(int(r.sum()) for r in rack_hist),

@@ -13,12 +13,14 @@ Backends
     The chunked backend (:mod:`repro_torch.fleetsim.fused`): ``K`` ticks a
     chunk with the integer state dtype-packed at chunk boundaries; on a
     CUDA run the ticks of a chunk replay from one captured CUDA graph.
-    **Bit-identical** to ``'staged'`` on the always-on policies (baseline /
-    c-clone / netclone / racksched / netclone+racksched).  Optional stages
-    and telemetry are staged-only.
+    **Bit-identical** to ``'staged'``, with or without the coordinator and
+    hedge-timer stages.  The batch server and telemetry are staged-only.
 ``'auto'``
-    ``'fused'`` on a CUDA run (as the reference picks it on its
-    accelerators), ``'staged'`` on the CPU and for staged-only configs.
+    ``'fused'`` on a CUDA run, ``'staged'`` on the CPU and for staged-only
+    configs.  The reference routes coordinator and hedge-timer configs to
+    its staged backend, a compiled ``lax.scan``; the port's staged backend
+    dispatches every op from the host, so on a card those configs run
+    fused, with the same results (``ROADMAP.md`` C8).
 
 ``shard`` and ``telemetry`` validate as in the reference, but running with
 either raises ``NotImplementedError`` (ROADMAP.md A9).  ``donate`` is
@@ -84,16 +86,12 @@ class EngineOptions:
     # ------------------------------------------------------------ resolve --
     def resolve_backend(self, cfg, device=None) -> str:
         """The concrete backend ('staged' | 'fused') for ``cfg`` on
-        ``device``.  ``'fused'`` raises for staged-only configs (optional
-        stages, the batch server, telemetry); ``'auto'`` falls back to
-        ``'staged'`` for them and on the CPU."""
+        ``device``.  ``'fused'`` raises for staged-only configs (the batch
+        server, telemetry); ``'auto'`` falls back to ``'staged'`` for them
+        and on the CPU."""
         if self.backend == "staged":
             return "staged"
         staged_only = []
-        if cfg.coordinator:
-            staged_only.append("the coordinator stage (laedge)")
-        if cfg.hedge_timer:
-            staged_only.append("the hedge_timer stage (hedge)")
         if cfg.server_model == "batch":
             staged_only.append(
                 "the batch server stage (server_model='batch')")

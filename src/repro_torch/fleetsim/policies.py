@@ -2,13 +2,21 @@
 
 Port of ``repro.fleetsim.policies``.  Each branch answers, for ``(G, A)``
 arrival lanes at once, where the copies go and with what CLO marking.  The
-reference multiplexes the branches with ``lax.switch`` on a traced policy
-id, which under ``vmap`` computes every branch and selects per sweep row;
-the port does that directly: :func:`route` computes the five always-on
-branches and selects each config's with ``torch.where``.
+branches are **attached to the unified policy registry**
+(``repro_torch.scenarios.registry``) against the entries
+``repro_torch.core.policies`` registered, and the branch tables of
+:func:`route` / :func:`route_fabric` and the optional stages' hooks are
+read from the registry — so a policy registered once (even from an example
+script) runs here with no engine edit.  The reference multiplexes the
+branches with ``lax.switch`` on a traced policy id, which under ``vmap``
+computes every branch and selects per sweep row; the port does that
+directly, computing the branches of the policies present in the batch and
+selecting each config's with ``torch.where``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -67,18 +75,89 @@ def _route_ncrs(server_state, pair, r1, r2):
     return dst1, s2, cloned, clo1, clo2
 
 
-# the always-on branch table, by registry id (laedge and hedge route
-# through the coordinator and hedge-timer stages, not ported yet)
-ROUTE_BRANCHES = {
-    registry.get("baseline").policy_id: _route_baseline,
-    registry.get("c-clone").policy_id: _route_cclone,
-    registry.get("netclone").policy_id: _route_netclone,
-    registry.get("racksched").policy_id: _route_racksched,
-    registry.get("netclone+racksched").policy_id: _route_ncrs,
-}
+def _route_laedge(server_state, pair, r1, r2):
+    # LÆDGE never dispatches at the switch: the engine parks these lanes at
+    # the coordinator node (stage_coordinator) and this branch only fills
+    # the table.  Copies are CLO_ORIG: ordinary at the servers (no CLO=2
+    # drop), paired at the filter so the slower response is absorbed
+    # exactly where the DES coordinator's seen-set absorbs it.
+    clo = torch.full_like(r1, CLO_ORIG, dtype=_I32)
+    return r1, r2, torch.zeros_like(r1, dtype=torch.bool), clo, clo
 
 
-def id_mask(policy_id: torch.Tensor, ids: tuple[int, ...]) -> torch.Tensor:
+def _route_hedge(server_state, pair, r1, r2):
+    # delayed hedging: the original goes to Srv1 of the GrpT pair NOW with
+    # CLO_ORIG (its response must park a fingerprint — that is both the
+    # filter pairing and the timer-cancel signal); the duplicate is armed
+    # into the timer wheel (stage_hedge_timer), not dispatched here
+    s1 = pair[..., 0]
+    clo1 = torch.full_like(s1, CLO_ORIG, dtype=_I32)
+    clo2 = torch.full_like(s1, CLO_CLONE, dtype=_I32)  # clone lane inactive
+    return s1, pair[..., 1], torch.zeros_like(s1, dtype=torch.bool), clo1, \
+        clo2
+
+
+def _nth_idle(idle, n):
+    """Fabric-global id of the ``n``-th idle server of each config (rank
+    matching): ``idle`` ``(G, N)`` bool, ``n`` ``(G,)``.  A config with no
+    ``n``-th idle server gets 0, as ``argmax`` over all-False gives (the
+    first maximal index)."""
+    m = idle.to(torch.int64)
+    ranks = torch.cumsum(m, dim=1) - m
+    return torch.argmax((idle & (ranks == n[:, None])).to(_I32), dim=1)
+
+
+def _laedge_ranks(n_idle, u1, u2):
+    """LÆDGE's choice as ranks among the idle servers: ``(i1, i2,
+    clone)`` for ``n_idle`` idle servers and the pop's two uniforms
+    (elementwise over any broadcast shape, float32 products as in the
+    reference)."""
+    n1 = torch.clamp(n_idle, min=1)
+    i1 = torch.minimum((u1 * n1).to(torch.int64), n1 - 1)
+    off = (u2 * torch.clamp(n_idle - 1, min=1)).to(torch.int64)
+    i2 = torch.where(n_idle > 1,
+                     (i1 + 1 + torch.minimum(off, n_idle - 2)) % n1, i1)
+    return i1, i2, n_idle >= 2
+
+
+def laedge_coordinator(idle, n_idle, u1, u2):
+    """LÆDGE's dispatch rule, per drained coordinator-queue entry: two
+    *distinct random* idle servers when ≥ 2 are idle (clone), the single
+    idle one when exactly one is — mirroring the DES coordinator's
+    ``rng.choice`` over its idle set.  With 0 idle the engine keeps the
+    entry queued, so the returned ids are inert.  ``idle`` ``(G, N)``,
+    the rest ``(G,)``."""
+    i1, i2, clone = _laedge_ranks(n_idle, u1, u2)
+    return _nth_idle(idle, i1), _nth_idle(idle, i2), clone
+
+
+# a coordinator hook whose servers are ``_nth_idle`` of ranks that depend
+# on the idle count alone names that rank rule here: the engine then
+# tabulates it over every idle count once a tick instead of calling the
+# hook for each pop (stages.stage_coordinator)
+laedge_coordinator.ranks = _laedge_ranks
+
+
+def hedge_deferred_dst(pair, r1, r2):
+    """The hedge duplicate races Srv2 of the same GrpT pair the original
+    went to — identical to the DES ``HedgePolicy`` pairing."""
+    return pair[..., 1]
+
+
+# attach the array branches to the registry entries core.policies created —
+# a policy now lives in ONE table shared by both engines.  laedge and
+# hedge additionally attach their pipeline-stage hooks: that single line is
+# their whole FleetSim integration.
+registry.attach_route("baseline", _route_baseline)
+registry.attach_route("c-clone", _route_cclone)
+registry.attach_route("netclone", _route_netclone)
+registry.attach_route("racksched", _route_racksched)
+registry.attach_route("netclone+racksched", _route_ncrs)
+registry.attach_route("laedge", _route_laedge, coordinator=laedge_coordinator)
+registry.attach_route("hedge", _route_hedge, hedge_timer=hedge_deferred_dst)
+
+
+def id_mask(policy_id: torch.Tensor, ids) -> torch.Tensor:
     """Per-config membership of ``policy_id`` ``(G,)`` in a static id
     tuple."""
     out = torch.zeros_like(policy_id, dtype=torch.bool)
@@ -87,22 +166,41 @@ def id_mask(policy_id: torch.Tensor, ids: tuple[int, ...]) -> torch.Tensor:
     return out
 
 
-def route(policy_id, server_state, pair, r1, r2):
-    """Route ``(G, A)`` arrival lanes, each config under its own policy id.
-
-    ``server_state`` is ``(G, n)``; ``pair`` ``(G, A, 2)`` is the GrpT
-    lookup; ``r1`` / ``r2`` are distinct uniform candidates.  Every branch
-    is computed and each config takes its own.  Returns ``(dst1, dst2,
-    cloned, clo1, clo2)``, each ``(G, A)``."""
-    out = None
-    for pid, branch in ROUTE_BRANCHES.items():
-        res = branch(server_state, pair, r1, r2)
+def select_branches(policy_id, branches, ids, args, default=None):
+    """Each config's branch: ``branches[pid](*args)`` for the ids in
+    ``ids`` (the policies present in the batch), selected per config with
+    ``torch.where`` on ``policy_id`` ``(G,)`` (outputs lead with ``G``).
+    ``default`` (an output tuple, or one tensor) fills configs whose id is
+    not in ``ids``; without it the first branch does."""
+    out = default
+    for pid in ids:
+        res = branches[pid](*args)
         if out is None:
             out = res
             continue
-        sel = (policy_id == pid)[:, None]
-        out = tuple(torch.where(sel, b, a) for a, b in zip(out, res))
+        single = isinstance(res, torch.Tensor)
+        res_t = (res,) if single else res
+        out_t = (out,) if single else out
+        sel = policy_id == pid
+        res_t = tuple(torch.where(sel.reshape(sel.shape + (1,) * (b.dim() - 1)),
+                                  b, a) for a, b in zip(out_t, res_t))
+        out = res_t[0] if single else res_t
     return out
+
+
+def route(policy_id, server_state, pair, r1, r2, ids=None):
+    """Route ``(G, A)`` arrival lanes, each config under its own policy id.
+
+    ``server_state`` is ``(G, n)``; ``pair`` ``(G, A, 2)`` is the GrpT
+    lookup; ``r1`` / ``r2`` are distinct uniform candidates.  The branch
+    table comes from the registry; the branches of ``ids`` (default: every
+    array policy) are computed and each config takes its own.  Returns
+    ``(dst1, dst2, cloned, clo1, clo2)``, each ``(G, A)``."""
+    branches = registry.route_branches()
+    if ids is None:
+        ids = range(len(branches))
+    return select_branches(policy_id, branches, ids,
+                           (server_state, pair, r1, r2))
 
 
 def default_spine_place(rack_load, server_state, home, r1, r2, remote_cand,
@@ -118,15 +216,37 @@ def default_spine_place(rack_load, server_state, home, r1, r2, remote_cand,
     return (r_star * n_servers + remote_cand).to(remote_cand.dtype)
 
 
+def _spine_remote(policy_id, ids, args, n_racks, n_servers):
+    """Each config's spine placement: the registry's hook of its policy,
+    or :func:`default_spine_place`; each distinct hook of the policies in
+    ``ids`` is computed once."""
+    hooks = registry.spine_placements()
+    by_hook: dict = {}
+    for pid in ids:
+        by_hook.setdefault(hooks[pid] or default_spine_place, []).append(pid)
+    out = None
+    for hook, pids in by_hook.items():
+        res = functools.partial(hook, n_racks=n_racks,
+                                n_servers=n_servers)(*args)
+        out = res if out is None else torch.where(
+            id_mask(policy_id, pids)[:, None], res, out)
+    return out
+
+
 def route_fabric(policy_id, server_state, pair, r1, r2, home_rack,
-                 remote_cand, *, n_racks: int, n_servers: int, dead=None):
+                 remote_cand, *, n_racks: int, n_servers: int, dead=None,
+                 ids=None):
     """Fabric routing: each lane's home-rack switch decision
     (:func:`route`) plus, with more than one rack, the spine's inter-rack
-    upgrade of saturated ``spine_clone`` lanes (see the reference's
-    docstring).  ``dead`` ``(G, n_racks·n_servers)`` marks dead links; an
-    all-false mask changes nothing."""
+    upgrade of saturated ``spine_clone`` lanes, placed by each policy's
+    registered spine hook (see the reference's docstring).  ``dead``
+    ``(G, n_racks·n_servers)`` marks dead links; an all-false mask changes
+    nothing.  ``ids``: the policy ids present in the batch (default:
+    every array policy)."""
+    if ids is None:
+        ids = range(len(registry.array_policies()))
     dst1, dst2, cloned, clo1, clo2 = route(policy_id, server_state, pair,
-                                           r1, r2)
+                                           r1, r2, ids)
     if n_racks == 1:
         return dst1, dst2, cloned, clo1, clo2
 
@@ -138,9 +258,9 @@ def route_fabric(policy_id, server_state, pair, r1, r2, home_rack,
         # a fully partitioned rack reads as saturated to the spine
         rack_load = rack_load + torch.where(
             dead.reshape(g, n_racks, n_servers).all(dim=2), 1 << 24, 0)
-    remote = default_spine_place(rack_load, server_state, home_rack, r1, r2,
-                                 remote_cand, n_racks=n_racks,
-                                 n_servers=n_servers)
+    remote = _spine_remote(policy_id, ids, (rack_load, server_state,
+                                            home_rack, r1, r2, remote_cand),
+                           n_racks, n_servers)
     dead_ok = torch.ones_like(cloned)
     if dead is not None:
         dead_ok = ~torch.gather(dead, 1, remote)

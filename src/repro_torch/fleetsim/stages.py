@@ -2,26 +2,37 @@
 
 One engine tick is the composition
 
-    arrival → route (ToR + spine) → link-failure → server
-            → link-response → response/filter → client
+    arrival → route (ToR + spine) → coordinator → hedge_timer
+            → link-failure → server → link-response → response/filter
+            → client
 
 over the :class:`~repro_torch.fleetsim.state.FleetState` of ``G``
 configurations at once (the reference's ``vmap`` axis, written out).  The
 stages read and write the reference's layouts; what the port changes is
 only how the work is expressed:
 
-* a ``lax.switch`` over policy ids is "compute each branch, select per
-  config" (:func:`repro_torch.fleetsim.policies.route`);
+* a ``lax.switch`` over policy ids is "compute each present policy's
+  branch, select per config" (:func:`repro_torch.fleetsim.policies.
+  select_branches`);
 * every ``.at[].set(mode="drop")`` goes through
   :func:`repro_torch.scatter.scatter_last` (last lane wins, out-of-range
   rows dropped) on every device;
 * the large state tensors (queue rings, filter tables, StateT, the dedup
-  table, the histograms) are updated **in place**; callers that need the
-  old state clone it first.
+  table, the histograms, the coordinator ring, the timer wheel) are
+  updated **in place**; callers that need the old state clone it first.
 
-The reference's optional stages (coordinator, hedge timer), telemetry and
-the batch server are not ported yet: :func:`build_step` raises
-``NotImplementedError`` for them (``ROADMAP.md`` queue A).
+Two stages are optional, gated by static :class:`~repro_torch.fleetsim.
+config.FleetConfig` flags, so a flag-off tick runs no op of them and the
+always-on goldens stay bit-identical: ``stage_coordinator``
+(``cfg.coordinator``, LÆDGE's coordinator node: a ring of parked arrivals
+drained each tick by the policy's registered rule under a CPU-credit
+throttle) and ``stage_hedge_timer`` (``cfg.hedge_timer``, a timer wheel
+firing delayed duplicates unless the original's response already parked
+its fingerprint).  Their lanes join the route stage's with
+:meth:`Lanes.extend`, so the server stage's lane width grows only when a
+flag is on.  Telemetry and the batch server are not ported yet:
+:func:`build_step` raises ``NotImplementedError`` for them (``ROADMAP.md``
+queue A).
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import random as jr
-from repro_torch.core.header import CLO_CLONE
+from repro_torch.core.header import CLO_CLONE, CLO_ORIG
 from repro_torch.core.switch import SwitchState, filter_tick_vectorized
 from repro_torch.fleetsim.chaos import (
     link_dead,
@@ -46,7 +57,12 @@ from repro_torch.fleetsim.config import (
     SERVICE_PARETO,
     FleetConfig,
 )
-from repro_torch.fleetsim.policies import dedup_tick, id_mask, route_fabric
+from repro_torch.fleetsim.policies import (
+    dedup_tick,
+    id_mask,
+    route_fabric,
+    select_branches,
+)
 from repro_torch.fleetsim.state import (
     QF_BASE,
     QF_CLIENT,
@@ -65,10 +81,20 @@ from repro_torch.fleetsim.state import (
     WF_REM,
     WF_RID,
     WF_TARR,
+    QF,
+    WH,
+    WHEEL_BASE,
+    WHEEL_CLIENT,
+    WHEEL_DST,
+    WHEEL_FRACK,
+    WHEEL_IDX,
+    WHEEL_RID,
+    WHEEL_TARR,
     FleetState,
+    HedgeWheel,
 )
 from repro_torch.kernels.ops import fingerprint_filter, tickfuse_masked
-from repro_torch.kernels.ref import fingerprint_filter_ref
+from repro_torch.kernels.ref import fingerprint_filter_ref, fingerprint_slot
 from repro_torch.scatter import scatter_add_drop, scatter_last
 from repro_torch.scenarios import registry
 
@@ -129,6 +155,19 @@ def _rank_among_earlier(mask):
     return torch.cumsum(m, dim=-1) - m
 
 
+def _full_t_us(arr, like: torch.Tensor) -> torch.Tensor:
+    """The tick's start time, float32, in the shape of ``like`` (a Python
+    number on the staged loop, a 0-d device tensor in a captured block)."""
+    if isinstance(arr.t_us, torch.Tensor):
+        return arr.t_us.expand(like.shape)
+    return torch.full_like(like, arr.t_us)
+
+
+def _present(params) -> tuple[int, ...]:
+    """The policy ids present in a batch (one host read, at set-up)."""
+    return tuple(sorted(set(params.policy_id.tolist())))
+
+
 # ------------------------------------------------------------ random draws --
 class TickDraws(NamedTuple):
     """One tick's random numbers (the reference draws them inside the
@@ -137,6 +176,9 @@ class TickDraws(NamedTuple):
     key: torch.Tensor        # (G, 2) the carried key after the tick
     u_arr: torch.Tensor      # (G, A, 6 or 7) per-lane attribute uniforms
     u_exec: torch.Tensor     # (G, ST, R, 2) execution-time uniforms
+    # (G, CD, 2) the coordinator drain's uniforms, from fold_in(k_arr, 1);
+    # empty, (G, 0, 2), unless cfg.coordinator
+    u_stage: torch.Tensor | None = None
 
 
 def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
@@ -146,7 +188,10 @@ def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
     k_exec) and draws ``uniform(k_arr, (A, 6 or 7))`` and
     ``uniform(k_exec, (ST, R, 2))``.  The key chain is sequential, one split
     per tick; the uniforms of all ``n`` ticks come from two threefry passes
-    over the batched keys, which saves most of a pass per tick."""
+    over the batched keys, which saves most of a pass per tick.  With the
+    coordinator stage on, each tick also draws the reference's
+    ``uniform(fold_in(k_arr, 1), (CD, 2))`` (a key of its own, so the
+    always-on draws do not move)."""
     chain = []
     for _ in range(n):
         keys = jr.split(key, 3)
@@ -158,7 +203,12 @@ def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
                        (cfg.max_arrivals, 7 if cfg.n_racks > 1 else 6))
     u_exec = jr.uniform(keys[:, :, 2],
                         (st, min(cfg.n_workers, cfg.queue_cap), 2))
-    return [TickDraws(keys[:, i, 0], u_arr[:, i], u_exec[:, i])
+    if cfg.coordinator:
+        k_stage = jr.fold_in(keys[:, :, 1], 1)
+        u_stage = jr.uniform(k_stage, (cfg.drain_per_tick, 2)).unbind(1)
+    else:
+        u_stage = u_arr.new_empty((u_arr.shape[0], n, 0, 2)).unbind(1)
+    return [TickDraws(keys[:, i, 0], u_arr[:, i], u_exec[:, i], u_stage[i])
             for i in range(n)]
 
 
@@ -185,16 +235,34 @@ class Arrivals(NamedTuple):
     r1: torch.Tensor         # first uniform candidate
     r2: torch.Tensor         # second uniform candidate
     r2_local: torch.Tensor   # second candidate, rack-local
+    pair: torch.Tensor | None = None     # (G, A, 2) GrpT pair (route stage)
+    u_stage: torch.Tensor | None = None  # (G, CD, 2) coordinator uniforms
+
+
+class Routed(NamedTuple):
+    """Route-stage outputs the optional stages read, ``(G, A)``."""
+
+    req_id: torch.Tensor     # int32 spine-assigned REQ_IDs
+    cloned: torch.Tensor     # bool immediate-clone mask
+    frack: torch.Tensor      # int64 filter switch (home rack or spine)
 
 
 class Lanes(NamedTuple):
     """Delivery lanes headed for the server stage, ``(G, D)``;
-    ``payload`` rows are ``QF``-format queue records."""
+    ``payload`` rows are ``QF``-format queue records.  The optional stages
+    append their dispatches with :meth:`extend`."""
 
     dst: torch.Tensor        # int64 destination server
     act: torch.Tensor        # bool
     clo: torch.Tensor        # int32
     payload: torch.Tensor    # (G, D, QF) float32
+
+    def extend(self, dst, act, clo, payload) -> "Lanes":
+        return Lanes(
+            dst=torch.cat([self.dst, dst.to(torch.int64)], dim=1),
+            act=torch.cat([self.act, act], dim=1),
+            clo=torch.cat([self.clo, clo.to(_I32)], dim=1),
+            payload=torch.cat([self.payload, payload], dim=1))
 
 
 class Responses(NamedTuple):
@@ -258,6 +326,11 @@ def stage_arrival(cfg: FleetConfig, params, state: FleetState, xs,
         switch.server_state.mul_(keep[:, None, None])
         switch.filter_tables.mul_(keep[:, None, None, None])
         state.dedup.mul_(keep[:, None])
+        if cfg.hedge_timer:
+            # pending hedge timers are switch soft state too; the
+            # coordinator node is not (a server-side CPU box, as in the DES)
+            state.wheel.count.mul_(keep[:, None])
+            state.wheel.data.mul_(keep.to(_F32)[:, None, None, None])
     sstate = switch.server_state.view(g, ST)
     tables = switch.filter_tables.view(g, (RK + 1) * T, cfg.n_filter_slots)
 
@@ -297,13 +370,15 @@ def stage_arrival(cfg: FleetConfig, params, state: FleetState, xs,
         tick=tick, t_us=t_us, down=down, u_exec=draws.u_exec, sstate=sstate,
         tables=tables, active=arr_active, grp=grp, fidx=fidx, client=client,
         base=base, home=home, r1=off + r1, r2=off + r2,
-        r2_local=r2)
+        r2_local=r2, u_stage=draws.u_stage)
 
 
 def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
-                group_pairs: torch.Tensor, xhop: float):
+                group_pairs: torch.Tensor, xhop: float, ids=None):
     """ToR routing + spine placement; emits the base delivery lanes
-    (originals then clones)."""
+    (originals then clones).  Returns ``(state, arr, routed, lanes)``:
+    ``arr`` gains the GrpT pairs, ``routed`` is what the optional stages
+    read.  ``ids``: the policy ids present in the batch."""
     RK, S = cfg.n_racks, cfg.n_servers
     A = cfg.max_arrivals
     g, dev = arr.active.shape[0], arr.active.device
@@ -315,7 +390,7 @@ def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
     dst1, dst2, cloned, clo1, clo2 = route_fabric(
         params.policy_id, arr.sstate, pair, arr.r1, arr.r2, arr.home,
         arr.r2_local, n_racks=RK, n_servers=S,
-        dead=link_dead(params, arr.tick))
+        dead=link_dead(params, arr.tick), ids=ids)
     xrack = cloned & ((dst1 // S) != (dst2 // S))
     # the filter switch of a pair: its home rack ToR, or the spine
     # (table group RK) when the copies span racks
@@ -340,8 +415,7 @@ def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
 
     payload = torch.stack([                          # (G, D, QF)
         tile(arr.base),
-        (arr.t_us.expand(d_hop.shape) if isinstance(arr.t_us, torch.Tensor)
-         else torch.full_like(d_hop, arr.t_us)),
+        _full_t_us(arr, d_hop),
         tile(req_id),
         d_clo.to(_F32),
         tile(arr.fidx),
@@ -350,7 +424,291 @@ def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
         tile(frack),
     ], dim=2)
     state = state._replace(switch=switch, metrics=m)
-    return state, Lanes(dst=d_dst, act=d_act, clo=d_clo, payload=payload)
+    return (state, arr._replace(pair=pair),
+            Routed(req_id=req_id, cloned=cloned, frack=frack),
+            Lanes(dst=d_dst, act=d_act, clo=d_clo, payload=payload))
+
+
+def _coordinator_picks(cfg: FleetConfig, params, arr: Arrivals, is_coord,
+                       ids, queued):
+    """The drain's dispatch rule as ``pick(j, idle, c) -> (s, f)`` for pop
+    ``j``: ``idle`` ``(G, ST)`` the idle servers, ``c`` their inclusive
+    running count (int64); ``s`` ``(G, 2)`` the two chosen servers (ST
+    where the rule found none) and ``f`` ``(G, 2)`` int64 0/1: whether the
+    pop may dispatch at all — a coordinator config with ``n_idle ≥ 1`` and
+    an entry left for pop ``j`` (``j < queued``, the ring's count after
+    this tick's parking) — and whether it may also clone (the rule's
+    wish).  The credit test is the caller's.
+
+    Each config takes its policy's registered ``coordinator`` hook; a
+    config without one picks nothing.  When every present hook names a
+    rank rule (``hook.ranks``, see ``policies.laedge_coordinator``), the
+    rule is tabulated once a tick over every idle count ``0 … ST`` and
+    the pop's picks are two table lookups and one ``searchsorted`` (the
+    first entry of ``c`` reaching ``i+1`` is the ``i``-th idle server);
+    otherwise each hook is called for each pop."""
+    ST = cfg.n_servers_total
+    g, dev = is_coord.shape[0], is_coord.device
+    hooks = registry.coordinator_branches()
+    coord_ids = [i for i in ids if i in registry.coordinator_ids()]
+    u = arr.u_stage                                  # (G, CD, 2)
+    cd = u.shape[1]
+    # an entry is left for pop j: the pops before it all dispatched (the
+    # drain stops at its first idle pop, whose inputs then never change)
+    left = (torch.arange(cd, device=dev) < queued[:, None]) \
+        & is_coord[:, None]                          # (G, CD)
+    if all(getattr(hooks[i], "ranks", None) for i in coord_ids):
+        # every idle count 0 … ST, for every pop of every config
+        n_idle = torch.arange(ST + 1, device=dev).expand(g, cd, ST + 1)
+        none = torch.full_like(n_idle, ST)
+        i1, i2, want = select_branches(
+            params.policy_id, {i: hooks[i].ranks for i in coord_ids},
+            coord_ids, (n_idle, u[..., 0:1], u[..., 1:2]),
+            default=(none, none, torch.zeros_like(none, dtype=torch.bool)))
+        ok = (n_idle >= 1) & left[:, :, None]
+        ranks = torch.stack([i1 + 1, i2 + 1], dim=3)   # (G, CD, ST+1, 2)
+        flags = torch.stack([ok, ok & want], dim=3).to(torch.int64)
+
+        def pick(j, idle, c):
+            at = c[:, -1:, None].expand(g, 1, 2)
+            return (torch.searchsorted(
+                c, torch.gather(ranks[:, j], 1, at)[:, 0]),
+                torch.gather(flags[:, j], 1, at)[:, 0])
+        return pick
+
+    def pick(j, idle, c):
+        n_idle = c[:, -1]
+        zero = torch.zeros_like(n_idle)
+        s1, s2, want = select_branches(
+            params.policy_id, hooks, coord_ids,
+            (idle, n_idle, u[:, j, 0], u[:, j, 1]),
+            default=(zero, zero, torch.zeros_like(is_coord)))
+        ok = (n_idle >= 1) & left[:, j]
+        return (torch.stack([s1, s2], dim=1),
+                torch.stack([ok, ok & want], dim=1).to(torch.int64))
+    return pick
+
+
+def stage_coordinator(cfg: FleetConfig, params, state: FleetState,
+                      arr: Arrivals, routed: Routed, lanes: Lanes, ids=None):
+    """LÆDGE coordinator node (runs only when ``cfg.coordinator``).
+
+    Arrival lanes of coordinator policies are parked in the ring instead
+    of dispatched; the drain then pops FCFS entries onto servers chosen by
+    the policy's registered rule, spending one CPU credit per transmitted
+    copy.  Dispatches join the delivery lanes; the coordinator's
+    ``outstanding`` view is decremented by the response stage.
+
+    The reference's drain is a ``lax.scan`` of ``CD`` pops; here it is a
+    loop of ``CD`` steps over the batch whose per-pop state is only the
+    idle view and the credit.  The rest follows from which pops
+    dispatched, after the loop, with the same values: a pop's ring head
+    is the start head plus the pops before it, its CPU hop the credits
+    spent before it, and the ring still holds an entry for pop ``j`` iff
+    ``j`` is below the ring's count (a pop that cannot dispatch leaves
+    every input of the next one unchanged, so the pops that dispatch are
+    the first ones)."""
+    if not cfg.coordinator:
+        return state, lanes
+    RK, W = cfg.n_racks, cfg.n_workers
+    ST = cfg.n_servers_total
+    CQ = cfg.coordinator_cap
+    CD = cfg.drain_per_tick
+    cpu = _f32(cfg.coord_cpu_us)
+    g, dev = arr.active.shape[0], arr.active.device
+    ids = _present(params) if ids is None else ids
+
+    m = state.metrics
+    coord = state.coord
+    is_coord = id_mask(params.policy_id, registry.coordinator_ids())
+
+    # coordinator lanes never dispatch directly
+    lanes = lanes._replace(act=lanes.act & ~is_coord[:, None])
+
+    # -- park this tick's arrivals in the ring -----------------------------
+    enq = arr.active & is_coord[:, None]
+    rank = _rank_among_earlier(enq)
+    count0 = coord.count.to(torch.int64)[:, None]
+    ok = enq & (count0 + rank < CQ)
+    slot = (coord.head.to(torch.int64)[:, None] + count0 + rank) % CQ
+    rows = torch.stack([                             # (G, A, QF)
+        arr.base,
+        _full_t_us(arr, arr.base),
+        routed.req_id.to(_F32),
+        torch.full_like(arr.base, float(CLO_ORIG)),
+        arr.fidx.to(_F32),
+        arr.client.to(_F32),
+        torch.zeros_like(arr.base),
+        torch.full_like(arr.base, float(RK)),  # pairs filter at the top tier
+    ], dim=2)
+    scatter_last(coord.data, slot, rows, ok)
+    n_ok = _sum(ok)
+    m = m._replace(n_coord_queued=m.n_coord_queued + n_ok,
+                   n_coord_overflow=m.n_coord_overflow + _sum(enq & ~ok))
+
+    # -- drain: FCFS pops onto idle servers, CPU-credit throttled ----------
+    credit = torch.clamp(coord.credit + _f32(np.float32(cfg.dt_us)
+                                             / np.float32(cfg.coord_cpu_us)),
+                         max=float(CD))
+    # a sentinel column ST takes the adds of pops that pick no server
+    outstanding = torch.cat([coord.outstanding.to(torch.int64),
+                             torch.zeros((g, 1), dtype=torch.int64,
+                                         device=dev)], dim=1)
+    queued = coord.count.to(torch.int64) + n_ok
+    pick = _coordinator_picks(cfg, params, arr, is_coord, ids, queued)
+    # credit thresholds of a dispatch and of a clone: a clone costs two
+    # credits and is wished only with two in hand (a backed-up CPU
+    # degrades to single-copy dispatch before it stalls — the negative
+    # feedback the DES coordinator gets), so the pop dispatches iff one
+    # credit is left and clones iff two are
+    need = torch.arange(1.0, 3.0, device=dev)       # [1, 2]; no host copy
+    picks, sends = [], []
+    for j in range(CD):
+        idle = outstanding[:, :ST] < W
+        c = torch.cumsum(idle, dim=1)
+        s, f = pick(j, idle, c)
+        send = f * (credit[:, None] >= need)         # (G, 2): can, clone
+        outstanding.scatter_add_(1, s, send)
+        credit = credit - send.sum(dim=1)
+        picks.append(s)
+        sends.append(send)
+    s = torch.stack(picks, dim=1) % ST               # (G, CD, 2)
+    send = torch.stack(sends, dim=1)                 # (G, CD, 2) 0/1
+    can, do_clone = send[..., 0], send[..., 1]
+    spend = send.sum(dim=2).to(_F32)                 # credits a pop spent
+    # CPU serialization inside the tick: the j-th transmitted copy waits
+    # for the copies before it (credits spent: exact small integers)
+    spent = torch.cumsum(spend, dim=1) - spend
+    hop1 = torch.where(can > 0, (spent + 1.0) * cpu, 0.0)
+    hop2 = torch.where(do_clone > 0, (spent + 2.0) * cpu, 0.0)
+    n_pop = can.sum(dim=1)
+    heads = (coord.head.to(torch.int64)[:, None]
+             + torch.cumsum(can, dim=1) - can) % CQ
+    row = torch.gather(coord.data, 1, heads[:, :, None].expand(g, CD, QF))
+
+    def with_hop(hop):
+        return torch.cat([row[..., :QF_HOP], hop[..., None],
+                          row[..., QF_HOP + 1:]], dim=2)
+
+    m = m._replace(n_cloned=m.n_cloned + _sum(do_clone > 0))
+    clo = torch.full((g, CD), CLO_ORIG, dtype=_I32, device=dev)
+    lanes = lanes.extend(s[..., 0], can > 0, clo, with_hop(hop1))
+    lanes = lanes.extend(s[..., 1], do_clone > 0, clo, with_hop(hop2))
+    state = state._replace(
+        metrics=m,
+        coord=coord._replace(
+            outstanding=outstanding[:, :ST].to(_I32),
+            head=((coord.head.to(torch.int64) + n_pop) % CQ).to(_I32),
+            count=(queued - n_pop).to(_I32), credit=credit))
+    return state, lanes
+
+
+def wheel_arm(wheel: HedgeWheel, tick, delay_ticks, arm_mask, entries):
+    """Arm ``entries`` ``(G, L, WH)`` (one row per True in ``arm_mask``
+    ``(G, L)``) to fire ``delay_ticks`` ``(G,)`` from ``tick``.  The wheel
+    is updated in place.
+
+    Returns ``(wheel, armed_mask, dropped_mask)``: lanes beyond the slot's
+    free width are dropped *deterministically* — the latest lanes lose,
+    and a lane is never dropped while the slot has room."""
+    g, n_slots, width, _ = wheel.data.shape
+    slot = (tick + delay_ticks.to(torch.int64)) % n_slots        # (G,)
+    pos = (torch.gather(wheel.count, 1, slot[:, None]).to(torch.int64)
+           + _rank_among_earlier(arm_mask))
+    ok = arm_mask & (pos < width)
+    scatter_last(wheel.data.view(g, n_slots * width, -1),
+                 slot[:, None] * width + pos, entries, ok)
+    wheel.count.scatter_add_(1, slot[:, None], _sum(ok)[:, None])
+    return wheel, ok, arm_mask & ~ok
+
+
+def wheel_fire(wheel: HedgeWheel, tick):
+    """Pop every entry due at ``tick`` (the wheel is deeper than the delay
+    horizon, so everything in the slot is due).  Returns ``(wheel,
+    due_mask, entries)`` with the slot cleared in place; ``entries`` is a
+    copy."""
+    g, n_slots, width, _ = wheel.data.shape
+    if isinstance(tick, torch.Tensor):
+        slot = (tick % n_slots).reshape(1)
+        entries = wheel.data.index_select(1, slot)[:, 0]
+        count = wheel.count.index_select(1, slot)
+        wheel.count.index_fill_(1, slot, 0)
+    else:
+        slot = tick % n_slots
+        entries = wheel.data[:, slot].clone()
+        count = wheel.count[:, slot:slot + 1].clone()
+        wheel.count[:, slot] = 0
+    due = torch.arange(width, device=count.device) < count
+    return wheel, due, entries
+
+
+def stage_hedge_timer(cfg: FleetConfig, params, state: FleetState,
+                      arr: Arrivals, routed: Routed, lanes: Lanes, ids=None):
+    """Delayed hedging (runs only when ``cfg.hedge_timer``).
+
+    Fires this tick's due duplicates as CLO=2 delivery lanes — unless the
+    original's response already parked its fingerprint at the lane's
+    filter switch, which is the array form of the DES's cancel-on-first-
+    response — then arms a wheel entry for every hedge-policy arrival.
+    The filter tables are read here, before this tick's response filter
+    updates them in place."""
+    if not cfg.hedge_timer:
+        return state, lanes
+    T = cfg.n_filter_tables
+    A = cfg.max_arrivals
+    ids = _present(params) if ids is None else ids
+    m = state.metrics
+    is_hedge = id_mask(params.policy_id, registry.hedge_timer_ids())
+
+    # -- fire due entries --------------------------------------------------
+    wheel, due, entries = wheel_fire(state.wheel, arr.tick)
+    g, hw = due.shape
+    rid = entries[..., WHEEL_RID].to(_I32)
+    tbl = ((entries[..., WHEEL_FRACK].to(torch.int64) * T
+            + entries[..., WHEEL_IDX].to(torch.int64))
+           * cfg.n_filter_slots + fingerprint_slot(rid, cfg.n_filter_slots))
+    parked = torch.gather(arr.tables.reshape(g, -1), 1, tbl) == rid
+    fire = due & ~parked & ~arr.down[:, None]  # a dark fabric loses it
+    cancelled = due & ~fire
+    zero = torch.zeros_like(entries[..., WHEEL_BASE])
+    pay = torch.stack([                              # (G, HW, QF)
+        entries[..., WHEEL_BASE],
+        entries[..., WHEEL_TARR],       # latency runs from the ORIGINAL
+        entries[..., WHEEL_RID],        # arrival, so the hedge pays the
+        zero + float(CLO_CLONE),        # delay floor
+        entries[..., WHEEL_IDX],
+        entries[..., WHEEL_CLIENT],
+        zero,
+        entries[..., WHEEL_FRACK],
+    ], dim=2)
+    lanes = lanes.extend(entries[..., WHEEL_DST].to(torch.int64), fire,
+                         torch.full((g, hw), CLO_CLONE, dtype=_I32,
+                                    device=fire.device), pay)
+    m = m._replace(n_cloned=m.n_cloned + _sum(fire),
+                   n_hedges_cancelled=m.n_hedges_cancelled
+                   + _sum(cancelled))
+
+    # -- arm this tick's arrivals ------------------------------------------
+    dst2 = select_branches(
+        params.policy_id, registry.hedge_timer_branches(),
+        [i for i in ids if i in registry.hedge_timer_ids()],
+        (arr.pair, arr.r1, arr.r2), default=arr.r2)
+    rows = torch.stack([                             # (G, A, WH)
+        routed.req_id.to(_F32),
+        dst2.to(_F32),
+        arr.fidx.to(_F32),
+        arr.client.to(_F32),
+        arr.base,
+        _full_t_us(arr, arr.base),
+        routed.frack.to(_F32),
+    ], dim=2)
+    assert rows.shape[2] == WH and rows.shape[1] == A
+    wheel, armed, dropped = wheel_arm(wheel, arr.tick,
+                                      params.hedge_delay_ticks,
+                                      arr.active & is_hedge[:, None], rows)
+    m = m._replace(n_hedges_armed=m.n_hedges_armed + _sum(armed),
+                   n_wheel_dropped=m.n_wheel_dropped + _sum(dropped))
+    return state._replace(metrics=m, wheel=wheel), lanes
 
 
 def stage_server(cfg: FleetConfig, params, state: FleetState,
@@ -497,9 +855,10 @@ def stage_server(cfg: FleetConfig, params, state: FleetState,
 def stage_response_filter(cfg: FleetConfig, params, state: FleetState,
                           arr: Arrivals, resp: Responses, out=None):
     """Switch response path: StateT update + the fingerprint filter at each
-    pair's filter switch, one flattened-table call for the whole fabric.
-    ``out``: a ``(G, K)`` bool buffer the ``pallas`` and ``tickfuse``
-    backends write the drop flags into."""
+    pair's filter switch, one flattened-table call for the whole fabric,
+    plus the coordinator's response-side bookkeeping.  ``out``: a ``(G,
+    K)`` bool buffer the ``pallas`` and ``tickfuse`` backends write the
+    drop flags into."""
     RK = cfg.n_racks
     T = cfg.n_filter_tables
     m = state.metrics
@@ -511,7 +870,19 @@ def stage_response_filter(cfg: FleetConfig, params, state: FleetState,
         n_filtered=m.n_filtered + _sum(drop & resp.active),
         n_spine_filtered=m.n_spine_filtered
         + _sum(drop & resp.active & (resp.frack == RK)))
-    return state._replace(metrics=m), drop
+    state = state._replace(metrics=m)
+    if cfg.coordinator:
+        # every response of a coordinator policy passes back through the
+        # coordinator CPU: it costs a credit and frees an outstanding slot
+        # (the idleness signal the next tick's drain reads)
+        coord = state.coord
+        is_coord = id_mask(params.policy_id, registry.coordinator_ids())
+        dec = resp.active & is_coord[:, None]
+        scatter_add_drop(coord.outstanding, resp.sid, -1, dec)
+        credit = coord.credit - _sum(dec).to(_F32)
+        state = state._replace(coord=coord._replace(
+            credit=torch.clamp(credit, min=-float(cfg.drain_per_tick))))
+    return state, drop
 
 
 def stage_client(cfg: FleetConfig, params, state: FleetState,
@@ -544,6 +915,13 @@ def stage_client(cfg: FleetConfig, params, state: FleetState,
         + (pos + 1) * cfg.client_rx_us
     backlog = backlog_pre + cli_onehot.sum(dim=2) * cfg.client_rx_us
     t_fin = arr.t_us + wait
+    if cfg.coordinator:
+        # coordinator responses serialize through its CPU before reaching
+        # the client (same rank model as the receiver threads)
+        is_coord = id_mask(params.policy_id, registry.coordinator_ids())
+        crank = _rank_among_earlier(deliver)
+        t_fin = t_fin + torch.where(is_coord[:, None] & deliver,
+                                    (crank + 1.0) * cfg.coord_cpu_us, 0.0)
     lat = t_fin - resp.tarr + const_lat[:, None] + resp.hop
     rec = first & (t_fin >= t0_us) & (t_fin <= t1_us)
     bins = torch.clamp(
@@ -597,8 +975,6 @@ def _filter_responses(cfg, server_state, tables, rid, idx, clo, sid, qlen,
 def check_supported(cfg: FleetConfig) -> None:
     """Raise for the reference features this slice has not ported."""
     missing = [
-        (cfg.coordinator, "the coordinator stage (cfg.coordinator)", "A7"),
-        (cfg.hedge_timer, "the hedge-timer stage (cfg.hedge_timer)", "A7"),
         (cfg.telemetry, "telemetry (cfg.telemetry)", "A9"),
         (cfg.server_model == "batch",
          'the batch server (cfg.server_model="batch")', "A10"),
@@ -613,12 +989,20 @@ def const_latency(cfg: FleetConfig, params) -> torch.Tensor:
     """In-network constants added to every recorded latency, ``(G,)``:
     client TX + four link hops + two pipeline passes + the spine round trip
     when the fabric has one; client-duplicating policies pay the doubled
-    TX."""
-    return (cfg.client_tx_us + 4 * cfg.link_us + 2 * cfg.pipeline_pass_us
-            + cfg.spine_extra_us
-            + torch.where(id_mask(params.policy_id,
-                                  registry.client_dup_ids()),
-                          cfg.client_tx_us, 0.0).to(_F32))
+    TX.  With the coordinator stage on, coordinator policies also detour
+    switch → coordinator → switch: one extra link hop each way plus the
+    request-processing CPU pass (the dispatch and response CPU passes are
+    charged inside the stages, where their serialization is visible)."""
+    const_lat = (cfg.client_tx_us + 4 * cfg.link_us
+                 + 2 * cfg.pipeline_pass_us + cfg.spine_extra_us
+                 + torch.where(id_mask(params.policy_id,
+                                       registry.client_dup_ids()),
+                               cfg.client_tx_us, 0.0).to(_F32))
+    if cfg.coordinator:
+        const_lat = const_lat + torch.where(
+            id_mask(params.policy_id, registry.coordinator_ids()),
+            2.0 * cfg.link_us + cfg.coord_cpu_us, 0.0).to(_F32)
+    return const_lat
 
 
 def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
@@ -629,6 +1013,7 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
     const_lat = const_latency(cfg, params)
     xhop = _f32(cfg.interrack_extra_us)
     recover_ticks = frozenset(params.fail_until_tick.tolist())
+    ids = _present(params)
     # the kernel backends write every tick's drop flags into one buffer,
     # allocated here so a captured chunk (fused.py) never allocates it
     drop_out = None
@@ -640,8 +1025,12 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
 
     def step(state: FleetState, xs):
         state, arr = stage_arrival(cfg, params, state, xs, recover_ticks)
-        state, lanes = stage_route(cfg, params, state, arr, group_pairs,
-                                   xhop)
+        state, arr, routed, lanes = stage_route(cfg, params, state, arr,
+                                                group_pairs, xhop, ids)
+        state, lanes = stage_coordinator(cfg, params, state, arr, routed,
+                                         lanes, ids)
+        state, lanes = stage_hedge_timer(cfg, params, state, arr, routed,
+                                         lanes, ids)
         # link failures: copies onto a dead link vanish before the servers,
         # responses from partitioned servers vanish before the filter
         # switch; inert windows leave every value unchanged

@@ -9,7 +9,10 @@ is ``G = 1``).  The layouts behind it are the reference's:
 * worker metadata is one ``(G, R, S, W, WF)`` tensor; a worker is busy iff
   its ``WF_REM`` field is positive;
 * integer payload fields (req ids, CLO, …) ride in the float32 payloads;
-  ``FleetConfig`` bounds req ids below 2²⁴ so the round trip is exact.
+  ``FleetConfig`` bounds req ids below 2²⁴ so the round trip is exact;
+* the optional stages' sub-states (:class:`CoordState`,
+  :class:`HedgeWheel`) are ``None`` unless their ``FleetConfig`` flag is
+  on.
 
 :func:`state_from_numpy` and :func:`to_numpy` carry a reference
 ``FleetState`` (numpy arrays, e.g. from ``jax.device_get``) across and
@@ -47,6 +50,15 @@ WF_HOP = 6
 WF_FRACK = 7
 WF = 8
 
+WHEEL_RID = 0    # timer-wheel entry fields, (G, n_slots, width, WH) — float32
+WHEEL_DST = 1    # deferred duplicate's destination (fabric-global)
+WHEEL_IDX = 2    # filter-table index
+WHEEL_CLIENT = 3
+WHEEL_BASE = 4   # intrinsic demand shared with the original
+WHEEL_TARR = 5   # the ORIGINAL arrival time — the hedge pays the delay
+WHEEL_FRACK = 6  # filter location (home rack)
+WH = 7
+
 
 class FabricSwitch(NamedTuple):
     """All switch soft state of the fabric (wiped on failure, §3.6): the
@@ -70,10 +82,38 @@ class Workers(NamedTuple):
     meta: torch.Tensor     # (G, n_racks, S, W, WF) float32; busy ⇔ REM > 0
 
 
+class CoordState(NamedTuple):
+    """Array-form coordinator node (LÆDGE, §2.2): a CPU queue hanging off
+    the top switch.  Pending requests wait in a ring of ``QF``-format rows;
+    each tick the drain pops up to ``FleetConfig.drain_per_tick`` of them
+    onto servers chosen by the policy's registered ``coordinator`` rule,
+    spending one CPU *credit* per transmitted copy (credits accrue at
+    ``dt / coord_cpu_us`` a tick and go negative when responses flood the
+    CPU).  ``outstanding`` is the coordinator's own dispatched-minus-
+    responded view per server (idle ⇔ outstanding < n_workers)."""
+
+    outstanding: torch.Tensor  # (G, n_racks · S) int32
+    head: torch.Tensor         # (G,) int32 — oldest occupied ring slot
+    count: torch.Tensor        # (G,) int32 — pending requests
+    data: torch.Tensor         # (G, coordinator_cap, QF) float32 rows
+    credit: torch.Tensor       # (G,) float32 — CPU packet budget
+
+
+class HedgeWheel(NamedTuple):
+    """Fixed-depth timer wheel firing delayed hedge duplicates: an entry
+    armed at tick ``t`` lands in slot ``(t + delay) % n_slots`` and fires
+    ``delay`` ticks later (the wheel is deeper than the delay horizon).
+    Per-slot occupancy beyond ``wheel_width`` drops the latest lanes
+    (counted in ``Metrics.n_wheel_dropped``)."""
+
+    count: torch.Tensor    # (G, n_slots) int32 — armed entries per slot
+    data: torch.Tensor     # (G, n_slots, width, WH) float32 entries
+
+
 class Metrics(NamedTuple):
     """Running counters (``(G,)`` int32 each) and the per-rack log-spaced
     latency histograms — the reference's fields, in its order.  The
-    counters of stages the port has not ported yet stay zero."""
+    batch server's ``n_slot_busy`` (not ported yet) stays zero."""
 
     hist: torch.Tensor            # (G, n_racks, hist_bins) — by serving rack
     n_arrivals: torch.Tensor      # requests admitted at the fabric
@@ -93,11 +133,11 @@ class Metrics(NamedTuple):
     n_resp: torch.Tensor          # all server completions
     n_resp_empty: torch.Tensor    # … that piggybacked qlen == 0
     lost_down_resp: torch.Tensor  # responses lost while the fabric was dark
-    n_coord_queued: torch.Tensor  # coordinator stage (not ported yet)
-    n_coord_overflow: torch.Tensor
-    n_hedges_armed: torch.Tensor  # hedge-timer stage (not ported yet)
-    n_hedges_cancelled: torch.Tensor
-    n_wheel_dropped: torch.Tensor
+    n_coord_queued: torch.Tensor  # requests parked at the coordinator
+    n_coord_overflow: torch.Tensor  # … lost to coordinator-ring exhaustion
+    n_hedges_armed: torch.Tensor  # timer-wheel entries armed
+    n_hedges_cancelled: torch.Tensor  # … cancelled (response / fabric dark)
+    n_wheel_dropped: torch.Tensor  # … lost to wheel-slot exhaustion
     n_slot_busy: torch.Tensor     # batch server stage (not ported yet)
     n_link_dropped_req: torch.Tensor   # copies lost on a dead link
     n_link_dropped_resp: torch.Tensor  # responses lost on a dead link
@@ -111,10 +151,10 @@ class FleetState(NamedTuple):
     client_backlog: torch.Tensor  # (G, C) float32 receiver backlog (µs)
     key: torch.Tensor             # (G, 2) int64 — PRNG carry (uint32 words)
     metrics: Metrics
-    # optional stage sub-states of the reference; always None in the port
-    # until those stages are ported (ROADMAP.md A7, A9)
-    coord: None = None
-    wheel: None = None
+    # optional stage sub-states: None unless the matching FleetConfig flag
+    # turned the stage on; telemetry's are not ported yet (ROADMAP.md A9)
+    coord: CoordState | None = None
+    wheel: HedgeWheel | None = None
     trace: None = None
     series: None = None
 
@@ -126,6 +166,25 @@ def init_metrics(cfg: FleetConfig, g: int, device=None) -> Metrics:
     hist = torch.zeros((g, cfg.n_racks, cfg.hist_bins), dtype=torch.int32,
                        device=device)
     return Metrics(hist, *(z() for _ in Metrics._fields[1:]))
+
+
+def init_coord_state(cfg: FleetConfig, g: int, device=None) -> CoordState:
+    return CoordState(
+        outstanding=torch.zeros((g, cfg.n_servers_total), dtype=torch.int32,
+                                device=device),
+        head=torch.zeros((g,), dtype=torch.int32, device=device),
+        count=torch.zeros((g,), dtype=torch.int32, device=device),
+        data=torch.zeros((g, cfg.coordinator_cap, QF), dtype=torch.float32,
+                         device=device),
+        credit=torch.zeros((g,), dtype=torch.float32, device=device))
+
+
+def init_hedge_wheel(cfg: FleetConfig, g: int, device=None) -> HedgeWheel:
+    return HedgeWheel(
+        count=torch.zeros((g, cfg.wheel_slots), dtype=torch.int32,
+                          device=device),
+        data=torch.zeros((g, cfg.wheel_slots, cfg.wheel_width, WH),
+                         dtype=torch.float32, device=device))
 
 
 def init_fleet_state(cfg: FleetConfig, key: torch.Tensor) -> FleetState:
@@ -149,6 +208,8 @@ def init_fleet_state(cfg: FleetConfig, key: torch.Tensor) -> FleetState:
         client_backlog=torch.zeros((g, cfg.n_clients), **f32),
         key=key.to(torch.int64),
         metrics=init_metrics(cfg, g, dev),
+        coord=init_coord_state(cfg, g, dev) if cfg.coordinator else None,
+        wheel=init_hedge_wheel(cfg, g, dev) if cfg.hedge_timer else None,
     )
 
 
@@ -164,12 +225,16 @@ def _tensor(a, lead: bool, device) -> torch.Tensor:
 def state_from_numpy(cfg: FleetConfig, tree, *, device=None) -> FleetState:
     """Port tensors from a reference ``FleetState`` whose leaves are numpy
     arrays.  A single run's state (no sweep axis) becomes ``G = 1``; a
-    batched state keeps its leading axis.  The reference's optional
-    sub-states must be absent."""
-    if any(getattr(tree, f) is not None
-           for f in ("coord", "wheel", "trace", "series")):
+    batched state keeps its leading axis.  The coordinator and hedge-wheel
+    sub-states come across when present; telemetry's are not ported."""
+    if tree.trace is not None or tree.series is not None:
         raise NotImplementedError(
-            "the port has no optional stages yet (ROADMAP.md A7, A9)")
+            "telemetry sub-states are not ported to PyTorch yet "
+            "(ROADMAP.md A9)")
+    if (tree.coord is not None) != cfg.coordinator or \
+            (tree.wheel is not None) != cfg.hedge_timer:
+        raise ValueError("the state's optional sub-states do not match "
+                         "cfg.coordinator / cfg.hedge_timer")
     lead = np.ndim(tree.switch.seq) == 0
 
     def conv(a):
@@ -182,7 +247,11 @@ def state_from_numpy(cfg: FleetConfig, tree, *, device=None) -> FleetState:
         workers=Workers(*map(conv, tree.workers)),
         client_backlog=conv(tree.client_backlog),
         key=conv(tree.key),
-        metrics=Metrics(*map(conv, tree.metrics)))
+        metrics=Metrics(*map(conv, tree.metrics)),
+        coord=None if tree.coord is None
+        else CoordState(*map(conv, tree.coord)),
+        wheel=None if tree.wheel is None
+        else HedgeWheel(*map(conv, tree.wheel)))
     if state.queues.data.shape[1:] != (cfg.n_racks, cfg.n_servers,
                                        cfg.queue_cap, QF):
         raise ValueError("state shapes do not match cfg")

@@ -1,16 +1,18 @@
-"""User-facing sweep API: policies × loads × seeds in one batched run.
+"""User-facing sweep API: policies × loads × seeds (× delays) in one
+batched run.
 
 Port of ``repro.fleetsim.sweep`` for one device: :func:`sweep_grid` builds
 the flat configuration grid and runs it through :func:`~repro_torch.
 fleetsim.engine.simulate` as one batch (the config axis ``G`` is the grid).
 Stragglers, switch-failure and link-failure windows are per-run inputs, so
-heterogeneous scenarios ride in the same batch.
+heterogeneous scenarios ride in the same batch; ``hedge_delays`` adds the
+hedge-timer delay as a fourth, per-run grid axis.
 
 ``engine`` (an :class:`~repro_torch.fleetsim.options.EngineOptions`)
 selects the backend, and the result records the concrete one: on CUDA the
 default is the fused backend, whose ticks replay from a CUDA graph.  Not
-ported yet, and raising ``NotImplementedError``: the ``hedge_delays`` axis
-(ROADMAP.md A7) and ``shard`` (A9).
+ported yet, and raising ``NotImplementedError``: ``shard`` (ROADMAP.md
+A9).
 """
 
 from __future__ import annotations
@@ -21,12 +23,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.fleetsim.chaos import check_link_failure
 from repro_torch.fleetsim.config import POLICY_IDS, FleetConfig, ServiceSpec
-from repro_torch.device import resolve_device
-from repro_torch.fleetsim.engine import RunParams, check_fabric_arrays, run
+from repro_torch.fleetsim.engine import (
+    RunParams,
+    check_fabric_arrays,
+    check_hedge_delay,
+    run,
+)
 from repro_torch.fleetsim.fused import GraphStats
 from repro_torch.fleetsim.metrics import FleetResult, summarize
+from repro_torch.scenarios import registry
 from repro_torch.scenarios.service import load_to_rate
 
 
@@ -55,12 +63,16 @@ class SweepResult:
         return self.simulated_requests / max(self.wall_clock_s, 1e-9) / 1e6
 
     def select(self, policy: str | None = None,
-               load: float | None = None) -> list[FleetResult]:
+               load: float | None = None,
+               hedge_delay_us: float | None = None) -> list[FleetResult]:
         out = self.results
         if policy is not None:
             out = [r for r in out if r.policy == policy]
         if load is not None:
             out = [r for r in out if abs(r.offered_load - load) < 1e-9]
+        if hedge_delay_us is not None:
+            out = [r for r in out
+                   if abs(r.hedge_delay_us - hedge_delay_us) < 1e-9]
         return out
 
 
@@ -80,8 +92,8 @@ def rack_skew(cfg: FleetConfig, hot_rack_weight: float = 1.0,
 
 def grid_params(cfg: FleetConfig, grid, rates, slowdown, rack_weights,
                 fail_window_ticks=None, link_failure=None) -> RunParams:
-    """Batched :class:`RunParams` (CPU tensors) for ``(policy, load, seed)``
-    grid rows."""
+    """Batched :class:`RunParams` (CPU tensors) for ``(policy, load, seed,
+    hedge delay)`` grid rows (a delay of ``None``: the config's own)."""
     g = len(grid)
     f0, f1 = fail_window_ticks if fail_window_ticks is not None \
         else (cfg.n_ticks + 1, cfg.n_ticks + 1)
@@ -94,17 +106,19 @@ def grid_params(cfg: FleetConfig, grid, rates, slowdown, rack_weights,
         return torch.from_numpy(np.broadcast_to(a, (g,) + a.shape).copy())
 
     return RunParams(
-        policy_id=torch.tensor([POLICY_IDS[p] for p, _, _ in grid],
+        policy_id=torch.tensor([POLICY_IDS[p] for p, *_ in grid],
                                dtype=torch.int32),
-        rate_per_us=torch.tensor([rates[ld] for _, ld, _ in grid],
+        rate_per_us=torch.tensor([rates[ld] for _, ld, *_ in grid],
                                  dtype=torch.float32),
-        seed=torch.tensor([s for _, _, s in grid], dtype=torch.int32),
+        seed=torch.tensor([s for _, _, s, _ in grid], dtype=torch.int32),
         slowdown=rows(slowdown),
         rack_weights=rows(rack_weights),
         fail_from_tick=full(f0),
         fail_until_tick=full(f1),
         arrival_counts=torch.zeros((g, 0), dtype=torch.int32),
-        hedge_delay_ticks=full(cfg.hedge_delay_ticks),
+        hedge_delay_ticks=torch.tensor(
+            [check_hedge_delay(cfg, hd) for *_, hd in grid],
+            dtype=torch.int32),
         link_from_tick=full(l0),
         link_until_tick=full(l1),
         link_mask=rows(np.asarray(link_mask, bool)))
@@ -114,11 +128,11 @@ def plan_grid(service: ServiceSpec, policies: list[str], loads: list[float],
               seeds: list[int], cfg: FleetConfig | None = None,
               slowdown=None, rack_weights=None, fail_window_ticks=None,
               link_failure=None, resize_arrival_lanes: bool = True,
-              **cfg_kw):
+              hedge_delays: list[float] | None = None, **cfg_kw):
     """The batched run :func:`sweep_grid` makes: ``(cfg, grid, rates,
-    params)`` with ``grid`` the ``(policy, load, seed)`` rows in batch
-    order, ``rates`` the offered rate per load and ``params`` the batched
-    :class:`RunParams` (CPU tensors)."""
+    params)`` with ``grid`` the ``(policy, load, seed, hedge delay)`` rows
+    in batch order, ``rates`` the offered rate per load and ``params`` the
+    batched :class:`RunParams` (CPU tensors)."""
     if not isinstance(service, ServiceSpec):
         raise TypeError(f"service must be a ServiceSpec, got "
                         f"{type(service).__name__}")
@@ -138,13 +152,24 @@ def plan_grid(service: ServiceSpec, policies: list[str], loads: list[float],
     for p in policies:
         if p not in POLICY_IDS:
             raise ValueError(f"unknown policy {p!r}; have {list(POLICY_IDS)}")
+    # turn on the optional pipeline stages the policy set needs (a set
+    # needing neither leaves cfg untouched)
     cfg = cfg.with_policy_stages(policies)
+    if hedge_delays:
+        if not any(registry.needs_hedge_timer(p) for p in policies):
+            raise ValueError(
+                "hedge_delays sweeps the hedge_timer stage's delay, but no "
+                f"policy in {policies} uses that stage")
+        cfg = cfg.with_hedge_horizon(max(hedge_delays))
+    delays = list(hedge_delays) if hedge_delays else [None]
     rates = {ld: load_to_rate(ld, service, cfg.n_servers_total,
                               cfg.n_workers) for ld in loads}
     if resize_arrival_lanes:
         cfg = cfg.with_arrival_headroom(max(rates.values()))
     slowdown, rack_weights = check_fabric_arrays(cfg, slowdown, rack_weights)
-    grid = [(p, ld, s) for p in policies for ld in loads for s in seeds]
+    # the delay axis only multiplies policies that read the delay
+    grid = [(p, ld, s, hd) for p in policies for ld in loads for s in seeds
+            for hd in (delays if registry.needs_hedge_timer(p) else [None])]
     params = grid_params(cfg, grid, rates, slowdown, rack_weights,
                          fail_window_ticks, link_failure)
     return cfg, grid, rates, params
@@ -167,8 +192,9 @@ def sweep_grid(
     device=None,
     **cfg_kw,
 ) -> SweepResult:
-    """Run every (policy, load, seed) combination as one batched run on
-    ``device`` (CUDA by default; ``"cpu"`` for the plain path).
+    """Run every (policy, load, seed[, hedge delay]) combination as one
+    batched run on ``device`` (CUDA by default; ``"cpu"`` for the plain
+    path).
 
     ``slowdown`` (``(n_racks·n_servers,)`` or ``(n_racks, n_servers)``)
     injects stragglers, ``rack_weights`` (``(n_racks,)``) skews arrivals
@@ -177,26 +203,35 @@ def sweep_grid(
     ``link_failure`` kills the named links over its window — for every run.
     ``resize_arrival_lanes=False`` keeps ``cfg.max_arrivals`` as given
     instead of sizing the Poisson headroom for the hottest load.
-    ``engine`` (:class:`~repro_torch.fleetsim.options.EngineOptions`)
-    selects the backend (default ``'auto'``: fused on CUDA, staged on the
-    CPU); the result's ``backend`` records the one that ran.
+    ``hedge_delays`` adds a per-run hedge-delay axis
+    (``RunParams.hedge_delay_ticks``): at least one policy in the set must
+    use the ``hedge_timer`` stage, the timer wheel is deepened to the
+    largest delay automatically, and every hedge-policy row records its
+    ``hedge_delay_us``; a policy without the hook keeps its single row
+    (reported with ``hedge_delay_us=0``).  ``engine``
+    (:class:`~repro_torch.fleetsim.options.EngineOptions`) selects the
+    backend (default ``'auto'``: fused on CUDA, staged on the CPU); the
+    result's ``backend`` records the one that ran.
     """
-    if hedge_delays:
-        raise NotImplementedError("hedge_delays needs the hedge-timer stage, "
-                                  "not ported yet (ROADMAP.md A7)")
-    if shard is not None:
+    if shard is not None or (engine is not None
+                             and engine.shard is not None):
         raise NotImplementedError("shard= is not ported yet (ROADMAP.md A9)")
     cfg, grid, rates, params = plan_grid(
         service, policies, loads, seeds, cfg, slowdown, rack_weights,
-        fail_window_ticks, link_failure, resize_arrival_lanes, **cfg_kw)
+        fail_window_ticks, link_failure, resize_arrival_lanes, hedge_delays,
+        **cfg_kw)
     stats = GraphStats()
     t0 = time.perf_counter()
     metrics, backend = run(cfg, params, device, engine, stats)
     metrics = type(metrics)(*(x.cpu().numpy() for x in metrics))
     wall = time.perf_counter() - t0 - stats.setup_s
+    # policies that never arm the wheel report delay 0, not the config
+    # default a hedge co-policy happened to turn on
     results = [summarize(cfg, type(metrics)(*(a[i] for a in metrics)),
-                         policy=p, load=ld, rate_per_us=rates[ld], seed=s)
-               for i, (p, ld, s) in enumerate(grid)]
+                         policy=p, load=ld, rate_per_us=rates[ld], seed=s,
+                         hedge_delay_us=hd if registry.needs_hedge_timer(p)
+                         else 0.0)
+               for i, (p, ld, s, hd) in enumerate(grid)]
     return SweepResult(
         results=results,
         wall_clock_s=wall,

@@ -17,17 +17,18 @@ known modelling gaps:
 (NetClone beats baseline at low load, clone rate declines with load) are the
 paper's actual claims and are enforced exactly.
 
-:func:`cross_validate` runs FleetSim through the port's
-:func:`~repro_torch.fleetsim.sweep.sweep_grid`, so on a card its grid runs
-on the fused backend (each chunk of ticks replayed from a CUDA graph), and
-the DES (:mod:`repro_torch.core.simulator`) on the host.
+:func:`cross_validate` and :func:`cross_validate_spec` run FleetSim
+through the port's :func:`~repro_torch.fleetsim.sweep.sweep_grid`, so on a
+card the grid runs on the fused backend (each chunk of ticks replayed from
+a CUDA graph), and the DES (:mod:`repro_torch.core.simulator`) on the
+host; :func:`cross_check_scenario` runs one
+:class:`~repro_torch.scenarios.Scenario` through both.  :func:`main` is the
+nightly CLI, ``python -m repro_torch.fleetsim.validate``.
 
-Not ported yet: :func:`cross_validate_spec` and :func:`cross_check_scenario`
-take the Scenario layer's ``Scenario`` / ``SweepSpec`` (ROADMAP.md A8),
-:func:`shard_equivalence` the sharded runner (A9), and the reference's
-re-export of the ServeSim tier's ``serve_equivalence`` is left out until
-the batch-server stage lands (A12); the first three raise
-``NotImplementedError``.
+Not ported yet: :func:`shard_equivalence` needs the sharded runner (A9)
+and raises ``NotImplementedError``; the reference's re-export of the
+ServeSim tier's ``serve_equivalence`` is left out until the batch-server
+stage lands (A12).
 """
 
 from __future__ import annotations
@@ -61,12 +62,27 @@ SATURATION_THR = 0.90
 #: random walk whose latency grows with run length in both engines
 UTIL_CRITICAL = 0.95
 
-#: coordinator CPU per packet (µs) for the CPU-criticality estimate; the
-#: DES's NetworkCosts.coord_cpu and FleetConfig.coord_cpu_us default to it
+#: coordinator CPU per packet (µs) for the CPU-criticality estimate.  Both
+#: engines are pinned to this value on every validator path: a Scenario
+#: carries neither a NetworkCosts nor a coord_cpu_us knob, so its DES and
+#: FleetSim runs use their identical defaults (NetworkCosts.coord_cpu ==
+#: FleetConfig.coord_cpu_us == 1.5).
 COORD_CPU_US = 1.5
 #: CPU packets per fully-cloned coordinator request: request processing +
 #: clone TX + two response passes
 COORD_PACKETS_PER_CLONE = 4.0
+
+# Coordinator-policy (LÆDGE) modelling notes feeding the tolerances above:
+# the coordinator CPU (≈1.5 µs per packet, 4 packets per cloned request)
+# saturates far below server capacity.  Once the *full-cloning* CPU demand
+# (rate × 4 × coord_cpu) crosses UTIL_CRITICAL the coordinator enters a
+# clone-throttling regime with no clean steady state: the DES oscillates
+# between cloning and not, while FleetSim's credit model degrades smoothly
+# to single-copy dispatch — so such points are classified *saturated* and,
+# like every saturated point, checked only for agreement on the collapse
+# itself.  FleetSim-side collapse shows up as goodput loss, server-queue
+# overflow, or coordinator-ring overflow (all three accepted as the
+# collapse signature).
 
 
 @dataclass
@@ -171,28 +187,73 @@ def _check_from(policy: str, load: float, des, fr: FleetResult) -> CrossCheck:
         fleet_filter_frac=_filter_frac(fr.n_filtered, fr.n_cloned),
         des_goodput=des.throughput_mrps / des.offered_rate_mrps,
         fleet_goodput=fr.throughput_mrps / fr.offered_rate_mrps,
-        # the coordinator ring's overflow (the reference's
-        # n_coord_overflow) joins here with the coordinator stage (A7)
-        fleet_overflow_frac=fr.n_overflow / max(fr.n_arrivals, 1),
+        fleet_overflow_frac=(fr.n_overflow + fr.n_coord_overflow)
+        / max(fr.n_arrivals, 1),
         effective_util=load * (1.0 + (des.n_cloned - des.n_clone_drops)
                                / des.n_requests),
     )
 
 
 def cross_check_scenario(scenario, n_requests: int | None = None,
-                         n_ticks: int | None = None) -> CrossCheck:
-    """Cross-validate one Scenario: needs the Scenario layer."""
-    raise NotImplementedError(
-        "cross_check_scenario needs Scenario, which is not ported to "
-        "PyTorch yet (ROADMAP.md A8)")
+                         n_ticks: int | None = None, *,
+                         device=None) -> CrossCheck:
+    """Cross-validate one :class:`repro_torch.scenarios.Scenario` — the
+    same frozen object drives both engines (comparison-by-construction),
+    so this covers trace-replay scenarios too.  FleetSim runs on
+    ``device`` (CUDA by default)."""
+    fr = scenario.run_fleetsim(device=device,
+                               **({"n_ticks": n_ticks} if n_ticks else {}))
+    des = scenario.run_des(n_requests=n_requests, n_ticks=n_ticks)
+    nt = n_ticks or scenario.n_ticks
+    return _check_from(scenario.policy, scenario.effective_load(nt), des, fr)
 
 
 def cross_validate_spec(spec, n_requests: int = 20_000,
-                        n_ticks: int | None = None) -> list[CrossCheck]:
-    """Cross-validate a SweepSpec: needs the Scenario layer."""
-    raise NotImplementedError(
-        "cross_validate_spec needs SweepSpec, which is not ported to "
-        "PyTorch yet (ROADMAP.md A8)")
+                        n_ticks: int | None = None, *, device=None,
+                        report: dict | None = None) -> list[CrossCheck]:
+    """Cross-validate a declarative :class:`repro_torch.scenarios.
+    SweepSpec`.
+
+    The whole Poisson grid runs as one batch on ``device`` (CUDA by
+    default, where it runs on the fused backend); each cell's DES replay
+    uses the *same scenario seed*, so the comparison is knob-for-knob.
+    ``n_ticks`` defaults to admitting ``n_requests`` at the sweep's lowest
+    load.  ``report``, when given, receives the FleetSim sweep
+    (``"fleet"``), its ticks (``"n_ticks"``) and the DES's host seconds
+    (``"des_s"``).
+    """
+    base = spec.base
+    if base.racks != 1:
+        raise ValueError("cross-validation requires racks == 1 "
+                         "(the DES is single-ToR)")
+    if base.arrival.kind != "poisson":
+        raise ValueError("cross_validate_spec sweeps Poisson load grids; "
+                         "cross-check trace scenarios one at a time with "
+                         "cross_check_scenario")
+    if getattr(spec, "hedge_delays", ()):
+        # the DES hedge policy runs its own fixed delay, so a per-run
+        # delay axis has no DES counterpart to compare against
+        raise ValueError("cross_validate_spec cannot sweep hedge_delays "
+                         "(no DES-side delay axis); drop it from the spec "
+                         "— shard_equivalence accepts it")
+    if n_ticks is None:
+        min_rate = min(load_to_rate(ld, base.service, base.servers,
+                                    base.workers)
+                       for ld in spec.resolved_loads())
+        n_ticks = int(n_requests / min_rate) + 1
+    fleet = spec.run_fleetsim(device=device, n_ticks=n_ticks)
+    t0 = time.perf_counter()
+    checks = []
+    for sc in spec.scenarios():
+        des = sc.run_des(n_requests=n_requests, n_ticks=n_ticks)
+        fr = [r for r in fleet.results
+              if r.policy == sc.policy and r.seed == sc.seed
+              and abs(r.offered_load - sc.load) < 1e-9][0]
+        checks.append(_check_from(sc.policy, sc.load, des, fr))
+    if report is not None:
+        report.update(fleet=fleet, n_ticks=n_ticks,
+                      des_s=time.perf_counter() - t0)
+    return checks
 
 
 def shard_equivalence(spec, shard=None, **cfg_overrides):
@@ -220,9 +281,9 @@ def cross_validate(
     The DES runs ``n_requests`` per point; FleetSim runs long enough to admit
     at least as many (duration scaled off the *lowest* load so every point is
     covered), as one :func:`sweep_grid` batch on ``device`` (CUDA by
-    default, where it runs on the fused backend).  Returns one :class:`CrossCheck` per point —
-    callers assert ``all(c.ok for c in checks)`` plus whatever ordering
-    claims they need.  ``report``, when given, receives the FleetSim sweep
+    default, where it runs on the fused backend).  Returns one
+    :class:`CrossCheck` per point — callers assert ``all(c.ok for c in
+    checks)`` plus whatever ordering claims they need.  ``report``, when given, receives the FleetSim sweep
     (``"fleet"``, its :class:`~repro_torch.fleetsim.sweep.SweepResult`) and
     the DES's host seconds (``"des_s"``).
     """
@@ -254,3 +315,123 @@ def cross_validate(
     if report is not None:
         report.update(fleet=fleet, des_s=time.perf_counter() - t0)
     return checks
+
+
+def main(argv: list[str] | None = None) -> int:
+    """Full DES cross-validation — too slow for per-PR CI, run nightly.
+
+        PYTHONPATH=src python -m repro_torch.fleetsim.validate \
+            [--requests N] [--device cuda|cpu]
+
+    Scenario-file driven: ``--grid`` names a SweepSpec file whose
+    ``policies="registered"`` default expands to *every* policy registered
+    for both engines (custom registrations included), and ``--trace`` names
+    a TraceArrival scenario replayed through both engines.  FleetSim runs
+    on ``--device`` (CUDA by default), the DES on the host.  Exits non-zero
+    if any point breaks the documented tolerances.  ``--shard`` and
+    ``--serve-ticks`` raise until the sharded runner (A9) and the ServeSim
+    tier (A10, A12) are ported.
+    """
+    import argparse
+
+    from repro_torch.scenarios.spec import Scenario, SweepSpec
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--requests", type=int, default=20_000,
+                    help="DES requests per (policy, load) point")
+    ap.add_argument("--grid", default="validate_grid",
+                    help="SweepSpec JSON (path or bundled library name); "
+                         "'none' skips the grid check")
+    ap.add_argument("--trace", default="trace_burst",
+                    help="TraceArrival scenario JSON (path or bundled "
+                         "name); 'none' skips the trace check")
+    ap.add_argument("--trace-ticks", type=int, default=None,
+                    help="override the trace scenario's n_ticks")
+    ap.add_argument("--shard", type=int, default=0,
+                    help="also check sharded == unsharded (not ported "
+                         "yet: a nonzero value raises)")
+    ap.add_argument("--serve-ticks", type=int, default=0,
+                    help="also run the ServeSim tier (not ported yet: a "
+                         "nonzero value raises)")
+    ap.add_argument("--fuzz", type=int, default=0,
+                    help="also run the ChaosFuzz tier: this many generated "
+                         "scenarios through the fuzz contract "
+                         "(repro_torch.scenarios.fuzz; 0 skips)")
+    ap.add_argument("--fuzz-seed", default="0",
+                    help="fuzz rng seed (integer, or 'from-date' for "
+                         "today's UTC date as YYYYMMDD)")
+    ap.add_argument("--fuzz-out", default="results/fuzz",
+                    help="directory for shrunk fuzz counterexample JSON")
+    ap.add_argument("--out", default=None,
+                    help="write the cross-validation report (one row per "
+                         "checked point) to this JSON artifact")
+    ap.add_argument("--device", default="cuda",
+                    help="where FleetSim runs: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.shard:
+        shard_equivalence(None, shard=args.shard)
+    if args.serve_ticks:
+        raise NotImplementedError(
+            "--serve-ticks needs the ServeSim batch-server stage and "
+            "serve_equivalence, which are not ported to PyTorch yet "
+            "(ROADMAP.md A10, A12)")
+
+    checks = []
+    fuzz_report = None
+    if args.grid != "none":
+        spec = SweepSpec.from_file(args.grid)
+        print(f"== grid {args.grid}: {spec.resolved_policies()} x "
+              f"{spec.resolved_loads()} ==")
+        checks = cross_validate_spec(spec, n_requests=args.requests,
+                                     device=args.device)
+    if args.trace != "none":
+        sc = Scenario.from_file(args.trace)
+        print(f"== trace {args.trace}: {sc.policy}, "
+              f"{args.trace_ticks or sc.n_ticks} ticks ==")
+        checks.append(cross_check_scenario(sc, n_ticks=args.trace_ticks,
+                                           device=args.device))
+    if args.fuzz:
+        from repro_torch.scenarios.fuzz import _resolve_seed, fuzz_contract
+
+        fuzz_seed = _resolve_seed(args.fuzz_seed)
+        print(f"== fuzz tier: {args.fuzz} generated scenarios, "
+              f"seed {fuzz_seed} ==")
+        fuzz_report = fuzz_contract(fuzz_seed, args.fuzz,
+                                    out_dir=args.fuzz_out,
+                                    device=args.device)
+        print(fuzz_report.describe())
+    n_ok = 0
+    for c in checks:
+        n_ok += c.ok
+        print(("[PASS] " if c.ok else "[FAIL] ") + c.describe())
+    print(f"{n_ok}/{len(checks)} points within tolerance")
+    if args.out:
+        import dataclasses
+        import json
+        from pathlib import Path
+
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({
+            "grid": args.grid, "trace": args.trace,
+            "requests": args.requests, "device": args.device,
+            "n_ok": n_ok, "n_checks": len(checks),
+            "checks": [{**dataclasses.asdict(c), "pass": bool(c.ok),
+                        "saturated": bool(c.saturated),
+                        "detail": c.describe()} for c in checks],
+            "fuzz": None if fuzz_report is None else {
+                "seed": fuzz_report.seed, "n_cases": fuzz_report.n_cases,
+                "n_des_checked": fuzz_report.n_des_checked,
+                "pass": bool(fuzz_report.ok),
+                "failures": [{"case": f.case_index, "fails": f.fails,
+                              "counterexample": str(f.counterexample)}
+                             for f in fuzz_report.failures],
+            },
+        }, indent=1))
+        print(f"wrote {out}")
+    fuzz_ok = fuzz_report is None or fuzz_report.ok
+    return 0 if (n_ok == len(checks) and fuzz_ok) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

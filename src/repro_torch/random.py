@@ -87,9 +87,9 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` for every key of a batch, with one Python
-    int."""
-    counts = torch.tensor([0, int(data) & MASK32], dtype=torch.int64,
-                          device=key.device)
+    int.  The counter words ``[0, data]`` are made on the key's device (no
+    host-to-device copy, so a CUDA graph can capture the call)."""
+    counts = _iota(2, key.device) * (int(data) & MASK32)
     return _hash(key, counts)
 
 

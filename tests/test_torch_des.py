@@ -169,12 +169,27 @@ def test_cross_validate_rows_match_reference():
 
 
 def test_validate_features_of_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tval.cross_validate_spec(None)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tval.cross_check_scenario(None)
+    """``shard_equivalence`` still raises (A9); ``cross_validate_spec`` and
+    ``cross_check_scenario`` (A8) now give the reference's rows."""
+    from repro.scenarios import Scenario as RScenario
+    from repro.scenarios import load_any as rload
+    from repro_torch.scenarios import Scenario as TScenario
+    from repro_torch.scenarios import load_any as tload
+
     with pytest.raises(NotImplementedError, match="A9"):
         tval.shard_equivalence(None)
+    with jax.threefry_partitionable(False):
+        want = rval.cross_validate_spec(rload("hedge_vs_netclone"),
+                                        n_requests=300)
+        want.append(rval.cross_check_scenario(
+            RScenario(policy="laedge", load=0.1, servers=4, workers=8,
+                      n_ticks=1500), n_requests=300))
+    got = tval.cross_validate_spec(tload("hedge_vs_netclone"),
+                                   n_requests=300, device="cpu")
+    got.append(tval.cross_check_scenario(
+        TScenario(policy="laedge", load=0.1, servers=4, workers=8,
+                  n_ticks=1500), n_requests=300, device="cpu"))
+    assert [c.__dict__ for c in got] == [c.__dict__ for c in want]
     with pytest.raises(ValueError, match="n_racks == 1"):
         from repro_torch.fleetsim import FleetConfig
         tval.cross_validate(twl.ExponentialService(25.0), ["baseline"], [0.3],

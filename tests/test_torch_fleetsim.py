@@ -146,7 +146,7 @@ def test_one_tick_stage_by_stage_from_carried_state():
     lanes_equal(tarr, ref["arrival"][1], ("active", "grp", "fidx", "client",
                                           "base", "home", "r1", "r2",
                                           "r2_local"))
-    ts, tl = tst.stage_route(
+    ts, tarr, _, tl = tst.stage_route(
         tcfg, tparams, ts, tarr, group_pairs_array(tcfg.n_servers).long(),
         tst._f32(tcfg.interrack_extra_us))
     check(ts, ref["route"][0])
@@ -355,32 +355,45 @@ def test_sweep_grid_matches_reference_rows():
 
 
 def test_unported_features_raise():
-    """What later slices port still raises: the optional stages and the
-    batch server, telemetry, shard, the hedge-delay axis and
-    ``cross_validate_spec``."""
+    """What later slices port still raises: telemetry, the batch server
+    and shard.  What this slice ported runs: the optional stages (a
+    stage-policy on a config without its stage raises the reference's
+    ``ValueError``), the hedge-delay axis and ``cross_validate_spec``."""
     from repro_torch.fleetsim.options import EngineOptions
     from repro_torch.fleetsim.validate import cross_validate_spec
+    from repro_torch.scenarios import load_any
 
     cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16,
                          n_ticks=2000)
     params = tf.make_params(cfg, 0, 0.1, 0)
-    for flag in (dict(coordinator=True), dict(hedge_timer=True),
-                 dict(telemetry=True), dict(server_model="batch")):
-        with pytest.raises(NotImplementedError):
+    for flag, item in ((dict(telemetry=True), "A9"),
+                       (dict(server_model="batch"), "A10")):
+        with pytest.raises(NotImplementedError, match=item):
             tf.simulate(replace(cfg, **flag), params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tf.make_params(cfg, tf.POLICY_IDS["laedge"], 0.1, 0)
     for opts in (EngineOptions(telemetry=True), EngineOptions(shard=1)):
         with pytest.raises(NotImplementedError, match="A9"):
             tf.simulate(cfg, params, device="cpu", options=opts)
     with pytest.raises(NotImplementedError, match="A9"):
         tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
                       shard=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
-                      hedge_delays=[50.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        cross_validate_spec(None)
+    # ported in this slice: the stages run, and refuse flag-less configs
+    # as the reference does
+    for policy, stage in (("laedge", "coordinator stage"),
+                          ("hedge", "hedge_timer stage")):
+        with pytest.raises(ValueError, match=stage):
+            tf.make_params(cfg, tf.POLICY_IDS[policy], 0.1, 0)
+    short = replace(cfg, n_ticks=60)
+    for flag in (dict(coordinator=True), dict(hedge_timer=True)):
+        m = tf.simulate(replace(short, **flag), tf.make_params(
+            replace(short, **flag), 0, 0.1, 0), device="cpu")
+        assert int(m.n_arrivals) > 0
+    sw = tf.sweep_grid(cfg.service, ["hedge"], [0.2], [0],
+                       cfg=replace(cfg, n_ticks=60), hedge_delays=[50.0],
+                       device="cpu")
+    assert [r.hedge_delay_us for r in sw.results] == [50.0]
+    checks = cross_validate_spec(load_any("validate_grid"), n_requests=20,
+                                 n_ticks=60, device="cpu")
+    assert len(checks) == 21
 
 
 def test_package_is_jax_free_and_never_falls_back_to_cpu():
@@ -404,6 +417,9 @@ import repro_torch.serve, repro_torch.launch.serve
 import repro_torch.fleetsim.options, repro_torch.fleetsim.fused
 import repro_torch.fleetsim.validate, repro_torch.core.simulator
 import repro_torch.core.hedging, repro_torch.configs.netclone_cluster
+import repro_torch.scenarios, repro_torch.scenarios.spec
+import repro_torch.scenarios.__main__, repro_torch.scenarios.fuzz
+import repro_torch.fleetsim.telemetry
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -208,11 +208,15 @@ def test_fused_graph_replay_bit_identical_on_the_card(backend):
 
 
 def test_fused_core_rejects_staged_only_stages():
-    cfg = fused_cfg(tf, coordinator=True)
-    params, _ = engine.batched_params(run_params(tf, cfg, "baseline"),
-                                         torch.device("cpu"))
-    with pytest.raises(ValueError, match="staged"):
-        fused_core(cfg, params)
+    """Telemetry and the batch server stay staged-only; the coordinator
+    and hedge-timer stages run fused (``test_torch_stages.py``)."""
+    for flag in (dict(telemetry=True, window_ticks=100),
+                 dict(server_model="batch")):
+        cfg = fused_cfg(tf, **flag)
+        params, _ = engine.batched_params(run_params(tf, cfg, "baseline"),
+                                          torch.device("cpu"))
+        with pytest.raises(ValueError, match="staged"):
+            fused_core(cfg, params)
 
 
 def test_graph_block_length_divides_the_chunk():
@@ -330,10 +334,16 @@ def test_resolve_backend():
     # 'auto' is fused for a CUDA run, staged on the CPU
     assert EngineOptions().resolve_backend(plain, "cpu") == "staged"
     assert EngineOptions().resolve_backend(plain, "cuda") == "fused"
+    # the coordinator and hedge-timer stages run fused on a card (the
+    # reference routes them to its staged scan: ROADMAP C8)
+    hedge = fused_cfg(tf, hedge_timer=True)
+    for cfg in (coord, hedge):
+        assert EngineOptions().resolve_backend(cfg, "cuda") == "fused"
+        assert EngineOptions().resolve_backend(cfg, "cpu") == "staged"
+        assert EngineOptions(backend="fused").resolve_backend(cfg) == "fused"
     # 'auto' falls back for staged-only stages; explicit 'fused' raises
-    assert EngineOptions().resolve_backend(coord, "cuda") == "staged"
-    with pytest.raises(ValueError, match="coordinator"):
-        EngineOptions(backend="fused").resolve_backend(coord)
+    assert EngineOptions().resolve_backend(
+        replace(plain, server_model="batch"), "cuda") == "staged"
     with pytest.raises(ValueError, match="telemetry"):
         EngineOptions(backend="fused",
                       telemetry=True).resolve_backend(plain)
