@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it: FleetSim's sweep,
-the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b) and the
-NetClone serving tier.
+the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b), the
+NetClone serving tier, ServeSim and FleetScope telemetry.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -72,10 +72,10 @@ Phases (each fails the run on error; nothing is caught):
     ``vectorized`` at K = 512 and K = 300 (a tail), every field bit-exact;
     (b) phase 4's sweep through ``sweep_grid(engine=EngineOptions(backend=
     "fused"))``, every row and the grid histogram bit-identical to phase
-    4's staged sweep, timed beside it (config-ticks/s, ms a tick, the
-    graph's capture and instantiation, device busy a tick and the idle
-    share from a profile of replays, whose B2 launches must equal the
-    ticks replayed); (c) ``cross_validate_spec`` over the bundled
+    4's staged sweep; then the same grid fused at 4,000 ticks, timed
+    beside phase 4 (config-ticks/s, ms a tick, the graph's capture and
+    instantiation, device busy a tick and the idle share from a profile of
+    replays, whose B2 launches must equal the ticks replayed); (c) ``cross_validate_spec`` over the bundled
     ``validate_grid.json`` (4 servers × 8 workers, Exp(25 µs) with its 1%
     × 15 jitter, seed 0, the seven two-engine policies — LÆDGE and hedge
     through the optional stages — × loads 0.2, 0.5, 0.8: one G = 21 batch
@@ -86,17 +86,43 @@ Phases (each fails the run on error; nothing is caught):
 13. the Scenario layer and the optional stages: (a) the scenario CLI's
     ``--list`` and a JSON round trip of every library file; (b)
     ``golden_single_tor.json`` through ``Scenario`` bit-identical to the
-    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (3,000 ticks)
-    under B2 and ``vectorized``, and (d) LÆDGE over 2 racks (1,500 ticks)
+    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (1,500 ticks)
+    under B2 and ``vectorized``, and (d) LÆDGE over 2 racks (1,000 ticks)
     under B1 and ``vectorized``, its pairs filtered at the top tier:
     ``Metrics`` bit-identical, fused; (e) ``hedge_vs_netclone.json`` (G =
-    6, cut from 40,000 to 10,000 ticks) under B2 and ``vectorized``: rows
+    6, cut from 40,000 to 2,000 ticks) under B2 and ``vectorized``: rows
     bit-identical, p99s printed; (f) a ``hedge_delays = [25, 75, 150]``
-    sweep (2,000 ticks); each of (c)-(e) also runs its first 192 ticks on
+    sweep (1,000 ticks); each of (c)-(e) also runs its first 192 ticks on
     the staged loop, the wrapper counting one B1 or B2 launch a tick, held
     equal to the same ticks replayed from graphs; (g) for (c) and (e): ms a
     tick fused and staged, and a profile of replays (B2 launches counted by
-    the profiler, kernels and device busy a tick, the idle share).
+    the profiler, kernels and device busy a tick, the idle share);
+14. ServeSim: (a) ``llm_service("gemma-7b")`` from gemma-7b's full config
+    counted on the meta device (no device memory allocated) equals both
+    llm library files' ``params``; (b) ``llm_gemma7b.json`` (1 rack, B2)
+    and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) at their
+    full 4,000 ticks on the batch server, fused, bit-identical to
+    ``vectorized``, each row equal to the reference's CPU row
+    (``tools/serve_reference.json``), and each one's first 192 ticks
+    staged (one B1 or B2 launch a tick, counted by the wrapper) equal to
+    the same ticks replayed; then ``llm_gemma7b`` at ``batch_coupling``
+    0.5 (the slots' decode speed falls with occupancy: the batch stage's
+    float path), fused under B2, bit-identical to ``vectorized`` and its
+    row equal to the reference's; (c) a 200-config batch sweep (5 policies × 8
+    loads × 5 seeds) on llm_gemma7b's cluster and service, fused through
+    B2: config-ticks/s, ms a tick, a profile of 2 replays (kernels and
+    device busy a tick, the idle share), its first 500 ticks bit-identical
+    to ``vectorized``; (d) ``serve_equivalence`` at the reference's
+    defaults with its replicas on the card: every check ``ok`` and equal
+    to the reference's row in every field, decode steps and ms a step,
+    and the oracle's B1 launches;
+15. FleetScope telemetry: ``trace_burst.json`` (cut to 1,000 ticks)
+    staged with telemetry on under B2: ``Metrics`` bit-identical to the
+    telemetry-off fused run, event counts reconciled with the counters,
+    the decoded events and series equal to the reference's (digests,
+    counts by kind, the row), ``write_run``'s bundle written to a
+    temporary directory, and ms a tick staged with telemetry against
+    without it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -122,18 +148,24 @@ GOLDEN = ROOT / "tests" / "golden" / "fleetsim_single_tor.json"
 # phase 4's tick count: the default config runs 50,000 ticks; the cut is
 # forced by the time limit (1,200 s for the whole script, build included)
 FULL_TICKS = 50_000
-# below the benchmark's own fast cap of 10,000: phases 12c and 13 need the
-# time
-SWEEP_TICKS = 4_000
-SCAN_CHECK_TICKS = 2_000
-PROFILE_TICKS = 40
-# cut from 4,000 to make room for phases 12c and 13
-RACK_TICKS = 2_000
-RACK_CHECK_TICKS = 1_000
-# phase 12: graph replays in the profiled window (of the sweep's 64-tick
-# graph), and validate_grid.json's base and DES requests a point
+# below the benchmark's own fast cap of 10,000: phase 4's staged loop cut
+# to 4,000 for phases 12c and 13, and to 1,000 for phases 14 and 15;
+# phase 12b times the fused sweep at 4,000 ticks (62 graph replays of 64
+# ticks and a 32-tick staged tail), as before the cut
+SWEEP_TICKS = 1_000
+FUSED_SWEEP_TICKS = 4_000
+SCAN_CHECK_TICKS = 500
+PROFILE_TICKS = 20
+# cut from 4,000 to 2,000 for phases 12c and 13, and to 1,000 for 14-15
+RACK_TICKS = 1_000
+RACK_CHECK_TICKS = 500
+# graph replays (of a sweep's 64-tick graph) in the profiles of phases 12b
+# and 14c, cut from 8 to 2 for phases 14-15 (a profiler session of 8 takes
+# ~40 s); phase 12b profiles a run long enough for up to 3 sessions of one
+# replay and then its own; validate_grid.json's DES requests a point
 # (validate.main's default)
-PROFILE_REPLAYS = 8
+SWEEP_PROFILE_REPLAYS = 2
+PROFILE_RUN_TICKS = 3 * (1 + SWEEP_PROFILE_REPLAYS) * 64
 XVAL_REQUESTS = 20_000
 # the reference's own rows of phase 12c (tools/reference_validate.py, run
 # on the CPU in the goldens' PRNG stream)
@@ -143,16 +175,39 @@ XVAL_REFERENCE = ROOT / "tools" / "validate_grid_reference.json"
 # the time limit, the hedge-delay sweep, and the staged window each run is
 # held to (ticks replayed from graphs against the same ticks staged, the
 # wrappers counting every staged launch)
-LAEDGE_TICKS = 3_000
-LAEDGE_RACK_TICKS = 1_500
-HEDGE_TICKS = 10_000
+LAEDGE_TICKS = 1_500
+LAEDGE_RACK_TICKS = 1_000
+HEDGE_TICKS = 2_000
 HEDGE_FULL_TICKS = 40_000
-DELAY_TICKS = 2_000
+DELAY_TICKS = 1_000
 HEDGE_DELAYS = (25.0, 75.0, 150.0)
 STAGED_WINDOW = 192
 # graph replays in phase 13's profiles (~1,000 kernels a tick: a profile
-# of 8 replays, as phase 12's, takes the profiler most of a minute)
-STAGE_PROFILE_REPLAYS = 2
+# of 8 replays takes the profiler most of a minute; cut
+# from 2 to 1 for phases 14-15)
+STAGE_PROFILE_REPLAYS = 1
+# the default sweep's grid (phases 4 and 12b), which phase 14's batch sweep
+# runs too
+SWEEP_POLICIES = ["baseline", "c-clone", "netclone", "racksched",
+                  "netclone+racksched"]
+SWEEP_LOADS = [0.1, 0.2, 0.35, 0.5, 0.65, 0.8, 0.9, 0.95]
+SWEEP_SEEDS = [0, 1, 2, 3, 4]
+# phase 14: the library's llm files, each with the kernel its fabric takes
+# (B2 on one rack, B1 on two), llm_gemma7b's batch coupling in its coupled
+# run, the batch sweep's ticks held to vectorized, and the reference's rows
+# of phases 14 and 15 (tools/reference_serve.py, run on the CPU in the
+# goldens' PRNG stream)
+LLM_FILES = ("llm_gemma7b", "llm_moe_hetero")
+LLM_FILES_KERNELS = (("llm_gemma7b", "tickfuse", "tickfuse_response_path"),
+                     ("llm_moe_hetero", "pallas", "fingerprint_filter"))
+LLM_COUPLING = 0.5
+BATCH_CHECK_TICKS = 500
+SERVE_REFERENCE = ROOT / "tools" / "serve_reference.json"
+# phase 14 (d): serve_equivalence's horizon, its default (at 1,000 ticks
+# the reference's own netclone@0.6 check fails); phase 15: trace_burst's
+# 40,000 ticks cut by the time limit
+SERVE_TICKS = 1_500
+TRACE_TICKS = 1_000
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -305,16 +360,19 @@ def profile_replays(torch, blocks, n_replays: int, kernel: str, what: str,
                     tries: int = 3):
     """A profile (:func:`device_kernels`) of ``n_replays`` replays of
     ``blocks``' CUDA graph, after one marker kernel (a session can miss its
-    first kernels).  ``kernel`` runs once a tick, so its launches must
-    equal the ticks replayed; a session whose count falls short (the
+    first kernels); the profiler's warm-up step, whose events are dropped,
+    replays the graph once.  ``kernel`` runs once a tick, so its launches
+    must equal the ticks replayed; a session whose count falls short (the
     profiler lost a few kernel records) is profiled again, up to
     ``tries`` sessions, and the run fails unless one counts every launch.
     Returns ``(profile, ticks, sessions)``."""
     marker = torch.zeros(1, device="cuda")
+    calls = [0]
 
     def replays():
         marker.add_(1)
-        blocks.run(n_replays)
+        blocks.run(n_replays if calls[0] % 2 else 1)
+        calls[0] += 1
 
     ticks = n_replays * blocks.n
     for session in range(1, tries + 1):
@@ -1366,20 +1424,28 @@ def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
                                  f"{b.row()}")
     if not np.array_equal(fz.grid_hist, sw.grid_hist):
         raise AssertionError("phase 12: fused grid histogram != staged")
+    log(f"phase 12: {fz.n_configs} configs x {cfg.n_ticks} ticks under "
+        f"fused: all {len(fz.results)} rows and the grid histogram "
+        f"bit-identical to phase 4's staged sweep")
+    # the fused sweep timed over FUSED_SWEEP_TICKS, where the staged tail
+    # (n_ticks mod 64) is a small share of the run
+    cfg = replace(cfg, n_ticks=FUSED_SWEEP_TICKS)
+    fz = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg,
+                       engine=EngineOptions(backend="fused"))
+    if fz.backend != "fused":
+        raise AssertionError(f"phase 12: the timed sweep ran {fz.backend}")
     n_ticks = cfg.n_ticks
-    cticks = sw.n_configs * n_ticks
-    staged_ms = sw.wall_clock_s / n_ticks * 1e3
+    cticks = fz.n_configs * n_ticks
+    staged_ms = sw.wall_clock_s / SWEEP_TICKS * 1e3
     fused_ms = fz.wall_clock_s / n_ticks * 1e3
     g = fz.graph
-    log(f"phase 12: {fz.n_configs} configs x {n_ticks} ticks under fused: "
-        f"all {len(fz.results)} rows and the grid histogram bit-identical "
-        f"to phase 4's staged sweep")
-    log(f"phase 12: fused {fz.wall_clock_s:.2f} s: "
-        f"{cticks / fz.wall_clock_s:.1f} config-ticks/s, {fused_ms:.3f} "
-        f"ms/tick (graph set-up apart: {fz.compile_s:.3f} s); staged (phase "
-        f"4) {sw.wall_clock_s:.2f} s: {cticks / sw.wall_clock_s:.1f} "
-        f"config-ticks/s, {staged_ms:.3f} ms/tick; "
-        f"{staged_ms / fused_ms:.2f}x")
+    log(f"phase 12: fused, {fz.n_configs} configs x {n_ticks} ticks "
+        f"{fz.wall_clock_s:.2f} s: {cticks / fz.wall_clock_s:.1f} "
+        f"config-ticks/s, {fused_ms:.3f} ms/tick (graph set-up apart: "
+        f"{fz.compile_s:.3f} s); staged (phase 4, {SWEEP_TICKS} ticks) "
+        f"{sw.wall_clock_s:.2f} s: "
+        f"{sw.n_configs * SWEEP_TICKS / sw.wall_clock_s:.1f} config-ticks/s, "
+        f"{staged_ms:.3f} ms/tick; {staged_ms / fused_ms:.2f}x")
     log(f"phase 12: graph of {g.ticks} ticks replayed {g.replays} times; "
         f"warm-up {g.warmup_s:.3f} s, capture {g.capture_s:.3f} s, "
         f"instantiate {g.instantiate_s:.3f} s; "
@@ -1388,21 +1454,25 @@ def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
     # where a replayed tick's time goes: a profile of graph replays on the
     # same grid, after one marker kernel (a session can miss its first
     # kernels; the marker's 1 of ~670 x 512 launches is counted in);
-    # B2's launches counted by the profiler
-    cfg_k, _, _, params = plan_grid(cfg.service, policies, loads, seeds,
-                                    cfg=cfg)
+    # B2's launches counted by the profiler.  The profiled run is long
+    # enough for every session profile_replays may take, whatever the
+    # sweep's cut length
+    cfg_k, _, _, params = plan_grid(
+        cfg.service, policies, loads, seeds,
+        cfg=replace(cfg, n_ticks=max(cfg.n_ticks, PROFILE_RUN_TICKS)))
     params, _ = engine.batched_params(params, torch.device("cuda"))
     state, step, n_raw = engine.init_run(cfg_k, params)
     blocks = fused.TickBlocks(cfg_k, step, n_raw, state, g.ticks)
     prof, ticks, sessions = profile_replays(
-        torch, blocks, PROFILE_REPLAYS, "tickfuse_response_path", "phase 12")
+        torch, blocks, SWEEP_PROFILE_REPLAYS, "tickfuse_response_path",
+        "phase 12")
     n_b2 = launches_in(prof, "tickfuse_response_path")
     busy_ms = sum(us for _, us in prof.values()) / 1e3 / ticks
     n_launch = sum(n for n, _ in prof.values()) / ticks
     b2_us = device_us_per_launch(prof,
                                  DEVICE_SYMBOL["tickfuse_response_path"])
-    log(f"phase 12: profile of {PROFILE_REPLAYS} replays ({ticks} ticks, "
-        f"profiler session {sessions}): B2 launches {n_b2} (= ticks "
+    log(f"phase 12: profile of {SWEEP_PROFILE_REPLAYS} replays ({ticks} "
+        f"ticks, profiler session {sessions}): B2 launches {n_b2} (= ticks "
         f"replayed, counted by the profiler), "
         f"{n_launch:.1f} kernels per tick, {busy_ms:.3f} ms device busy per "
         f"tick of {fused_ms:.3f} ms wall (unprofiled sweep): device idle "
@@ -1477,10 +1547,10 @@ def staged_window(torch, tf, ops, kernels, cfg, params, kernel: str,
     ms = (time.perf_counter() - t0) / STAGED_WINDOW * 1e3
     counts = {n: fn.launches for n, fn in kernels.items()}
     if counts != only(kernels, **{kernel: STAGED_WINDOW}):
-        raise AssertionError(f"phase 13: {what}: staged launches {counts}, "
+        raise AssertionError(f"{what}: staged launches {counts}, "
                              f"expected {STAGED_WINDOW} of {kernel}")
     assert_same_state(tf, state, replayed_state(cfg, params, STAGED_WINDOW),
-                      f"phase 13: {what}: replayed != staged")
+                      f"{what}: replayed != staged")
     return ms
 
 
@@ -1593,7 +1663,8 @@ def run_scenario_layer(torch, tf, kernels, ops) -> None:
     cfg_c, m, lae_ms, st = scenario_pair(lae, "tickfuse")
     params_c, _ = engine.batched_params(lae.run_params(cfg_c), cuda)
     lae_staged_ms = staged_window(torch, tf, ops, kernels, cfg_c, params_c,
-                                  "tickfuse_response_path", "laedge 1 rack")
+                                  "tickfuse_response_path",
+                                  "phase 13: laedge 1 rack")
     log(f"phase 13: LÆDGE 1 rack (4 x 8, load 0.5, {LAEDGE_TICKS} ticks): "
         f"Metrics bit-identical under B2 (tickfuse) and vectorized, fused; "
         f"queued {int(m.n_coord_queued)}, ring overflow "
@@ -1618,7 +1689,7 @@ def run_scenario_layer(torch, tf, kernels, ops) -> None:
     cfg_d, m, ms, st = scenario_pair(lae2, "pallas")
     params_d, _ = engine.batched_params(lae2.run_params(cfg_d), cuda)
     staged_window(torch, tf, ops, kernels, cfg_d, params_d,
-                  "fingerprint_filter", "laedge 2 racks")
+                  "fingerprint_filter", "phase 13: laedge 2 racks")
     n_f, n_spine = int(m.n_filtered), int(m.n_spine_filtered)
     log(f"phase 13: LÆDGE 2 racks (load 0.1, {LAEDGE_RACK_TICKS} ticks): "
         f"Metrics bit-identical under B1 (pallas) and vectorized, fused "
@@ -1668,7 +1739,7 @@ def run_scenario_layer(torch, tf, kernels, ops) -> None:
     params_e, _ = engine.batched_params(params_e, cuda)
     hedge_staged_ms = staged_window(torch, tf, ops, kernels, cfg_e, params_e,
                                     "tickfuse_response_path",
-                                    "hedge_vs_netclone")
+                                    "phase 13: hedge_vs_netclone")
     log(f"phase 13: hedge_vs_netclone: staged {hedge_staged_ms:.3f} ms/tick "
         f"over its first {STAGED_WINDOW} ticks ({STAGED_WINDOW} B2 launches "
         f"counted by the wrapper; equal to the same ticks replayed): "
@@ -1704,6 +1775,351 @@ def run_scenario_layer(torch, tf, kernels, ops) -> None:
     replay_profile(torch, cfg_e, params_e, "hedge_vs_netclone", hedge_ms,
                    "tickfuse_response_path")
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 14 --
+def take(kernels, total: collections.Counter) -> None:
+    """Add the wrappers' counts to ``total`` and set them to 0."""
+    for n, fn in kernels.items():
+        total[n] += fn.launches
+    reset(kernels)
+
+
+def telemetry_digest(tel) -> dict:
+    """sha256 digests of one run's decoded telemetry, as
+    ``tools/reference_serve.py`` computes them from the reference's: the
+    event arrays (int32, in decode order) and the series' window rows."""
+    import hashlib
+
+    ev = tel.events
+    h = hashlib.sha256()
+    for name in ("tick", "kind", "rid", "server", "client", "arg"):
+        h.update(np.ascontiguousarray(getattr(ev, name), np.int32).tobytes())
+    rows = json.dumps(tel.series.rows(), sort_keys=True)
+    return {"events_sha256": h.hexdigest(),
+            "series_sha256": hashlib.sha256(rows.encode()).hexdigest()}
+
+
+def scenario_row(sc, cfg, m):
+    from repro_torch.fleetsim.metrics import summarize
+
+    return summarize(cfg, m, policy=sc.policy,
+                     load=sc.effective_load(cfg.n_ticks),
+                     rate_per_us=sc.rate_per_us(cfg.n_ticks), seed=sc.seed)
+
+
+def run_serve_sim(torch, tf, kernels, ops, get_config) -> dict:
+    """Phase 14: ServeSim on the card.  Returns the launches of each
+    wrapper over the phase (the counts set to 0 at its start; the fused
+    runs count their kernels once, at capture)."""
+    from repro_torch.analysis.roofline import n_params_active
+    from repro_torch.fleetsim import engine, fused
+    from repro_torch.fleetsim.llmserve import llm_service, serve_equivalence
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.fleetsim.sweep import plan_grid
+    from repro_torch.scenarios import load_any
+
+    cuda = torch.device("cuda")
+    ref = json.loads(SERVE_REFERENCE.read_text())
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    reset(kernels)
+
+    # (a) gemma-7b's service from its full config, counted on meta tensors
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    total_p, active_p = n_params_active(get_config("gemma-7b"))
+    spec = llm_service("gemma-7b")
+    if torch.cuda.memory_allocated() != mem0:
+        raise AssertionError("phase 14: counting gemma-7b allocated memory")
+    for name in LLM_FILES:
+        if load_any(name).service.params != spec.params:
+            raise AssertionError(f"phase 14: llm_service('gemma-7b') "
+                                 f"{spec.params} != {name}'s params")
+    log(f"phase 14: gemma-7b counted on the meta device: {total_p:.0f} "
+        f"parameters, {active_p:.0f} active; llm_service('gemma-7b') = "
+        f"{spec.params}, equal to both llm library files' params; device "
+        f"memory allocated unchanged ({mem0} B)")
+
+    # (b) the two llm library files at their full 4,000 ticks, fused,
+    # under B2 (1 rack) and B1 (2 racks) against vectorized, each row equal
+    # to the reference's CPU row; then a staged window held to its replay
+    for name, backend, kernel in LLM_FILES_KERNELS:
+        sc = load_any(name)
+        out = {}
+        for fb in (backend, "vectorized"):
+            st = fused.GraphStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg, m = sc.fleet_metrics(device=cuda, stats=st,
+                                      filter_backend=fb)
+            wall = time.perf_counter() - t0 - st.setup_s
+            if st.replays == 0:
+                raise AssertionError(f"phase 14: {name} {fb} replayed no "
+                                     "graph")
+            out[fb] = (cfg, m, wall / cfg.n_ticks * 1e3, st)
+        cfg, m, ms, st = out[backend]
+        for field, x, y in zip(m._fields, m, out["vectorized"][1]):
+            if not torch_equal(x, y):
+                raise AssertionError(f"phase 14: {name}: {backend} != "
+                                     f"vectorized at {field}")
+        row = scenario_row(sc, cfg, m)
+        want = ref["llm_rows"][name]
+        if json.dumps(row.__dict__) != json.dumps(want):
+            raise AssertionError(f"phase 14: {name}: row {row.row()} != the "
+                                 f"reference's {want}")
+        params, _ = engine.batched_params(sc.run_params(cfg), cuda)
+        take(kernels, total)
+        staged_ms = staged_window(torch, tf, ops, kernels, cfg, params,
+                                  kernel, f"phase 14: {name}")
+        take(kernels, total)
+        log(f"phase 14: {name} ({cfg.n_racks} x {cfg.n_servers} x "
+            f"{cfg.n_slots} slots, {cfg.n_ticks} ticks of {cfg.dt_us} us): "
+            f"Metrics bit-identical under {kernel} ({backend}) and "
+            f"vectorized, fused ({ms:.3f} ms/tick, graph set-up "
+            f"{st.setup_s:.2f} s); its row equals the reference's CPU row "
+            f"in every field (completed {row.n_completed}, cloned "
+            f"{row.n_cloned}, filtered {row.n_filtered}, p99 "
+            f"{row.p99_us:.1f} us, slot occupancy "
+            f"{row.mean_slot_occupancy:.3f}); the first {STAGED_WINDOW} "
+            f"ticks staged ({STAGED_WINDOW} {kernel} launches counted by the "
+            f"wrapper, {staged_ms:.3f} ms/tick) equal to the same ticks "
+            f"replayed")
+    # llm_gemma7b at batch_coupling LLM_COUPLING: the slots' speed falls
+    # with occupancy, so the stage's float path (speed, REM - dt * speed)
+    # decides every completion; at coupling 0 it is exactly 1
+    sc = replace(load_any("llm_gemma7b"), batch_coupling=LLM_COUPLING)
+    out = {}
+    for fb in ("tickfuse", "vectorized"):
+        st = fused.GraphStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, m = sc.fleet_metrics(device=cuda, stats=st, filter_backend=fb)
+        wall = time.perf_counter() - t0 - st.setup_s
+        if st.replays == 0:
+            raise AssertionError(f"phase 14: coupled {fb} replayed no graph")
+        out[fb] = (m, wall / cfg.n_ticks * 1e3)
+    m, ms = out["tickfuse"]
+    for field, x, y in zip(m._fields, m, out["vectorized"][0]):
+        if not torch_equal(x, y):
+            raise AssertionError(f"phase 14: coupled llm_gemma7b: tickfuse "
+                                 f"!= vectorized at {field}")
+    row = scenario_row(sc, cfg, m)
+    want = ref["coupled_rows"][f"llm_gemma7b@{LLM_COUPLING}"]
+    if json.dumps(row.__dict__) != json.dumps(want):
+        raise AssertionError(f"phase 14: coupled llm_gemma7b: row "
+                             f"{row.row()} != the reference's {want}")
+    log(f"phase 14: llm_gemma7b at batch_coupling {LLM_COUPLING} "
+        f"({cfg.n_ticks} ticks): Metrics bit-identical under "
+        f"tickfuse_response_path (tickfuse) and vectorized, fused ({ms:.3f} "
+        f"ms/tick); its row equals the reference's CPU row in every field "
+        f"(completed {row.n_completed}, cloned {row.n_cloned}, p99 "
+        f"{row.p99_us:.1f} us, slot occupancy "
+        f"{row.mean_slot_occupancy:.3f})")
+    take(kernels, total)
+    log(f"phase 14: (b) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) a 200-config batch sweep on llm_gemma7b's cluster and service
+    base = load_any("llm_gemma7b")
+    cfg = base.fleet_config(filter_backend="tickfuse")
+    sw = tf.sweep_grid(cfg.service, SWEEP_POLICIES, SWEEP_LOADS,
+                       SWEEP_SEEDS, cfg=cfg,
+                       engine=EngineOptions(backend="fused"))
+    take(kernels, total)
+    if sw.backend != "fused" or sw.n_configs != 200:
+        raise AssertionError(f"phase 14: the batch sweep ran {sw.n_configs} "
+                             f"configs on {sw.backend}")
+    for r in sw.results:
+        if not (0 < r.n_completed <= r.n_arrivals + r.n_dedup_evicted
+                and 0 < r.mean_slot_occupancy <= 1):
+            raise AssertionError(f"phase 14: implausible row {r.row()}")
+    n_ticks = cfg.n_ticks
+    ms = sw.wall_clock_s / n_ticks * 1e3
+    log(f"phase 14: batch sweep, {sw.n_configs} configs x {n_ticks} ticks "
+        f"fused through B2: {sw.wall_clock_s:.2f} s, "
+        f"{sw.n_configs * n_ticks / sw.wall_clock_s:.1f} config-ticks/s, "
+        f"{ms:.3f} ms/tick (graph set-up {sw.compile_s:.2f} s, "
+        f"{sw.graph.replays} replays of {sw.graph.ticks} ticks)")
+    for p in SWEEP_POLICIES:
+        rs = [r for r in sw.select(policy=p) if r.seed == 0]
+        log("phase 14:   " + p + " p99_ms / occupancy by load: "
+            + ", ".join(f"{r.offered_load}:{r.p99_us / 1e3:.0f}/"
+                        f"{r.mean_slot_occupancy:.2f}" for r in rs))
+    cfg_k, _, _, params = plan_grid(cfg.service, SWEEP_POLICIES, SWEEP_LOADS,
+                                    SWEEP_SEEDS, cfg=cfg)
+    params, _ = engine.batched_params(params, cuda)
+    st_k = replayed_state(cfg_k, params, BATCH_CHECK_TICKS)
+    st_v = replayed_state(replace(cfg_k, filter_backend="vectorized"),
+                          params, BATCH_CHECK_TICKS)
+    assert_same_state(tf, st_k, st_v, "phase 14: batch sweep, tickfuse != "
+                                      "vectorized")
+    take(kernels, total)
+    state, step, n_raw = engine.init_run(cfg_k, params)
+    blocks = fused.TickBlocks(cfg_k, step, n_raw, state, sw.graph.ticks)
+    prof, ticks, sessions = profile_replays(
+        torch, blocks, SWEEP_PROFILE_REPLAYS, "tickfuse_response_path",
+        "phase 14")
+    take(kernels, total)
+    busy_ms = sum(us for _, us in prof.values()) / 1e3 / ticks
+    n_launch = sum(n for n, _ in prof.values()) / ticks
+    log(f"phase 14: batch sweep: first {BATCH_CHECK_TICKS} ticks under "
+        f"vectorized bit-equal to tickfuse (whole state, both replayed); "
+        f"profile of {SWEEP_PROFILE_REPLAYS} replays ({ticks} ticks, profiler "
+        f"session {sessions}): B2 launches "
+        f"{launches_in(prof, 'tickfuse_response_path')} (= ticks replayed), "
+        f"{n_launch:.1f} kernels per tick, {busy_ms:.3f} ms device busy per "
+        f"tick of {ms:.3f} ms wall: device idle "
+        f"{100 * (1 - busy_ms / ms):.1f}%")
+    del blocks, state
+    log(f"phase 14: (c) done at {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) serve_equivalence at the reference's defaults, replicas on the
+    # card; the wrappers count the oracle's launches (B1: the dispatcher's
+    # filter on every netclone tick with completions)
+    take(kernels, total)
+    if ref["serve_ticks"] != SERVE_TICKS:
+        raise AssertionError("phase 14: the reference's serve rows are not "
+                             f"at a {SERVE_TICKS}-tick horizon")
+    stats = {}
+    t0 = time.perf_counter()
+    checks = serve_equivalence(horizon=SERVE_TICKS, device=cuda,
+                               stats=stats)
+    dt = time.perf_counter() - t0
+    serve_counts = {n: fn.launches for n, fn in kernels.items()}
+    take(kernels, total)
+    want = ref["serve_checks"]
+    if len(checks) != len(want):
+        raise AssertionError(f"phase 14: {len(checks)} serve checks, the "
+                             f"reference has {len(want)}")
+    for c, w in zip(checks, want):
+        log("phase 14: " + ("[PASS] " if c.ok else "[FAIL] ") + c.describe())
+        if not all(w[k] == v for k, v in c.__dict__.items()):
+            raise AssertionError(f"phase 14: serve check {c.__dict__} != the "
+                                 f"reference's {w}")
+    if not all(c.ok for c in checks):
+        raise AssertionError("phase 14: a serve check is out of tolerance")
+    steps = stats["decode_steps"]
+    log(f"phase 14: serve_equivalence (qwen2.5-3b smoke replicas, 3 x 2 "
+        f"slots, horizon {SERVE_TICKS}): "
+        f"{len(checks)}/{len(checks)} checks ok and "
+        f"equal to the reference's rows in every field; {dt:.1f} s, oracle "
+        f"{stats['oracle_s']:.1f} s for {steps} decode steps "
+        f"({stats['oracle_s'] / steps * 1e3:.3f} ms a step, dispatcher "
+        f"included), FleetSim {stats['fleet_s']:.1f} s; launches "
+        f"{serve_counts} (B3: none, the replicas prefill token by token "
+        f"through decode_step)")
+    if serve_counts["fingerprint_filter"] == 0:
+        raise AssertionError("phase 14: the oracle's dispatcher launched no "
+                             "B1")
+    log(f"phase 14: launches over the phase {dict(total)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for n in ("fingerprint_filter", "tickfuse_response_path"):
+        if total[n] == 0:
+            raise AssertionError(f"phase 14 launched no {n}")
+    return dict(total)
+
+
+# ---------------------------------------------------------------- phase 15 --
+def run_telemetry(torch, tf, kernels, ops) -> dict:
+    """Phase 15: FleetScope telemetry on the card: ``trace_burst`` staged
+    with telemetry on under B2, against its telemetry-off fused run and
+    the reference's decoded trace."""
+    import tempfile
+
+    from repro_torch.fleetsim import engine, fused
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.fleetsim.telemetry import (
+        TelemetrySpec,
+        decode_run,
+        write_run,
+    )
+    from repro_torch.scenarios import load_any
+
+    cuda = torch.device("cuda")
+    ref_all = json.loads(SERVE_REFERENCE.read_text())
+    ref = ref_all["trace_burst"]
+    if ref_all["trace_ticks"] != TRACE_TICKS:
+        raise AssertionError("phase 15: the reference's rows are not at "
+                             f"{TRACE_TICKS} ticks")
+    t_phase = time.perf_counter()
+    sc = load_any("trace_burst")
+
+    # telemetry off, fused (auto on the card)
+    st = fused.GraphStats()
+    cfg_off, m_off = sc.fleet_metrics(device=cuda, stats=st,
+                                      n_ticks=TRACE_TICKS)
+    if st.replays == 0:
+        raise AssertionError("phase 15: the telemetry-off run replayed no "
+                             "graph")
+    # telemetry on, staged, through B2's staged entry point
+    sc_on = replace(sc, telemetry=TelemetrySpec())
+    cfg_on = sc_on.fleet_config(n_ticks=TRACE_TICKS,
+                                filter_backend="tickfuse")
+    params = sc_on.run_params(cfg_on)
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_on, trace, series = engine.simulate(
+        cfg_on, params, device=cuda, options=EngineOptions(telemetry=True))
+    torch.cuda.synchronize()
+    on_ms = (time.perf_counter() - t0) / TRACE_TICKS * 1e3
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    if counts != only(kernels, tickfuse_response_path=TRACE_TICKS):
+        raise AssertionError(f"phase 15: launches {counts}, expected "
+                             f"{TRACE_TICKS} of tickfuse_response_path")
+    for field, x, y in zip(m_on._fields, m_on, m_off):
+        if not torch_equal(x, y):
+            raise AssertionError(f"phase 15: telemetry on (staged, B2) != "
+                                 f"off (fused, vectorized) at {field}")
+    tel = decode_run(cfg_on, trace, series)
+    ev = tel.events
+    kinds = ev.counts_by_kind()
+    recon = {"arrival": m_on.n_arrivals, "clone": m_on.n_cloned,
+             "server_finish": m_on.n_resp, "filter_drop": m_on.n_filtered,
+             "client_complete": m_on.n_completed}
+    for kind, counter in recon.items():
+        if kinds.get(kind, 0) != int(counter):
+            raise AssertionError(f"phase 15: {kinds.get(kind, 0)} {kind} "
+                                 f"events against the counter's "
+                                 f"{int(counter)}")
+    digest = telemetry_digest(tel)
+    row = scenario_row(sc, cfg_on, m_on)
+    got = {"n_events": len(ev), "n_lost": ev.n_lost,
+           "events_by_kind": kinds, "n_windows": tel.series.n_windows,
+           **digest}
+    for k, v in got.items():
+        if ref[k] != v:
+            raise AssertionError(f"phase 15: {k} {v} != the reference's "
+                                 f"{ref[k]}")
+    if json.dumps(row.__dict__) != json.dumps(ref["row"]):
+        raise AssertionError(f"phase 15: row {row.row()} != the "
+                             f"reference's")
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_run(d, sc.name, tel, summary=row.row())
+        sizes = {k: p.stat().st_size for k, p in paths.items()}
+    # the same ticks staged without telemetry, through B2, for the cost
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_st = engine.simulate(replace(cfg_on, telemetry=False), params,
+                           device=cuda, options=EngineOptions(
+                               backend="staged"))
+    torch.cuda.synchronize()
+    off_ms = (time.perf_counter() - t0) / TRACE_TICKS * 1e3
+    if not all(torch_equal(x, y) for x, y in zip(m_st, m_on)):
+        raise AssertionError("phase 15: staged telemetry-off != on")
+    log(f"phase 15: trace_burst, n_ticks cut from 40000 to {TRACE_TICKS}: "
+        f"Metrics with telemetry on (staged, B2, {TRACE_TICKS} launches "
+        f"counted by the wrapper) bit-identical to telemetry off (fused, "
+        f"vectorized, {st.replays} graph replays) and to off staged; "
+        f"{len(ev)} events ({ev.n_lost} lost) {kinds} reconcile with the "
+        f"counters; events and series digests, counts and the row equal "
+        f"the reference's ({digest['events_sha256'][:16]}, "
+        f"{digest['series_sha256'][:16]}); write_run's bundle {sizes} B")
+    log(f"phase 15: staged ms/tick with telemetry {on_ms:.3f}, without "
+        f"{off_ms:.3f} ({100 * (on_ms / off_ms - 1):+.1f}%); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def main() -> int:
@@ -1762,8 +2178,12 @@ def main() -> int:
             f"{a['static_smem']} B static + {a['dynamic_smem']} B dynamic "
             f"shared memory, {a['local_bytes']} B local (spill) a thread")
 
+    log(f"phase 1 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 2: kernels vs plain -----------------------------------------
     rows = check_kernels(torch, inputs, ref, ops)
+
+    log(f"phase 2 ended at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 3: goldens on the card --------------------------------------
     # phases 3-5 run the staged engine, where every launch is a wrapper
@@ -1788,11 +2208,10 @@ def main() -> int:
             f"({cfg.n_ticks} ticks, {dt:.1f} s, "
             f"{dt / cfg.n_ticks * 1e3:.3f} ms/tick, launches {counts})")
 
+    log(f"phase 3 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 4: the main path at full width, through B2 -----------------
-    policies = ["baseline", "c-clone", "netclone", "racksched",
-                "netclone+racksched"]
-    loads = [0.1, 0.2, 0.35, 0.5, 0.65, 0.8, 0.9, 0.95]
-    seeds = [0, 1, 2, 3, 4]
+    policies, loads, seeds = SWEEP_POLICIES, SWEEP_LOADS, SWEEP_SEEDS
     cfg = tf.FleetConfig(filter_backend="tickfuse", n_ticks=SWEEP_TICKS)
     log(f"phase 4: n_ticks cut from {FULL_TICKS} to {SWEEP_TICKS} by the "
         f"run's time limit")
@@ -1861,6 +2280,8 @@ def main() -> int:
         log(f"phase 4:   {us / 1e3 / PROFILE_TICKS:.4f} ms/tick "
             f"{n / PROFILE_TICKS:.0f} launches/tick  {key[:90]}")
 
+    log(f"phase 4 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 5: the 4-rack fabric through B1 -----------------------------
     cfg = tf.FleetConfig(n_racks=4, n_servers=6, n_workers=15,
                          filter_backend="pallas", n_ticks=RACK_TICKS)
@@ -1910,21 +2331,31 @@ def main() -> int:
         f"{n_spine} responses spine-filtered; both replayed from CUDA "
         f"graphs, {time.perf_counter() - t0:.1f} s)")
 
+    log(f"phase 5 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 6: flash attention vs plain ---------------------------------
     rows["flash_attention"] = check_flash_attention(torch, ref, ops)
+
+    log(f"phase 6 ended at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 7: qwen2.5-3b prefill + decode at full width ----------------
     cfg, params, prefill_launches = run_model(torch, lm, kernels,
                                               get_config)
+
+    log(f"phase 7 ended at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 8: the serving tier at full width ---------------------------
     run_serving(torch, cfg, params, kernels, ref)
     del params
     torch.cuda.empty_cache()
 
+    log(f"phase 8 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 9: the SSD and RG-LRU scans (B4, B5) vs plain ----------------
     rows.update(check_scans(torch, ref, ssd_mod.ssd_scan, lru_mod.lru_scan,
                             ops))
+
+    log(f"phase 9 ended at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 10: mamba2-370m prefill + decode at full width ---------------
     ssd_launches = run_recurrent(torch, lm, kernels, get_config,
@@ -1932,18 +2363,35 @@ def main() -> int:
                                  "phase 10")
     torch.cuda.empty_cache()
 
+    log(f"phase 10 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 11: recurrentgemma-9b prefill + decode at full width ---------
     lru_launches = run_recurrent(torch, lm, kernels, get_config,
                                  "recurrentgemma-9b", PREFILL_B, PREFILL_S,
                                  "phase 11")
     torch.cuda.empty_cache()
 
+    log(f"phase 11 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 12: the fused backend, replayed from CUDA graphs -------------
     run_fused(torch, tf, sw, staged_busy_ms, sweep_cfg, policies, loads,
               seeds)
 
+    log(f"phase 12 ended at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 13: the Scenario layer, LÆDGE and the hedge timer -----------
     run_scenario_layer(torch, tf, kernels, ops)
+
+    log(f"phase 13 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 14: ServeSim (the batch server, llm services, the oracle) ----
+    run_serve_sim(torch, tf, kernels, ops, get_config)
+
+    log(f"phase 14 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 15: FleetScope telemetry ---------------------------------------
+    run_telemetry(torch, tf, kernels, ops)
+    log(f"phase 15 ended at {time.perf_counter() - t_start:.1f} s")
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -11,15 +11,20 @@ on the CPU the staged tick loop.  The response filter goes through the
 hand-written CUDA kernels when ``FleetConfig.filter_backend`` is
 ``"pallas"`` or ``"tickfuse"``.  The LÆDGE coordinator and the hedge timer
 (``FleetConfig.coordinator`` / ``hedge_timer``, turned on by the policy
-set) run on both backends; :mod:`repro_torch.fleetsim.validate` holds
-FleetSim to the DES, from a sweep or a scenario file.
+set) and ServeSim's continuous-batching server (``server_model="batch"``,
+:mod:`repro_torch.fleetsim.llmserve`) run on both backends; FleetScope
+telemetry (``FleetConfig.telemetry``, :mod:`repro_torch.fleetsim.
+telemetry`) on the staged one.  :mod:`repro_torch.fleetsim.validate`
+holds FleetSim to the DES, from a sweep or a scenario file, and the batch
+server to the serving tier's replicas (``serve_equivalence``).
 """
 
 from repro_torch.fleetsim.chaos import LinkFailure
 from repro_torch.fleetsim.config import POLICY_IDS, POLICY_NAMES, \
     FleetConfig, ServiceSpec
 from repro_torch.fleetsim.engine import RunParams, make_params, \
-    params_from_numpy, simulate, stack_params
+    params_from_numpy, simulate, simulate_batch_telemetry, \
+    simulate_telemetry, stack_params
 from repro_torch.fleetsim.metrics import FleetResult, summarize
 from repro_torch.fleetsim.options import EngineOptions
 from repro_torch.fleetsim.shard import ShardSpec
@@ -39,6 +44,7 @@ __all__ = [
     "ServiceSpec", "ShardSpec", "SweepResult", "TelemetrySpec",
     "cross_check_scenario", "cross_validate", "cross_validate_spec",
     "init_fleet_state", "make_params", "params_from_numpy", "rack_skew",
-    "shard_equivalence", "simulate", "stack_params", "state_from_numpy",
+    "shard_equivalence", "simulate", "simulate_batch_telemetry",
+    "simulate_telemetry", "stack_params", "state_from_numpy",
     "summarize", "sweep_grid", "to_numpy",
 ]

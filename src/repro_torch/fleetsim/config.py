@@ -6,10 +6,6 @@ fixes the shapes of the fleet state; per-run knobs that vary across a sweep
 (policy, offered rate, seed, straggler factors, failure windows) are
 tensors with a leading config axis in ``RunParams``, so one batched run
 serves a whole policy × load × seed grid.
-
-``telemetry`` and ``server_model="batch"`` are accepted here as in the
-reference; the engine raises ``NotImplementedError`` for them until their
-slice of the port lands (``ROADMAP.md`` queue A).
 """
 
 from __future__ import annotations

@@ -26,8 +26,7 @@ from repro_torch import random as jr
 from repro_torch.core.switch import group_pairs_array
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim.config import FleetConfig
-from repro_torch.fleetsim.stages import build_step, check_supported, \
-    draw_ticks
+from repro_torch.fleetsim.stages import build_step, draw_ticks
 from repro_torch.fleetsim.state import FleetState, Metrics, init_fleet_state
 from repro_torch.scenarios import registry
 
@@ -229,6 +228,14 @@ def _simulate_core(cfg: FleetConfig, params: RunParams) -> FleetState:
     return advance(cfg, state, step, n_raw, 0, cfg.n_ticks)
 
 
+def _check_telemetry(cfg: FleetConfig) -> None:
+    if not cfg.telemetry:
+        raise ValueError(
+            "telemetry entry points need cfg.telemetry=True (the trace "
+            "ring and series stages are optional; rebuild the config, or "
+            "use TelemetrySpec.apply)")
+
+
 def resolve_options(cfg: FleetConfig, options, device) -> tuple[str, int]:
     """The concrete ``(backend, K)`` of a run on ``device`` under
     ``options`` (an :class:`~repro_torch.fleetsim.options.EngineOptions`
@@ -240,10 +247,12 @@ def resolve_options(cfg: FleetConfig, options, device) -> tuple[str, int]:
         raise TypeError(f"options must be an EngineOptions, got "
                         f"{type(opts).__name__}")
     backend = opts.resolve_backend(cfg, device)
-    if opts.telemetry or opts.shard is not None:
+    if opts.shard is not None:
         raise NotImplementedError(
-            "EngineOptions telemetry= and shard= (FleetScope telemetry, the "
-            "sharded runner) are not ported to PyTorch yet (ROADMAP.md A9)")
+            "EngineOptions shard= (the sharded runner) is not ported to "
+            "PyTorch yet (ROADMAP.md A9)")
+    if opts.telemetry:
+        _check_telemetry(cfg)
     if backend == "staged":
         return backend, 0
     from repro_torch.fleetsim.fused import resolve_chunk
@@ -251,29 +260,40 @@ def resolve_options(cfg: FleetConfig, options, device) -> tuple[str, int]:
     return backend, resolve_chunk(cfg, opts.ticks_per_chunk)
 
 
-def run(cfg: FleetConfig, params: RunParams, device=None, options=None,
-        stats=None) -> tuple[Metrics, str]:
-    """:func:`simulate`, returning the concrete backend beside the
-    metrics; ``stats`` (a :class:`~repro_torch.fleetsim.fused.GraphStats`)
+def run_state(cfg: FleetConfig, params: RunParams, device=None,
+              options=None, stats=None) -> tuple[FleetState, str, bool]:
+    """Run ``params`` on ``device`` under ``options``: the final batched
+    state, the concrete backend and whether ``params`` carried a batch
+    axis.  ``stats`` (a :class:`~repro_torch.fleetsim.fused.GraphStats`)
     receives a fused run's graph costs."""
     dev = resolve_device(device)
     backend, k = resolve_options(cfg, options, dev)
-    check_supported(cfg)
     p, batched = batched_params(params, dev)
     for pid in torch.unique(p.policy_id).tolist():
         check_policy_stages(cfg, pid)
     if backend == "fused":
         from repro_torch.fleetsim.fused import fused_core
 
-        metrics = fused_core(cfg, p, k, stats).metrics
-    else:
-        metrics = _simulate_core(cfg, p).metrics
-    return (metrics if batched else Metrics(*(x[0] for x in metrics)),
-            backend)
+        return fused_core(cfg, p, k, stats), backend, batched
+    return _simulate_core(cfg, p), backend, batched
+
+
+def _one(tree, batched: bool):
+    """A state part as the caller's params were: the batch axis dropped
+    for a single run."""
+    return tree if batched else type(tree)(*(x[0] for x in tree))
+
+
+def run(cfg: FleetConfig, params: RunParams, device=None, options=None,
+        stats=None) -> tuple[Metrics, str]:
+    """:func:`simulate`'s metrics, with the concrete backend beside them;
+    ``stats`` receives a fused run's graph costs."""
+    state, backend, batched = run_state(cfg, params, device, options, stats)
+    return _one(state.metrics, batched), backend
 
 
 def simulate(cfg: FleetConfig, params: RunParams, *, device=None,
-             options=None) -> Metrics:
+             options=None):
     """THE FleetSim entry point: run ``params`` on ``cfg``.
 
     ``params`` with scalar fields runs one fabric; a leading sweep axis runs
@@ -281,8 +301,53 @@ def simulate(cfg: FleetConfig, params: RunParams, *, device=None,
     ``device="cpu"`` for the plain PyTorch path on the CPU.  ``options``
     is an :class:`~repro_torch.fleetsim.options.EngineOptions`: the default
     (``backend='auto'``) runs the fused backend on CUDA (each chunk of
-    ticks replayed from a CUDA graph) and the staged loop on the CPU;
-    ``telemetry=`` and ``shard=`` raise (ROADMAP.md A9).  Returns the run's
-    :class:`Metrics` (with the batch axis when ``params`` had one), on the
-    run's device."""
-    return run(cfg, params, device, options)[0]
+    ticks replayed from a CUDA graph) and the staged loop on the CPU.
+    Returns the run's :class:`Metrics` (with the batch axis when ``params``
+    had one), on the run's device; with ``EngineOptions(telemetry=True)``
+    (and ``cfg.telemetry``) the triple ``(metrics, trace, series)`` —
+    decode it with :func:`repro_torch.fleetsim.telemetry.decode_run`.
+    Telemetry only observes: the metrics are the telemetry-off run's.
+    ``shard=`` raises (ROADMAP.md A9)."""
+    state, _, batched = run_state(cfg, params, device, options)
+    if options is not None and options.telemetry:
+        return tuple(_one(x, batched)
+                     for x in (state.metrics, state.trace, state.series))
+    return _one(state.metrics, batched)
+
+
+def _warn_deprecated(old: str, new: str) -> None:
+    import warnings
+
+    warnings.warn(f"repro_torch.fleetsim.{old} is deprecated; use {new}",
+                  DeprecationWarning, stacklevel=3)
+
+
+def simulate_telemetry(cfg: FleetConfig, params: RunParams, *,
+                       device=None):
+    """Deprecated, as in the reference: use ``simulate(..., options=
+    EngineOptions(telemetry=True))``; returns the same ``(metrics, trace,
+    series)``."""
+    from repro_torch.fleetsim.options import EngineOptions
+
+    _warn_deprecated("simulate_telemetry(cfg, params)",
+                     "simulate(cfg, params, options="
+                     "EngineOptions(telemetry=True))")
+    return simulate(cfg, params, device=device, options=EngineOptions(
+        backend="staged", telemetry=True))
+
+
+def simulate_batch_telemetry(cfg: FleetConfig, params: RunParams, *,
+                             device=None):
+    """Deprecated, as in the reference: use ``simulate(..., options=
+    EngineOptions(telemetry=True))`` with batched params."""
+    from repro_torch.fleetsim.options import EngineOptions
+
+    _warn_deprecated("simulate_batch_telemetry(cfg, params)",
+                     "simulate(cfg, params, options="
+                     "EngineOptions(telemetry=True)) — the leading sweep "
+                     "axis selects the batched run")
+    if params.policy_id.dim() != 1:
+        raise ValueError("simulate_batch_telemetry needs batched params "
+                         "(a leading sweep axis)")
+    return simulate(cfg, params, device=device, options=EngineOptions(
+        backend="staged", telemetry=True))

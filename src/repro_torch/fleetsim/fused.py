@@ -35,8 +35,9 @@ staged order, so the fused backend is **bit-identical** to the staged one
 for every ``K`` (``tests/test_torch_fused.py``), the coordinator and
 hedge-timer stages included: their sub-states (``CoordState``,
 ``HedgeWheel``) ride the static buffers like the rest of the state and are
-carried unpacked across chunk boundaries.  Configs with telemetry or the
-batch server are staged-only.
+carried unpacked across chunk boundaries.  So is the batch server
+(``server_model="batch"``), whose decode slots are the worker rows.
+Configs with telemetry are staged-only, as in the reference.
 """
 
 from __future__ import annotations
@@ -84,6 +85,11 @@ def pack_state(cfg: FleetConfig, state: FleetState) -> FleetState:
     ``queues.head`` ≤ Q−1, ``queues.count`` ≤ Q and StateT ≤ Q.  REQ_ID
     carriers, metrics and float payloads are untouched."""
     q = cfg.queue_cap
+    # StateT holds the piggybacked queue length: the FCFS ring's depth, or
+    # under the batch server the depth still waiting beyond the free
+    # slots; both are ring counts after the dequeue, so at most Q.  Packing
+    # runs between chunks, never in a captured graph
+    assert int(state.switch.server_state.max()) <= q, "StateT above Q"
     return state._replace(
         switch=state.switch._replace(
             server_state=pack_array(state.switch.server_state, q)),
@@ -255,11 +261,10 @@ def fused_core(cfg: FleetConfig, params, ticks_per_chunk: int = 0,
     packed state, advances ``K`` ticks and packs it again); the remainder
     ``n_ticks mod K`` runs as a tail.  ``stats`` receives the graph's
     costs on a CUDA run."""
-    if cfg.telemetry or cfg.server_model == "batch":
+    if cfg.telemetry:
         raise ValueError(
-            "the fused backend does not run telemetry or the batch server; "
-            "those configs run staged (EngineOptions(backend='auto') routes "
-            "them there)")
+            "the fused backend does not run telemetry; telemetry configs "
+            "run staged (EngineOptions(backend='auto') routes them there)")
     k = resolve_chunk(cfg, ticks_per_chunk)
     state, step, n_raw = init_run(cfg, params)
     blocks = TickBlocks(cfg, step, n_raw, state, graph_ticks(k),

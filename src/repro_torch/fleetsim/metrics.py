@@ -53,7 +53,7 @@ class FleetResult:
     # hedge_timer stage is off
     hedge_delay_us: float = 0.0
     # mean busy fraction of the batch server's decode slots; 0.0 under
-    # server_model="fcfs" (the batch server is not ported yet)
+    # server_model="fcfs"
     mean_slot_occupancy: float = 0.0
     n_link_dropped_req: int = 0
     n_link_dropped_resp: int = 0
@@ -169,6 +169,10 @@ def summarize(cfg: FleetConfig, metrics, *, policy: str, load: float,
         n_hedges_cancelled=n("n_hedges_cancelled"),
         n_wheel_dropped=n("n_wheel_dropped"),
         hedge_delay_us=float(hedge_delay_us),
+        mean_slot_occupancy=(
+            n("n_slot_busy") / float(cfg.n_ticks * cfg.n_servers_total
+                                     * cfg.n_slots)
+            if cfg.server_model == "batch" else 0.0),
         n_link_dropped_req=n("n_link_dropped_req"),
         n_link_dropped_resp=n("n_link_dropped_resp"),
         rack_completed=tuple(int(r.sum()) for r in rack_hist),

@@ -14,18 +14,20 @@ Backends
     chunk with the integer state dtype-packed at chunk boundaries; on a
     CUDA run the ticks of a chunk replay from one captured CUDA graph.
     **Bit-identical** to ``'staged'``, with or without the coordinator and
-    hedge-timer stages.  The batch server and telemetry are staged-only.
+    hedge-timer stages and the batch server.  Telemetry is staged-only.
 ``'auto'``
-    ``'fused'`` on a CUDA run, ``'staged'`` on the CPU and for staged-only
-    configs.  The reference routes coordinator and hedge-timer configs to
-    its staged backend, a compiled ``lax.scan``; the port's staged backend
-    dispatches every op from the host, so on a card those configs run
-    fused, with the same results (``ROADMAP.md`` C8).
+    ``'fused'`` on a CUDA run, ``'staged'`` on the CPU and for telemetry.
+    The reference routes coordinator, hedge-timer and batch-server configs
+    to its staged backend, a compiled ``lax.scan``; the port's staged
+    backend dispatches every op from the host, so on a card those configs
+    run fused, with the same results (``ROADMAP.md`` C8).
 
-``shard`` and ``telemetry`` validate as in the reference, but running with
-either raises ``NotImplementedError`` (ROADMAP.md A9).  ``donate`` is
-accepted for the reference's API and has no effect in the port: the engine
-never writes into the caller's ``params``.
+``telemetry=True`` makes :func:`~repro_torch.fleetsim.engine.simulate`
+return ``(metrics, trace, series)`` (needs ``cfg.telemetry``).  ``shard``
+validates as in the reference, but running with it raises
+``NotImplementedError`` (ROADMAP.md A9).  ``donate`` is accepted for the
+reference's API and has no effect in the port: the engine never writes
+into the caller's ``params``.
 
 The JSON form (:meth:`to_json` / :meth:`from_json`) is the strict-keyed
 ``engine`` sub-object scenario and sweep files carry.
@@ -64,8 +66,9 @@ class EngineOptions:
 
     ``backend`` picks staged vs fused (see module docstring);
     ``ticks_per_chunk`` sets the fused backend's K (0 → 512, clipped to
-    ``n_ticks``); results are K-independent.  ``shard``, ``telemetry`` and
-    ``donate`` as in the reference (see module docstring)."""
+    ``n_ticks``); results are K-independent.  ``telemetry`` returns the
+    trace ring and series beside the metrics; ``shard`` and ``donate`` as
+    in the reference (see module docstring)."""
 
     backend: str = "auto"
     shard: ShardSpec | None = None
@@ -86,25 +89,19 @@ class EngineOptions:
     # ------------------------------------------------------------ resolve --
     def resolve_backend(self, cfg, device=None) -> str:
         """The concrete backend ('staged' | 'fused') for ``cfg`` on
-        ``device``.  ``'fused'`` raises for staged-only configs (the batch
-        server, telemetry); ``'auto'`` falls back to ``'staged'`` for them
-        and on the CPU."""
+        ``device``.  ``'fused'`` raises for telemetry, which is
+        staged-only; ``'auto'`` falls back to ``'staged'`` for it and on
+        the CPU."""
         if self.backend == "staged":
             return "staged"
-        staged_only = []
-        if cfg.server_model == "batch":
-            staged_only.append(
-                "the batch server stage (server_model='batch')")
-        if self.telemetry or cfg.telemetry:
-            staged_only.append("telemetry (FleetScope)")
+        telemetry = self.telemetry or cfg.telemetry
         if self.backend == "fused":
-            if staged_only:
+            if telemetry:
                 raise ValueError(
-                    "backend='fused' does not support "
-                    + ", ".join(staged_only)
-                    + "; use backend='staged' (or 'auto', which falls back)")
+                    "backend='fused' does not support telemetry (FleetScope)"
+                    "; use backend='staged' (or 'auto', which falls back)")
             return "fused"
-        if staged_only:
+        if telemetry:
             return "staged"
         return _accel_default_backend(device)
 

@@ -30,9 +30,17 @@ throttle) and ``stage_hedge_timer`` (``cfg.hedge_timer``, a timer wheel
 firing delayed duplicates unless the original's response already parked
 its fingerprint).  Their lanes join the route stage's with
 :meth:`Lanes.extend`, so the server stage's lane width grows only when a
-flag is on.  Telemetry and the batch server are not ported yet:
-:func:`build_step` raises ``NotImplementedError`` for them (``ROADMAP.md``
-queue A).
+flag is on.  Two more static flags change what a tick does:
+
+* ``cfg.server_model == "batch"``: :func:`stage_server` hands the tick to
+  ServeSim's continuous-batching stage (:func:`repro_torch.fleetsim.
+  llmserve.stage.stage_server_batch`), which advances every busy decode
+  slot and then shares the FCFS stage's queueing and response path
+  (:func:`serve_lanes`);
+* ``cfg.telemetry`` (FleetScope): each stage emits its trace records into
+  the state's ring buffer, in stage order, and the tick ends with the
+  windowed series update (:mod:`repro_torch.fleetsim.telemetry.device`).
+  Telemetry only observes: the ``Metrics`` stay bit-identical.
 """
 
 from __future__ import annotations
@@ -92,6 +100,30 @@ from repro_torch.fleetsim.state import (
     WHEEL_TARR,
     FleetState,
     HedgeWheel,
+    worker_lanes,
+)
+from repro_torch.fleetsim.telemetry.device import (
+    emit,
+    series_record_hist,
+    series_tick,
+)
+from repro_torch.fleetsim.telemetry.events import (
+    CLONE_SRC_COORD,
+    CLONE_SRC_HEDGE,
+    CLONE_SRC_INTERRACK,
+    CLONE_SRC_LOCAL,
+    EV_ARRIVAL,
+    EV_CLIENT_COMPLETE,
+    EV_CLIENT_REDUNDANT,
+    EV_CLONE,
+    EV_COORD_DISPATCH,
+    EV_COORD_ENQ,
+    EV_FILTER_DROP,
+    EV_HEDGE_ARMED,
+    EV_HEDGE_CANCELLED,
+    EV_ROUTE,
+    EV_SERVER_FINISH,
+    EV_SERVER_START,
 )
 from repro_torch.kernels.ops import fingerprint_filter, tickfuse_masked
 from repro_torch.kernels.ref import fingerprint_filter_ref, fingerprint_slot
@@ -175,7 +207,8 @@ class TickDraws(NamedTuple):
 
     key: torch.Tensor        # (G, 2) the carried key after the tick
     u_arr: torch.Tensor      # (G, A, 6 or 7) per-lane attribute uniforms
-    u_exec: torch.Tensor     # (G, ST, R, 2) execution-time uniforms
+    # (G, ST, R, 2) execution-time uniforms, R = min(worker rows, Q)
+    u_exec: torch.Tensor
     # (G, CD, 2) the coordinator drain's uniforms, from fold_in(k_arr, 1);
     # empty, (G, 0, 2), unless cfg.coordinator
     u_stage: torch.Tensor | None = None
@@ -187,7 +220,9 @@ def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
     the reference's: each tick splits its key into (next key, k_arr,
     k_exec) and draws ``uniform(k_arr, (A, 6 or 7))`` and
     ``uniform(k_exec, (ST, R, 2))``.  The key chain is sequential, one split
-    per tick; the uniforms of all ``n`` ticks come from two threefry passes
+    per tick (``R`` is ``min(W, Q)`` for the server stage's ``W`` worker
+    rows: the decode slots under the batch server); the uniforms of all
+    ``n`` ticks come from two threefry passes
     over the batched keys, which saves most of a pass per tick.  With the
     coordinator stage on, each tick also draws the reference's
     ``uniform(fold_in(k_arr, 1), (CD, 2))`` (a key of its own, so the
@@ -202,7 +237,7 @@ def draw_ticks(cfg: FleetConfig, key: torch.Tensor, n: int
     u_arr = jr.uniform(keys[:, :, 1],
                        (cfg.max_arrivals, 7 if cfg.n_racks > 1 else 6))
     u_exec = jr.uniform(keys[:, :, 2],
-                        (st, min(cfg.n_workers, cfg.queue_cap), 2))
+                        (st, min(worker_lanes(cfg), cfg.queue_cap), 2))
     if cfg.coordinator:
         k_stage = jr.fold_in(keys[:, :, 1], 1)
         u_stage = jr.uniform(k_stage, (cfg.drain_per_tick, 2)).unbind(1)
@@ -424,6 +459,18 @@ def stage_route(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
         tile(frack),
     ], dim=2)
     state = state._replace(switch=switch, metrics=m)
+    if cfg.telemetry:
+        # REQ_IDs are assigned here at the spine, so the arrival event is
+        # emitted here too (same tick; emit order preserves stage order)
+        tr = emit(state.trace, arr_active, tick=arr.tick, kind=EV_ARRIVAL,
+                  rid=req_id, client=arr.client, arg=arr.home)
+        tr = emit(tr, arr_active, tick=arr.tick, kind=EV_ROUTE,
+                  rid=req_id, server=dst1, client=arr.client, arg=cloned)
+        tr = emit(tr, arr_active & cloned, tick=arr.tick, kind=EV_CLONE,
+                  rid=req_id, server=dst2, client=arr.client,
+                  arg=torch.where(xrack, CLONE_SRC_INTERRACK,
+                                  CLONE_SRC_LOCAL))
+        state = state._replace(trace=tr)
     return (state, arr._replace(pair=pair),
             Routed(req_id=req_id, cloned=cloned, frack=frack),
             Lanes(dst=d_dst, act=d_act, clo=d_clo, payload=payload))
@@ -545,6 +592,11 @@ def stage_coordinator(cfg: FleetConfig, params, state: FleetState,
     n_ok = _sum(ok)
     m = m._replace(n_coord_queued=m.n_coord_queued + n_ok,
                    n_coord_overflow=m.n_coord_overflow + _sum(enq & ~ok))
+    if cfg.telemetry:
+        state = state._replace(trace=emit(
+            state.trace, ok, tick=arr.tick, kind=EV_COORD_ENQ,
+            rid=routed.req_id, client=arr.client,
+            arg=count0 + rank))  # arg: ring depth at enqueue
 
     # -- drain: FCFS pops onto idle servers, CPU-credit throttled ----------
     credit = torch.clamp(coord.credit + _f32(np.float32(cfg.dt_us)
@@ -591,6 +643,16 @@ def stage_coordinator(cfg: FleetConfig, params, state: FleetState,
                           row[..., QF_HOP + 1:]], dim=2)
 
     m = m._replace(n_cloned=m.n_cloned + _sum(do_clone > 0))
+    if cfg.telemetry:
+        rid_pop = row[..., QF_RID]
+        cli_pop = row[..., QF_CLIENT]
+        tr = emit(state.trace, can > 0, tick=arr.tick,
+                  kind=EV_COORD_DISPATCH, rid=rid_pop, server=s[..., 0],
+                  client=cli_pop, arg=do_clone)
+        tr = emit(tr, do_clone > 0, tick=arr.tick, kind=EV_CLONE,
+                  rid=rid_pop, server=s[..., 1], client=cli_pop,
+                  arg=CLONE_SRC_COORD)
+        state = state._replace(trace=tr)
     clo = torch.full((g, CD), CLO_ORIG, dtype=_I32, device=dev)
     lanes = lanes.extend(s[..., 0], can > 0, clo, with_hop(hop1))
     lanes = lanes.extend(s[..., 1], do_clone > 0, clo, with_hop(hop2))
@@ -687,6 +749,14 @@ def stage_hedge_timer(cfg: FleetConfig, params, state: FleetState,
     m = m._replace(n_cloned=m.n_cloned + _sum(fire),
                    n_hedges_cancelled=m.n_hedges_cancelled
                    + _sum(cancelled))
+    if cfg.telemetry:
+        cli_w = entries[..., WHEEL_CLIENT]
+        dst_w = entries[..., WHEEL_DST]
+        tr = emit(state.trace, fire, tick=arr.tick, kind=EV_CLONE,
+                  rid=rid, server=dst_w, client=cli_w, arg=CLONE_SRC_HEDGE)
+        tr = emit(tr, cancelled, tick=arr.tick, kind=EV_HEDGE_CANCELLED,
+                  rid=rid, server=dst_w, client=cli_w)
+        state = state._replace(trace=tr)
 
     # -- arm this tick's arrivals ------------------------------------------
     dst2 = select_branches(
@@ -708,18 +778,55 @@ def stage_hedge_timer(cfg: FleetConfig, params, state: FleetState,
                                       arr.active & is_hedge[:, None], rows)
     m = m._replace(n_hedges_armed=m.n_hedges_armed + _sum(armed),
                    n_wheel_dropped=m.n_wheel_dropped + _sum(dropped))
-    return state._replace(metrics=m, wheel=wheel), lanes
+    state = state._replace(metrics=m, wheel=wheel)
+    if cfg.telemetry:
+        state = state._replace(trace=emit(
+            state.trace, armed, tick=arr.tick, kind=EV_HEDGE_ARMED,
+            rid=routed.req_id, server=dst2, client=arr.client,
+            arg=params.hedge_delay_ticks[:, None]))  # arg: delay (ticks)
+    return state, lanes
 
 
 def stage_server(cfg: FleetConfig, params, state: FleetState,
-                 arr: Arrivals, lanes: Lanes):
+                 arr: Arrivals, lanes: Lanes, div: Divisors):
     """Workers advance, the server-side CLO=2 drop rule, FCFS ring enqueue,
     and dequeue of the oldest queued jobs onto the freed workers (their
-    execution times from the tick's ``arr.u_exec`` uniforms)."""
-    RK, S, W, Q = cfg.n_racks, cfg.n_servers, cfg.n_workers, cfg.queue_cap
-    ST = RK * S
+    execution times from the tick's ``arr.u_exec`` uniforms).
+
+    ``cfg.server_model == "batch"`` hands the tick to ServeSim's
+    continuous-batching slot stage (:func:`repro_torch.fleetsim.llmserve.
+    stage.stage_server_batch`); ``"fcfs"`` runs exactly the tick it always
+    did."""
+    if cfg.server_model == "batch":
+        # deferred import: llmserve.stage reuses this module's helpers
+        from repro_torch.fleetsim.llmserve.stage import stage_server_batch
+
+        return stage_server_batch(cfg, params, state, arr, lanes,
+                                  div.slots)
+    g = lanes.dst.shape[0]
+    ST, W = cfg.n_servers_total, cfg.n_workers
+    # -- workers advance, completions (busy ⇔ REM > 0) ---------------
+    meta = state.workers.meta.view(g, ST, W, WF)
+    was_busy = meta[..., WF_REM] > 0
+    rem = torch.where(was_busy, meta[..., WF_REM] - _f32(cfg.dt_us), 0.0)
+    return serve_lanes(cfg, params, state, arr, lanes, meta, was_busy, rem)
+
+
+def serve_lanes(cfg: FleetConfig, params, state: FleetState, arr: Arrivals,
+                lanes: Lanes, meta, was_busy, rem):
+    """The server stage after the worker rows advanced: ``meta`` ``(G, ST,
+    W, WF)`` the rows before the tick, ``was_busy`` and ``rem`` ``(G, ST,
+    W)`` their busy mask and remaining demand after it.  A row is done when
+    its demand ran out; then the CLO=2 drop rule, the FCFS ring enqueue,
+    the dequeue of the ring heads onto the free rows, the compaction of
+    the completions into the response lanes and, with ``cfg.telemetry``,
+    their finish and start events.  The FCFS stage and the batch server
+    (:func:`repro_torch.fleetsim.llmserve.stage.stage_server_batch`,
+    whose rows are decode slots) share it, as the reference's two stages
+    share their code line for line."""
+    RK, S, Q = cfg.n_racks, cfg.n_servers, cfg.queue_cap
+    ST, W = RK * S, meta.shape[2]
     g, dev = lanes.dst.shape[0], lanes.dst.device
-    dt = _f32(cfg.dt_us)
     srv_ids = torch.arange(ST, device=dev)
     m = state.metrics
     d_dst, d_act, d_clo = lanes.dst, lanes.act, lanes.clo
@@ -730,10 +837,6 @@ def stage_server(cfg: FleetConfig, params, state: FleetState,
     def own(rank):               # (G, ST, D) → each lane's own row
         return torch.gather(rank, 1, d_dst[:, None, :])[:, 0]
 
-    # -- workers advance, completions (busy ⇔ REM > 0) ---------------
-    meta = state.workers.meta.view(g, ST, W, WF)
-    was_busy = meta[..., WF_REM] > 0
-    rem = torch.where(was_busy, meta[..., WF_REM] - dt, 0.0)
     done = was_busy & (rem <= 0)                     # (G, ST, W)
     busy_after = was_busy & ~done
     n_free = (~busy_after).sum(dim=2)                # (G, ST)
@@ -835,6 +938,22 @@ def stage_server(cfg: FleetConfig, params, state: FleetState,
         workers=state.workers._replace(
             meta=meta_flat.view(g, RK, S, W, WF)),
         metrics=m)
+    if cfg.telemetry:
+        # finishes before starts: completions free the rows the dequeued
+        # jobs then occupy, and emit order is the within-tick order; a
+        # finish's fields are the pre-overwrite rows, copied into
+        # resp_payload before the dequeue wrote meta_flat
+        tr = emit(state.trace, done_flat, tick=arr.tick,
+                  kind=EV_SERVER_FINISH, rid=resp_payload[..., WF_RID],
+                  server=srv_ids.repeat_interleave(W),
+                  client=resp_payload[..., WF_CLIENT],
+                  arg=q_count.repeat_interleave(W, dim=1))  # qlen left
+        tr = emit(tr, startm.reshape(g, -1), tick=arr.tick,
+                  kind=EV_SERVER_START, rid=job[..., QF_RID].reshape(g, -1),
+                  server=srv_ids.repeat_interleave(R),
+                  client=job[..., QF_CLIENT].reshape(g, -1),
+                  arg=job[..., QF_CLO].reshape(g, -1))
+        state = state._replace(trace=tr)
 
     def field(i, dtype):
         return resp[..., i].to(dtype)
@@ -871,6 +990,11 @@ def stage_response_filter(cfg: FleetConfig, params, state: FleetState,
         n_spine_filtered=m.n_spine_filtered
         + _sum(drop & resp.active & (resp.frack == RK)))
     state = state._replace(metrics=m)
+    if cfg.telemetry:
+        state = state._replace(trace=emit(
+            state.trace, drop & resp.active, tick=arr.tick,
+            kind=EV_FILTER_DROP, rid=resp.rid, server=resp.sid,
+            client=resp.client, arg=resp.frack))  # arg: filter switch
     if cfg.coordinator:
         # every response of a coordinator policy passes back through the
         # coordinator CPU: it costs a credit and frees an outstanding slot
@@ -886,7 +1010,8 @@ def stage_response_filter(cfg: FleetConfig, params, state: FleetState,
 
 
 def stage_client(cfg: FleetConfig, params, state: FleetState,
-                 arr: Arrivals, resp: Responses, drop, const_lat):
+                 arr: Arrivals, resp: Responses, drop, const_lat,
+                 div: Divisors):
     """Client receiver threads: dedup of redundant copies, FCFS backlog
     with per-response RX cost, latency recording into the per-rack
     log-spaced histograms."""
@@ -895,7 +1020,6 @@ def stage_client(cfg: FleetConfig, params, state: FleetState,
     dt = _f32(cfg.dt_us)
     t0_us = _f32(cfg.warmup_us)
     t1_us = _f32(cfg.duration_us)
-    log_g = float(np.log(cfg.hist_growth))
     m = state.metrics
 
     deliver = resp.active & ~drop
@@ -924,16 +1048,26 @@ def stage_client(cfg: FleetConfig, params, state: FleetState,
                                     (crank + 1.0) * cfg.coord_cpu_us, 0.0)
     lat = t_fin - resp.tarr + const_lat[:, None] + resp.hop
     rec = first & (t_fin >= t0_us) & (t_fin <= t1_us)
+    # true float32 divisions, by tensors (``div``, ROADMAP C9)
     bins = torch.clamp(
-        jr.log_f32(torch.clamp(lat, min=_f32(cfg.hist_lo_us))
-                   / cfg.hist_lo_us) / log_g,
-        0, cfg.hist_bins - 1).to(torch.int64)
+        jr.log_f32(torch.maximum(lat, div.hist_lo) / div.hist_lo)
+        / div.log_growth, 0, cfg.hist_bins - 1).to(torch.int64)
     # per-rack histograms, binned by the rack that served the winning
     # response (non-recorded lanes write nothing)
     hist = m.hist.view(g, RK * cfg.hist_bins)
     scatter_add_drop(hist, (resp.sid // S) * cfg.hist_bins + bins, 1, rec)
     m = m._replace(n_completed_win=m.n_completed_win + _sum(rec))
-    return state._replace(client_backlog=backlog.to(_F32), metrics=m)
+    state = state._replace(client_backlog=backlog.to(_F32), metrics=m)
+    if cfg.telemetry:
+        tr = emit(state.trace, first, tick=arr.tick,
+                  kind=EV_CLIENT_COMPLETE, rid=resp.rid, server=resp.sid,
+                  client=resp.client,
+                  arg=torch.round(lat))  # arg: latency (µs)
+        tr = emit(tr, redundant, tick=arr.tick, kind=EV_CLIENT_REDUNDANT,
+                  rid=resp.rid, server=resp.sid, client=resp.client)
+        state = state._replace(trace=tr, series=series_record_hist(
+            state.series, arr.tick // cfg.window_ticks, bins, rec))
+    return state
 
 
 def _filter_responses(cfg, server_state, tables, rid, idx, clo, sid, qlen,
@@ -972,17 +1106,25 @@ def _filter_responses(cfg, server_state, tables, rid, idx, clo, sid, qlen,
 
 
 # ---------------------------------------------------------------- pipeline --
-def check_supported(cfg: FleetConfig) -> None:
-    """Raise for the reference features this slice has not ported."""
-    missing = [
-        (cfg.telemetry, "telemetry (cfg.telemetry)", "A9"),
-        (cfg.server_model == "batch",
-         'the batch server (cfg.server_model="batch")', "A10"),
-    ]
-    for on, what, item in missing:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
+class Divisors(NamedTuple):
+    """The float32 divisors the stages divide by every tick, as 0-d tensors
+    on the run's device, made once a run.  Dividing by a tensor is true
+    division; torch's CUDA division by a Python number multiplies by its
+    rounded reciprocal, which moved ~7 latency bins in a million against
+    the CPU and the reference (ROADMAP C9)."""
+    hist_lo: torch.Tensor     # the latency histogram's lowest edge (µs)
+    log_growth: torch.Tensor  # log of its bin growth factor
+    slots: torch.Tensor       # max(B−1, 1): the batch server's coupling
+
+
+def divisors(cfg: FleetConfig, device) -> Divisors:
+    """:class:`Divisors` for ``cfg`` on ``device``."""
+    def f32(x):
+        return torch.tensor(x, dtype=_F32, device=device)
+
+    return Divisors(hist_lo=f32(cfg.hist_lo_us),
+                    log_growth=f32(float(np.log(cfg.hist_growth))),
+                    slots=f32(float(max(cfg.n_slots - 1, 1))))
 
 
 def const_latency(cfg: FleetConfig, params) -> torch.Tensor:
@@ -1009,8 +1151,8 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
     """Compose the stages into the tick function the engine loops over.
     ``params`` is a ``RunParams`` of ``(G, ...)`` tensors on the run's
     device; ``group_pairs`` the GrpT tensor (int64) there."""
-    check_supported(cfg)
     const_lat = const_latency(cfg, params)
+    div = divisors(cfg, params.policy_id.device)
     xhop = _f32(cfg.interrack_extra_us)
     recover_ticks = frozenset(params.fail_until_tick.tolist())
     ids = _present(params)
@@ -1018,7 +1160,7 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
     # allocated here so a captured chunk (fused.py) never allocates it
     drop_out = None
     if cfg.filter_backend in ("pallas", "tickfuse"):
-        k = min(cfg.max_responses, cfg.n_servers_total * cfg.n_workers)
+        k = min(cfg.max_responses, cfg.n_servers_total * worker_lanes(cfg))
         drop_out = torch.empty((params.policy_id.shape[0], k),
                                dtype=torch.bool,
                                device=params.policy_id.device)
@@ -1035,10 +1177,16 @@ def build_step(cfg: FleetConfig, params, group_pairs: torch.Tensor):
         # responses from partitioned servers vanish before the filter
         # switch; inert windows leave every value unchanged
         state, lanes = stage_link_failure(cfg, params, state, arr, lanes)
-        state, resp = stage_server(cfg, params, state, arr, lanes)
+        state, resp = stage_server(cfg, params, state, arr, lanes, div)
         state, resp = stage_link_response(cfg, params, state, arr, resp)
         state, drop = stage_response_filter(cfg, params, state, arr, resp,
                                             drop_out)
-        return stage_client(cfg, params, state, arr, resp, drop, const_lat)
+        state = stage_client(cfg, params, state, arr, resp, drop, const_lat,
+                             div)
+        if cfg.telemetry:
+            state = state._replace(series=series_tick(
+                cfg, state.series, state.metrics, state.queues.count,
+                arr.tick))
+        return state
 
     return step

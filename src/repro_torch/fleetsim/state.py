@@ -10,9 +10,12 @@ is ``G = 1``).  The layouts behind it are the reference's:
   its ``WF_REM`` field is positive;
 * integer payload fields (req ids, CLO, …) ride in the float32 payloads;
   ``FleetConfig`` bounds req ids below 2²⁴ so the round trip is exact;
+* under ``server_model="batch"`` the worker rows are the decode slots
+  (``n_slots`` of them, the same ``WF`` layout);
 * the optional stages' sub-states (:class:`CoordState`,
-  :class:`HedgeWheel`) are ``None`` unless their ``FleetConfig`` flag is
-  on.
+  :class:`HedgeWheel`) and telemetry's (:class:`~repro_torch.fleetsim.
+  telemetry.device.TraceBuffer`, ``SeriesState``) are ``None`` unless
+  their ``FleetConfig`` flag is on.
 
 :func:`state_from_numpy` and :func:`to_numpy` carry a reference
 ``FleetState`` (numpy arrays, e.g. from ``jax.device_get``) across and
@@ -27,6 +30,12 @@ import numpy as np
 import torch
 
 from repro_torch.fleetsim.config import FleetConfig
+from repro_torch.fleetsim.telemetry.device import (
+    SeriesState,
+    TraceBuffer,
+    init_series_state,
+    init_trace_buffer,
+)
 
 # queue payload fields, (G, R, S, Q, QF) — float32, ints exact below 2^24
 QF_BASE = 0     # intrinsic service demand (µs)
@@ -79,7 +88,9 @@ class RingQueues(NamedTuple):
 
 
 class Workers(NamedTuple):
-    meta: torch.Tensor     # (G, n_racks, S, W, WF) float32; busy ⇔ REM > 0
+    # (G, n_racks, S, W, WF) float32; busy ⇔ REM > 0.  W is
+    # worker_lanes(cfg): the decode slots under the batch server
+    meta: torch.Tensor
 
 
 class CoordState(NamedTuple):
@@ -112,8 +123,7 @@ class HedgeWheel(NamedTuple):
 
 class Metrics(NamedTuple):
     """Running counters (``(G,)`` int32 each) and the per-rack log-spaced
-    latency histograms — the reference's fields, in its order.  The
-    batch server's ``n_slot_busy`` (not ported yet) stays zero."""
+    latency histograms — the reference's fields, in its order."""
 
     hist: torch.Tensor            # (G, n_racks, hist_bins) — by serving rack
     n_arrivals: torch.Tensor      # requests admitted at the fabric
@@ -138,7 +148,7 @@ class Metrics(NamedTuple):
     n_hedges_armed: torch.Tensor  # timer-wheel entries armed
     n_hedges_cancelled: torch.Tensor  # … cancelled (response / fabric dark)
     n_wheel_dropped: torch.Tensor  # … lost to wheel-slot exhaustion
-    n_slot_busy: torch.Tensor     # batch server stage (not ported yet)
+    n_slot_busy: torch.Tensor     # Σ busy decode slots over ticks (batch)
     n_link_dropped_req: torch.Tensor   # copies lost on a dead link
     n_link_dropped_resp: torch.Tensor  # responses lost on a dead link
 
@@ -152,11 +162,17 @@ class FleetState(NamedTuple):
     key: torch.Tensor             # (G, 2) int64 — PRNG carry (uint32 words)
     metrics: Metrics
     # optional stage sub-states: None unless the matching FleetConfig flag
-    # turned the stage on; telemetry's are not ported yet (ROADMAP.md A9)
+    # turned the stage on (telemetry's are pure observers, never fed back)
     coord: CoordState | None = None
     wheel: HedgeWheel | None = None
-    trace: None = None
-    series: None = None
+    trace: TraceBuffer | None = None
+    series: SeriesState | None = None
+
+
+def worker_lanes(cfg: FleetConfig) -> int:
+    """Worker rows per server: the decode slots under
+    ``server_model="batch"``, else the FCFS workers."""
+    return cfg.n_slots if cfg.server_model == "batch" else cfg.n_workers
 
 
 def init_metrics(cfg: FleetConfig, g: int, device=None) -> Metrics:
@@ -191,7 +207,7 @@ def init_fleet_state(cfg: FleetConfig, key: torch.Tensor) -> FleetState:
     """Empty fabric for ``G = key.shape[0]`` configurations, on ``key``'s
     device."""
     g, dev = key.shape[0], key.device
-    r, s, q, w = cfg.n_racks, cfg.n_servers, cfg.queue_cap, cfg.n_workers
+    r, s, q, w = cfg.n_racks, cfg.n_servers, cfg.queue_cap, worker_lanes(cfg)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     return FleetState(
@@ -210,6 +226,8 @@ def init_fleet_state(cfg: FleetConfig, key: torch.Tensor) -> FleetState:
         metrics=init_metrics(cfg, g, dev),
         coord=init_coord_state(cfg, g, dev) if cfg.coordinator else None,
         wheel=init_hedge_wheel(cfg, g, dev) if cfg.hedge_timer else None,
+        trace=init_trace_buffer(cfg, g, dev) if cfg.telemetry else None,
+        series=init_series_state(cfg, g, dev) if cfg.telemetry else None,
     )
 
 
@@ -225,16 +243,14 @@ def _tensor(a, lead: bool, device) -> torch.Tensor:
 def state_from_numpy(cfg: FleetConfig, tree, *, device=None) -> FleetState:
     """Port tensors from a reference ``FleetState`` whose leaves are numpy
     arrays.  A single run's state (no sweep axis) becomes ``G = 1``; a
-    batched state keeps its leading axis.  The coordinator and hedge-wheel
-    sub-states come across when present; telemetry's are not ported."""
-    if tree.trace is not None or tree.series is not None:
-        raise NotImplementedError(
-            "telemetry sub-states are not ported to PyTorch yet "
-            "(ROADMAP.md A9)")
+    batched state keeps its leading axis.  The optional sub-states (the
+    coordinator's, the hedge wheel's, telemetry's) come across when
+    present."""
     if (tree.coord is not None) != cfg.coordinator or \
-            (tree.wheel is not None) != cfg.hedge_timer:
+            (tree.wheel is not None) != cfg.hedge_timer or \
+            (tree.trace is not None) != cfg.telemetry:
         raise ValueError("the state's optional sub-states do not match "
-                         "cfg.coordinator / cfg.hedge_timer")
+                         "cfg.coordinator / cfg.hedge_timer / cfg.telemetry")
     lead = np.ndim(tree.switch.seq) == 0
 
     def conv(a):
@@ -251,7 +267,11 @@ def state_from_numpy(cfg: FleetConfig, tree, *, device=None) -> FleetState:
         coord=None if tree.coord is None
         else CoordState(*map(conv, tree.coord)),
         wheel=None if tree.wheel is None
-        else HedgeWheel(*map(conv, tree.wheel)))
+        else HedgeWheel(*map(conv, tree.wheel)),
+        trace=None if tree.trace is None
+        else TraceBuffer(*map(conv, tree.trace)),
+        series=None if tree.series is None
+        else SeriesState(*map(conv, tree.series)))
     if state.queues.data.shape[1:] != (cfg.n_racks, cfg.n_servers,
                                        cfg.queue_cap, QF):
         raise ValueError("state shapes do not match cfg")

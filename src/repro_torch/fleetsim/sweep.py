@@ -10,15 +10,16 @@ hedge-timer delay as a fourth, per-run grid axis.
 
 ``engine`` (an :class:`~repro_torch.fleetsim.options.EngineOptions`)
 selects the backend, and the result records the concrete one: on CUDA the
-default is the fused backend, whose ticks replay from a CUDA graph.  Not
-ported yet, and raising ``NotImplementedError``: ``shard`` (ROADMAP.md
-A9).
+default is the fused backend, whose ticks replay from a CUDA graph.  A
+config with ``telemetry`` runs staged and decodes each row's trace and
+series (``SweepResult.telemetry``).  Not ported yet, and raising
+``NotImplementedError``: ``shard`` (ROADMAP.md A9).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -30,10 +31,13 @@ from repro_torch.fleetsim.engine import (
     RunParams,
     check_fabric_arrays,
     check_hedge_delay,
-    run,
+    run_state,
 )
 from repro_torch.fleetsim.fused import GraphStats
 from repro_torch.fleetsim.metrics import FleetResult, summarize
+from repro_torch.fleetsim.options import EngineOptions
+from repro_torch.fleetsim.telemetry import RunTelemetry, decode_run
+from repro_torch.fleetsim.telemetry.device import SeriesState, TraceBuffer
 from repro_torch.scenarios import registry
 from repro_torch.scenarios.service import load_to_rate
 
@@ -55,6 +59,9 @@ class SweepResult:
     graph: GraphStats | None = field(default=None, repr=False)
     # grid-aggregate latency histogram (n_racks, hist_bins)
     grid_hist: np.ndarray | None = field(default=None, repr=False)
+    # per-row decoded FleetScope telemetry (same order as results) when the
+    # sweep ran with cfg.telemetry; None otherwise
+    telemetry: list[RunTelemetry] | None = field(default=None, repr=False)
 
     @property
     def simulated_mrps(self) -> float:
@@ -211,20 +218,39 @@ def sweep_grid(
     (reported with ``hedge_delay_us=0``).  ``engine``
     (:class:`~repro_torch.fleetsim.options.EngineOptions`) selects the
     backend (default ``'auto'``: fused on CUDA, staged on the CPU); the
-    result's ``backend`` records the one that ran.
+    result's ``backend`` records the one that ran.  With ``cfg.telemetry``
+    the sweep runs staged and ``telemetry`` holds each row's decoded trace
+    and series.
     """
-    if shard is not None or (engine is not None
-                             and engine.shard is not None):
+    sharded = shard is not None or (engine is not None
+                                    and engine.shard is not None)
+    if sharded and (cfg.telemetry if cfg is not None
+                    else cfg_kw.get("telemetry", False)):
+        raise ValueError(
+            "telemetry sweeps cannot shard (per-device trace rings have no "
+            "merged chronological order); drop shard= or cfg.telemetry")
+    if sharded:
         raise NotImplementedError("shard= is not ported yet (ROADMAP.md A9)")
     cfg, grid, rates, params = plan_grid(
         service, policies, loads, seeds, cfg, slowdown, rack_weights,
         fail_window_ticks, link_failure, resize_arrival_lanes, hedge_delays,
         **cfg_kw)
+    opts = engine if engine is not None else EngineOptions()
+    if cfg.telemetry:
+        opts = replace(opts, telemetry=True)
     stats = GraphStats()
     t0 = time.perf_counter()
-    metrics, backend = run(cfg, params, device, engine, stats)
-    metrics = type(metrics)(*(x.cpu().numpy() for x in metrics))
+    state, backend, _ = run_state(cfg, params, device, opts, stats)
+    metrics = type(state.metrics)(*(x.cpu().numpy() for x in state.metrics))
     wall = time.perf_counter() - t0 - stats.setup_s
+    telemetry = None
+    if cfg.telemetry:
+        trace = TraceBuffer(*(x.cpu().numpy() for x in state.trace))
+        series = SeriesState(*(x.cpu().numpy() for x in state.series))
+        telemetry = [
+            decode_run(cfg, TraceBuffer(*(a[i] for a in trace)),
+                       SeriesState(*(a[i] for a in series)))
+            for i in range(len(grid))]
     # policies that never arm the wheel report delay 0, not the config
     # default a hedge co-policy happened to turn on
     results = [summarize(cfg, type(metrics)(*(a[i] for a in metrics)),
@@ -242,4 +268,5 @@ def sweep_grid(
         compile_s=stats.setup_s,
         graph=stats if stats.ticks else None,
         grid_hist=np.asarray(metrics.hist).sum(axis=0),
+        telemetry=telemetry,
     )

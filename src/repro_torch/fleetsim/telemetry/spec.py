@@ -6,10 +6,7 @@ asks for — whether the observability stages run, the ring-buffer depth,
 and the time-series window — and maps it onto the static
 :class:`~repro_torch.fleetsim.config.FleetConfig` flags.  JSON round-trip
 is strict-keyed like ``Scenario``/``SweepSpec``: a misspelled knob raises
-instead of silently tracing a different experiment.  The telemetry stages
-themselves are not ported yet: a run with ``cfg.telemetry`` raises
-(``ROADMAP.md`` A9), but scenario files that carry the sub-object load and
-round-trip.
+instead of silently tracing a different experiment.
 """
 
 from __future__ import annotations

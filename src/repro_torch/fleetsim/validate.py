@@ -25,10 +25,16 @@ host; :func:`cross_check_scenario` runs one
 :class:`~repro_torch.scenarios.Scenario` through both.  :func:`main` is the
 nightly CLI, ``python -m repro_torch.fleetsim.validate``.
 
+A third tier, :func:`serve_equivalence` (re-exported from
+:mod:`repro_torch.fleetsim.llmserve.oracle`), holds the ServeSim
+batch-server stage (``FleetConfig.server_model="batch"``) to the
+slot-exact :class:`repro_torch.serve.engine.DecodeReplica` ticked as the
+discrete-event oracle, one decode step per tick.  Its ``SERVE_*``
+tolerances are documented in the oracle module next to the three
+modelling gaps they bound.  Run it from the CLI with ``--serve-ticks N``.
+
 Not ported yet: :func:`shard_equivalence` needs the sharded runner (A9)
-and raises ``NotImplementedError``; the reference's re-export of the
-ServeSim tier's ``serve_equivalence`` is left out until the batch-server
-stage lands (A12).
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,16 @@ from dataclasses import dataclass
 from repro_torch.core.simulator import Simulator
 from repro_torch.core.workloads import ServiceProcess, load_to_rate
 from repro_torch.fleetsim.config import FleetConfig, ServiceSpec
+from repro_torch.fleetsim.llmserve.oracle import (  # noqa: F401  (re-export:
+    # the ServeSim tier lives with the batch stage it validates; tolerances
+    # and modelling gaps are documented there)
+    SERVE_CLONE_FRAC_ATOL,
+    SERVE_GOODPUT_RTOL,
+    SERVE_P50_RTOL,
+    SERVE_P99_RTOL,
+    ServeCheck,
+    serve_equivalence,
+)
 from repro_torch.fleetsim.metrics import FleetResult
 from repro_torch.fleetsim.sweep import sweep_grid
 from repro_torch.scenarios import registry
@@ -327,10 +343,11 @@ def main(argv: list[str] | None = None) -> int:
     ``policies="registered"`` default expands to *every* policy registered
     for both engines (custom registrations included), and ``--trace`` names
     a TraceArrival scenario replayed through both engines.  FleetSim runs
-    on ``--device`` (CUDA by default), the DES on the host.  Exits non-zero
-    if any point breaks the documented tolerances.  ``--shard`` and
-    ``--serve-ticks`` raise until the sharded runner (A9) and the ServeSim
-    tier (A10, A12) are ported.
+    on ``--device`` (CUDA by default), the DES on the host;
+    ``--serve-ticks N`` adds the ServeSim tier (:func:`serve_equivalence`
+    over ``N`` ticks, its replicas on ``--device`` too).  Exits non-zero if
+    any point breaks the documented tolerances.  ``--shard`` raises until
+    the sharded runner (A9) is ported.
     """
     import argparse
 
@@ -351,8 +368,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="also check sharded == unsharded (not ported "
                          "yet: a nonzero value raises)")
     ap.add_argument("--serve-ticks", type=int, default=0,
-                    help="also run the ServeSim tier (not ported yet: a "
-                         "nonzero value raises)")
+                    help="also run the ServeSim tier: batch-server stage "
+                         "vs DecodeReplica oracle over this many ticks "
+                         "(0 skips; each tick is a real decode step, so "
+                         "~1500 is a thorough run)")
     ap.add_argument("--fuzz", type=int, default=0,
                     help="also run the ChaosFuzz tier: this many generated "
                          "scenarios through the fuzz contract "
@@ -370,13 +389,9 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     if args.shard:
         shard_equivalence(None, shard=args.shard)
-    if args.serve_ticks:
-        raise NotImplementedError(
-            "--serve-ticks needs the ServeSim batch-server stage and "
-            "serve_equivalence, which are not ported to PyTorch yet "
-            "(ROADMAP.md A10, A12)")
 
     checks = []
+    serve_checks = []
     fuzz_report = None
     if args.grid != "none":
         spec = SweepSpec.from_file(args.grid)
@@ -390,6 +405,11 @@ def main(argv: list[str] | None = None) -> int:
               f"{args.trace_ticks or sc.n_ticks} ticks ==")
         checks.append(cross_check_scenario(sc, n_ticks=args.trace_ticks,
                                            device=args.device))
+    if args.serve_ticks:
+        print(f"== serve equivalence: batch stage vs DecodeReplica, "
+              f"{args.serve_ticks} ticks ==")
+        serve_checks = serve_equivalence(horizon=args.serve_ticks,
+                                         device=args.device)
     if args.fuzz:
         from repro_torch.scenarios.fuzz import _resolve_seed, fuzz_contract
 
@@ -405,6 +425,13 @@ def main(argv: list[str] | None = None) -> int:
         n_ok += c.ok
         print(("[PASS] " if c.ok else "[FAIL] ") + c.describe())
     print(f"{n_ok}/{len(checks)} points within tolerance")
+    n_serve_ok = 0
+    if serve_checks:
+        for c in serve_checks:
+            n_serve_ok += c.ok
+            print(("[PASS] " if c.ok else "[FAIL] ") + c.describe())
+        print(f"{n_serve_ok}/{len(serve_checks)} serve points within "
+              f"tolerance")
     if args.out:
         import dataclasses
         import json
@@ -419,6 +446,11 @@ def main(argv: list[str] | None = None) -> int:
             "checks": [{**dataclasses.asdict(c), "pass": bool(c.ok),
                         "saturated": bool(c.saturated),
                         "detail": c.describe()} for c in checks],
+            "serve_ticks": args.serve_ticks,
+            "serve_checks": [{**dataclasses.asdict(c), "pass": bool(c.ok),
+                              "saturated": bool(c.saturated),
+                              "detail": c.describe()}
+                             for c in serve_checks],
             "fuzz": None if fuzz_report is None else {
                 "seed": fuzz_report.seed, "n_cases": fuzz_report.n_cases,
                 "n_des_checked": fuzz_report.n_des_checked,
@@ -430,7 +462,8 @@ def main(argv: list[str] | None = None) -> int:
         }, indent=1))
         print(f"wrote {out}")
     fuzz_ok = fuzz_report is None or fuzz_report.ok
-    return 0 if (n_ok == len(checks) and fuzz_ok) else 1
+    serve_ok = n_serve_ok == len(serve_checks)
+    return 0 if (n_ok == len(checks) and serve_ok and fuzz_ok) else 1
 
 
 if __name__ == "__main__":

@@ -246,6 +246,19 @@ def _inputs(params: dict, device, *tensors):
     return [torch.as_tensor(t, device=have) for t in tensors]
 
 
+def ce_analytic_cost(cfg: ModelConfig, n_tokens: int, train: bool) -> dict:
+    """Exact analytic FLOPs/bytes of the reference's chunked CE (its
+    ``lm.ce_analytic_cost``, pure arithmetic), which the roofline
+    (:mod:`repro_torch.analysis.roofline`) uses to correct the dry-run's
+    count-the-loop-body-once accounting of the loss scan."""
+    d, v = cfg.d_model, cfg.vocab_size
+    passes = 3.0 if train else 1.0        # fwd + (dx, dW) matmuls in bwd
+    flops = passes * 2.0 * n_tokens * d * v
+    # logits materialised once fwd (+ once recomputed, + softmax read) in f32
+    bytes_ = (4.0 if train else 2.0) * n_tokens * v * 4.0
+    return {"flops": flops, "bytes": bytes_}
+
+
 # ================================================================ entry ======
 def forward(cfg: ModelConfig, params: dict, tokens, positions=None,
             eval_mode: bool = False, *, device=None):

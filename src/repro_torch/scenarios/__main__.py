@@ -13,9 +13,9 @@ both`` additionally replays the same frozen Scenario through the DES
 note — asking for them with ``--engine des`` is an error).  ``--ticks`` /
 ``--requests`` shrink runs for smoke tests; ``--out`` writes the result rows
 as a JSON artifact.  ``--device`` names where FleetSim runs: ``cuda`` (the
-default; without a card the run raises) or ``cpu``.  ``--trace-out``
-(FleetScope telemetry export) raises until telemetry is ported
-(``ROADMAP.md`` A9).
+default; without a card the run raises) or ``cpu``.  ``--trace-out DIR``
+runs each scenario with FleetScope telemetry on and writes its Chrome
+trace, event and series CSVs and summary under ``DIR/<name>/``.
 """
 
 from __future__ import annotations
@@ -78,11 +78,34 @@ def run_file(args) -> list[dict]:
                     else [obj.policy])
     overrides = {"n_ticks": args.ticks} if args.ticks else {}
     rows: list[dict] = []
-    if args.trace_out:
-        raise NotImplementedError(
-            "--trace-out needs FleetScope telemetry, which is not ported to "
-            "PyTorch yet (ROADMAP.md A9)")
     dev = {"device": args.device}
+    if args.trace_out:
+        # FleetScope export path: per-scenario traced runs (telemetry is
+        # turned on; counters stay bit-identical to the plain run)
+        from repro_torch.fleetsim.telemetry import write_run
+
+        scenarios = obj.scenarios() if isinstance(obj, SweepSpec) else [obj]
+        for sc in scenarios:
+            result, tel = sc.run_traced(**dev, **overrides)
+            row = {"engine": "fleetsim", **result.row()}
+            rows.append(row)
+            paths = write_run(args.trace_out, sc.name, tel, summary=row)
+            print(f"[trace] {sc.name}: {len(tel.events)} events "
+                  f"({tel.events.n_lost} lost), {tel.series.n_windows} "
+                  f"windows -> {paths['trace'].parent}")
+        for row in rows:
+            print(",".join(f"{k}={v}" for k, v in row.items()))
+        if args.out:
+            out = Path(args.out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(
+                {"file": str(args.file), "engine": "fleetsim",
+                 "device": args.device,
+                 "trace_out": str(args.trace_out),
+                 "scenarios": [s.to_json() for s in scenarios],
+                 "rows": rows}, indent=1, default=str))
+            print(f"wrote {out}")
+        return rows
     if isinstance(obj, SweepSpec):
         scs = obj.scenarios()
         print(f"sweep {obj.base.name}: {len(scs)} scenarios "
@@ -136,8 +159,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="write result rows to this JSON artifact")
     ap.add_argument("--trace-out", default=None, metavar="DIR",
                     help="run with FleetScope telemetry and write one "
-                         "Chrome-trace/CSV bundle per scenario under DIR "
-                         "(not ported yet: raises)")
+                         "Chrome-trace/CSV bundle per scenario under DIR")
     ap.add_argument("--device", default="cuda",
                     help="where FleetSim runs: cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -20,11 +20,11 @@ reference's) and are resolvable by bare name.  The golden library scenario
 reproduces ``tests/golden/fleetsim_single_tor.json`` bit-identically.
 
 Every FleetSim run takes ``device=`` (CUDA by default, ``"cpu"`` for the
-plain path; on a card the default engine is the fused backend).  Not
-ported yet: :meth:`Scenario.run_traced` and a ``telemetry`` spec that is
-enabled raise (``ROADMAP.md`` A9), as does running a sharded
-:class:`SweepSpec` (A9) or a ``server_model="batch"`` scenario (A10); all
-of them load and round-trip.
+plain path; on a card the default engine is the fused backend, which
+carries ``server_model="batch"`` scenarios too; a ``telemetry`` spec runs
+staged).  :meth:`Scenario.run_traced` runs with FleetScope on and decodes
+the trace.  Not ported yet: running a sharded :class:`SweepSpec` raises
+(``ROADMAP.md`` A9); it loads and round-trips.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ from repro_torch.fleetsim.metrics import FleetResult, summarize
 from repro_torch.fleetsim.options import EngineOptions
 from repro_torch.fleetsim.shard import ShardSpec
 from repro_torch.fleetsim.sweep import SweepResult, rack_skew, sweep_grid
-from repro_torch.fleetsim.telemetry import TelemetrySpec
+from repro_torch.fleetsim.telemetry import RunTelemetry, TelemetrySpec, \
+    decode_run
 from repro_torch.scenarios import registry
 from repro_torch.scenarios.arrival import (
     ArrivalProcess,
@@ -93,7 +94,7 @@ class Scenario:
     max_arrivals: int | None = None
     # ServeSim: "batch" swaps the FCFS worker pool for continuous-batching
     # decode slots; batch_slots/batch_coupling mirror the FleetConfig knobs
-    # (0 slots → one per worker).  Not ported yet: a run raises (A10)
+    # (0 slots → one per worker)
     server_model: str = "fcfs"
     batch_slots: int = 0
     batch_coupling: float = 0.0
@@ -102,9 +103,8 @@ class Scenario:
     # the engine default (or the trace's own dt for trace arrivals, which
     # define their schedule's time base and reject an override here).
     dt_us: float | None = None
-    # FleetScope observability: None runs the exact telemetry-off program;
-    # an enabled spec turns the trace/series stages on (not ported yet: a
-    # run raises, A9)
+    # FleetScope observability: None runs the exact telemetry-off tick; an
+    # enabled spec turns the trace/series stages on
     telemetry: TelemetrySpec | None = None
     # engine execution options (repro_torch.fleetsim.options): None runs
     # the default ('auto' backend — fused on a card, staged on the CPU);
@@ -228,12 +228,28 @@ class Scenario:
                          rate_per_us=self.rate_per_us(cfg.n_ticks),
                          seed=self.seed)
 
-    def run_traced(self, *, device=None, **cfg_overrides):
-        """Run the array engine with FleetScope on and decode the trace:
-        telemetry is not ported yet (``ROADMAP.md`` A9)."""
-        raise NotImplementedError(
-            "run_traced needs FleetScope telemetry, which is not ported to "
-            "PyTorch yet (ROADMAP.md A9)")
+    def run_traced(self, *, device=None, **cfg_overrides
+                   ) -> tuple[FleetResult, RunTelemetry]:
+        """Run the array engine on ``device`` with FleetScope on and decode
+        the trace.
+
+        A scenario without a ``telemetry`` spec gets the default one turned
+        on for this run; the result's counters are bit-identical either way
+        (telemetry observes, it never feeds back).  The run is staged, as
+        in the reference.  Export the bundle with :func:`repro_torch.
+        fleetsim.telemetry.write_run`."""
+        sc = self if self.telemetry is not None and self.telemetry.enabled \
+            else replace(self, telemetry=TelemetrySpec())
+        cfg = sc.fleet_config(**cfg_overrides)
+        opts = replace(self.engine or EngineOptions(),
+                       telemetry=True, shard=None)
+        m, trace, series = engine.simulate(cfg, sc.run_params(cfg),
+                                           device=device, options=opts)
+        result = summarize(cfg, m, policy=self.policy,
+                           load=self.effective_load(cfg.n_ticks),
+                           rate_per_us=self.rate_per_us(cfg.n_ticks),
+                           seed=self.seed)
+        return result, decode_run(cfg, trace, series)
 
     # ---------------------------------------------------------------- DES --
     def run_des(self, n_requests: int | None = None,

@@ -78,6 +78,7 @@ class DecodeReplica:
         self.slowdown_ticks = 0
         self.n_clone_drops = 0
         self.n_decoded_tokens = 0
+        self.n_decode_steps = 0     # model calls (one a tick with a slot)
         self._fam = family_of(cfg)
         self._cache = self._fam.init_cache(cfg, n_slots, s_max,
                                            device=self.device)
@@ -125,6 +126,7 @@ class DecodeReplica:
             return []
         tokens = torch.from_numpy(self._tokens).to(self.device)
         pos = torch.from_numpy(self._pos).to(self.device)
+        self.n_decode_steps += 1
         logits, self._cache = self._fam.decode_step(
             self.cfg, self.params, tokens, pos, self._cache,
             device=self.device)

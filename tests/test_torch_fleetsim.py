@@ -153,7 +153,8 @@ def test_one_tick_stage_by_stage_from_carried_state():
     lanes_equal(tl, ref["route"][1], ("dst", "act", "clo", "payload"))
     ts, tl = tchaos.stage_link_failure(tcfg, tparams, ts, tarr, tl)
     lanes_equal(tl, ref["link_failure"], ("dst", "act", "clo", "payload"))
-    ts, tresp = tst.stage_server(tcfg, tparams, ts, tarr, tl)
+    ts, tresp = tst.stage_server(tcfg, tparams, ts, tarr, tl,
+                                 tst.divisors(tcfg, CPU))
     check(ts, ref["server"][0], ulp=("workers.meta",))
     lanes_equal(tresp, ref["server"][1], tresp._fields)
     assert bool(tresp.active.any())
@@ -162,7 +163,8 @@ def test_one_tick_stage_by_stage_from_carried_state():
     assert np.array_equal(tdrop.numpy()[0], ref["filter"][1])
     check(ts, ref["filter"][0], ulp=("workers.meta",))
     ts = tst.stage_client(tcfg, tparams, ts, tarr, tresp, tdrop,
-                          tst.const_latency(tcfg, tparams))
+                          tst.const_latency(tcfg, tparams),
+                          tst.divisors(tcfg, CPU))
     check(ts, ref["client"], ulp=("workers.meta",))
 
 
@@ -355,10 +357,12 @@ def test_sweep_grid_matches_reference_rows():
 
 
 def test_unported_features_raise():
-    """What later slices port still raises: telemetry, the batch server
-    and shard.  What this slice ported runs: the optional stages (a
-    stage-policy on a config without its stage raises the reference's
-    ``ValueError``), the hedge-delay axis and ``cross_validate_spec``."""
+    """What later slices port still raises: shard (A9).  What earlier
+    slices ported runs: telemetry and the batch server (a telemetry
+    entry point on a config without the flag raises the reference's
+    ``ValueError``), the optional stages (a stage-policy on a config
+    without its stage raises the reference's ``ValueError``), the
+    hedge-delay axis and ``cross_validate_spec``."""
     from repro_torch.fleetsim.options import EngineOptions
     from repro_torch.fleetsim.validate import cross_validate_spec
     from repro_torch.scenarios import load_any
@@ -366,23 +370,29 @@ def test_unported_features_raise():
     cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16,
                          n_ticks=2000)
     params = tf.make_params(cfg, 0, 0.1, 0)
-    for flag, item in ((dict(telemetry=True), "A9"),
-                       (dict(server_model="batch"), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            tf.simulate(replace(cfg, **flag), params, device="cpu")
-    for opts in (EngineOptions(telemetry=True), EngineOptions(shard=1)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tf.simulate(cfg, params, device="cpu", options=opts)
+    with pytest.raises(NotImplementedError, match="A9"):
+        tf.simulate(cfg, params, device="cpu",
+                    options=EngineOptions(shard=1))
     with pytest.raises(NotImplementedError, match="A9"):
         tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
                       shard=2, device="cpu")
-    # ported in this slice: the stages run, and refuse flag-less configs
-    # as the reference does
+    with pytest.raises(ValueError, match="cfg.telemetry=True"):
+        tf.simulate(cfg, params, device="cpu",
+                    options=EngineOptions(telemetry=True))
+    # ported since: telemetry and the batch server run
+    short = replace(cfg, n_ticks=60)
+    m, trace, _ = tf.simulate(
+        replace(short, telemetry=True, window_ticks=60), params,
+        device="cpu", options=EngineOptions(telemetry=True))
+    assert int(trace.count) > 0 and int(m.n_arrivals) > 0
+    m = tf.simulate(replace(short, server_model="batch"), params,
+                    device="cpu")
+    assert int(m.n_slot_busy) > 0
+    # the stages run, and refuse flag-less configs as the reference does
     for policy, stage in (("laedge", "coordinator stage"),
                           ("hedge", "hedge_timer stage")):
         with pytest.raises(ValueError, match=stage):
             tf.make_params(cfg, tf.POLICY_IDS[policy], 0.1, 0)
-    short = replace(cfg, n_ticks=60)
     for flag in (dict(coordinator=True), dict(hedge_timer=True)):
         m = tf.simulate(replace(short, **flag), tf.make_params(
             replace(short, **flag), 0, 0.1, 0), device="cpu")
@@ -419,7 +429,8 @@ import repro_torch.fleetsim.validate, repro_torch.core.simulator
 import repro_torch.core.hedging, repro_torch.configs.netclone_cluster
 import repro_torch.scenarios, repro_torch.scenarios.spec
 import repro_torch.scenarios.__main__, repro_torch.scenarios.fuzz
-import repro_torch.fleetsim.telemetry
+import repro_torch.fleetsim.telemetry, repro_torch.fleetsim.llmserve
+import repro_torch.fleetsim.telemetry.export, repro_torch.analysis.roofline
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -208,15 +208,18 @@ def test_fused_graph_replay_bit_identical_on_the_card(backend):
 
 
 def test_fused_core_rejects_staged_only_stages():
-    """Telemetry and the batch server stay staged-only; the coordinator
-    and hedge-timer stages run fused (``test_torch_stages.py``)."""
-    for flag in (dict(telemetry=True, window_ticks=100),
-                 dict(server_model="batch")):
-        cfg = fused_cfg(tf, **flag)
-        params, _ = engine.batched_params(run_params(tf, cfg, "baseline"),
-                                          torch.device("cpu"))
-        with pytest.raises(ValueError, match="staged"):
-            fused_core(cfg, params)
+    """Telemetry stays staged-only; the coordinator and hedge-timer stages
+    (``test_torch_stages.py``) and the batch server
+    (``test_torch_llmserve.py``) run fused."""
+    cfg = fused_cfg(tf, telemetry=True, window_ticks=100)
+    params, _ = engine.batched_params(run_params(tf, cfg, "baseline"),
+                                      torch.device("cpu"))
+    with pytest.raises(ValueError, match="staged"):
+        fused_core(cfg, params)
+    cfg = fused_cfg(tf, server_model="batch", n_ticks=50)
+    params, _ = engine.batched_params(run_params(tf, cfg, "baseline"),
+                                      torch.device("cpu"))
+    assert int(fused_core(cfg, params).metrics.n_slot_busy[0]) > 0
 
 
 def test_graph_block_length_divides_the_chunk():
@@ -341,15 +344,19 @@ def test_resolve_backend():
         assert EngineOptions().resolve_backend(cfg, "cuda") == "fused"
         assert EngineOptions().resolve_backend(cfg, "cpu") == "staged"
         assert EngineOptions(backend="fused").resolve_backend(cfg) == "fused"
-    # 'auto' falls back for staged-only stages; explicit 'fused' raises
-    assert EngineOptions().resolve_backend(
-        replace(plain, server_model="batch"), "cuda") == "staged"
+    # the batch server runs fused on a card too (C8's extension)
+    batch = replace(plain, server_model="batch")
+    assert EngineOptions().resolve_backend(batch, "cuda") == "fused"
+    assert EngineOptions().resolve_backend(batch, "cpu") == "staged"
+    assert EngineOptions(backend="fused").resolve_backend(batch) == "fused"
+    # 'auto' falls back for telemetry, staged-only; explicit 'fused' raises
+    tel = replace(plain, telemetry=True, window_ticks=100)
+    assert EngineOptions().resolve_backend(tel, "cuda") == "staged"
     with pytest.raises(ValueError, match="telemetry"):
         EngineOptions(backend="fused",
                       telemetry=True).resolve_backend(plain)
-    with pytest.raises(ValueError, match="batch server"):
-        EngineOptions(backend="fused").resolve_backend(
-            replace(plain, server_model="batch"))
+    with pytest.raises(ValueError, match="telemetry"):
+        EngineOptions(backend="fused").resolve_backend(tel)
 
 
 def test_simulate_rejects_bad_options_and_params():
@@ -361,9 +368,10 @@ def test_simulate_rejects_bad_options_and_params():
         simulate(cfg, bad, FUSED)
     with pytest.raises(TypeError, match="EngineOptions"):
         simulate(cfg, params, "fused")
-    for opts in (EngineOptions(telemetry=True), EngineOptions(shard=1)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            simulate(cfg, params, opts)
+    with pytest.raises(NotImplementedError, match="A9"):
+        simulate(cfg, params, EngineOptions(shard=1))
+    with pytest.raises(ValueError, match="cfg.telemetry=True"):
+        simulate(cfg, params, EngineOptions(telemetry=True))
 
 
 def test_sweep_backend_recorded():

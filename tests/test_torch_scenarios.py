@@ -14,7 +14,8 @@ CPU (mirroring ``tests/test_scenarios.py`` and ``tests/test_chaos.py``).
   ``examples/custom_spine_policy.py``, id 7) runs through both engines;
 * the fuzzer draws the reference's cases, and its contract holds on the
   smallest drawn case (the full smoke carries the ``fuzz`` marker);
-* what later slices port still raises: telemetry, shard, the batch server.
+* what later slices port still raises: shard; telemetry and the batch
+  server, ported since, run.
 
 The reference runs under ``jax.threefry_partitionable(False)`` (ROADMAP
 C0), set per test.
@@ -304,26 +305,26 @@ def test_fuzz_smoke_deterministic(tmp_path):
 # ------------------------------------------------------------ later slices --
 def test_features_of_later_slices_raise():
     """Files with telemetry, shard or the batch server load and
-    round-trip (above); running them raises with the slice that ports
-    them.  Without a card the default device raises too."""
+    round-trip (above); running a sharded one raises with the slice that
+    ports it (A9), while telemetry and the batch server, ported since,
+    run (``test_torch_telemetry.py`` and ``test_torch_llmserve.py`` hold
+    them to the reference).  Without a card the default device raises
+    too."""
     from repro_torch.fleetsim.shard import ShardSpec
     from repro_torch.fleetsim.telemetry import TelemetrySpec
 
     sc = tspec.Scenario(servers=4, workers=8, n_ticks=100)
     with pytest.raises(NotImplementedError, match="A9"):
-        sc.run_traced(device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tspec.Scenario(servers=4, workers=8, n_ticks=100,
-                       telemetry=TelemetrySpec(window_ticks=50)
-                       ).run_fleetsim(device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
         tspec.SweepSpec(base=sc, policies=("netclone",),
                         shard=ShardSpec()).run_fleetsim(device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tspec.load_any("llm_gemma7b").run_fleetsim(device="cpu", n_ticks=10)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcli.main(["golden_single_tor", "--trace-out", "x", "--device",
-                   "cpu"])
+    result, tel = tspec.Scenario(
+        servers=4, workers=8, n_ticks=100,
+        telemetry=TelemetrySpec(window_ticks=50)).run_traced(device="cpu")
+    assert len(tel.events) > 0 and tel.series.n_windows == 2
+    assert result.n_arrivals > 0
+    row = tspec.load_any("llm_gemma7b").run_fleetsim(device="cpu",
+                                                     n_ticks=10)
+    assert row.mean_slot_occupancy > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             sc.run_fleetsim()

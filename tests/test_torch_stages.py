@@ -248,7 +248,8 @@ def test_one_tick_stage_by_stage_with_optional_stages():
     check(ts, ref["hedge"][0])
     lanes_equal(tl, ref["hedge"][1], ("dst", "act", "clo", "payload"))
     ts, tl = tchaos.stage_link_failure(tcfg, tparams, ts, tarr, tl)
-    ts, tresp = tst.stage_server(tcfg, tparams, ts, tarr, tl)
+    ts, tresp = tst.stage_server(tcfg, tparams, ts, tarr, tl,
+                                 tst.divisors(tcfg, CPU))
     check(ts, ref["server"][0], ulp=("workers.meta",))
     lanes_equal(tresp, ref["server"][1], tresp._fields)
     ts, tresp = tchaos.stage_link_response(tcfg, tparams, ts, tarr, tresp)
@@ -256,7 +257,8 @@ def test_one_tick_stage_by_stage_with_optional_stages():
     assert np.array_equal(tdrop.numpy(), ref["filter"][1])
     check(ts, ref["filter"][0], ulp=("workers.meta",))
     ts = tst.stage_client(tcfg, tparams, ts, tarr, tresp, tdrop,
-                          tst.const_latency(tcfg, tparams))
+                          tst.const_latency(tcfg, tparams),
+                          tst.divisors(tcfg, CPU))
     check(ts, ref["client"], ulp=("workers.meta",))
 
 
