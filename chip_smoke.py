@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it: FleetSim's sweep,
-the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b), the
-NetClone serving tier, ServeSim and FleetScope telemetry.
+the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b,
+deepseek-moe-16b, deepseek-v2-lite-16b, whisper-tiny), the NetClone
+serving tier, ServeSim and FleetScope telemetry.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -44,7 +45,8 @@ Phases (each fails the run on error; nothing is caught):
    held the same way, 16 decode steps, and prefill/decode consistency (255
    + 1 tokens against 256);
 8. the serving tier at full width: ``launch/serve.py``'s defaults (4
-   replicas of 2 slots, 48 requests over 80 ticks, a 20-tick straggler)
+   replicas of 2 slots, a 20-tick straggler; 24 requests over 40 ticks,
+   cut from its 48 over 80)
    under ``netclone`` (B1 on every tick with completions, each launch
    replayed against the plain filter) and under ``baseline``;
 9. the SSD scan (kernel B4) and the RG-LRU scan (kernel B5) against their
@@ -58,7 +60,7 @@ Phases (each fails the run on error; nothing is caught):
    local-attention shape the same way, beside SDPA with the band as a mask
    and SDPA causal without the window;
 10. mamba2-370m at full width and depth (48 layers, random weights from
-    seed 0, bf16 activations): a 4 x 32,768-token prefill through B4 (48
+    seed 0, bf16 activations): a 4 x 16,384-token prefill through B4 (48
     launches, all on the chunked kernel, counted by the wrapper and the
     profiler) held to the same prefill through the plain scan, 16 decode
     steps (no B4), and prefill 128 + decode 8 against the forward over 256
@@ -92,7 +94,7 @@ Phases (each fails the run on error; nothing is caught):
     ``Metrics`` bit-identical, fused; (e) ``hedge_vs_netclone.json`` (G =
     6, cut from 40,000 to 2,000 ticks) under B2 and ``vectorized``: rows
     bit-identical, p99s printed; (f) a ``hedge_delays = [25, 75, 150]``
-    sweep (1,000 ticks); each of (c)-(e) also runs its first 192 ticks on
+    sweep (1,000 ticks); each of (c)-(e) also runs its first 128 ticks on
     the staged loop, the wrapper counting one B1 or B2 launch a tick, held
     equal to the same ticks replayed from graphs; (g) for (c) and (e): ms a
     tick fused and staged, and a profile of replays (B2 launches counted by
@@ -103,7 +105,7 @@ Phases (each fails the run on error; nothing is caught):
     and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) at their
     full 4,000 ticks on the batch server, fused, bit-identical to
     ``vectorized``, each row equal to the reference's CPU row
-    (``tools/serve_reference.json``), and each one's first 192 ticks
+    (``tools/serve_reference.json``), and each one's first 128 ticks
     staged (one B1 or B2 launch a tick, counted by the wrapper) equal to
     the same ticks replayed; then ``llm_gemma7b`` at ``batch_coupling``
     0.5 (the slots' decode speed falls with occupancy: the batch stage's
@@ -122,7 +124,29 @@ Phases (each fails the run on error; nothing is caught):
     the decoded events and series equal to the reference's (digests,
     counts by kind, the row), ``write_run``'s bundle written to a
     temporary directory, and ms a tick staged with telemetry against
-    without it.
+    without it;
+16. deepseek-moe-16b at full width and depth (28 layers, 16.4 B
+    parameters drawn from seed 0 in float32, each layer cast to bf16 as
+    drawn): a 4 x 4,096-token prefill (28 B3 launches), held to the
+    plain attention where B3 acts: each layer's attention sublayer on the
+    same input and the float32-activation prefill's logits (the whole
+    layers, the bf16 whole prefill and the float32 caches reported beside
+    the tokens a near top-k tie reroutes); 16 decode steps (dropless
+    routing), prefill 255 + decode 1 against prefill 256 (float32 held,
+    bf16 reported); B3 at the prefill's MHA shape (4, 16, 4096, 128)
+    against its plain version, timed beside its bound and SDPA;
+17. deepseek-v2-lite-16b at full width and depth (27 layers, MLA and
+    MoE): a 4 x 4,096-token prefill with no B3 launch (MLA pins the plain
+    attention), 16 absorbed decode steps and the consistency check as in
+    phase 16;
+18. whisper-tiny at full width: frames (4, 1500, 384) and a 4 x 64-token
+    prompt, prefill through B3 (12 launches: 4 encoder, 4 causal self, 4
+    cross) held to the plain-attention prefill, 16 decode steps (4 B3
+    launches each: cross-attention at Sq = 1) each held to the plain
+    path, prefill 63 + decode 1 against prefill 64, and B3 at the three
+    whisper shapes (non-causal over 1,500 frames, a 64-token and a
+    1-token query against them) against its plain version, timed beside
+    bound and SDPA.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -181,7 +205,7 @@ HEDGE_TICKS = 2_000
 HEDGE_FULL_TICKS = 40_000
 DELAY_TICKS = 1_000
 HEDGE_DELAYS = (25.0, 75.0, 150.0)
-STAGED_WINDOW = 192
+STAGED_WINDOW = 128
 # graph replays in phase 13's profiles (~1,000 kernels a tick: a profile
 # of 8 replays takes the profiler most of a minute; cut
 # from 2 to 1 for phases 14-15)
@@ -255,6 +279,17 @@ QWEN_FA = (PREFILL_B, 16, 2, PREFILL_S, 128, True, None, "bfloat16")
 # reference's max |value| (36 layers round to bf16 at different points)
 MODEL_RTOL = 5e-2
 
+# phases 16-18: B3 at deepseek-moe-16b's MHA prefill and at whisper-tiny's
+# encoder self-attention (non-causal over 1,500 frames) and cross-attention
+# of a 64-token prompt and of one decode token against the frames (a
+# case's ninth entry is Skv)
+MOE_FA = (PREFILL_B, 16, 16, PREFILL_S, 128, True, None, "bfloat16")
+WHISPER_PROMPT = 64
+WHISPER_FA = (
+    (PREFILL_B, 6, 6, 1500, 64, False, None, "bfloat16"),
+    (PREFILL_B, 6, 6, WHISPER_PROMPT, 64, False, None, "bfloat16", 1500),
+    (PREFILL_B, 6, 6, 1, 64, False, None, "bfloat16", 1500))
+
 # phase 9: the reference's scan test shapes (tests/test_kernels.py:118-188)
 # with h0, in float32 at its tolerances, then the full-width shapes in bf16
 SSD_CASES = ((1, 256, 2, 64, 64, 64), (2, 128, 1, 32, 128, 128),
@@ -272,6 +307,9 @@ SSD_TOL, LRU_TOL = 2e-3, 1e-4
 # (B, S, D)) at phases 10-11's token counts
 MAMBA_B, MAMBA_S, MAMBA_DECODE = 4, 32768, 16
 SSD_FULL = (MAMBA_B, MAMBA_S, 32, 64, 128)
+# phase 10's prefill, cut from 4 x 32,768 to 4 x 16,384 tokens to pay
+# for phases 16-18 (phase 9 still times B4 at 32,768)
+MAMBA_PREFILL_S = 16384
 LRU_FULL = (PREFILL_B, PREFILL_S, 4096)
 GRIFFIN_FA = (PREFILL_B, 16, 1, PREFILL_S, 256, True, 2048, "bfloat16")
 # bf16 scans: kernel and plain version compute in float32 from the same
@@ -670,36 +708,45 @@ def only(kernels, **want) -> dict:
 DEV = "cuda"   # where phases 6-8 put every tensor and run every entry point
 
 
+def seq_lens(case) -> tuple[int, int]:
+    """(Sq, Skv) of a B3 case ``(b, h, hkv, sq, d, causal, window, dtype[,
+    skv])``: the optional ninth entry is Skv, else Skv = Sq."""
+    return case[3], case[8] if len(case) > 8 else case[3]
+
+
 def qkv_on_card(torch, case, seed, transposed=False):
     """q, k, v of ``case`` on the card from ``seed``; ``transposed``: as
     the model passes them, (B, S, H, D) tensors transposed to (B, H, S,
     D)."""
-    b, h, hkv, s, d, _, _, dtype = case
+    b, h, hkv, _, d, _, _, dtype = case[:8]
+    sq, skv = seq_lens(case)
     g = torch.Generator(device=DEV).manual_seed(seed)
     dt = getattr(torch, dtype)
     if transposed:
         return [torch.randn(shape, generator=g, device=DEV).to(dt)
-                .transpose(1, 2)
-                for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))]
+                .transpose(1, 2) for shape in
+                ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d))]
     return [torch.randn(shape, generator=g, device=DEV).to(dt)
-            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+            for shape in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
 
 
 def attention_bound(case) -> tuple[float, str, int, int]:
     """(bound ms, what bounds it, FLOPs, bytes) of one call: q·kᵀ and P·V
-    over the pairs the mask keeps (causal: S(S+1)/2 per head; causal with a
-    window w: min(i, w) + 1 for row i), each input read once and the
-    output written once."""
-    b, h, hkv, s, d, causal, window, dtype = case
+    over the pairs the mask keeps (non-causal: Sq·Skv per head; causal:
+    S(S+1)/2; causal with a window w: min(i, w) + 1 for row i), each input
+    read once and the output written once."""
+    b, h, hkv, _, d, causal, window, dtype = case[:8]
+    sq, skv = seq_lens(case)
+    s = sq
     if not causal:
-        pairs = s * s
+        pairs = sq * skv
     elif window is None:
         pairs = s * (s + 1) // 2
     else:
         pairs = sum(min(i, window) + 1 for i in range(s))
     flops = 4 * b * h * d * pairs
     size = 2 if dtype == "bfloat16" else 4
-    nbytes = size * d * s * (2 * b * h + 2 * b * hkv)
+    nbytes = size * d * (2 * b * h * sq + 2 * b * hkv * skv)
     ops_ms = flops / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
@@ -764,9 +811,7 @@ def run_model(torch, lm, kernels, get_config):
     weights (phase 8 serves them) and B3's launches per prefill."""
     cfg = get_config("qwen2.5-3b")
     t0 = time.perf_counter()
-    master = lm.init_params(cfg, 0, device=DEV)
-    params = lm.cast_params(cfg, master)
-    del master
+    params = lm.init_params(cfg, 0, device=DEV, cast=True)
     torch.cuda.synchronize()
     log(f"phase 7: {cfg.name}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_params():,} parameters, random init "
@@ -849,7 +894,13 @@ def run_model(torch, lm, kernels, get_config):
     return cfg, params, counts["flash_attention"]
 
 
-def serve_workload(cfg, n_requests=48, horizon=80, seed=0):
+# phase 8: launch/serve.py's 48 requests over 80 ticks, cut to 24 over 40
+# to pay for phases 16-18
+SERVE_REQUESTS, SERVE_HORIZON = 24, 40
+
+
+def serve_workload(cfg, n_requests=SERVE_REQUESTS, horizon=SERVE_HORIZON,
+                   seed=0):
     """``launch/serve.py``'s workload: 4-token prompts at sorted uniform
     ticks of the arrival window."""
     rng = np.random.default_rng(seed)
@@ -889,7 +940,7 @@ def run_serving(torch, cfg, params, kernels, ref):
         t0 = time.perf_counter()
         try:
             stats = srv.run(serve_workload(cfg), max_new_tokens=4,
-                            max_ticks=80 * 50)
+                            max_ticks=SERVE_HORIZON * 50)
         finally:
             server_mod.fingerprint_filter = real
         torch.cuda.synchronize()
@@ -897,16 +948,18 @@ def run_serving(torch, cfg, params, kernels, ref):
         counts = {n: fn.launches for n, fn in kernels.items()}
         ticks = max(done_per_tick) + 1
         busy = sum(1 for v in done_per_tick.values() if v)
-        if not (stats.n_completed == 48 == len(stats.latencies_ticks)
+        if not (stats.n_completed == SERVE_REQUESTS
+                == len(stats.latencies_ticks)
                 == len(srv._done)):
             raise AssertionError(f"phase 8: {policy} completed "
-                                 f"{stats.n_completed} of 48")
+                                 f"{stats.n_completed} of {SERVE_REQUESTS}")
         want_b1 = busy if policy == "netclone" else 0
         if counts != {n: want_b1 if n == "fingerprint_filter" else 0
                       for n in kernels}:
             raise AssertionError(f"phase 8: {policy} launches {counts}, "
                                  f"expected {want_b1} of B1")
-        log(f"phase 8: {policy}: 48/48 completed in {ticks} ticks, "
+        log(f"phase 8: {policy}: {SERVE_REQUESTS}/{SERVE_REQUESTS} "
+            f"completed in {ticks} ticks, "
             f"{wall:.1f} s, {ticks / wall:.2f} ticks/s; latency p50 "
             f"{stats.p(50):.0f} p99 {stats.p(99):.0f} ticks; cloned "
             f"{stats.n_cloned} filtered {stats.n_filtered} clone drops "
@@ -1140,16 +1193,6 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
     return rows
 
 
-def cast_in_place(lm, cfg, params) -> None:
-    """Swap ``params``' float32 leaves for ``cast_params``' copies one layer
-    at a time, so the float32 tree and its copy never sit on the card
-    together."""
-    params["embed"] = lm.cast_params(cfg, params["embed"])
-    for i, block in enumerate(params["blocks"]):
-        params["blocks"][i] = lm.cast_params(cfg, block)
-        del block
-
-
 def states_rel(got, want) -> float:
     """worst_rel over every tensor field of two lists of caches."""
     return max(worst_rel(a, b) for c, c_p in zip(got, want)
@@ -1169,10 +1212,11 @@ def profile_prefill(torch, lm, cfg, params, tokens, s_max, label):
     return prof
 
 
-def decode_steps(torch, lm, cfg, params, caches, nxt, start, steps, label):
+def decode_steps(torch, lm, cfg, params, caches, nxt, start, steps, label,
+                 profiled: int = 4):
     """``steps`` greedy decode steps from position ``start``; returns the
     caches and ms per step (host clock, steps after the first), and logs
-    the device's share of a profiled step."""
+    the device's share of a profile of ``profiled`` steps."""
     step_s = []
     b = nxt.shape[0]
     for i in range(steps):
@@ -1189,9 +1233,9 @@ def decode_steps(torch, lm, cfg, params, caches, nxt, start, steps, label):
     pos = torch.full((b,), start, dtype=torch.int32, device=DEV)
     prof = device_kernels(torch, lambda: [
         lm.decode_step(cfg, params, nxt, pos, caches, device=DEV)
-        for _ in range(4)])
-    busy_ms = sum(us for _, us in prof.values()) / 1e3 / 4
-    n_launch = sum(n for n, _ in prof.values()) / 4
+        for _ in range(profiled)])
+    busy_ms = sum(us for _, us in prof.values()) / 1e3 / profiled
+    n_launch = sum(n for n, _ in prof.values()) / profiled
     idle = (f"device idle {100 * (1 - busy_ms / step_ms):.1f}%" if prof
             else "device idle not measured (the profiler recorded no "
             "device event)")
@@ -1200,14 +1244,14 @@ def decode_steps(torch, lm, cfg, params, caches, nxt, start, steps, label):
         f"launches and {busy_ms:.3f} ms device busy per step (profiler): "
         f"{idle}")
     for key, (n, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:5]:
-        log(f"{label}:   {us / 1e3 / 4:.4f} ms/step {n / 4:.0f} "
-            f"launches/step  {key[:90]}")
+        log(f"{label}:   {us / 1e3 / profiled:.4f} ms/step "
+            f"{n / profiled:.0f} launches/step  {key[:90]}")
     return caches
 
 
 def run_recurrent(torch, lm, kernels, get_config, arch, batch, seq, label):
     """Phases 10-11: ``arch`` at full width and depth, random weights from
-    seed 0 in float32 held as ``cast_params``' copy, bf16 activations: a
+    seed 0 in float32, each layer cast as drawn, bf16 activations: a
     ``batch`` x ``seq`` prefill through the kernels (launches counted by
     the wrappers and by the profiler) held to the plain-kernel prefill,
     decode steps (no scan kernel launched), and the consistency check.
@@ -1215,8 +1259,7 @@ def run_recurrent(torch, lm, kernels, get_config, arch, batch, seq, label):
     cfg = get_config(arch)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    params = lm.init_params(cfg, 0, device=DEV)
-    cast_in_place(lm, cfg, params)
+    params = lm.init_params(cfg, 0, device=DEV, cast=True)
     torch.cuda.synchronize()
     log(f"{label}: {cfg.name}: {cfg.n_layers} layers "
         f"({dict(collections.Counter(cfg.layer_kinds))}), d_model "
@@ -1361,10 +1404,10 @@ def compare_layers(torch, lm, cfg, params, tokens) -> tuple[float, float]:
     x = embed_tokens(cfg, params["embed"], tokens)
     worst_y = worst_c = 0.0
     for spec, p in zip(lm.layer_specs(cfg), params["blocks"]):
-        out_k, c_k = lm._apply_layer(cfg, spec, p, x, positions, None,
-                                     "prefill", None)
-        out_p, c_p = lm._apply_layer(plain, spec, p, x, positions, None,
-                                     "prefill", None)
+        out_k, c_k, _ = lm._apply_layer(cfg, spec, p, x, positions, None,
+                                        "prefill", None)
+        out_p, c_p, _ = lm._apply_layer(plain, spec, p, x, positions, None,
+                                        "prefill", None)
         worst_y = max(worst_y, worst_rel(out_k, out_p))
         worst_c = max(worst_c, states_rel([c_k], [c_p]))
         x = out_k
@@ -2122,6 +2165,299 @@ def run_telemetry(torch, tf, kernels, ops) -> dict:
     return counts
 
 
+# ----------------------------------------------------------- phases 16-18 --
+def check_attention_case(torch, ref, ops, case, label, seed):
+    """B3 against its plain version at ``case`` (contiguous and as the
+    model's transposed views), then timed beside its bound, its plain
+    version and SDPA; returns the row."""
+    import torch.nn.functional as F
+
+    causal, window, dtype = case[5:8]
+    err = 0.0
+    for transposed in (False, True):
+        q, k, v = qkv_on_card(torch, case, seed, transposed=transposed)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        d = (got.float() - want.float()).abs().max().item()
+        if not d <= FA_TOL[dtype]:
+            raise AssertionError(f"{label}: B3 differs from its plain "
+                                 f"version by {d} at {case}"
+                                 f"{' (transposed views)' if transposed else ''}")
+        err = max(err, d)
+        del got, want
+    q, k, v = qkv_on_card(torch, case, seed)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 20)
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), 3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), 20)
+    bound, by, flops, nbytes = attention_bound(case)
+    sq, skv = seq_lens(case)
+    log(f"{label}: B3 vs plain at q {tuple(q.shape)} k/v {tuple(k.shape)} "
+        f"{dtype} {'causal' if causal else 'non-causal'} (Sq {sq}, Skv "
+        f"{skv}; contiguous and transposed views): max |diff| {err:.3g} "
+        f"(tolerance {FA_TOL[dtype]}); {ms:.4f} ms per call (CUDA events "
+        f"over 20 calls), bound {bound:.5f} ms ({by}: {flops:.4g} FLOP, "
+        f"{nbytes} B) = {100 * bound / ms:.2f}% of it; plain "
+        f"{plain_ms:.4f} ms; SDPA {library_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, library_ms=library_ms)
+
+
+def build_cast(torch, lm, family, cfg, label):
+    """``cfg``'s weights, random from seed 0 in float32, each layer cast
+    to bf16 as it is drawn (``init_params(cast=True)``), after freeing the
+    cache; logs the peak device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg.arch_type == "encdec":
+        params = lm.cast_params(cfg, family.init_params(cfg, 0, device=DEV))
+    else:
+        params = lm.init_params(cfg, 0, device=DEV, cast=True)
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_params():,} parameters, random init (seed "
+        f"0) in {cfg.param_dtype}, each layer cast to {cfg.dtype} as drawn "
+        f"({time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, held "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+    return params
+
+
+def compare_moe_layers(torch, lm, cfg, params, tokens):
+    """Each layer of a MoE model's prefill on the same input (the kernel
+    path's), through B3 and through the plain attention.  Returns the
+    worst relative difference of the attention sublayer's output (the
+    residual after attention: what B3 changes), of the whole layer's
+    output, the tokens whose expert set differs between the two (summed
+    over layers) and the widest top-k margin (k-th minus (k+1)-th router
+    probability, kernel side) among them."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ffn
+    from repro_torch.models.common import apply_norm, embed_tokens
+
+    plain = cfg.replace(attn_impl="xla")
+    b, s = tokens.shape
+    k = cfg.moe.top_k
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=DEV)[None].expand(b, s)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    worst_a = worst_y = widest = 0.0
+    moved = 0
+    for spec, p in zip(lm.layer_specs(cfg), params["blocks"]):
+        h = apply_norm(cfg, p["pre_norm"], x)
+        a_k, a_p = (x + attn_mod.attention_forward(c, p["attn"], h,
+                                                   positions)[0]
+                    for c in (cfg, plain))
+        worst_a = max(worst_a, worst_rel(a_k, a_p))
+        if spec[1] == "moe":
+            _, probs, _, ids_k, _ = ffn.route(
+                cfg, p["moe"], apply_norm(cfg, p["post_norm"], a_k), True)
+            ids_p = ffn.route(
+                cfg, p["moe"], apply_norm(cfg, p["post_norm"], a_p), True)[3]
+            differ = (ids_k.sort(-1).values
+                      != ids_p.sort(-1).values).any(-1)
+            moved += int(differ.sum())
+            if differ.any():
+                top = torch.sort(probs[differ], -1, descending=True).values
+                widest = max(widest, (top[:, k - 1] - top[:, k]).max().item())
+        out_k, out_p = (lm._apply_layer(c, spec, p, x, positions, None,
+                                        "prefill", None)[0]
+                        for c in (cfg, plain))
+        worst_y = max(worst_y, worst_rel(out_k, out_p))
+        x = out_k
+    return worst_a, worst_y, moved, widest
+
+
+def run_deepseek(torch, lm, kernels, get_config, arch, batch, label):
+    """Phases 16-17: ``arch`` at full width and depth, bf16 activations:
+    a ``batch`` x 4,096-token prefill (B3 launches counted: one a layer
+    for MHA, none for MLA, which pins the plain attention), 16 decode
+    steps (dropless routing, one token a group) and the consistency check
+    (held in float32 activations, reported in bf16, as phase 11's).
+
+    Where B3 ran, the prefill is held to the plain-attention prefill at
+    what B3 changes: each layer's attention sublayer on the same input,
+    and the float32-activation prefill's logits.  A MoE layer routes each
+    token to its top k experts, a step function of the router logits: a
+    token within rounding of a top-k tie can take another expert when the
+    attention before it rounds differently, and carries another state
+    from there on.  So the whole layers, the bf16 whole prefill and the
+    float32 caches are reported beside the rerouted tokens and their
+    widest top-k margin, not held."""
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    params = build_cast(torch, lm, None, cfg, label)
+    n_fa = sum(k == "attn" for k in cfg.layer_kinds)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, PREFILL_S),
+                           generator=g, device=DEV)
+    s_max = PREFILL_S + DECODE_STEPS
+    lm.prefill(cfg, params, tokens[:, :256], s_max=256, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, tokens, s_max=s_max,
+                                device=DEV)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    if counts != only(kernels, flash_attention=n_fa):
+        raise AssertionError(f"{label}: prefill launches {counts}, "
+                             f"expected {n_fa} of B3")
+    log(f"{label}: prefill {batch} x {PREFILL_S} tokens: "
+        f"{prefill_s * 1e3:.1f} ms, {batch * PREFILL_S / prefill_s:,.0f} "
+        f"tokens/s, B3 launches {counts['flash_attention']}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: non-finite prefill logits")
+    if n_fa:
+        r_a, r_y, moved, widest = compare_moe_layers(torch, lm, cfg, params,
+                                                     tokens)
+        n_moe = sum(f == "moe" for _, f in lm.layer_specs(cfg))
+        log(f"{label}: B3 vs plain layer by layer on the same input ("
+            f"{batch} x {PREFILL_S}, bf16): worst attention sublayer "
+            f"{r_a:.3g} (tolerance {MODEL_RTOL}); worst whole layer "
+            f"{r_y:.3g} (reported); {moved} of {batch * PREFILL_S * n_moe} "
+            f"token-layer routings took another expert set, each within "
+            f"{widest:.3g} of a top-{cfg.moe.top_k} tie")
+        cfg32 = cfg.replace(dtype="float32")
+        lg_k, c_k = lm.prefill(cfg32, params, tokens[:1], device=DEV)
+        lg_p, c_p = lm.prefill(cfg32.replace(attn_impl="xla"), params,
+                               tokens[:1], device=DEV)
+        r32 = (worst_rel(lg_k, lg_p), states_rel(c_k, c_p))
+        log(f"{label}: B3 vs plain prefill in float32 activations (1 x "
+            f"{PREFILL_S}): logits {r32[0]:.3g} (tolerance {MODEL_RTOL}), "
+            f"caches {r32[1]:.3g} (reported)")
+        del lg_k, c_k, lg_p, c_p
+        logits_p, caches_p = lm.prefill(cfg.replace(attn_impl="xla"),
+                                        params, tokens, s_max=s_max,
+                                        device=DEV)
+        agree = (logits.argmax(-1) == logits_p.argmax(-1)).float().mean()
+        log(f"{label}: B3 vs plain whole prefill in bf16 (reported): "
+            f"logits {worst_rel(logits, logits_p):.3g}, KV caches "
+            f"{states_rel(caches, caches_p):.3g}, argmax agreement "
+            f"{agree.item():.2f}")
+        del logits_p, caches_p
+        if not (r_a <= MODEL_RTOL and r32[0] <= MODEL_RTOL):
+            raise AssertionError(f"{label}: B3 prefill differs from the "
+                                 "plain prefill")
+    reset(kernels)
+    caches = decode_steps(torch, lm, cfg, params, caches,
+                          logits[:, -1].argmax(-1)[:, None], PREFILL_S,
+                          DECODE_STEPS, label, profiled=1)
+    if {n: fn.launches for n, fn in kernels.items()} != only(kernels):
+        raise AssertionError(f"{label}: decode launched a kernel")
+    del caches, logits
+    for c_cfg in (cfg.replace(dtype="float32"), cfg):
+        r, what = consistency(torch, lm, c_cfg, params, tokens[:1, :256])
+        held = c_cfg.dtype == "float32"
+        log(f"{label}: {what} in {c_cfg.dtype}: logits max |diff| / max "
+            f"|logit| {r:.3g}" + (f" (tolerance {MODEL_RTOL})" if held
+                                  else " (reported, not held)"))
+        if held and not r <= MODEL_RTOL:
+            raise AssertionError(f"{label}: decode disagrees with prefill")
+    del params
+    torch.cuda.empty_cache()
+    log(f"{label}: {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"]
+
+
+def run_whisper(torch, lm, kernels, get_config):
+    """Phase 18: whisper-tiny at full width: a prefill of frames (4, 1500,
+    384) and a 4 x 64-token prompt (12 B3 launches: 4 encoder, 4 causal
+    self, 4 cross) held to the plain-attention prefill, 16 decode steps
+    (4 B3 launches each: cross-attention at Sq = 1), each step's logits
+    held to the plain path's, and prefill 63 + decode 1 against prefill
+    64."""
+    from repro_torch.models import whisper
+
+    cfg = get_config("whisper-tiny")
+    plain = cfg.replace(attn_impl="xla")
+    params = build_cast(torch, lm, whisper, cfg, "phase 18")
+    g = torch.Generator(device=DEV).manual_seed(1)
+    frames = torch.randn((PREFILL_B, cfg.encoder.n_frames, cfg.d_model),
+                         generator=g, device=DEV)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PREFILL_B, WHISPER_PROMPT + DECODE_STEPS),
+                           generator=g, device=DEV)
+    prompt = tokens[:, :WHISPER_PROMPT]
+    s_max = WHISPER_PROMPT + DECODE_STEPS
+    whisper.prefill(cfg, params, frames, prompt, s_max, device=DEV)
+    torch.cuda.synchronize()
+    reset(kernels)
+    t0 = time.perf_counter()
+    logits, cache = whisper.prefill(cfg, params, frames, prompt, s_max,
+                                    device=DEV)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    n_fa = cfg.encoder.n_layers + 2 * cfg.n_layers
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    if counts != only(kernels, flash_attention=n_fa):
+        raise AssertionError(f"phase 18: prefill launches {counts}, "
+                             f"expected {n_fa} of B3")
+    logits_p, cache_p = whisper.prefill(plain, params, frames, prompt,
+                                        s_max, device=DEV)
+    r = (worst_rel(logits, logits_p),
+         states_rel(cache.self_kv, cache_p.self_kv),
+         max(worst_rel(a, b) for a, b in zip(cache.cross_k + cache.cross_v,
+                                             cache_p.cross_k
+                                             + cache_p.cross_v)))
+    log(f"phase 18: prefill of frames {tuple(frames.shape)} and a "
+        f"{PREFILL_B} x {WHISPER_PROMPT}-token prompt: "
+        f"{prefill_s * 1e3:.1f} ms, B3 launches {counts['flash_attention']}"
+        f"; vs the plain-attention prefill: logits {r[0]:.3g}, self KV "
+        f"{r[1]:.3g}, cross K/V {r[2]:.3g} (tolerance {MODEL_RTOL})")
+    if not (max(r) <= MODEL_RTOL and torch.isfinite(logits).all()):
+        raise AssertionError("phase 18: B3 prefill differs from the plain "
+                             "prefill")
+    reset(kernels)
+    worst, step_s = 0.0, []
+    for i in range(DECODE_STEPS):
+        tok = tokens[:, WHISPER_PROMPT + i:WHISPER_PROMPT + i + 1]
+        pos = torch.full((PREFILL_B,), WHISPER_PROMPT + i,
+                         dtype=torch.int32, device=DEV)
+        t0 = time.perf_counter()
+        logits, cache = whisper.decode_step(cfg, params, tok, pos, cache,
+                                            device=DEV)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches = kernels["flash_attention"].launches
+        logits_p, cache_p = whisper.decode_step(plain, params, tok, pos,
+                                                cache_p, device=DEV)
+        worst = max(worst, worst_rel(logits, logits_p))
+        if launches != cfg.n_layers * (i + 1):
+            raise AssertionError(f"phase 18: {launches} B3 launches after "
+                                 f"{i + 1} decode steps")
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    if counts != only(kernels, flash_attention=cfg.n_layers * DECODE_STEPS):
+        raise AssertionError(f"phase 18: decode launches {counts}")
+    log(f"phase 18: {DECODE_STEPS} decode steps (teacher-forced, batch "
+        f"{PREFILL_B}): {1e3 * sum(step_s[1:]) / (len(step_s) - 1):.2f} ms "
+        f"per step (host clock, steps 2-{DECODE_STEPS}), B3 launches "
+        f"{counts['flash_attention']} ({cfg.n_layers} a step, Sq = 1 "
+        f"against {cfg.encoder.n_frames} frames); logits vs the plain path "
+        f"worst {worst:.3g} (tolerance {MODEL_RTOL})")
+    if not worst <= MODEL_RTOL:
+        raise AssertionError("phase 18: B3 decode differs from the plain "
+                             "decode")
+    n = WHISPER_PROMPT
+    _, c = whisper.prefill(cfg, params, frames[:1], prompt[:1, :n - 1], n,
+                           device=DEV)
+    lg, _ = whisper.decode_step(cfg, params, prompt[:1, n - 1:], torch.full(
+        (1,), n - 1, dtype=torch.int32, device=DEV), c, device=DEV)
+    full, _ = whisper.prefill(cfg, params, frames[:1], prompt[:1], n,
+                              device=DEV)
+    r = worst_rel(lg, full)
+    log(f"phase 18: prefill {n - 1} + decode 1 vs prefill {n}: logits max "
+        f"|diff| / max |logit| {r:.3g} (tolerance {MODEL_RTOL})")
+    if not r <= MODEL_RTOL:
+        raise AssertionError("phase 18: decode disagrees with prefill")
+    return n_fa
+
+
 def main() -> int:
     import torch
 
@@ -2359,7 +2695,7 @@ def main() -> int:
 
     # -- phase 10: mamba2-370m prefill + decode at full width ---------------
     ssd_launches = run_recurrent(torch, lm, kernels, get_config,
-                                 "mamba2-370m", MAMBA_B, MAMBA_S,
+                                 "mamba2-370m", MAMBA_B, MAMBA_PREFILL_S,
                                  "phase 10")
     torch.cuda.empty_cache()
 
@@ -2392,6 +2728,23 @@ def main() -> int:
     # -- phase 15: FleetScope telemetry ---------------------------------------
     run_telemetry(torch, tf, kernels, ops)
     log(f"phase 15 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 16: deepseek-moe-16b (the MoE FFN, B3 on MHA) ----------------
+    run_deepseek(torch, lm, kernels, get_config, "deepseek-moe-16b",
+                 PREFILL_B, "phase 16")
+    check_attention_case(torch, ref, ops, MOE_FA, "phase 16", seed=160)
+    log(f"phase 16 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 17: deepseek-v2-lite-16b (MLA and MoE, no B3) ---------------
+    run_deepseek(torch, lm, kernels, get_config, "deepseek-v2-lite-16b",
+                 PREFILL_B, "phase 17")
+    log(f"phase 17 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 18: whisper-tiny (B3 non-causal, cross, Sq = 1) --------------
+    run_whisper(torch, lm, kernels, get_config)
+    for i, case in enumerate(WHISPER_FA):
+        check_attention_case(torch, ref, ops, case, "phase 18", seed=180 + i)
+    log(f"phase 18 ended at {time.perf_counter() - t_start:.1f} s")
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -82,9 +82,8 @@ def n_params_active(cfg: ModelConfig) -> tuple[float, float]:
     charged separately by ce/logits).  The shapes come from the port's
     ``init_params`` on the ``meta`` device; the reference's path filters
     apply (``embed`` and ``_pos`` leaves are not active, ``moe/`` experts
-    count ``top_k / n_experts``).  An arch the port cannot build yet (MoE,
-    MLA, the encoder-decoder) raises ``NotImplementedError`` naming its
-    ROADMAP item (A11)."""
+    count ``top_k / n_experts``).  Whisper's tree is its family's
+    (``whisper.init_params``), as in the reference."""
     from repro_torch.models import family_of
 
     params = family_of(cfg).init_params(cfg, 0, device="meta")

@@ -1,11 +1,9 @@
 """Architecture registry, port of ``repro.configs``: ``--arch <id>`` →
 :class:`~repro_torch.models.ModelConfig`.
 
-The config modules are the reference's pure dataclasses, copied.  Every
-arch resolves; building a model whose layers the port lacks yet raises
-``NotImplementedError`` naming its ROADMAP item (``repro_torch.models.lm.
-check_supported``).  ``netclone_cluster`` (the DES testbed's cluster
-constants) is not a model config and is not in the registry.
+The config modules are the reference's pure dataclasses, copied; the port
+builds and runs every arch.  ``netclone_cluster`` (the DES testbed's
+cluster constants) is not a model config and is not in the registry.
 """
 
 from __future__ import annotations

@@ -158,7 +158,8 @@ def _intrinsic(cfg: FleetConfig, u):
         xm, alpha, cap = p
         u = torch.clamp(u, max=_f32(1.0 - 1e-7))
         r = (xm / cap) ** alpha
-        return xm / jr.pow_f32(1.0 - u * (1.0 - r), _f32(1.0 / alpha))
+        return jr.over(xm, jr.pow_f32(1.0 - u * (1.0 - r),
+                                      _f32(1.0 / alpha)))
     if cfg.service.kind == SERVICE_LLM:
         # prefill + generated-length × per-token decode; the bimodal
         # generation length is intrinsic (shared by both clone copies)

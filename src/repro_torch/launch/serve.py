@@ -39,7 +39,8 @@ def main(argv=None, device=None) -> None:
     dev = resolve_device(device)
     cfg = get_config(args.arch, smoke=True)
     if cfg.arch_type == "encdec":
-        raise SystemExit("serve driver targets decoder-only archs")
+        raise SystemExit("serve driver targets decoder-only archs "
+                         "(whisper decode serving runs via tests/examples)")
     fam = family_of(cfg)
     params = fam.init_params(cfg, args.seed, device=dev)
     replicas = [DecodeReplica(cfg, params, sid=i, n_slots=args.slots,

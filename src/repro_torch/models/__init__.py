@@ -1,7 +1,6 @@
-"""Model stack, port of ``repro.models``: the unified config, the dense
-decoder (GQA/MQA attention, gated or plain MLP) and the recurrent mixers
-(mamba2, RG-LRU).  MLA, MoE and whisper's encoder-decoder are still to be
-ported (ROADMAP A11)."""
+"""Model stack, port of ``repro.models``: the unified config, the decoder
+(GQA/MQA attention and MLA, gated or plain MLP and the MoE FFN), the
+recurrent mixers (mamba2, RG-LRU) and whisper's encoder-decoder."""
 
 from repro_torch.models.common import (
     EncoderConfig,
@@ -11,6 +10,7 @@ from repro_torch.models.common import (
     RGLRUConfig,
     SSMConfig,
 )
+from repro_torch.models import whisper
 from repro_torch.models.registry import Family, family_of
 
 __all__ = [
@@ -22,4 +22,5 @@ __all__ = [
     "EncoderConfig",
     "Family",
     "family_of",
+    "whisper",
 ]

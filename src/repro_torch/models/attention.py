@@ -1,5 +1,5 @@
 """Attention mixers, port of ``repro.models.attention``: MHA/GQA/MQA, global
-and sliding-window.  MLA waits for its slice (ROADMAP A11).
+and sliding-window, and DeepSeek-V2's multi-head latent attention (MLA).
 
 Two execution modes, as in the reference:
 
@@ -12,7 +12,11 @@ Two execution modes, as in the reference:
 The reference's ``sharding_ctx`` calls are no-ops off a mesh and are
 dropped.  Unlike the reference, whose jitted decode donates its cache,
 :func:`attention_decode` writes the new token into the cache **in place**
-and returns it.
+and returns it; so does :func:`mla_decode`.
+
+MLA caches the compressed latent (``kv_lora_rank`` plus the rope dims, 512 +
+64 at deepseek-v2-lite's width) instead of expanded K/V, and decodes with
+the absorbed-matmul form against it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
+    MLAConfig,
     ModelConfig,
     apply_rope,
     dense_init,
@@ -32,8 +37,8 @@ from repro_torch.models.common import (
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, S_max, Hkv, D)
-    v: torch.Tensor  # (B, S_max, Hkv, D)
+    k: torch.Tensor  # (B, S_max, Hkv, D)   [MLA: (B, S_max, R) latent]
+    v: torch.Tensor  # (B, S_max, Hkv, D)   [MLA: (B, S_max, dr) rope key]
     # int8-quantised caches (kv_cache_dtype="int8") carry per-(token, head)
     # absmax scales; None for full-precision caches
     k_scale: torch.Tensor | None = None  # (B, S_max, Hkv) f32
@@ -198,3 +203,111 @@ def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
                        v_scale=torch.zeros(shape[:3], **f32))
     act = dict(dtype=cfg.activation_dtype, device=device)
     return KVCache(k=torch.zeros(shape, **act), v=torch.zeros(shape, **act))
+
+
+# ================================================================ MLA ======
+def init_mla(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    w = cfg.weight_dtype
+    qdim = m.qk_nope_dim + m.qk_rope_dim
+    r = m.kv_lora_rank
+    return {
+        "wq": dense_init(gen, (d, h, qdim), d, w, device),
+        "w_dkv": dense_init(gen, (d, r), d, w, device),
+        "w_kr": dense_init(gen, (d, m.qk_rope_dim), d, w, device),
+        "w_uk": dense_init(gen, (r, h, m.qk_nope_dim), r, w, device),
+        "w_uv": dense_init(gen, (r, h, m.v_head_dim), r, w, device),
+        "wo": dense_init(gen, (h, m.v_head_dim, d), h * m.v_head_dim, w,
+                         device),
+        "kv_norm": torch.zeros((r,), dtype=w, device=device),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
+           positions: torch.Tensor):
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor):
+    """The cached latent ``c_kv`` (B, S, R), zero-centred-RMS-normed, and
+    the shared rope key (B, S, dr)."""
+    m = cfg.mla
+    c_kv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype))
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["w_kr"].to(x.dtype))
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+
+def mla_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor, *, make_cache: bool = False
+                ) -> tuple[torch.Tensor, KVCache | None]:
+    """Train / prefill: the latent expanded to per-head K/V.  The attention
+    is the plain :func:`~repro_torch.kernels.ref.attention_ref`
+    (``impl="xla"``) because the reference pins it so: q/k heads of 192
+    dims and v heads of 128 are no shape its flash kernel takes, so MLA
+    never reaches kernel B3 in either package."""
+    m = cfg.mla
+    dt = x.dtype
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"].to(dt))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], m.qk_rope_dim)], dim=-1)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=True, sm_scale=scale,
+                      impl="xla").transpose(1, 2)
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dt))
+    return y, (KVCache(k=c_kv, v=k_rope) if make_cache else None)
+
+
+def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
+               cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """Absorbed decode: x (B, 1, D) scores against the latent cache directly
+    (``W_uk`` folded into the query, ``W_uv`` applied after the weighted
+    sum).  Writes the new latent and rope key at ``pos`` in place (clamped
+    into the cache, as ``dynamic_update_slice`` clamps); the two score
+    products and the latent sum accumulate in float32 from the
+    activation-dtype values, as the reference's do."""
+    m = cfg.mla
+    dt = x.dtype
+    b = x.shape[0]
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])
+    c_new, kr_new = _mla_latent(cfg, p, x, pos[:, None])
+    s_max = cache.k.shape[1]
+    slot = pos.long().clamp(0, s_max - 1)
+    rows = torch.arange(b, device=x.device)
+    cache.k[rows, slot] = c_new[:, 0].to(cache.k.dtype)
+    cache.v[rows, slot] = kr_new[:, 0].to(cache.v.dtype)
+    c_kv, k_rope = cache.k, cache.v
+    q_eff = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(dt))
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    s = (torch.einsum("bshr,btr->bhst", q_eff.float(), c_kv.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                        k_rope.float())) * scale
+    t = torch.arange(s_max, device=x.device)[None, None, None, :]
+    s = torch.where(t <= pos.long()[:, None, None, None], s, -1e30)
+    pr = torch.softmax(s, dim=-1).to(dt)
+    o_lat = torch.einsum("bhst,btr->bshr", pr.float(), c_kv.float())
+    o = torch.einsum("bshr,rhk->bshk", o_lat.to(dt), p["w_uv"].to(dt))
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dt))
+    return y, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, s_max: int,
+                   device) -> KVCache:
+    """The latent cache; ``kv_cache_dtype`` does not apply to MLA (the
+    reference ignores it too)."""
+    m = cfg.mla
+    act = dict(dtype=cfg.activation_dtype, device=device)
+    return KVCache(k=torch.zeros((batch, s_max, m.kv_lora_rank), **act),
+                   v=torch.zeros((batch, s_max, m.qk_rope_dim), **act))

@@ -4,9 +4,13 @@ pytree layout and the port's.
 The reference stacks the layers of each scan group along a leading period
 axis (``blocks/stack/p{j}/...``, plus unstacked ``pro_{i}`` and
 ``epi_{i}``; :func:`repro_torch.models.lm.scan_groups`); the port keeps one
-entry per layer.  Leaf names are the same on both sides, and so are the
-caches' fields: ``KVCache`` for attention layers, ``SSMState`` for mamba2
-and ``LRUState`` for RG-LRU layers.  The reference's
+entry per layer.  Leaf names are the same on both sides (the MoE layers'
+``moe/{router,wi_gate,wi_up,wo,shared/...}`` and MLA's ``attn/{wq,w_dkv,
+...}`` included), and so are the caches' fields: ``KVCache`` for attention
+and MLA layers (MLA's holds the latent and the rope key), ``SSMState`` for
+mamba2 and ``LRUState`` for RG-LRU layers.  Whisper's two stacks
+(``enc/stack``, ``dec/stack``) become the lists ``enc`` and ``dec``, and
+its ``WhisperCache``'s stacked leaves per-layer lists.  The reference's
 trees come in with numpy leaves (``jax.device_get`` or ``np.asarray`` on
 each leaf); the port's tensors come out on the CPU.
 """
@@ -17,12 +21,13 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import KVCache
-from repro_torch.models.lm import check_supported, layer_specs, scan_groups
+from repro_torch.models.lm import layer_specs, scan_groups
 from repro_torch.models.recurrent import LRUState, SSMState
+from repro_torch.models.whisper import WhisperCache
 
 #: the port's cache type of each mixer
-_CACHE_TYPE = {"attn": KVCache, "attn_local": KVCache, "ssm": SSMState,
-               "rec": LRUState}
+_CACHE_TYPE = {"attn": KVCache, "attn_local": KVCache, "mla": KVCache,
+               "ssm": SSMState, "rec": LRUState}
 
 
 def _layer_keys(cfg) -> list[tuple[str, str | None, int | None]]:
@@ -62,7 +67,6 @@ def _tensor(x) -> torch.Tensor:
 def _layers(cfg, tree: dict) -> list:
     """The reference's per-layer subtrees of ``tree``, in layer order, as
     port tensors: a stacked group's leaves indexed at the layer's period."""
-    check_supported(cfg)
     out = []
     for key, slot, t in _layer_keys(cfg):
         sub = tree[key] if slot is None else tree[key][slot]
@@ -72,18 +76,41 @@ def _layers(cfg, tree: dict) -> list:
     return out
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer port subtrees of a stacked numpy subtree."""
+    return [_map(tree, lambda x, t=t: _tensor(np.asarray(x)[t]))
+            for t in range(n)]
+
+
 def params_from_numpy(cfg, tree: dict) -> dict:
     """The port's parameters (CPU tensors, the reference's dtypes) from the
-    reference's ``init_params`` pytree with numpy leaves."""
+    reference's ``init_params`` pytree with numpy leaves (``lm``'s, or
+    ``whisper``'s for an ``encdec`` config)."""
+    if cfg.arch_type == "encdec":
+        out = {k: _map(tree[k], _tensor)
+               for k in ("embed", "dec_pos", "enc_pos", "final_norm",
+                         "enc_final_norm")}
+        out["enc"] = _unstack(tree["enc"]["stack"], cfg.encoder.n_layers)
+        out["dec"] = _unstack(tree["dec"]["stack"], cfg.n_layers)
+        return out
     return {"embed": _map(tree["embed"], _tensor),
             "final_norm": _map(tree["final_norm"], _tensor),
             "blocks": _layers(cfg, tree["blocks"])}
 
 
-def cache_from_numpy(cfg, tree: dict) -> list:
-    """The port's per-layer caches (CPU tensors) from the reference's cache
-    pytree (its ``KVCache``, ``SSMState`` and ``LRUState`` with numpy
-    leaves)."""
+def cache_from_numpy(cfg, tree):
+    """The port's caches (CPU tensors) from the reference's cache pytree
+    with numpy leaves: per-layer ``KVCache``, ``SSMState`` and ``LRUState``
+    from ``lm``'s, or a :class:`~repro_torch.models.whisper.WhisperCache`
+    of per-layer lists from ``whisper``'s."""
+    if cfg.arch_type == "encdec":
+        n = cfg.n_layers
+        fields = [[None] * n if f is None else _unstack(f, n)
+                  for f in tree.self_kv]
+        return WhisperCache(
+            self_kv=[KVCache(*layer) for layer in zip(*fields)],
+            cross_k=_unstack(tree.cross_k, n),
+            cross_v=_unstack(tree.cross_v, n))
     return [_CACHE_TYPE[mixer](*c)
             for (mixer, _), c in zip(layer_specs(cfg), _layers(cfg, tree))]
 
@@ -93,11 +120,22 @@ def _numpy(x: torch.Tensor) -> np.ndarray:
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def cache_to_numpy(cfg, cache: list) -> dict:
+def _stack(rows: list):
+    """A namedtuple of stacked numpy fields from per-layer namedtuples."""
+    return type(rows[0])(*(None if f[0] is None else np.stack(f)
+                           for f in zip(*rows)))
+
+
+def cache_to_numpy(cfg, cache):
     """The reference's cache layout, with numpy leaves, from the port's
-    per-layer caches: stacked groups gain their leading period axis, and
-    bfloat16 leaves come out as float32 (exact)."""
-    check_supported(cfg)
+    caches: stacked groups gain their leading period axis (whisper's
+    ``WhisperCache`` its leading layer axis), and bfloat16 leaves come out
+    as float32 (exact)."""
+    if cfg.arch_type == "encdec":
+        return WhisperCache(
+            self_kv=_stack([_map(c, _numpy) for c in cache.self_kv]),
+            cross_k=np.stack([_numpy(t) for t in cache.cross_k]),
+            cross_v=np.stack([_numpy(t) for t in cache.cross_v]))
     out: dict = {}
     stacked: dict = {}
     for c, (key, slot, _) in zip(cache, _layer_keys(cfg)):
@@ -107,8 +145,5 @@ def cache_to_numpy(cfg, cache: list) -> dict:
         else:
             stacked.setdefault(slot, []).append(c)
     if stacked:
-        out["stack"] = {slot: type(rows[0])(*(None if f[0] is None
-                                               else np.stack(f)
-                                               for f in zip(*rows)))
-                        for slot, rows in stacked.items()}
+        out["stack"] = {slot: _stack(rows) for slot, rows in stacked.items()}
     return out

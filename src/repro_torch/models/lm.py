@@ -1,15 +1,15 @@
-"""Decoder-only language model, port of ``repro.models.lm`` for the layer
-kinds the port has: ``attn`` and ``attn_local`` mixers with a gated or plain
-dense FFN, the mamba2 ``ssm`` mixer (no FFN) and the RG-LRU ``rec`` mixer.
+"""Decoder-only language model, port of ``repro.models.lm``: the ``attn``,
+``attn_local`` and ``mla`` mixers with a gated or plain dense FFN or the
+MoE FFN, the mamba2 ``ssm`` mixer (no FFN) and the RG-LRU ``rec`` mixer.
+Whisper's encoder-decoder is :mod:`repro_torch.models.whisper`.
 
 The reference compiles the layer list into scan groups (prologue, a
 ``lax.scan`` over stacked periods, epilogue); eager PyTorch has nothing to
 gain from a scan, so here the layers are a plain list, ``params["blocks"]
 [i]`` and ``cache[i]`` for layer ``i``.  :func:`scan_groups` stays, because
 it names where each layer sits in the reference's pytree
-(:mod:`repro_torch.models.convert`).  The ``mla`` mixer, MoE FFNs and the
-encoder-decoder raise ``NotImplementedError`` naming their ROADMAP item;
-``loss_fn`` waits for the training slice.
+(:mod:`repro_torch.models.convert`).  ``loss_fn`` waits for the training
+slice (ROADMAP A13).
 
 Modes: ``train``/``eval`` (full forward), ``prefill`` (returns per-layer
 caches), ``decode`` (one token against the caches; attention caches are
@@ -40,13 +40,6 @@ from repro_torch.models.common import (
 )
 
 LayerSpec = tuple[str, str]  # (mixer, ffn)
-
-_NOT_PORTED = {
-    "mla": "the MLA mixer (ROADMAP A11)",
-    "moe": "the MoE FFN (ROADMAP A11)",
-    "encdec": "whisper's encoder-decoder (ROADMAP A11)",
-}
-
 
 # ============================================================ layer specs ===
 def layer_specs(cfg: ModelConfig) -> tuple[LayerSpec, ...]:
@@ -85,24 +78,14 @@ def scan_groups(cfg: ModelConfig) -> ScanGroups:
                       epilogue=specs[n_pro + n_main:])
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot build yet."""
-    if cfg.arch_type == "encdec":
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED['encdec']} is "
-                                  "not ported yet")
-    for mixer, ffn in layer_specs(cfg):
-        for kind in (mixer, ffn):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {_NOT_PORTED[kind]} is not ported yet")
-
-
 # ================================================================= init =====
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, device) -> dict:
     mixer, ffn = spec
     p: dict[str, Any] = {"pre_norm": init_norm(cfg, device)}
     if mixer in ("attn", "attn_local"):
         p["attn"] = attn.init_attention(cfg, gen, device)
+    elif mixer == "mla":
+        p["attn"] = attn.init_mla(cfg, gen, device)
     elif mixer == "ssm":
         p["mixer"] = rec_mod.init_mamba2(cfg, gen, device)
     elif mixer == "rec":
@@ -111,26 +94,38 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen, device) -> dict:
         raise ValueError(f"unknown mixer {mixer}")
     if ffn != "none":
         p["post_norm"] = init_norm(cfg, device)
-        p["mlp"] = ffn_mod.init_mlp(cfg, gen, device, d_ff=cfg.d_ff)
+    if ffn == "glu":
+        # MoE models' dense layers (deepseek's layer 0) have their own width
+        d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else cfg.d_ff
+        p["mlp"] = ffn_mod.init_mlp(cfg, gen, device, d_ff=d_ff)
+    elif ffn == "moe":
+        p["moe"] = ffn_mod.init_moe(cfg, gen, device)
     return p
 
 
+def generator(seed: int | torch.Generator, device: torch.device):
+    """The generator a seed names on ``device`` (``None`` on ``meta``)."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0,
-                device=None) -> dict:
+                device=None, *, cast: bool = False) -> dict:
     """Random parameters: ``{"embed", "final_norm", "blocks": [layer, ...]}``
     drawn from ``seed`` (or the given generator) on ``device`` (CUDA unless
-    named; ``"meta"`` gives shapes only)."""
-    check_supported(cfg)
+    named; ``"meta"`` gives shapes only).  ``cast=True`` gives
+    :func:`cast_params` of the same tree, each layer cast as soon as it is
+    drawn, so the float32 tree never exists whole (deepseek-moe-16b's is
+    65.5 GB)."""
     dev = resolve_device(device)
-    if isinstance(seed, torch.Generator):
-        gen = seed
-    elif dev.type == "meta":
-        gen = None
-    else:
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return {"embed": init_embed(cfg, gen, dev),
+    gen = generator(seed, dev)
+    keep = (lambda t: cast_params(cfg, t)) if cast else (lambda t: t)
+    return {"embed": keep(init_embed(cfg, gen, dev)),
             "final_norm": init_norm(cfg, dev),
-            "blocks": [_init_layer(cfg, spec, gen, dev)
+            "blocks": [keep(_init_layer(cfg, spec, gen, dev))
                        for spec in layer_specs(cfg)]}
 
 
@@ -168,6 +163,8 @@ def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
         return rec_mod.init_ssm_state(cfg, batch, device)
     if mixer == "rec":
         return rec_mod.init_lru_state(cfg, batch, device)
+    if mixer == "mla":
+        return attn.init_mla_cache(cfg, batch, s_max, device)
     # local attention only ever needs window+1 positions
     if mixer == "attn_local" and cfg.window is not None:
         s_max = min(s_max, cfg.window + 1)
@@ -176,7 +173,6 @@ def _init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device=None) -> list:
-    check_supported(cfg)
     dev = resolve_device(device)
     return [_init_layer_cache(cfg, spec, batch, s_max, dev)
             for spec in layer_specs(cfg)]
@@ -189,6 +185,7 @@ def _window_of(cfg: ModelConfig, mixer: str) -> int | None:
 
 def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
                  cache, mode: str, pos):
+    """One layer: returns (x, its new cache, its MoE aux loss or None)."""
     mixer, ffn = spec
     h = apply_norm(cfg, p["pre_norm"], x)
     make_cache = mode == "prefill"
@@ -204,6 +201,12 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
         else:
             y, new_cache = rec_mod.rglru_forward(cfg, p["mixer"], h,
                                                  make_cache=make_cache)
+    elif mixer == "mla":
+        if mode == "decode":
+            y, new_cache = attn.mla_decode(cfg, p["attn"], h, pos, cache)
+        else:
+            y, new_cache = attn.mla_forward(cfg, p["attn"], h, positions,
+                                            make_cache=make_cache)
     elif mode == "decode":
         y, new_cache = attn.attention_decode(
             cfg, p["attn"], h, pos, cache, window=_window_of(cfg, mixer))
@@ -212,25 +215,35 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
             cfg, p["attn"], h, positions, window=_window_of(cfg, mixer),
             make_cache=make_cache)
     x = x + y
-    if ffn != "none":
-        h2 = apply_norm(cfg, p["post_norm"], x)
-        x = x + ffn_mod.mlp_forward(cfg, p["mlp"], h2)
-    return x, new_cache
+    aux = None
+    if ffn == "glu":
+        x = x + ffn_mod.mlp_forward(cfg, p["mlp"],
+                                    apply_norm(cfg, p["post_norm"], x))
+    elif ffn == "moe":
+        y2, moe_aux = ffn_mod.moe_forward(
+            cfg, p["moe"], apply_norm(cfg, p["post_norm"], x),
+            dropless=(mode != "train"))
+        x = x + y2
+        aux = moe_aux["moe_aux"] + moe_aux["router_z"]
+    return x, new_cache, aux
 
 
 def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
              positions: torch.Tensor, cache: list | None = None,
              mode: str = "train", pos: torch.Tensor | None = None):
     """Shared trunk: embeddings already applied; returns (x, caches, aux).
-    ``aux`` is the MoE auxiliary loss, zero for the dense layers."""
-    check_supported(cfg)
+    ``aux`` sums the MoE layers' auxiliary losses (load balance and router
+    z), in layer order; zero without MoE layers."""
     new_cache = []
-    for i, spec in enumerate(layer_specs(cfg)):
-        x, nc = _apply_layer(cfg, spec, params["blocks"][i], x, positions,
-                             None if cache is None else cache[i], mode, pos)
-        new_cache.append(nc)
-    x = apply_norm(cfg, params["final_norm"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(layer_specs(cfg)):
+        x, nc, a = _apply_layer(cfg, spec, params["blocks"][i], x, positions,
+                                None if cache is None else cache[i], mode,
+                                pos)
+        new_cache.append(nc)
+        if a is not None:
+            aux = aux + a
+    x = apply_norm(cfg, params["final_norm"], x)
     keep = mode not in ("train", "eval")
     return x, (new_cache if keep else None), aux
 
@@ -262,9 +275,9 @@ def ce_analytic_cost(cfg: ModelConfig, n_tokens: int, train: bool) -> dict:
 # ================================================================ entry ======
 def forward(cfg: ModelConfig, params: dict, tokens, positions=None,
             eval_mode: bool = False, *, device=None):
-    """Full forward: tokens (B, S) → logits (B, S, V) + aux loss.  The
-    dense layers route the same way in both modes; ``eval_mode`` is kept for
-    the reference's signature."""
+    """Full forward: tokens (B, S) → logits (B, S, V) + aux loss.
+    ``eval_mode=True`` routes MoE layers dropless (as prefill and decode
+    do); training mode keeps the capacity-bounded routing."""
     (tokens,) = _inputs(params, device, tokens)
     b, s = tokens.shape
     if positions is None:

@@ -1,21 +1,22 @@
 """Uniform model-family interface, port of ``repro.models.registry``.
 
-``family_of(cfg)`` returns the decoder-only LM family; the encoder-decoder
-family (whisper) is not ported yet and raises.  The reference's
-``loss_fn`` member waits for the training slice (ROADMAP A13).
+``family_of(cfg)`` returns a :class:`Family` whose members hide the
+decoder-only vs encoder-decoder split from the launcher and the serving
+runtime.  The reference's ``loss_fn`` member waits for the training slice
+(ROADMAP A13).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.common import ModelConfig
 
 
 class Family(NamedTuple):
     init_params: Callable      # (cfg, seed, device) -> params
-    prefill: Callable          # (cfg, params, tokens, s_max) -> (logits, cache)
+    prefill: Callable          # (cfg, params, <inputs>) -> (logits, cache)
     decode_step: Callable      # (cfg, params, tokens, pos, cache) -> (logits, cache)
     init_cache: Callable       # (cfg, batch, s_max, device) -> cache
 
@@ -23,7 +24,10 @@ class Family(NamedTuple):
 _LM = Family(init_params=lm.init_params, prefill=lm.prefill,
              decode_step=lm.decode_step, init_cache=lm.init_cache)
 
+_ENCDEC = Family(init_params=whisper.init_params, prefill=whisper.prefill,
+                 decode_step=whisper.decode_step,
+                 init_cache=whisper.init_cache)
+
 
 def family_of(cfg: ModelConfig) -> Family:
-    lm.check_supported(cfg)
-    return _LM
+    return _ENCDEC if cfg.arch_type == "encdec" else _LM

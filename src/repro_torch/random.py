@@ -128,6 +128,14 @@ def pow_f32(x: torch.Tensor, y: float) -> torch.Tensor:
     return torch.pow(x.to(torch.float64), float(y)).to(torch.float32)
 
 
+def over(number: float, t: torch.Tensor) -> torch.Tensor:
+    """``number / t`` as one float32 division, as XLA divides: torch's
+    ``number / t`` is ``reciprocal(t) * number``, two roundings, on every
+    device (ROADMAP C9; ``tools/check_rdivision.py`` counts what it
+    moved).  A fill, not a host-to-device copy, so graph capture holds."""
+    return torch.full_like(t, number) / t
+
+
 def _poisson_knuth(key, lam, n):
     """Knuth's method, one while loop per configuration.  A configuration
     whose loop has ended keeps drawing in the batched loop, which changes

@@ -14,8 +14,10 @@ straggling replica: it skips that many ticks of work.
 
 The slots' next tokens and positions are kept on the host and copied to the
 device once per tick; the argmax stays on the device, and its result comes
-back once per tick (the reference's ``np.asarray``).  The replica runs on
-the CUDA device unless the caller passes ``device="cpu"``.
+back once per tick (the reference's ``np.asarray``).  A MoE model's
+decode step routes dropless, each slot's token a group of its own, so a
+slot's tokens do not depend on what the other slots hold.  The replica
+runs on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

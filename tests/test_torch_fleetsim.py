@@ -408,9 +408,9 @@ def test_unported_features_raise():
 
 def test_package_is_jax_free_and_never_falls_back_to_cpu():
     """Importing the port (the FleetSim engine and its fused backend and
-    options, the DES and cross-validation, the kernels, the model stack,
-    the serving tier and its driver) pulls in neither ``jax`` nor
-    ``repro``; without a card ``simulate`` raises instead of running on the
+    options, the DES and cross-validation, the kernels, the model stack
+    with whisper's encoder-decoder, the serving tier and its launcher)
+    pulls in neither ``jax`` nor ``repro``; without a card ``simulate`` raises instead of running on the
     CPU, under the default options and under the fused backend."""
     code = """
 import sys
@@ -421,7 +421,7 @@ from repro_torch.core.switch import group_pairs_array
 import repro_torch.kernels.ops, repro_torch.kernels.build
 import repro_torch.random, repro_torch.core.switch
 import repro_torch.models, repro_torch.models.convert, repro_torch.configs
-import repro_torch.models.recurrent
+import repro_torch.models.recurrent, repro_torch.models.whisper
 import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan
 import repro_torch.serve, repro_torch.launch.serve
 import repro_torch.fleetsim.options, repro_torch.fleetsim.fused

@@ -10,10 +10,9 @@ the CPU (mirroring ``tests/test_llmserve.py``).
   reference's filter backends agree bit for bit);
 * the batch server equals the FCFS ring at zero coupling and one slot per
   worker; the fused backend equals the staged loop for batch configs;
-* ``n_params_active`` and ``llm_service`` for every arch the port builds,
-  full width, counted on the ``meta`` device; MoE, MLA and whisper raise
-  (A11); ``cell_roofline`` and the table helpers on synthetic dry-run
-  records;
+* ``n_params_active``, ``llm_service`` and ``n_params()`` for all ten
+  archs, full width, counted on the ``meta`` device; ``cell_roofline``
+  and the table helpers on synthetic dry-run records;
 * the library's two llm files give the reference's 300-tick rows;
   ``serve_equivalence`` gives the reference's rows field for field, and
   ``validate.main --serve-ticks`` prints the reference's lines.
@@ -221,15 +220,19 @@ def test_fused_equals_staged_for_batch_configs(k):
 
 
 # ------------------------------------------------ roofline and services ----
+#: every arch of the registry: the port builds all ten (MoE, MLA and
+#: whisper's encoder-decoder since ROADMAP A11)
 BUILT = ("gemma-7b", "qwen2.5-3b", "codeqwen1.5-7b", "phi3-mini-3.8b",
-         "chameleon-34b", "mamba2-370m", "recurrentgemma-9b")
+         "chameleon-34b", "mamba2-370m", "recurrentgemma-9b",
+         "deepseek-moe-16b", "deepseek-v2-lite-16b", "whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", BUILT)
 def test_params_and_service_match_reference(arch, monkeypatch):
-    """Full-width parameter counts (total and active) and the derived
-    ``llm`` service equal the reference's (its ``jax.eval_shape`` count);
-    the port counts shapes built on the ``meta`` device."""
+    """Full-width parameter counts (total and active; MoE experts at
+    ``top_k / n_experts``, whisper's family tree) and the derived ``llm``
+    service equal the reference's (its ``jax.eval_shape`` count); the port
+    counts shapes built on the ``meta`` device."""
     from repro.analysis import roofline as rroof
     from repro.configs import get_config as rget
     from repro.fleetsim.llmserve import service as rsvc
@@ -239,13 +242,14 @@ def test_params_and_service_match_reference(arch, monkeypatch):
     from repro_torch.models import registry
 
     devices = []
-    fam = registry._LM
+    name = "_ENCDEC" if tget(arch).arch_type == "encdec" else "_LM"
+    fam = getattr(registry, name)
 
     def spy(cfg, seed=0, device=None):
         devices.append(str(device))
         return fam.init_params(cfg, seed, device)
 
-    monkeypatch.setattr(registry, "_LM", fam._replace(init_params=spy))
+    monkeypatch.setattr(registry, name, fam._replace(init_params=spy))
     got = troof.n_params_active(tget(arch))
     assert got == rroof.n_params_active(rget(arch))
     assert devices == ["meta"]
@@ -257,10 +261,25 @@ def test_params_and_service_match_reference(arch, monkeypatch):
         == rroof.model_flops(rget(arch), "prefill_32k")
 
 
+@pytest.mark.parametrize("arch", BUILT)
+def test_n_params_matches_reference(arch):
+    """``ModelConfig.n_params()`` equals the reference's for every arch;
+    for whisper both count ``lm.init_params``' tree (27,005,568), not the
+    whisper family's."""
+    from repro.configs import get_config as rget
+    from repro_torch.configs import get_config as tget
+
+    assert tget(arch).n_params() == rget(arch).n_params()
+    if arch == "whisper-tiny":
+        assert tget(arch).n_params() == 27_005_568
+
+
 def test_gemma_service_is_the_library_files_and_moe_raises():
     """``llm_service("gemma-7b")`` is exactly the ``params`` both llm
-    library files pin; the archs the port cannot build yet raise naming
-    A11, and ``prefill_us`` refuses an empty prompt."""
+    library files pin; the MoE, MLA and encoder-decoder archs, which raised
+    naming A11 before the port had them, now give the reference's decode
+    step; ``prefill_us`` refuses an empty prompt."""
+    from repro.fleetsim.llmserve import service as rsvc
     from repro_torch.fleetsim.llmserve import (
         decode_step_us,
         llm_service,
@@ -275,8 +294,7 @@ def test_gemma_service_is_the_library_files_and_moe_raises():
         assert sc.service == replace(spec, jitter_p=sc.service.jitter_p,
                                      jitter_mult=sc.service.jitter_mult)
     for arch in ("deepseek-moe-16b", "deepseek-v2-lite-16b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            decode_step_us(arch)
+        assert decode_step_us(arch) == rsvc.decode_step_us(arch) > 0
     with pytest.raises(ValueError, match="prompt_len"):
         prefill_us("gemma-7b", 0)
 

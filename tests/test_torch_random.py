@@ -112,3 +112,16 @@ def test_float_helpers_are_correctly_rounded():
     y = -x[:3] * 0.5
     want = np.log1p(y.numpy().astype(np.float64)).astype(np.float32)
     assert np.array_equal(jr.log1p_f32(y).numpy(), want)
+
+
+def test_number_over_tensor_divides_once():
+    """``over(number, t)`` is one float32 division, as XLA's: torch's own
+    ``number / t`` is ``reciprocal(t) * number`` and differs in the last
+    bit for many quotients (ROADMAP C9).  The bounded-Pareto service
+    draw divides this way."""
+    t = (np.random.default_rng(5).random(1 << 16, dtype=np.float32)
+         * 50 + 0.5)
+    want = np.float32(7.3) / t
+    got = jr.over(7.3, torch.from_numpy(t)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert ((7.3 / torch.from_numpy(t)).numpy() != want).any()
