@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it: FleetSim's sweep,
 the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b,
 deepseek-moe-16b, deepseek-v2-lite-16b, whisper-tiny), the NetClone
-serving tier, ServeSim and FleetScope telemetry.
+serving tier, ServeSim, FleetScope telemetry, the sharded sweep runner
+and training.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -19,9 +20,9 @@ Phases (each fails the run on error; nothing is caught):
    replayed from a CUDA graph (checked against the plain version applied
    as often), beside the floor: an empty kernel through B1's launch path;
 3. run the 6 golden cases of ``tests/golden/fleetsim_single_tor.json`` as
-   one batch on the staged engine under the ``pallas`` (kernel B1),
-   ``tickfuse`` (kernel B2) and ``vectorized`` filter backends and compare
-   every field with the JSON;
+   one batch on the staged engine under the ``tickfuse`` filter backend
+   (kernel B2) and compare every field with the JSON (``pallas`` and
+   ``vectorized`` run them fused in phase 12a);
 4. the main path at full width on the staged engine
    (``engine=EngineOptions(backend="staged")``, one host call a tick, so
    the wrappers count every launch): ``sweep_grid`` over the default
@@ -71,7 +72,8 @@ Phases (each fails the run on error; nothing is caught):
     steps, and prefill 255 + decode 1 against prefill 256;
 12. the fused backend (each block of 64 ticks replayed from a CUDA graph):
     (a) the 6 golden cases under ``pallas``, ``tickfuse`` and
-    ``vectorized`` at K = 512 and K = 300 (a tail), every field bit-exact;
+    ``vectorized`` at K = 512, and under ``tickfuse`` at K = 300 (a
+    tail), every field bit-exact;
     (b) phase 4's sweep through ``sweep_grid(engine=EngineOptions(backend=
     "fused"))``, every row and the grid histogram bit-identical to phase
     4's staged sweep; then the same grid fused at 4,000 ticks, timed
@@ -97,8 +99,9 @@ Phases (each fails the run on error; nothing is caught):
     sweep (1,000 ticks); each of (c)-(e) also runs its first 128 ticks on
     the staged loop, the wrapper counting one B1 or B2 launch a tick, held
     equal to the same ticks replayed from graphs; (g) for (c) and (e): ms a
-    tick fused and staged, and a profile of replays (B2 launches counted by
-    the profiler, kernels and device busy a tick, the idle share);
+    tick fused and staged, and for (c) a profile of replays (B2 launches
+    counted by the profiler, kernels and device busy a tick, the idle
+    share);
 14. ServeSim: (a) ``llm_service("gemma-7b")`` from gemma-7b's full config
     counted on the meta device (no device memory allocated) equals both
     llm library files' ``params``; (b) ``llm_gemma7b.json`` (1 rack, B2)
@@ -146,7 +149,25 @@ Phases (each fails the run on error; nothing is caught):
     path, prefill 63 + decode 1 against prefill 64, and B3 at the three
     whisper shapes (non-causal over 1,500 frames, a 64-token and a
     1-token query against them) against its plain version, timed beside
-    bound and SDPA.
+    bound and SDPA;
+19. the sharded runner: phase 4's 200-config sweep with
+    ``shard=ShardSpec(devices=1)`` on the fused backend, every row and the
+    merged ``grid_hist`` bit-identical to phase 4's, timed; then
+    ``shard_equivalence`` on ``validate_grid.json``'s SweepSpec at 1,000
+    ticks (one card holds one slab);
+20. training: B3's backward kernel (``csrc/flash_attention_bwd.cu``)
+    against autograd through ``attention_ref`` at qwen2.5-3b's training
+    shape, whisper-tiny's encoder and cross shapes and one float32 case,
+    timed beside its bound, its plain version and SDPA's backward;
+    qwen2.5-3b at full width and depth (float32 master weights, bf16
+    activations, remat): a gradient on every leaf, then 3 AdamW steps of 2
+    x 4,096 tokens (72 B3 and 36 backward launches a step), ms a step and
+    peak memory; the 0.1 B model of ``examples/train_100m.py --full``: its
+    attention gradients held to the plain attention's, 40 steps of 8 x 512
+    with an async checkpoint at 20, the loss falling, and a restart
+    through ``launch/train.py``'s restore path (state bit-equal, step 20's
+    loss bit-equal, later steps within 1e-3); whisper-tiny, 3 steps on
+    frames (2, 1500, 384) and 2 x 448 tokens.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -180,15 +201,17 @@ SWEEP_TICKS = 1_000
 FUSED_SWEEP_TICKS = 4_000
 SCAN_CHECK_TICKS = 500
 PROFILE_TICKS = 20
-# cut from 4,000 to 2,000 for phases 12c and 13, and to 1,000 for 14-15
-RACK_TICKS = 1_000
+# cut from 4,000 to 2,000 for phases 12c and 13, to 1,000 for 14-15 and
+# to 500 (its scan check's length) for 19-20
+RACK_TICKS = 500
 RACK_CHECK_TICKS = 500
 # graph replays (of a sweep's 64-tick graph) in the profiles of phases 12b
 # and 14c, cut from 8 to 2 for phases 14-15 (a profiler session of 8 takes
-# ~40 s); phase 12b profiles a run long enough for up to 3 sessions of one
+# ~40 s) and to 1 for 19-20; phase 12b profiles a run long enough for up
+# to 3 sessions of one
 # replay and then its own; validate_grid.json's DES requests a point
 # (validate.main's default)
-SWEEP_PROFILE_REPLAYS = 2
+SWEEP_PROFILE_REPLAYS = 1
 PROFILE_RUN_TICKS = 3 * (1 + SWEEP_PROFILE_REPLAYS) * 64
 XVAL_REQUESTS = 20_000
 # the reference's own rows of phase 12c (tools/reference_validate.py, run
@@ -272,7 +295,7 @@ FA_C6_CASES = ((1, 16, 2, 300, 128, True, None, "bfloat16"),
                (1, 16, 2, 384, 128, True, None, "float32"))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # phase 7: prefill_32k's 32 x 32,768 tokens cut to 4 x 4,096 by the run's
-# time limit; decode steps after it
+# time limit; 16 decode steps after it (every model's)
 PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 4096, 16
 QWEN_FA = (PREFILL_B, 16, 2, PREFILL_S, 128, True, None, "bfloat16")
 # whole-model bf16 comparisons: max |diff| within this share of the
@@ -289,6 +312,30 @@ WHISPER_FA = (
     (PREFILL_B, 6, 6, 1500, 64, False, None, "bfloat16"),
     (PREFILL_B, 6, 6, WHISPER_PROMPT, 64, False, None, "bfloat16", 1500),
     (PREFILL_B, 6, 6, 1, 64, False, None, "bfloat16", 1500))
+
+# phase 19: shard_equivalence's ticks on validate_grid.json (an exact
+# comparison: the reference's CLI defaults to 6,000)
+SHARD_TICKS = 1_000
+# phase 20: B3's backward at qwen2.5-3b's training shape (2 x 4,096 tokens),
+# whisper-tiny's encoder and cross-attention (Sq 448, the published
+# decoder's context, over 1,500 frames) and one float32 case (GQA, a
+# window); tolerances of max |diff| / max |grad| against autograd through
+# attention_ref; qwen2.5-3b trains 3 steps of 2 x 4,096 tokens, the 0.1 B
+# model of examples/train_100m.py --full 40 steps of 8 x 512 (checkpoint at
+# 20), whisper-tiny 3 steps of 2 x 448 tokens
+QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_STEPS = 2, 4096, 3
+WHISPER_TRAIN_S = 448
+BWD_CASES = (
+    (QWEN_TRAIN_B, 16, 2, QWEN_TRAIN_S, 128, True, None, "bfloat16"),
+    (QWEN_TRAIN_B, 6, 6, 1500, 64, False, None, "bfloat16"),
+    (QWEN_TRAIN_B, 6, 6, WHISPER_TRAIN_S, 64, False, None, "bfloat16", 1500),
+    (QWEN_TRAIN_B, 8, 2, 512, 128, True, 128, "float32"),
+)
+FA_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SMALL_TRAIN = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                   head_dim=64, d_ff=2048, vocab_size=32_000,
+                   max_seq_len=1024)
+SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 40, 20
 
 # phase 9: the reference's scan test shapes (tests/test_kernels.py:118-188)
 # with h0, in float32 at its tolerances, then the full-width shapes in bf16
@@ -1436,9 +1483,11 @@ def run_fused(torch, tf, sw, staged_busy_ms: float, cfg, policies, loads,
     from repro_torch.fleetsim.validate import cross_validate_spec
     from repro_torch.scenarios import load_any
 
-    # (a) the goldens under every filter backend, with and without a tail
+    # (a) the goldens under every filter backend, and with a tail (K = 300:
+    # the tail's code is the backends' shared stage code) under B2; B1's
+    # and vectorized's K = 300 runs were cut for phases 19-20
     for backend in ("tickfuse", "pallas", "vectorized"):
-        for k in (512, 300):
+        for k in ((512, 300) if backend == "tickfuse" else (512,)):
             cfg_g, cases, params = golden_batch(tf, backend)
             st = fused.GraphStats()
             t0 = time.perf_counter()
@@ -1812,10 +1861,9 @@ def run_scenario_layer(torch, tf, kernels, ops) -> None:
 
     log(f"phase 13: (f) done at {time.perf_counter() - t_phase:.1f} s")
 
-    # (g) where the optional-stage tick's time goes
+    # (g) where the optional-stage tick's time goes: LÆDGE's (the hedge
+    # tick's profile was cut for phases 19-20; its ms a tick stays in (e))
     replay_profile(torch, cfg_c, params_c, "LÆDGE 1 rack", lae_ms,
-                   "tickfuse_response_path")
-    replay_profile(torch, cfg_e, params_e, "hedge_vs_netclone", hedge_ms,
                    "tickfuse_response_path")
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2190,7 +2238,7 @@ def check_attention_case(torch, ref, ops, case, label, seed):
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal), 20)
     plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal), 3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True), 20)
+        q, k, v, is_causal=causal, enable_gqa=k.shape[1] < q.shape[1]), 20)
     bound, by, flops, nbytes = attention_bound(case)
     sq, skv = seq_lens(case)
     log(f"{label}: B3 vs plain at q {tuple(q.shape)} k/v {tuple(k.shape)} "
@@ -2458,6 +2506,377 @@ def run_whisper(torch, lm, kernels, get_config):
     return n_fa
 
 
+# ---------------------------------------------------------------- phase 19 --
+def run_shard(torch, tf, sw, cfg, policies, loads, seeds) -> None:
+    """Phase 19: the sharded runner on the card's one device: phase 4's
+    200-config sweep (``sw``, staged, unsharded) again with
+    ``shard=ShardSpec(devices=1)`` on the fused backend, every row and the
+    merged histogram bit-identical; then ``shard_equivalence`` on
+    ``validate_grid.json``'s SweepSpec.  One H100 holds one slab: a
+    multi-device layout needs more cards."""
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.fleetsim.validate import shard_equivalence
+    from repro_torch.scenarios import load_any
+
+    spec1 = tf.ShardSpec(devices=1)
+    sh = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg,
+                       shard=spec1, engine=EngineOptions(backend="fused"))
+    if (sh.backend != "fused" or sh.n_devices != 1 or sh.shard != spec1
+            or len(sh.results) != len(sw.results)):
+        raise AssertionError(f"phase 19: the sharded sweep ran {sh.backend} "
+                             f"on {sh.n_devices} devices")
+    for a, b in zip(sh.results, sw.results):
+        if json.dumps(a.__dict__) != json.dumps(b.__dict__):
+            raise AssertionError(f"phase 19: sharded row {a.row()} != "
+                                 f"unsharded {b.row()}")
+    if not np.array_equal(sh.grid_hist, sw.grid_hist):
+        raise AssertionError("phase 19: the merged grid histogram differs")
+    log(f"phase 19: {sh.n_configs} configs x {cfg.n_ticks} ticks sharded "
+        f"over 1 device (the card's one H100; more need more cards) on the "
+        f"fused backend: all {len(sh.results)} rows and the merged "
+        f"grid_hist bit-identical to phase 4's unsharded sweep; "
+        f"{sh.wall_clock_s / cfg.n_ticks * 1e3:.3f} ms a tick "
+        f"({sh.n_configs * cfg.n_ticks / sh.wall_clock_s:.1f} config-ticks/s"
+        f"), set-up (slab placement and graph capture) {sh.compile_s:.3f} s")
+    spec = load_any("validate_grid")
+    t0 = time.perf_counter()
+    checks, hist_ok = shard_equivalence(spec, shard=1, n_ticks=SHARD_TICKS)
+    dt = time.perf_counter() - t0
+    log(f"phase 19: shard_equivalence(validate_grid, shard=1) at "
+        f"{SHARD_TICKS} ticks: {sum(c.ok for c in checks)}/{len(checks)} "
+        f"cells identical (counters exact, worst stat_rel "
+        f"{max(c.stat_rel for c in checks):.3g}), grid_hist merge "
+        f"{'equal' if hist_ok else 'DIFFERS'}, {dt:.1f} s for both runs")
+    if len(checks) != 21 or not hist_ok or not all(c.ok for c in checks):
+        raise AssertionError("phase 19: shard_equivalence failed: "
+                             + "; ".join(c.describe() for c in checks
+                                         if not c.ok))
+
+
+# ---------------------------------------------------------------- phase 20 --
+def bwd_bound(case) -> tuple[float, str, float, int]:
+    """(bound ms, what bounds it, FLOPs, bytes) of B3's backward at
+    ``case``: 2.5x the forward's FLOP over the pairs the mask keeps, at
+    the bf16 tensor cores' rate (989 TFLOP/s) or float32's (67), against
+    q, k, v, O and dO read once and dQ, dK, dV written once."""
+    b, h, hkv, _, d, _, _, dtype = case[:8]
+    sq, skv = seq_lens(case)
+    flops = 2.5 * attention_bound(case)[2]
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * d * (4 * b * h * sq + 4 * b * hkv * skv)
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
+    ops_ms = flops / rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def band_mask(torch, case):
+    """SDPA's boolean mask (True takes part) for a windowed causal case."""
+    sq, skv = seq_lens(case)
+    i = torch.arange(sq, device=DEV)[:, None]
+    j = torch.arange(skv, device=DEV)[None, :]
+    return (j <= i) & (j >= i - case[6])
+
+
+def check_attention_bwd(torch, ref, fa_mod, case, label, seed):
+    """B3's backward kernel against autograd through ``attention_ref`` on
+    the same inputs (the model's transposed views), then timed beside its
+    bound, its plain version and SDPA's backward; returns the row."""
+    import torch.nn.functional as F
+
+    causal, window, dtype = case[5:8]
+    q, k, v = qkv_on_card(torch, case, seed, transposed=True)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
+    out = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    want = ref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    rel = [((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item() for a, b in zip(got, want)]
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    if not max(rel) <= FA_BWD_RTOL[dtype]:
+        raise AssertionError(f"{label}: B3's backward differs from autograd "
+                             f"through the plain version at {case}: dq, dk, "
+                             f"dv {rel}")
+    del got, want
+    reps = 3 if seq_lens(case)[0] >= 4096 else 20
+    ms = cuda_ms(lambda: fa_mod.flash_attention_bwd(
+        q, k, v, out, do, causal=causal, window=window), reps)
+    plain_ms = cuda_ms(lambda: ref.attention_bwd_ref(
+        q, k, v, do, causal=causal, window=window), 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    mask = band_mask(torch, case) if window is not None else None
+    gqa = k.shape[1] < q.shape[1]
+
+    def sdpa_bwd(enable_gqa):
+        """SDPA's backward on these inputs: its backend and ms a call."""
+        kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                  enable_gqa=enable_gqa)
+        y = F.scaled_dot_product_attention(*leaves, **kw)
+        return sdpa_backend(torch, *leaves, **kw), cuda_ms(
+            lambda: torch.autograd.grad(y, leaves, do, retain_graph=True),
+            reps)
+
+    backend, library_ms = sdpa_bwd(gqa)
+    # an MHA shape asked with enable_gqa=True, as the yardstick was
+    # before: which backend that picks, and its time, in this same call
+    asked = "" if gqa else "; with enable_gqa True {} {:.4f} ms".format(
+        *sdpa_bwd(True))
+    del leaves
+    bound, by, flops, nbytes = bwd_bound(case)
+    sq, skv = seq_lens(case)
+    log(f"{label}: B3's backward vs autograd through attention_ref at q "
+        f"{tuple(q.shape)} k/v {tuple(k.shape)} {dtype} "
+        f"{'causal' if causal else 'non-causal'}"
+        f"{f' window {window}' if window is not None else ''} (Sq {sq}, "
+        f"Skv {skv}): dq, dk, dv max |diff| / max |grad| "
+        f"{', '.join(f'{r:.3g}' for r in rel)} (tolerance "
+        f"{FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}; {ms:.4f} ms per call "
+        f"(CUDA events over {reps} calls), bound {bound:.5f} ms ({by}: "
+        f"{flops:.4g} FLOP, {nbytes} B) = {100 * bound / ms:.2f}% of it; "
+        f"plain {plain_ms:.4f} ms; SDPA's backward ({backend}, enable_gqa "
+        f"{gqa}) {library_ms:.4f} ms{asked}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, library_ms=library_ms)
+
+
+def sdpa_backend(torch, q, k, v, **kw) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs
+    and arguments (its own chooser, ``torch._fused_sdp_choice``), by
+    name."""
+    from torch.nn.attention import SDPBackend
+
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "backend not reported by this torch"
+    idx = int(choose(q, k, v, kw["attn_mask"], 0.0, kw["is_causal"],
+                     enable_gqa=kw["enable_gqa"]))
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    return names.get(idx, f"backend {idx}")
+
+
+def train_steps(torch, bundle, state, batches, kernels, label):
+    """Run one train step a batch, each synchronised and timed, the
+    kernels' counts reset before each; returns ``(state, losses, ms a
+    step, launches of each step)``."""
+    losses, step_ms, counts = [], [], []
+    for batch in batches:
+        reset(kernels)
+        t0 = time.perf_counter()
+        state, m = bundle.step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append({n: fn.launches for n, fn in kernels.items()})
+        losses.append(float(m["loss"]))
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"{label}: non-finite metrics {m}")
+    return state, losses, step_ms, counts
+
+
+def check_train_launches(counts, n_fwd, n_bwd, label) -> None:
+    """Each step launches B3 ``n_fwd`` times (forward and the remat
+    recompute) and its backward ``n_bwd`` times, and nothing else."""
+    for c in counts:
+        want = {n: 0 for n in c}
+        want.update(flash_attention=n_fwd, flash_attention_bwd=n_bwd)
+        if c != want:
+            raise AssertionError(f"{label}: step launches {c}, expected "
+                                 f"{want}")
+
+
+def run_training(torch, kernels, get_config):
+    """Phase 20: training on the card.  B3's backward kernel at the
+    training shapes; qwen2.5-3b at full width and depth (3 AdamW steps);
+    the 0.1 B qwen-style model of ``examples/train_100m.py --full`` for 40
+    steps with an async checkpoint at 20, a restart through
+    ``launch/train.py``'s restore path, and its gradients held to the
+    plain attention's; whisper-tiny (3 steps).  Returns the backward's row
+    and the launches of the qwen2.5-3b run."""
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import tree as ttree
+    from repro_torch.train.step import batch_on, loss_and_grads
+
+    # (a) the backward kernel at the training shapes
+    row = None
+    for i, case in enumerate(BWD_CASES):
+        r = check_attention_bwd(torch, ref, fa_mod, case, "phase 20",
+                                seed=200 + i)
+        row = row or r
+    torch.cuda.empty_cache()
+
+    # (b) qwen2.5-3b at full width and depth
+    cfg = get_config("qwen2.5-3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = make_train_step(cfg, DEV, OptimizerConfig())
+    state = bundle.init_state_fn(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in ttree.leaves(state.params))
+    log(f"phase 20: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params:,} float32 master parameters (bf16 "
+        f"activations), AdamW moments float32, remat full: state built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=QWEN_TRAIN_S,
+                                  global_batch=QWEN_TRAIN_B, seed=0))
+    batches = [data.batch(i) for i in range(QWEN_TRAIN_STEPS)]
+    reset(kernels)
+    loss, _, grads = loss_and_grads(cfg, state.params,
+                                    batch_on(batches[0], DEV))
+    paths = [p for p, _ in ttree.flatten(state.params)]
+    missing = [p for p, g in zip(paths, grads) if g is None]
+    bad = [p for p, g in zip(paths, grads)
+           if g is not None and not torch.isfinite(g).all()]
+    # attention's leaves, except the key bias, whose true gradient is
+    # zero (softmax ignores a shift common to all keys)
+    dead = [p for p, g in zip(paths, grads)
+            if "attn" in p and p[-1] != "bk" and float(g.abs().max()) == 0]
+    fwd, bwd = kernels["flash_attention"].launches, \
+        kernels["flash_attention_bwd"].launches
+    log(f"phase 20: loss and gradients of one batch ({QWEN_TRAIN_B} x "
+        f"{QWEN_TRAIN_S} tokens): loss {float(loss):.4f}; {len(grads)} "
+        f"leaves, {len(missing)} without a gradient, {len(bad)} non-finite,"
+        f" {len(dead)} attention leaves all-zero; B3 launches {fwd} "
+        f"(forward and remat recompute), backward kernel launches {bwd}")
+    if missing or bad or dead or (fwd, bwd) != (2 * cfg.n_layers,
+                                                cfg.n_layers):
+        raise AssertionError(f"phase 20: gradients: missing {missing[:3]}, "
+                             f"non-finite {bad[:3]}, zero {dead[:3]}, "
+                             f"launches {fwd} / {bwd}")
+    del grads
+    torch.cuda.empty_cache()
+    # the main path: reset, train, read the counts
+    reset(kernels)
+    state, losses, step_ms, counts = train_steps(
+        torch, bundle, state, batches, kernels, "phase 20")
+    check_train_launches(counts, 2 * cfg.n_layers, cfg.n_layers,
+                         "phase 20")
+    qwen_launches = {n: sum(c[n] for c in counts) for n in counts[0]}
+    log(f"phase 20: {QWEN_TRAIN_STEPS} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}, "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step (host clock, "
+        f"synchronised), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
+        f"{counts[0]['flash_attention']} B3 launches and "
+        f"{counts[0]['flash_attention_bwd']} of its backward")
+    del state, bundle
+    torch.cuda.empty_cache()
+
+    # (c) the 0.1 B model: 40 steps, a checkpoint at 20, a restart
+    cfg = get_config("qwen2.5-3b").replace(**SMALL_TRAIN)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=10,
+                          total_steps=SMALL_STEPS)
+    bundle = make_train_step(cfg, DEV, opt)
+    state = bundle.init_state_fn(0)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=SMALL_S, global_batch=SMALL_B,
+                                  seed=0))
+    batches = [data.batch(i) for i in range(SMALL_STEPS)]
+    b0 = batch_on(batches[0], DEV)
+    _, _, g_kernel = loss_and_grads(cfg, state.params, b0)
+    _, _, g_plain = loss_and_grads(cfg.replace(attn_impl="xla"),
+                                   state.params, b0)
+    # attention's leaves but the key bias (its true gradient is zero)
+    worst_g = max(((a - b).abs().max() / b.abs().max()).item()
+                  for (path, _), a, b in zip(ttree.flatten(state.params),
+                                             g_kernel, g_plain)
+                  if "attn" in path and path[-1] != "bk")
+    del g_kernel, g_plain
+    log(f"phase 20: 0.1 B model ({cfg.n_params():,} parameters: "
+        f"{SMALL_TRAIN}): attention gradients through B3 and its backward "
+        f"vs through the plain attention, worst max |diff| / max |grad| "
+        f"{worst_g:.3g} (tolerance {MODEL_RTOL})")
+    if not worst_g <= MODEL_RTOL:
+        raise AssertionError("phase 20: the model's gradients through B3 "
+                             "differ from the plain attention's")
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = ckpt.AsyncCheckpointer(tmp, keep=2)
+        losses, step_ms, snap = [], [], None
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = bundle.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 == SMALL_SAVE:
+                writer.save(state, SMALL_SAVE)
+                snap = [x.detach().cpu().clone()
+                        for x in ttree.leaves(state)]
+        writer.wait()
+        first, last5 = losses[0], float(np.mean(losses[-5:]))
+        log(f"phase 20: {SMALL_STEPS} steps of {SMALL_B} x {SMALL_S} "
+            f"tokens: loss {first:.4f} at step 0, mean of the last five "
+            f"{last5:.4f}; {np.median(step_ms):.2f} ms a step (median, host "
+            f"clock); checkpoint at step {SMALL_SAVE} by the async writer")
+        if not last5 < first:
+            raise AssertionError("phase 20: the loss did not fall")
+        back, at = launch_train.restore_state(cfg, tmp, DEV)
+    same = at == SMALL_SAVE and all(
+        torch.equal(a, b.cpu()) and a.dtype == b.dtype
+        for a, b in zip(snap, ttree.leaves(back)))
+    if not same:
+        raise AssertionError("phase 20: the restored state differs from "
+                             "the saved one")
+    again = []
+    for batch in batches[SMALL_SAVE:]:
+        back, m = bundle.step_fn(back, batch)
+        again.append(float(m["loss"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(again, losses[SMALL_SAVE:])]
+    log(f"phase 20: restarted from step {at} through launch/train.py's "
+        f"restore_state: state equal to the saved one bit for bit "
+        f"({len(snap)} leaves); step {SMALL_SAVE}'s loss "
+        f"{'equal' if again[0] == losses[SMALL_SAVE] else 'DIFFERS'} "
+        f"({again[0]!r} vs {losses[SMALL_SAVE]!r}); steps "
+        f"{SMALL_SAVE + 1}-{SMALL_STEPS - 1} within {max(rel[1:]):.3g} "
+        f"relative (tolerance 1e-3)")
+    if again[0] != losses[SMALL_SAVE] or max(rel[1:]) > 1e-3:
+        raise AssertionError("phase 20: the restarted run drifted")
+    del state, back, bundle
+    torch.cuda.empty_cache()
+
+    # (d) whisper-tiny at full width
+    cfg = get_config("whisper-tiny")
+    bundle = make_train_step(cfg, DEV, OptimizerConfig())
+    state = bundle.init_state_fn(0)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=WHISPER_TRAIN_S,
+                                  global_batch=QWEN_TRAIN_B, seed=0))
+    rng = np.random.default_rng(0)
+    batches = []
+    for i in range(3):
+        batch = data.batch(i)
+        batch["frames"] = rng.standard_normal(
+            (QWEN_TRAIN_B, cfg.encoder.n_frames, cfg.d_model)).astype(
+                np.float32)
+        batches.append(batch)
+    state, losses, step_ms, counts = train_steps(
+        torch, bundle, state, batches, kernels, "phase 20")
+    n_attn = cfg.encoder.n_layers + 2 * cfg.n_layers
+    check_train_launches(counts, 2 * n_attn, n_attn, "phase 20")
+    log(f"phase 20: {cfg.name}: 3 steps on frames ({QWEN_TRAIN_B}, "
+        f"{cfg.encoder.n_frames}, {cfg.d_model}) and {QWEN_TRAIN_B} x "
+        f"{WHISPER_TRAIN_S} tokens: losses {[round(x, 4) for x in losses]}, "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step; each step "
+        f"{counts[0]['flash_attention']} B3 launches (encoder, causal self "
+        f"and cross, forward and recompute) and "
+        f"{counts[0]['flash_attention_bwd']} of its backward")
+    del state, bundle
+    torch.cuda.empty_cache()
+    return row, qwen_launches
+
+
 def main() -> int:
     import torch
 
@@ -2480,9 +2899,12 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
+    from repro_torch.kernels import flash_attention as fa_mod
+
     kernels = {"fingerprint_filter": ops.fingerprint_filter,
                "tickfuse_response_path": ops.tickfuse_response_path,
                "flash_attention": ops.flash_attention,
+               "flash_attention_bwd": fa_mod.flash_attention_bwd,
                "ssd_scan": ssd_mod.ssd_scan,
                "lru_scan": lru_mod.lru_scan}
     t_start = time.perf_counter()
@@ -2525,9 +2947,10 @@ def main() -> int:
     # phases 3-5 run the staged engine, where every launch is a wrapper
     # call (the default on a card, 'auto', is the fused backend: phase 12)
     staged = EngineOptions(backend="staged")
-    for backend, kernel in (("pallas", "fingerprint_filter"),
-                            ("tickfuse", "tickfuse_response_path"),
-                            ("vectorized", None)):
+    # B2 alone, cut from B1, B2 and vectorized for phases 19-20: phase 12a
+    # runs all three fused against the same goldens, and phase 5 runs B1
+    # on the staged loop (its launches counted, its ticks held to scan)
+    for backend, kernel in (("tickfuse", "tickfuse_response_path"),):
         cfg, cases, params = golden_batch(tf, backend)
         reset(kernels)
         t0 = time.perf_counter()
@@ -2746,6 +3169,20 @@ def main() -> int:
         check_attention_case(torch, ref, ops, case, "phase 18", seed=180 + i)
     log(f"phase 18 ended at {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 19: the sharded sweep runner (one slab on the one card) -----
+    run_shard(torch, tf, sw, sweep_cfg, policies, loads, seeds)
+    log(f"phase 19 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 20: training (B3's backward kernel, qwen2.5-3b, 0.1 B,
+    # whisper-tiny) ---------------------------------------------------------
+    rows["flash_attention_bwd"], train_launches = run_training(
+        torch, kernels, get_config)
+    for n in ("flash_attention", "flash_attention_bwd"):
+        if not train_launches[n]:
+            raise AssertionError(f"phase 20: the training run launched no "
+                                 f"{n}")
+    log(f"phase 20 ended at {time.perf_counter() - t_start:.1f} s")
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -2754,6 +3191,9 @@ def main() -> int:
                 "src/repro/kernels/fingerprint_filter.py:64",
                 "tickfuse_response_path": "src/repro/kernels/tickfuse.py:86",
                 "flash_attention": "src/repro/kernels/flash_attention.py:98",
+                "flash_attention_bwd":
+                "none: jax.grad through src/repro/kernels/ops.py:30-31 "
+                "(the XLA attention_ref)",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:76",
                 "lru_scan": "src/repro/kernels/lru_scan.py:51"}
     sources = {"fingerprint_filter":
@@ -2762,12 +3202,15 @@ def main() -> int:
                "src/repro_torch/kernels/csrc/tickfuse.cu",
                "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                "lru_scan": "src/repro_torch/kernels/csrc/lru_scan.cu"}
     launches = {"fingerprint_filter": rack_launches["fingerprint_filter"],
                 "tickfuse_response_path":
                 sweep_launches["tickfuse_response_path"],
                 "flash_attention": prefill_launches,
+                "flash_attention_bwd": train_launches["flash_attention_bwd"],
                 "ssd_scan": ssd_launches, "lru_scan": lru_launches}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": sources[n],

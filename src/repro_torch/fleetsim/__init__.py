@@ -15,8 +15,10 @@ set) and ServeSim's continuous-batching server (``server_model="batch"``,
 :mod:`repro_torch.fleetsim.llmserve`) run on both backends; FleetScope
 telemetry (``FleetConfig.telemetry``, :mod:`repro_torch.fleetsim.
 telemetry`) on the staged one.  :mod:`repro_torch.fleetsim.validate`
-holds FleetSim to the DES, from a sweep or a scenario file, and the batch
-server to the serving tier's replicas (``serve_equivalence``).
+holds FleetSim to the DES, from a sweep or a scenario file, the batch
+server to the serving tier's replicas (``serve_equivalence``), and a grid
+sharded over devices (:mod:`repro_torch.fleetsim.shard`) to its unsharded
+run (``shard_equivalence``).
 """
 
 from repro_torch.fleetsim.chaos import LinkFailure
@@ -27,7 +29,8 @@ from repro_torch.fleetsim.engine import RunParams, make_params, \
     simulate_telemetry, stack_params
 from repro_torch.fleetsim.metrics import FleetResult, summarize
 from repro_torch.fleetsim.options import EngineOptions
-from repro_torch.fleetsim.shard import ShardSpec
+from repro_torch.fleetsim.shard import ShardedMetrics, ShardSpec, \
+    simulate_batch_sharded
 from repro_torch.fleetsim.state import CoordState, FabricSwitch, \
     FleetState, HedgeWheel, Metrics, init_fleet_state, state_from_numpy, \
     to_numpy
@@ -41,10 +44,11 @@ __all__ = [
     "POLICY_IDS", "POLICY_NAMES", "CoordState", "CrossCheck",
     "EngineOptions", "FabricSwitch", "FleetConfig", "FleetResult",
     "FleetState", "HedgeWheel", "LinkFailure", "Metrics", "RunParams",
-    "ServiceSpec", "ShardSpec", "SweepResult", "TelemetrySpec",
+    "ServiceSpec", "ShardSpec", "ShardedMetrics", "SweepResult", "TelemetrySpec",
     "cross_check_scenario", "cross_validate", "cross_validate_spec",
     "init_fleet_state", "make_params", "params_from_numpy", "rack_skew",
-    "shard_equivalence", "simulate", "simulate_batch_telemetry",
+    "shard_equivalence", "simulate", "simulate_batch_sharded",
+    "simulate_batch_telemetry",
     "simulate_telemetry", "stack_params", "state_from_numpy",
     "summarize", "sweep_grid", "to_numpy",
 ]

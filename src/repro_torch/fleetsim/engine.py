@@ -247,10 +247,6 @@ def resolve_options(cfg: FleetConfig, options, device) -> tuple[str, int]:
         raise TypeError(f"options must be an EngineOptions, got "
                         f"{type(opts).__name__}")
     backend = opts.resolve_backend(cfg, device)
-    if opts.shard is not None:
-        raise NotImplementedError(
-            "EngineOptions shard= (the sharded runner) is not ported to "
-            "PyTorch yet (ROADMAP.md A9)")
     if opts.telemetry:
         _check_telemetry(cfg)
     if backend == "staged":
@@ -307,7 +303,20 @@ def simulate(cfg: FleetConfig, params: RunParams, *, device=None,
     (and ``cfg.telemetry``) the triple ``(metrics, trace, series)`` —
     decode it with :func:`repro_torch.fleetsim.telemetry.decode_run`.
     Telemetry only observes: the metrics are the telemetry-off run's.
-    ``shard=`` raises (ROADMAP.md A9)."""
+    With ``EngineOptions(shard=...)`` a batched ``params`` is laid out over
+    a device mesh (:func:`repro_torch.fleetsim.shard.run_sharded`) and the
+    result is a :class:`~repro_torch.fleetsim.shard.ShardedMetrics`."""
+    if getattr(options, "shard", None) is not None:
+        if torch.as_tensor(params.policy_id).dim() != 1:
+            raise ValueError(
+                "EngineOptions.shard lays a sweep grid over a device mesh; "
+                "params must carry a leading sweep axis (got scalar "
+                "RunParams)")
+        from repro_torch.fleetsim.shard import run_sharded
+
+        backend, k = resolve_options(cfg, options, resolve_device(device))
+        return run_sharded(cfg, params, options.shard, backend=backend,
+                           ticks_per_chunk=k, device=device)
     state, _, batched = run_state(cfg, params, device, options)
     if options is not None and options.telemetry:
         return tuple(_one(x, batched)

@@ -170,17 +170,20 @@ def run_block(cfg: FleetConfig, step, n_raw: torch.Tensor,
 @dataclass
 class GraphStats:
     """What a fused run's graph cost and did (seconds by the host clock,
-    each phase ending with a device synchronisation)."""
+    each phase ending with a device synchronisation), and what a sharded
+    run's placement cost."""
 
     ticks: int = 0              # L, ticks one graph holds
     replays: int = 0            # graph launches over the run
     warmup_s: float = 0.0       # one eager block on a copy of the state
     capture_s: float = 0.0      # stream capture of one block
     instantiate_s: float = 0.0  # cudaGraphInstantiate
+    place_s: float = 0.0        # sharded: slabs placed on their devices
 
     @property
     def setup_s(self) -> float:
-        return self.warmup_s + self.capture_s + self.instantiate_s
+        return (self.warmup_s + self.capture_s + self.instantiate_s
+                + self.place_s)
 
 
 class TickBlocks:

@@ -24,8 +24,8 @@ Backends
 
 ``telemetry=True`` makes :func:`~repro_torch.fleetsim.engine.simulate`
 return ``(metrics, trace, series)`` (needs ``cfg.telemetry``).  ``shard``
-validates as in the reference, but running with it raises
-``NotImplementedError`` (ROADMAP.md A9).  ``donate`` is accepted for the
+lays a batched run over devices (:mod:`repro_torch.fleetsim.shard`); it
+refuses telemetry, as in the reference.  ``donate`` is accepted for the
 reference's API and has no effect in the port: the engine never writes
 into the caller's ``params``.
 

@@ -12,8 +12,9 @@ hedge-timer delay as a fourth, per-run grid axis.
 selects the backend, and the result records the concrete one: on CUDA the
 default is the fused backend, whose ticks replay from a CUDA graph.  A
 config with ``telemetry`` runs staged and decodes each row's trace and
-series (``SweepResult.telemetry``).  Not ported yet, and raising
-``NotImplementedError``: ``shard`` (ROADMAP.md A9).
+series (``SweepResult.telemetry``).  ``shard`` lays the grid out over
+devices (:mod:`repro_torch.fleetsim.shard`), one contiguous slab of
+configurations a device; ``shard=None`` keeps the single-device run.
 """
 
 from __future__ import annotations
@@ -27,15 +28,18 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim.chaos import check_link_failure
 from repro_torch.fleetsim.config import POLICY_IDS, FleetConfig, ServiceSpec
+from repro_torch.fleetsim import shard as shard_mod
 from repro_torch.fleetsim.engine import (
     RunParams,
     check_fabric_arrays,
     check_hedge_delay,
+    resolve_options,
     run_state,
 )
 from repro_torch.fleetsim.fused import GraphStats
 from repro_torch.fleetsim.metrics import FleetResult, summarize
 from repro_torch.fleetsim.options import EngineOptions
+from repro_torch.fleetsim.shard import ShardSpec
 from repro_torch.fleetsim.telemetry import RunTelemetry, decode_run
 from repro_torch.fleetsim.telemetry.device import SeriesState, TraceBuffer
 from repro_torch.scenarios import registry
@@ -51,13 +55,20 @@ class SweepResult:
     n_configs: int
     simulated_requests: int
     device: str                  # e.g. "cuda:0" or "cpu"
+    # execution layout: the devices the grid ran on (slabs for a CPU run)
+    # and the rows padded onto the last slab
+    n_devices: int = 1
+    shard: ShardSpec | None = None
+    n_pad: int = 0
     # the concrete engine backend the sweep ran ('staged' | 'fused')
     backend: str = "staged"
-    # the fused backend's graph set-up on CUDA: warm-up, capture and
-    # instantiation (GraphStats.setup_s); 0 otherwise
+    # set-up apart from the run: the fused backend's graph warm-up,
+    # capture and instantiation on CUDA (GraphStats.setup_s), plus a
+    # sharded sweep's placement of its slabs; 0 otherwise
     compile_s: float = 0.0
     graph: GraphStats | None = field(default=None, repr=False)
-    # grid-aggregate latency histogram (n_racks, hist_bins)
+    # grid-aggregate latency histogram (n_racks, hist_bins); a sharded
+    # sweep merges each slab's masked sum (shard.ShardedMetrics)
     grid_hist: np.ndarray | None = field(default=None, repr=False)
     # per-row decoded FleetScope telemetry (same order as results) when the
     # sweep ran with cfg.telemetry; None otherwise
@@ -220,29 +231,46 @@ def sweep_grid(
     backend (default ``'auto'``: fused on CUDA, staged on the CPU); the
     result's ``backend`` records the one that ran.  With ``cfg.telemetry``
     the sweep runs staged and ``telemetry`` holds each row's decoded trace
-    and series.
+    and series.  ``shard`` (``None`` | device count |
+    :class:`~repro_torch.fleetsim.shard.ShardSpec`, or
+    ``EngineOptions.shard``, not both) runs the grid as contiguous slabs
+    over the spec's devices (CPU slabs for a CPU run), each on the
+    selected backend; telemetry sweeps cannot shard.
     """
-    sharded = shard is not None or (engine is not None
-                                    and engine.shard is not None)
-    if sharded and (cfg.telemetry if cfg is not None
-                    else cfg_kw.get("telemetry", False)):
-        raise ValueError(
-            "telemetry sweeps cannot shard (per-device trace rings have no "
-            "merged chronological order); drop shard= or cfg.telemetry")
-    if sharded:
-        raise NotImplementedError("shard= is not ported yet (ROADMAP.md A9)")
+    opts = engine if engine is not None else EngineOptions()
+    shard_spec = shard_mod.as_shard(shard)
+    if shard_spec is not None and opts.shard is not None:
+        raise ValueError("pass the shard layout once: either shard= or "
+                         "engine=EngineOptions(shard=...), not both")
+    shard_spec = shard_spec if shard_spec is not None else opts.shard
     cfg, grid, rates, params = plan_grid(
         service, policies, loads, seeds, cfg, slowdown, rack_weights,
         fail_window_ticks, link_failure, resize_arrival_lanes, hedge_delays,
         **cfg_kw)
-    opts = engine if engine is not None else EngineOptions()
+    if cfg.telemetry and shard_spec is not None:
+        raise ValueError(
+            "telemetry sweeps cannot shard (per-device trace rings have no "
+            "merged chronological order); drop shard= or cfg.telemetry")
     if cfg.telemetry:
         opts = replace(opts, telemetry=True)
     stats = GraphStats()
+    n_devices, n_pad, grid_hist = 1, 0, None
     t0 = time.perf_counter()
-    state, backend, _ = run_state(cfg, params, device, opts, stats)
-    metrics = type(state.metrics)(*(x.cpu().numpy() for x in state.metrics))
-    wall = time.perf_counter() - t0 - stats.setup_s
+    if shard_spec is None:
+        state, backend, _ = run_state(cfg, params, device, opts, stats)
+        met = state.metrics
+    else:
+        backend, k = resolve_options(cfg, replace(opts, shard=None),
+                                     resolve_device(device))
+        sharded = shard_mod.run_sharded(cfg, params, shard_spec,
+                                        backend=backend, ticks_per_chunk=k,
+                                        device=device, stats=stats)
+        met, grid_hist = sharded.metrics, sharded.grid_hist.cpu().numpy()
+        n_devices = len(shard_spec.mesh(device))
+        n_pad = (-len(grid)) % n_devices
+    metrics = type(met)(*(x.cpu().numpy() for x in met))
+    setup_s = stats.setup_s
+    wall = time.perf_counter() - t0 - setup_s
     telemetry = None
     if cfg.telemetry:
         trace = TraceBuffer(*(x.cpu().numpy() for x in state.trace))
@@ -264,9 +292,13 @@ def sweep_grid(
         n_configs=len(grid),
         simulated_requests=sum(r.n_arrivals for r in results),
         device=str(resolve_device(device)),
+        n_devices=n_devices,
+        shard=shard_spec,
+        n_pad=n_pad,
         backend=backend,
-        compile_s=stats.setup_s,
+        compile_s=setup_s,
         graph=stats if stats.ticks else None,
-        grid_hist=np.asarray(metrics.hist).sum(axis=0),
+        grid_hist=(np.asarray(metrics.hist).sum(axis=0) if grid_hist is None
+                   else grid_hist),
         telemetry=telemetry,
     )

@@ -18,7 +18,8 @@ the tick is the one it always was):
 Telemetry is a pure observer: it draws no random numbers and feeds nothing
 back, so a telemetry-on run reproduces every ``Metrics`` counter of the
 telemetry-off run bit for bit.  It runs on the staged backend only, as in
-the reference; the sharded runner is not ported (``ROADMAP.md`` A9).
+the reference, and the sharded runner refuses it, as the reference's
+does.
 """
 
 from repro_torch.fleetsim.telemetry.decode import (

@@ -33,14 +33,20 @@ discrete-event oracle, one decode step per tick.  Its ``SERVE_*``
 tolerances are documented in the oracle module next to the three
 modelling gaps they bound.  Run it from the CLI with ``--serve-ticks N``.
 
-Not ported yet: :func:`shard_equivalence` needs the sharded runner (A9)
-and raises ``NotImplementedError``.
+:func:`shard_equivalence` holds a **sharded** sweep
+(:mod:`repro_torch.fleetsim.shard`) to the unsharded run of the same
+grid: counters and histograms exact, derived float statistics within
+:data:`SHARD_STAT_RTOL`, and the merged ``grid_hist`` equal to the sum of
+the unsharded per-cell histograms.  ``--shard N`` runs it from the CLI.
 """
 
 from __future__ import annotations
 
+import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
+
+import numpy as np
 
 from repro_torch.core.simulator import Simulator
 from repro_torch.core.workloads import ServiceProcess, load_to_rate
@@ -272,11 +278,113 @@ def cross_validate_spec(spec, n_requests: int = 20_000,
     return checks
 
 
-def shard_equivalence(spec, shard=None, **cfg_overrides):
-    """Sharded == unsharded on a SweepSpec: needs the sharded runner."""
-    raise NotImplementedError(
-        "shard_equivalence needs the sharded runner, which is not ported to "
-        "PyTorch yet (ROADMAP.md A9)")
+# --------------------------------------------------- sharded == unsharded --
+#: relative tolerance on *derived float statistics* between a sharded and
+#: an unsharded run of the same grid.  Counters and histograms are compared
+#: exactly — each grid cell runs the identical per-configuration program,
+#: sharding only changes which device runs it.
+SHARD_STAT_RTOL = 1e-6
+
+
+@dataclass
+class ShardCheck:
+    """One grid cell of a sharded-vs-unsharded comparison."""
+
+    policy: str
+    load: float
+    seed: int
+    hedge_delay_us: float
+    counters_ok: bool     # every int field (and int tuple) exact
+    stat_rel: float       # worst relative error over float statistics
+    mismatched: tuple[str, ...] = ()   # field names that differed
+
+    @property
+    def stats_ok(self) -> bool:
+        return self.stat_rel <= SHARD_STAT_RTOL
+
+    @property
+    def ok(self) -> bool:
+        return self.counters_ok and self.stats_ok
+
+    def describe(self) -> str:
+        bad = f" mismatched={list(self.mismatched)}" if self.mismatched \
+            else ""
+        return (f"{self.policy}@{self.load:.2f}#s{self.seed}"
+                f"(d={self.hedge_delay_us:g}): counters "
+                f"{'exact' if self.counters_ok else 'DIFFER'}, "
+                f"stat_rel={self.stat_rel:.2e}"
+                f"[{'ok' if self.stats_ok else 'FAIL'}]{bad}")
+
+
+def _float_rel(a: float, b: float) -> float:
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    return abs(a - b) / max(abs(a), abs(b), 1e-12)
+
+
+def _compare_results(a: FleetResult, b: FleetResult) -> ShardCheck:
+    counters_ok, worst, bad = True, 0.0, []
+    for f in fields(FleetResult):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, (str, int)):
+            exact = va == vb
+        elif isinstance(va, float):
+            rel = _float_rel(va, vb)
+            worst = max(worst, rel)
+            if rel > SHARD_STAT_RTOL:
+                bad.append(f.name)
+            continue
+        else:  # tuples (per-rack breakouts)
+            if len(va) != len(vb):
+                exact = False
+            elif va and isinstance(va[0], float):
+                rel = max((_float_rel(x, y) for x, y in zip(va, vb)),
+                          default=0.0)
+                worst = max(worst, rel)
+                if rel > SHARD_STAT_RTOL:
+                    bad.append(f.name)
+                continue
+            else:
+                exact = tuple(va) == tuple(vb)
+        if not exact:
+            counters_ok = False
+            bad.append(f.name)
+    return ShardCheck(policy=a.policy, load=a.offered_load, seed=a.seed,
+                      hedge_delay_us=a.hedge_delay_us,
+                      counters_ok=counters_ok, stat_rel=worst,
+                      mismatched=tuple(bad))
+
+
+def shard_equivalence(spec, shard=None, *, device=None,
+                      **cfg_overrides) -> tuple[list[ShardCheck], bool]:
+    """Run a :class:`repro_torch.scenarios.SweepSpec` twice on ``device``
+    (CUDA by default) — unsharded and sharded (``shard``: device count /
+    ``ShardSpec``; ``None`` takes the spec's own ``shard`` or every visible
+    device) — and compare.
+
+    Returns ``(per-cell checks, grid_hist_equal)``.  The aggregate check
+    covers the merge: the sharded ``grid_hist`` (each slab's masked sum,
+    added across slabs) must equal the host-side sum of the unsharded
+    per-cell histograms exactly (integer counts)."""
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.fleetsim.shard import ShardSpec, as_shard
+
+    shard = as_shard(shard) if shard is not None \
+        else (spec.shard or ShardSpec())
+    plain = dc_replace(spec, shard=None)
+    base = plain.run_fleetsim(device=device, **cfg_overrides)
+    sharded = dc_replace(spec, shard=shard).run_fleetsim(device=device,
+                                                         **cfg_overrides)
+    if len(base.results) != len(sharded.results):
+        raise AssertionError(
+            f"grid size changed under sharding: {len(base.results)} vs "
+            f"{len(sharded.results)} (padding must be stripped)")
+    checks = [_compare_results(x, y)
+              for x, y in zip(base.results, sharded.results)]
+    hist_ok = bool(np.array_equal(np.asarray(base.grid_hist),
+                                  np.asarray(sharded.grid_hist)))
+    return checks, hist_ok
 
 
 def cross_validate(
@@ -346,8 +454,9 @@ def main(argv: list[str] | None = None) -> int:
     on ``--device`` (CUDA by default), the DES on the host;
     ``--serve-ticks N`` adds the ServeSim tier (:func:`serve_equivalence`
     over ``N`` ticks, its replicas on ``--device`` too).  Exits non-zero if
-    any point breaks the documented tolerances.  ``--shard`` raises until
-    the sharded runner (A9) is ported.
+    any point breaks the documented tolerances.  ``--shard N`` also checks
+    the ``--grid`` sweep sharded over ``N`` devices (CPU slabs with
+    ``--device cpu``) against its unsharded run.
     """
     import argparse
 
@@ -365,8 +474,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--trace-ticks", type=int, default=None,
                     help="override the trace scenario's n_ticks")
     ap.add_argument("--shard", type=int, default=0,
-                    help="also check sharded == unsharded (not ported "
-                         "yet: a nonzero value raises)")
+                    help="also check sharded == unsharded on the --grid "
+                         "sweep over this many devices (0 skips; with "
+                         "--device cpu, this many CPU slabs)")
+    ap.add_argument("--shard-ticks", type=int, default=6_000,
+                    help="n_ticks for the shard-equivalence sweep (exact "
+                         "comparison, so short runs suffice)")
     ap.add_argument("--serve-ticks", type=int, default=0,
                     help="also run the ServeSim tier: batch-server stage "
                          "vs DecodeReplica oracle over this many ticks "
@@ -387,10 +500,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where FleetSim runs: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.shard:
-        shard_equivalence(None, shard=args.shard)
 
     checks = []
+    shard_checks, shard_hist_ok = [], True
     serve_checks = []
     fuzz_report = None
     if args.grid != "none":
@@ -399,6 +511,12 @@ def main(argv: list[str] | None = None) -> int:
               f"{spec.resolved_loads()} ==")
         checks = cross_validate_spec(spec, n_requests=args.requests,
                                      device=args.device)
+        if args.shard:
+            print(f"== shard equivalence: grid x {args.shard} device(s), "
+                  f"{args.shard_ticks} ticks ==")
+            shard_checks, shard_hist_ok = shard_equivalence(
+                spec, shard=args.shard, device=args.device,
+                n_ticks=args.shard_ticks)
     if args.trace != "none":
         sc = Scenario.from_file(args.trace)
         print(f"== trace {args.trace}: {sc.policy}, "
@@ -425,6 +543,14 @@ def main(argv: list[str] | None = None) -> int:
         n_ok += c.ok
         print(("[PASS] " if c.ok else "[FAIL] ") + c.describe())
     print(f"{n_ok}/{len(checks)} points within tolerance")
+    n_shard_ok = 0
+    if shard_checks:
+        for c in shard_checks:
+            n_shard_ok += c.ok
+            print(("[PASS] " if c.ok else "[FAIL] ") + c.describe())
+        print(("[PASS] " if shard_hist_ok else "[FAIL] ")
+              + "grid_hist psum merge == host-side sum")
+        print(f"{n_shard_ok}/{len(shard_checks)} sharded cells identical")
     n_serve_ok = 0
     if serve_checks:
         for c in serve_checks:
@@ -446,6 +572,11 @@ def main(argv: list[str] | None = None) -> int:
             "checks": [{**dataclasses.asdict(c), "pass": bool(c.ok),
                         "saturated": bool(c.saturated),
                         "detail": c.describe()} for c in checks],
+            "shard_devices": args.shard,
+            "shard_grid_hist_ok": bool(shard_hist_ok),
+            "shard_checks": [{**dataclasses.asdict(c), "pass": bool(c.ok),
+                              "detail": c.describe()}
+                             for c in shard_checks],
             "serve_ticks": args.serve_ticks,
             "serve_checks": [{**dataclasses.asdict(c), "pass": bool(c.ok),
                               "saturated": bool(c.saturated),
@@ -463,7 +594,9 @@ def main(argv: list[str] | None = None) -> int:
         print(f"wrote {out}")
     fuzz_ok = fuzz_report is None or fuzz_report.ok
     serve_ok = n_serve_ok == len(serve_checks)
-    return 0 if (n_ok == len(checks) and serve_ok and fuzz_ok) else 1
+    shard_ok = shard_hist_ok and n_shard_ok == len(shard_checks)
+    return 0 if (n_ok == len(checks) and shard_ok and serve_ok
+                 and fuzz_ok) else 1
 
 
 if __name__ == "__main__":

@@ -22,8 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("fingerprint_filter", "tickfuse", "flash_attention", "ssd_scan",
-           "lru_scan")
+KERNELS = ("fingerprint_filter", "tickfuse", "flash_attention",
+           "flash_attention_bwd", "ssd_scan", "lru_scan")
 
 
 def nvcc_path() -> str:

@@ -20,6 +20,14 @@ keeps one rule of the reference's kernel: causal or windowed attention
 only with ``Sq == Skv`` — the Pallas kernel aligns causal rows at the
 start, ``attention_ref`` at the end, and the two agree only there
 (ROADMAP C2).
+
+Gradients: on a CUDA tensor with grad mode on and an input that requires
+grad, the wrapper runs as a ``torch.autograd.Function`` whose forward is
+the same kernel launch and whose backward is :func:`flash_attention_bwd`
+(``csrc/flash_attention_bwd.cu``, head dims :data:`BWD_HEAD_DIMS`): what
+``jax.grad`` of the reference's XLA attention computes, since the
+reference has no Pallas backward.  Without grad the wrapper launches the
+forward alone, as before, and records nothing for autograd.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+#: head dims the backward kernel is built for (whisper-tiny's 64 and
+#: qwen2.5-3b's 128, the two that train on the card)
+BWD_HEAD_DIMS = (64, 128)
 #: bf16 at these head dims runs on the TMA + ``wgmma`` kernel; every other
 #: input on the scalar-FMA kernel
 WGMMA_HEAD_DIMS = (64, 128, 256)
@@ -125,6 +136,15 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _bwd_lib():
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_bwd_launch.argtypes = [_P] * 10 + [_I] * 7 + [
+        _P, ctypes.c_float, _I, _I, _P]
+    lib.flash_attention_bwd_launch.restype = _I
+    return lib
+
+
 def wgmma_attributes(d: int) -> dict:
     """The TMA + ``wgmma`` kernel's build at head dim ``d`` (64, 128 or
     256), from ``cudaFuncGetAttributes``: registers a thread, static and
@@ -167,21 +187,10 @@ def check_attention_args(q, k, v, causal: bool, window) -> None:
             "attention_ref at the end (ROADMAP C2)")
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int | None = None,
-                    sm_scale: float | None = None) -> torch.Tensor:
-    """q ``(B, H, Sq, D)``, k/v ``(B, Hkv, Skv, D)``, float32 or bfloat16
-    → ``(B, H, Sq, D)`` in q's dtype.  Any strides with a unit head-dim
-    stride (the model passes ``(B, S, H, D)`` tensors transposed)."""
-    check_attention_args(q, k, v, causal, window)
+def _launch(q, k, v, causal: bool, window, sm_scale: float):
+    """One launch of the forward kernel on CUDA tensors that
+    :func:`check_attention_args` accepted."""
     b, h, sq, d = q.shape
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not built; the kernel takes "
                          f"{HEAD_DIMS}")
@@ -215,4 +224,107 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """B3 with its backward kernel: the forward launches :func:`_launch`,
+    the backward :func:`flash_attention_bwd` on the saved inputs and
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        out = _launch(q, k, v, causal, window, sm_scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, sm_scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         window=window, sm_scale=sm_scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """q ``(B, H, Sq, D)``, k/v ``(B, Hkv, Skv, D)``, float32 or bfloat16
+    → ``(B, H, Sq, D)`` in q's dtype.  Any strides with a unit head-dim
+    stride (the model passes ``(B, S, H, D)`` tensors transposed).  On a
+    CUDA tensor that needs a gradient (grad mode on, an input requiring
+    grad) the result carries B3's backward; that needs a head dim of
+    :data:`BWD_HEAD_DIMS`."""
+    check_attention_args(q, k, v, causal, window)
+    d = q.shape[3]
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if d not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention's backward kernel is built for head dims "
+                f"{BWD_HEAD_DIMS}, not {d}")
+        return _FlashAttention.apply(q, k, v, causal, window, sm_scale)
+    return _launch(q, k, v, causal, window, sm_scale)
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        window: int | None = None,
+                        sm_scale: float | None = None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` at q, k, v
+    (its output ``out``) for the incoming gradient ``dout`` (both ``(B, H,
+    Sq, D)``), in the inputs' dtype.  On CUDA tensors: one call of
+    ``csrc/flash_attention_bwd.cu`` (three kernels: row statistics, dK and
+    dV, dQ), counted once in ``flash_attention_bwd.launches``; on CPU
+    tensors the plain version, autograd through
+    :func:`~repro_torch.kernels.ref.attention_ref`."""
+    check_attention_args(q, k, v, causal, window)
+    b, h, sq, d = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return ref.attention_bwd_ref(q, k, v, dout, causal=causal,
+                                     window=window, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the backward kernel takes "
+                         f"{BWD_HEAD_DIMS}")
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    out = out.to(q.dtype).contiguous()
+    dout = dout.to(q.dtype).contiguous()
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 9)(*(t.stride(i) for t in (q, k, v)
+                                     for i in range(3)))
+    with torch.cuda.device(q.device):
+        err = _bwd_lib().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _DTYPE_CODE[q.dtype], b, h,
+            k.shape[1], sq, k.shape[2], d,
+            ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
+            int(causal), -1 if window is None else int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: "
+                           f"cudaGetLastError() = {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -67,6 +67,12 @@ def lru_scan(x, a, h0=None):
         return ref.lru_scan_ref(x, a, h0)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a, h0)):
+        raise NotImplementedError(
+            "lru_scan has no backward kernel yet: its CUDA path cannot "
+            "carry a gradient (ROADMAP.md queue B, B5-bwd); run it under "
+            "torch.no_grad() or with inputs that do not require grad")
     bsz, s, d = x.shape
     x, a = (t if t.stride(2) == 1 else t.contiguous() for t in (x, a))
     if h0 is not None:

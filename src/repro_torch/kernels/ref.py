@@ -72,6 +72,19 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return torch.cat(chunks, dim=2).to(q.dtype)
 
 
+def attention_bwd_ref(q, k, v, dout, *, causal: bool = True,
+                      window: int | None = None,
+                      sm_scale: float | None = None):
+    """The plain version of B3's backward: ``(dq, dk, dv)`` by autograd
+    through :func:`attention_ref` (what ``jax.grad`` of the reference's XLA
+    attention computes), for the incoming gradient ``dout``."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = attention_ref(qq, kk, vv, causal=causal, window=window,
+                            sm_scale=sm_scale)
+        return torch.autograd.grad(out, (qq, kk, vv), dout.to(out.dtype))
+
+
 def fingerprint_slot(req_id: torch.Tensor, n_slots: int) -> torch.Tensor:
     """``(uint32(req_id) · 2654435761 mod 2^32) >> 15 mod n_slots`` as
     int64.  The 32×32-bit product is split at bit 16 so no intermediate
@@ -222,14 +235,19 @@ def lru_scan_ref(x, a, h0=None):
     B5 (the reference's ``lru_scan_ref``, an associative scan): a
     Hillis-Steele doubling scan over the sequence with the combine
     ``(a_l, h_l) ∘ (a_r, h_r) = (a_l·a_r, h_l·a_r + h_r)``, h0 folded into
-    the first step.  Same shapes and result as :func:`lru_scan_naive`."""
-    af = a.float().clone()
-    hs = x.float().clone()
+    the first step.  Same shapes and result as :func:`lru_scan_naive`.
+    Each doubling builds new tensors rather than writing into the old
+    ones, so autograd (and a checkpoint's recompute) sees every operand as
+    it was read."""
+    af = a.float()
+    hs = x.float()
     if h0 is not None:
-        hs[:, 0] += af[:, 0] * h0.float()
+        hs = torch.cat([hs[:, :1] + af[:, :1] * h0.float()[:, None],
+                        hs[:, 1:]], dim=1)
     shift = 1
     while shift < x.shape[1]:
-        hs[:, shift:] = hs[:, shift:] + af[:, shift:] * hs[:, :-shift]
-        af[:, shift:] = af[:, shift:] * af[:, :-shift]
+        hs = torch.cat([hs[:, :shift],
+                        hs[:, shift:] + af[:, shift:] * hs[:, :-shift]], dim=1)
+        af = torch.cat([af[:, :shift], af[:, shift:] * af[:, :-shift]], dim=1)
         shift *= 2
     return hs.to(x.dtype), hs[:, -1].clone()

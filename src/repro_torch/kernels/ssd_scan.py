@@ -207,6 +207,13 @@ def ssd_scan(x, a, b_mat, c_mat, h0=None, *, chunk: int = 128):
         return ref.ssd_scan_ref(x, a, b_mat, c_mat, h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, a, b_mat, c_mat, h0)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: its CUDA path cannot "
+            "carry a gradient (ROADMAP.md queue B, B4-bwd); run it under "
+            "torch.no_grad() or with inputs that do not require grad")
     kernel = kernel_for(x.dtype, x.shape[3], b_mat.shape[3])
     out = _launch(kernel, x, a, b_mat, c_mat, h0)
     ssd_scan.launches += 1

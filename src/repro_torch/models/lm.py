@@ -8,8 +8,12 @@ The reference compiles the layer list into scan groups (prologue, a
 gain from a scan, so here the layers are a plain list, ``params["blocks"]
 [i]`` and ``cache[i]`` for layer ``i``.  :func:`scan_groups` stays, because
 it names where each layer sits in the reference's pytree
-(:mod:`repro_torch.models.convert`).  ``loss_fn`` waits for the training
-slice (ROADMAP A13).
+(:mod:`repro_torch.models.convert`).  :func:`loss_fn` is the reference's
+causal LM loss: the chunked, vocab-parallel cross-entropy plus the MoE
+layers' auxiliary losses.  With ``cfg.remat != "none"`` (the reference's
+default ``"full"``), each layer of a ``train``-mode pass whose input carries a
+gradient runs under ``torch.utils.checkpoint``: only its input is kept,
+and the backward recomputes it.
 
 Modes: ``train``/``eval`` (full forward), ``prefill`` (returns per-layer
 caches), ``decode`` (one token against the caches; attention caches are
@@ -24,6 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -228,6 +233,13 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
     return x, new_cache, aux
 
 
+def remat_layers(cfg: ModelConfig, mode: str, x: torch.Tensor) -> bool:
+    """Whether a pass checkpoints its layers: ``train`` mode on an input
+    that carries a gradient, with ``cfg.remat`` other than ``"none"``; an
+    inference pass runs its layers as they are."""
+    return mode == "train" and cfg.remat != "none" and x.requires_grad
+
+
 def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
              positions: torch.Tensor, cache: list | None = None,
              mode: str = "train", pos: torch.Tensor | None = None):
@@ -236,7 +248,16 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
     z), in layer order; zero without MoE layers."""
     new_cache = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat_layers(cfg, mode, x)
     for i, spec in enumerate(layer_specs(cfg)):
+        if remat:
+            x, nc, a = checkpoint(_apply_layer, cfg, spec,
+                                  params["blocks"][i], x, positions, None,
+                                  mode, pos, use_reentrant=False)
+            new_cache.append(nc)
+            if a is not None:
+                aux = aux + a
+            continue
         x, nc, a = _apply_layer(cfg, spec, params["blocks"][i], x, positions,
                                 None if cache is None else cache[i], mode,
                                 pos)
@@ -287,6 +308,77 @@ def forward(cfg: ModelConfig, params: dict, tokens, positions=None,
     x, _, aux = backbone(cfg, params, x, positions,
                          mode="eval" if eval_mode else "train")
     return unembed(cfg, params["embed"], x), aux
+
+
+#: sequence-chunk length of the cross-entropy: the (B, chunk, V) float32
+#: logits are the only vocab-sized activation, recomputed in the backward
+LOSS_CHUNK = 512
+
+
+def _ce_chunk(cfg: ModelConfig, embed_params: dict, x: torch.Tensor,
+              labels: torch.Tensor):
+    """One chunk's (sum of NLL over valid labels, valid count, hits).  The
+    target logit comes from a masked reduce over the vocab axis, as the
+    reference's vocab-parallel CE takes it; ``argmax`` picks the first
+    index on ties, as ``jnp.argmax`` does."""
+    logits = unembed(cfg, embed_params, x).float()
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    tgt = torch.where(iota == lab[..., None], logits, 0.0).sum(dim=-1)
+    nll = lse - tgt
+    hit = (torch.argmax(logits, dim=-1) == lab) & valid
+    return (torch.where(valid, nll, 0.0).sum(), valid.sum(dtype=torch.int32),
+            hit.sum(dtype=torch.int32))
+
+
+def _chunked_ce(cfg: ModelConfig, embed_params: dict, x: torch.Tensor,
+                labels: torch.Tensor):
+    """Cross-entropy without the (B, S, V) logits: the final hidden states
+    go through :data:`LOSS_CHUNK`-token chunks (the whole sequence when
+    ``S`` does not divide), each chunk's float32 logits recomputed in the
+    backward (``torch.utils.checkpoint``).  Returns ``(sum_nll, n_valid,
+    n_correct)``."""
+    s = x.shape[1]
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        chunk = s
+    sum_nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_valid = torch.zeros((), dtype=torch.int32, device=x.device)
+    n_hit = torch.zeros((), dtype=torch.int32, device=x.device)
+    for c0 in range(0, s, chunk):
+        xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if xc.requires_grad:
+            nll, nv, nh = checkpoint(_ce_chunk, cfg, embed_params, xc, lc,
+                                     use_reentrant=False)
+        else:
+            nll, nv, nh = _ce_chunk(cfg, embed_params, xc, lc)
+        sum_nll, n_valid, n_hit = sum_nll + nll, n_valid + nv, n_hit + nh
+    return sum_nll, n_valid, n_hit
+
+
+def ce_metrics(sum_nll, n_valid, n_hit, aux):
+    """``(loss, {"ce", "aux", "accuracy"})`` from the chunked CE's sums and
+    the auxiliary loss, as the reference's ``loss_fn`` forms them."""
+    n_valid = torch.clamp(n_valid, min=1)
+    ce = sum_nll / n_valid
+    return ce + aux, {"ce": ce, "aux": aux, "accuracy": n_hit / n_valid}
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, device=None):
+    """Causal LM loss; ``batch = {"tokens": (B, S), "labels": (B, S)}``
+    with ``-1`` labels as padding.  Returns ``(ce + aux, {"ce", "aux",
+    "accuracy"})``, float32 0-d tensors; MoE layers route with capacity
+    (``dropless=False``), as in the reference's training."""
+    tokens, labels = _inputs(params, device, batch["tokens"],
+                             batch["labels"])
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    x = embed_tokens(cfg, params["embed"], tokens)
+    x, _, aux = backbone(cfg, params, x, positions, mode="train")
+    return ce_metrics(*_chunked_ce(cfg, params["embed"], x, labels), aux)
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, s_max: int | None = None,

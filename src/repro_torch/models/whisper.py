@@ -15,9 +15,12 @@ plain list, ``params["enc"][i]`` and ``params["dec"][i]``, as the port's
 :mod:`repro_torch.models.lm` keeps its layers.  The decode cache is a
 :class:`WhisperCache` of per-layer lists: each decoder layer's causal KV
 cache (written in place by :func:`decode_step`) and the cross-attention
-K/V computed once from the encoder output at prefill.  ``loss_fn`` waits
-for the training slice (ROADMAP A13).  Every entry point runs on the CUDA
-device unless the caller passes ``device="cpu"``.
+K/V computed once from the encoder output at prefill.  :func:`loss_fn`
+is the reference's: the teacher-forced decoder through the shared chunked
+cross-entropy (:func:`repro_torch.models.lm._chunked_ce`), with each
+encoder and decoder layer checkpointed in training as ``lm``'s are.  Every
+entry point runs on the CUDA device unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -38,7 +42,8 @@ from repro_torch.models.common import (
     init_norm,
 )
 from repro_torch.models.ffn import init_mlp, mlp_forward
-from repro_torch.models.lm import _inputs, generator
+from repro_torch.models.lm import _chunked_ce, _inputs, ce_metrics, \
+    generator, remat_layers
 
 
 class WhisperCache(NamedTuple):
@@ -102,18 +107,27 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- encoder ----
-def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor):
+def _enc_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+    h = apply_norm(cfg, p["pre_norm"], x)
+    y, _ = attn.attention_forward(cfg, p["attn"], h, positions, causal=False)
+    x = x + y
+    h = apply_norm(cfg, p["post_norm"], x)
+    return x + mlp_forward(cfg, p["mlp"], h)
+
+
+def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+            mode: str = "eval"):
     b, f, _ = frames.shape
     dt = cfg.activation_dtype
     x = frames.to(dt) + params["enc_pos"][None, :f].to(dt)
     positions = _positions(b, f, x.device)
+    remat = remat_layers(cfg, mode, x)
     for p in params["enc"]:
-        h = apply_norm(cfg, p["pre_norm"], x)
-        y, _ = attn.attention_forward(cfg, p["attn"], h, positions,
-                                      causal=False)
-        x = x + y
-        h = apply_norm(cfg, p["post_norm"], x)
-        x = x + mlp_forward(cfg, p["mlp"], h)
+        if remat:
+            x = checkpoint(_enc_layer, cfg, p, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _enc_layer(cfg, p, x, positions)
     return apply_norm(cfg, params["enc_final_norm"], x)
 
 
@@ -183,17 +197,40 @@ def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
                         params["embed"]["tokens"].to(x.dtype))
 
 
+def _trunk(cfg: ModelConfig, params: dict, frames, tokens) -> torch.Tensor:
+    """Teacher-forced decoder trunk → final hidden states (B, S, D)."""
+    enc_out = _encode(cfg, params, frames, mode="train")
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    x = _embed_dec(cfg, params, tokens, positions)
+    remat = remat_layers(cfg, "train", x)
+    for p in params["dec"]:
+        if remat:
+            x, _ = checkpoint(_dec_layer, cfg, p, x, positions, enc_out,
+                              "train", None, None, use_reentrant=False)
+        else:
+            x, _ = _dec_layer(cfg, p, x, positions, enc_out, "train", None,
+                              None)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
 def decode_train(cfg: ModelConfig, params: dict, frames, tokens, *,
                  device=None) -> torch.Tensor:
     """Teacher-forced decoder over the encoder output → logits (B, S, V)."""
     frames, tokens = _inputs(params, device, frames, tokens)
-    enc_out = _encode(cfg, params, frames)
-    b, s = tokens.shape
-    positions = _positions(b, s, tokens.device)
-    x = _embed_dec(cfg, params, tokens, positions)
-    for p in params["dec"]:
-        x, _ = _dec_layer(cfg, p, x, positions, enc_out, "train", None, None)
-    return _logits(params, apply_norm(cfg, params["final_norm"], x))
+    return _logits(params, _trunk(cfg, params, frames, tokens))
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, device=None):
+    """The teacher-forced decoder's cross-entropy; ``batch = {"frames": (B,
+    F, d_model), "tokens": (B, S), "labels": (B, S)}`` with ``-1`` labels
+    as padding.  Returns ``(ce, {"ce", "aux": 0, "accuracy"})``."""
+    frames, tokens, labels = _inputs(params, device, batch["frames"],
+                                     batch["tokens"], batch["labels"])
+    x = _trunk(cfg, params, frames, tokens)
+    sums = _chunked_ce(cfg, params["embed"], x, labels)
+    return ce_metrics(*sums, torch.zeros((), dtype=torch.float32,
+                                         device=x.device))
 
 
 def prefill(cfg: ModelConfig, params: dict, frames, tokens, s_max: int, *,

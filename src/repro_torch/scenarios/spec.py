@@ -23,8 +23,8 @@ Every FleetSim run takes ``device=`` (CUDA by default, ``"cpu"`` for the
 plain path; on a card the default engine is the fused backend, which
 carries ``server_model="batch"`` scenarios too; a ``telemetry`` spec runs
 staged).  :meth:`Scenario.run_traced` runs with FleetScope on and decodes
-the trace.  Not ported yet: running a sharded :class:`SweepSpec` raises
-(``ROADMAP.md`` A9); it loads and round-trips.
+the trace.  A :class:`SweepSpec` with ``shard`` runs its grid sharded
+over devices (:mod:`repro_torch.fleetsim.shard`).
 """
 
 from __future__ import annotations
@@ -381,9 +381,8 @@ class SweepSpec:
     scenario's single load.  ``hedge_delays`` adds the hedge-timer delay as
     a per-run grid axis (needs a ``hedge_timer`` policy in the set), and
     ``shard`` lays the whole grid out over a device mesh
-    (:class:`repro_torch.fleetsim.shard.ShardSpec`; loads and round-trips,
-    but running it raises until the sharded runner is ported, A9) — both
-    Poisson-grid features, rejected for trace replays.
+    (:class:`repro_torch.fleetsim.shard.ShardSpec`) — both Poisson-grid
+    features, rejected for trace replays.
     """
 
     base: Scenario

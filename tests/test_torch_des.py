@@ -169,15 +169,28 @@ def test_cross_validate_rows_match_reference():
 
 
 def test_validate_features_of_later_slices_raise():
-    """``shard_equivalence`` still raises (A9); ``cross_validate_spec`` and
-    ``cross_check_scenario`` (A8) now give the reference's rows."""
+    """The validation features of the later slices run: ``shard_equivalence``
+    (A9-shard) gives the reference's checks on a one-device shard, and
+    ``cross_validate_spec`` and ``cross_check_scenario`` (A8) give the
+    reference's rows."""
     from repro.scenarios import Scenario as RScenario
+    from repro.scenarios import SweepSpec as RSweepSpec
     from repro.scenarios import load_any as rload
     from repro_torch.scenarios import Scenario as TScenario
+    from repro_torch.scenarios import SweepSpec as TSweepSpec
     from repro_torch.scenarios import load_any as tload
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        tval.shard_equivalence(None)
+    shard_kw = dict(policies=("netclone", "hedge"), loads=(0.3,),
+                    hedge_delays=(40.0,))
+    with jax.threefry_partitionable(False):
+        want_s, want_h = rval.shard_equivalence(
+            RSweepSpec(base=RScenario(servers=4, workers=8, n_ticks=400),
+                       **shard_kw), shard=1)
+    got_s, got_h = tval.shard_equivalence(
+        TSweepSpec(base=TScenario(servers=4, workers=8, n_ticks=400),
+                   **shard_kw), shard=1, device="cpu")
+    assert [c.__dict__ for c in got_s] == [c.__dict__ for c in want_s]
+    assert got_h and want_h and all(c.ok for c in got_s)
     with jax.threefry_partitionable(False):
         want = rval.cross_validate_spec(rload("hedge_vs_netclone"),
                                         n_requests=300)

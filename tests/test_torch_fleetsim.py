@@ -357,8 +357,10 @@ def test_sweep_grid_matches_reference_rows():
 
 
 def test_unported_features_raise():
-    """What later slices port still raises: shard (A9).  What earlier
-    slices ported runs: telemetry and the batch server (a telemetry
+    """Nothing of FleetSim is left unported: the sharded runner (A9-shard)
+    runs, and refuses scalar params as the reference does; a sharded sweep
+    equals the plain one.  What earlier slices ported runs: telemetry and
+    the batch server (a telemetry
     entry point on a config without the flag raises the reference's
     ``ValueError``), the optional stages (a stage-policy on a config
     without its stage raises the reference's ``ValueError``), the
@@ -370,12 +372,15 @@ def test_unported_features_raise():
     cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16,
                          n_ticks=2000)
     params = tf.make_params(cfg, 0, 0.1, 0)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="leading sweep axis"):
         tf.simulate(cfg, params, device="cpu",
                     options=EngineOptions(shard=1))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tf.sweep_grid(cfg.service, ["baseline"], [0.2], [0], cfg=cfg,
-                      shard=2, device="cpu")
+    kw = dict(cfg=replace(cfg, n_ticks=60), device="cpu")
+    plain = tf.sweep_grid(cfg.service, ["baseline"], [0.2, 0.4], [0], **kw)
+    sharded = tf.sweep_grid(cfg.service, ["baseline"], [0.2, 0.4], [0],
+                            shard=2, **kw)
+    assert sharded.results == plain.results and sharded.n_devices == 2
+    assert np.array_equal(sharded.grid_hist, plain.grid_hist)
     with pytest.raises(ValueError, match="cfg.telemetry=True"):
         tf.simulate(cfg, params, device="cpu",
                     options=EngineOptions(telemetry=True))
@@ -409,9 +414,12 @@ def test_unported_features_raise():
 def test_package_is_jax_free_and_never_falls_back_to_cpu():
     """Importing the port (the FleetSim engine and its fused backend and
     options, the DES and cross-validation, the kernels, the model stack
-    with whisper's encoder-decoder, the serving tier and its launcher)
-    pulls in neither ``jax`` nor ``repro``; without a card ``simulate`` raises instead of running on the
-    CPU, under the default options and under the fused backend."""
+    with whisper's encoder-decoder, the serving tier and its launcher,
+    the sharded runner, training, the data pipeline, checkpointing, fault
+    tolerance and the training launcher) pulls in neither ``jax`` nor
+    ``repro``; without a card ``simulate`` raises instead of running on the
+    CPU, under the default options, under the fused backend and sharded,
+    and so does the training launcher."""
     code = """
 import sys
 import torch
@@ -431,6 +439,9 @@ import repro_torch.scenarios, repro_torch.scenarios.spec
 import repro_torch.scenarios.__main__, repro_torch.scenarios.fuzz
 import repro_torch.fleetsim.telemetry, repro_torch.fleetsim.llmserve
 import repro_torch.fleetsim.telemetry.export, repro_torch.analysis.roofline
+import repro_torch.fleetsim.shard, repro_torch.train, repro_torch.train.step
+import repro_torch.data, repro_torch.checkpoint, repro_torch.ft
+import repro_torch.launch.train
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -438,13 +449,21 @@ cfg = tf.FleetConfig(n_servers=4, n_workers=4, queue_cap=16, n_ticks=10)
 params = tf.make_params(cfg, 0, 0.1, 0)
 from repro_torch.fleetsim.options import EngineOptions
 if not torch.cuda.is_available():
-    for opts in (None, EngineOptions(backend="fused")):
+    grid = tf.stack_params([params, params])
+    for opts, p in ((None, params), (EngineOptions(backend="fused"), params),
+                    (EngineOptions(shard=1), grid)):
         try:
-            tf.simulate(cfg, params, options=opts)
+            tf.simulate(cfg, p, options=opts)
         except RuntimeError as e:
             assert "device='cpu'" in str(e)
         else:
             raise AssertionError("simulate ran without a card")
+    try:
+        repro_torch.launch.train.main(["--steps", "1"])
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e)
+    else:
+        raise AssertionError("the training launcher ran without a card")
 m = tf.simulate(cfg, params, device="cpu")
 assert int(m.n_arrivals) >= 0
 print("ok")

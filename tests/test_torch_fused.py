@@ -368,7 +368,7 @@ def test_simulate_rejects_bad_options_and_params():
         simulate(cfg, bad, FUSED)
     with pytest.raises(TypeError, match="EngineOptions"):
         simulate(cfg, params, "fused")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="leading sweep axis"):
         simulate(cfg, params, EngineOptions(shard=1))
     with pytest.raises(ValueError, match="cfg.telemetry=True"):
         simulate(cfg, params, EngineOptions(telemetry=True))

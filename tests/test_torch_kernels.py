@@ -667,3 +667,113 @@ def test_cuda_flash_attention_reads_transposed_views(dtype, d, hkv):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=FA_TOL[dtype], rtol=0)
+
+
+# ------------------------------------------------------- B3's backward -----
+#: the masks B3's backward takes: causal (GQA and MHA), a sliding window,
+#: non-causal with Sq != Skv and a ragged last tile (whisper's
+#: cross-attention), at the two head dims it is built for
+FA_BWD_CASES = [
+    (1, 4, 4, 256, 256, 64, True, None, "float32"),
+    (2, 8, 2, 200, 200, 128, True, None, "float32"),
+    (1, 2, 2, 300, 300, 64, True, 100, "float32"),
+    (2, 6, 6, 70, 150, 64, False, None, "float32"),
+    (2, 8, 2, 300, 300, 128, True, None, "bfloat16"),
+    (1, 2, 2, 512, 512, 128, True, 100, "bfloat16"),
+    (2, 6, 6, 448, 1500, 64, False, None, "bfloat16"),
+]
+#: the backward against autograd through ``attention_ref``, max |diff| over
+#: max |grad| of each gradient: float32 sums in another order; bf16 also
+#: rounds the plain version's P and dP at other points (measured on the
+#: card: <= 1.5e-6 and <= 7e-3)
+FA_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _bwd_inputs(b, h, hkv, sq, skv, d, dtype, seed, device="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g).to(dt).to(device)
+    # the model's (B, S, H, D) tensors, transposed
+    q = t(b, sq, h, d).transpose(1, 2)
+    k = t(b, skv, hkv, d).transpose(1, 2)
+    v = t(b, skv, hkv, d).transpose(1, 2)
+    return q, k, v, t(b, h, sq, d)
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES[:4])
+def test_flash_attention_grad_on_cpu_is_the_plain_versions(case):
+    """On CPU tensors the wrapper is the plain version, so autograd
+    through it equals ``flash_attention_bwd``'s plain version (autograd
+    through ``attention_ref``), and neither launches a kernel."""
+    b, h, hkv, sq, skv, d, causal, window, dtype = case
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, skv, d, dtype, seed=sq)
+    before = (fa_mod.flash_attention.launches,
+              fa_mod.flash_attention_bwd.launches)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, window=window)
+    out.backward(do)
+    got = fa_mod.flash_attention_bwd(q, k, v, out.detach(), do,
+                                     causal=causal, window=window)
+    for g, leaf in zip(got, leaves):
+        assert g.shape == leaf.shape
+        assert torch.equal(g, leaf.grad)
+    assert (fa_mod.flash_attention.launches,
+            fa_mod.flash_attention_bwd.launches) == before
+
+
+def test_flash_attention_bwd_checks_its_inputs():
+    q, k, v, do = _bwd_inputs(1, 2, 2, 16, 16, 64, "float32", seed=1)
+    with pytest.raises(ValueError, match="out and dout"):
+        fa_mod.flash_attention_bwd(q, k, v, do[:, :1], do)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        fa_mod.flash_attention_bwd(q, k[:, :, :8], v[:, :, :8], do, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+def test_cuda_flash_attention_bwd_matches_plain_version(case):
+    """The hand-written backward (``csrc/flash_attention_bwd.cu``) against
+    autograd through ``attention_ref`` on the same inputs, called directly
+    and through the wrapper's autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, hkv, sq, skv, d, causal, window, dtype = case
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, skv, d, dtype, seed=sq,
+                              device="cuda")
+    want = ref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    before = fa_mod.flash_attention_bwd.launches
+    direct = fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                        window=window)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    y = flash_attention(*leaves, causal=causal, window=window)
+    assert y.grad_fn is not None
+    y.backward(do)
+    torch.cuda.synchronize()
+    assert fa_mod.flash_attention_bwd.launches == before + 2
+    for got in (direct, [t.grad for t in leaves]):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            err = float((g.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+            assert err <= FA_BWD_RTOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_without_grad_records_nothing():
+    """Inference keeps the forward's path: no grad mode, or no input that
+    requires grad, gives an output without ``grad_fn``; a head dim the
+    backward is not built for raises only when a gradient is needed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    q, k, v, _ = _bwd_inputs(1, 4, 4, 128, 128, 256, "bfloat16", seed=3,
+                             device="cuda")
+    assert flash_attention(q, k, v).grad_fn is None
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.no_grad():
+        assert flash_attention(*leaves).grad_fn is None
+    with pytest.raises(NotImplementedError, match="head dims"):
+        flash_attention(*leaves)

@@ -131,6 +131,58 @@ def test_mla_prefill_never_reaches_b3(mixer, monkeypatch):
     assert seen == ["xla"]
 
 
+#: the bf16 decode's tolerance against the reference's float32 decode of the
+#: same bf16 values: the float32 decode tolerance (1e-5) plus four bf16
+#: roundings (2^-8 each) of max |y| — the output's own and the port's
+#: rounding points on the way (the query, the latent written to the cache,
+#: the probabilities, the latent sum)
+BF16_DECODE_STEPS = 4 * 2.0 ** -8
+
+
+def test_bf16_mla_decode_matches_reference_on_bf16_values(mixer):
+    """C12: the port's bf16 absorbed decode against the reference's
+    ``mla_decode`` run in float32 on the same bf16-valued weights, inputs
+    and cache (this XLA's CPU refuses the reference's own bf16 products).
+    bf16 products are exact in float32, so the two differ by summation
+    order and by the bf16 roundings of the port's path: three steps, the
+    output held to ``1e-5 + BF16_DECODE_STEPS · max |y|`` (measured
+    0.0045-0.0060 of max |y| with torch 2.13 and jax 0.9.0: a margin of
+    2.6x) and the written latent and rope key to two bf16 roundings of
+    their max."""
+    cfg_r, p_ref, _ = mixer
+    cfg = get_config(ARCH, smoke=True, dtype="bfloat16")
+
+    def bf(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            torch.bfloat16).float().numpy()
+
+    tree = jax.tree.map(bf, p_ref)
+    p = convert._map(tree, convert._tensor)
+    rng = np.random.default_rng(4)
+    r, dr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_dim
+    ck = bf(rng.standard_normal((B, S + 8, r)))
+    kr = bf(rng.standard_normal((B, S + 8, dr)))
+    ck[:, S:] = kr[:, S:] = 0
+    cache_r = ref_attn.KVCache(k=jnp.asarray(ck), v=jnp.asarray(kr))
+    cache = attention.KVCache(k=torch.from_numpy(ck).to(torch.bfloat16),
+                              v=torch.from_numpy(kr).to(torch.bfloat16))
+    step = jax.jit(ref_attn.mla_decode, static_argnums=0)
+    for i in range(3):
+        x = bf(rng.standard_normal((B, 1, cfg.d_model)))
+        at = np.full((B,), S + i, np.int32)
+        y_r, cache_r = step(cfg_r, jax.tree.map(jnp.asarray, tree),
+                            jnp.asarray(x), jnp.asarray(at), cache_r)
+        y, cache = attention.mla_decode(
+            cfg, p, torch.from_numpy(x).to(torch.bfloat16),
+            torch.from_numpy(at), cache)
+        assert y.dtype == torch.bfloat16
+        y_r = np.asarray(y_r)
+        _close(y, y_r, 1e-5 + BF16_DECODE_STEPS * np.abs(y_r).max())
+        for got, want in ((cache.k, cache_r.k), (cache.v, cache_r.v)):
+            want = np.asarray(want)
+            _close(got, want, 2 * 2.0 ** -8 * np.abs(want).max())
+
+
 # ------------------------------------------------------------ the model ----
 @pytest.fixture(scope="module")
 def model():

@@ -525,3 +525,42 @@ def test_cuda_lru_scan_matches_plain_version(b, s, d, dtype, h0):
     torch.cuda.synchronize()
     assert lru_scan.launches == before + 1
     _close(got, ref.lru_scan_naive(*ts, t0), dtype, "lru")
+
+
+def test_lru_plain_version_carries_the_naive_gradient():
+    """Autograd through the log-depth plain scan equals autograd through
+    the step-by-step one: each doubling reads its operands as they were
+    (training differentiates the plain version on the CPU)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 37, 8), generator=g, requires_grad=True)
+    a = torch.rand((2, 37, 8), generator=g).requires_grad_()
+    h0 = torch.randn((2, 8), generator=g, requires_grad=True)
+    w = torch.randn((2, 37, 8), generator=g)
+    grads = []
+    for fn in (ref.lru_scan_ref, ref.lru_scan_naive):
+        y, h_t = fn(x, a, h0)
+        grads.append(torch.autograd.grad((y * w).sum() + h_t.sum(),
+                                         (x, a, h0)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_scans_raise_under_grad():
+    """B4 and B5 have no backward kernel yet: on the card they raise when a
+    gradient is needed, and run as before without one."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((1, 64, 2, 16), generator=g, device="cuda")
+    a = torch.rand((1, 64, 2), generator=g, device="cuda")
+    bm = torch.randn((1, 64, 2, 16), generator=g, device="cuda")
+    with pytest.raises(NotImplementedError, match="B4-bwd"):
+        ssd_scan(x.requires_grad_(), a, bm, bm, chunk=64)
+    with torch.no_grad():
+        ssd_scan(x, a, bm, bm, chunk=64)
+    xl = torch.randn((1, 64, 32), generator=g, device="cuda")
+    al = torch.rand((1, 64, 32), generator=g, device="cuda")
+    with pytest.raises(NotImplementedError, match="B5-bwd"):
+        lru_scan(xl, al.requires_grad_())
+    y, _ = lru_scan(xl, al.detach())
+    assert y.grad_fn is None

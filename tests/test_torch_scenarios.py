@@ -145,9 +145,10 @@ def test_cross_validate_spec_rows_match_reference():
     assert {c.policy for c in got} >= {"laedge", "hedge"}
 
 
-def test_validate_cli_prints_the_references_lines(capsys):
+def test_validate_cli_prints_the_references_lines(capsys, tmp_path):
     """``python -m repro_torch.fleetsim.validate`` on the trace scenario
-    (no grid): the same check lines and exit code as the reference's."""
+    (no grid), then on a small grid with ``--shard 1``: the same check
+    lines and exit code as the reference's."""
     argv = ["--grid", "none", "--trace", "trace_burst", "--trace-ticks",
             "1500"]
     with jax.threefry_partitionable(False):
@@ -157,8 +158,20 @@ def test_validate_cli_prints_the_references_lines(capsys):
     got = capsys.readouterr().out
     assert rc_got == rc_want
     assert got == want and "points within tolerance" in got
-    with pytest.raises(NotImplementedError, match="A9"):
-        tval.main(["--shard", "2", "--device", "cpu"])
+    grid = tspec.SweepSpec(
+        base=tspec.Scenario(name="cli-shard", servers=4, workers=8,
+                            n_ticks=300),
+        policies=("baseline", "netclone"), loads=(0.3,)).to_file(
+            tmp_path / "grid.json")
+    argv = ["--grid", str(grid), "--trace", "none", "--requests", "300",
+            "--shard", "1", "--shard-ticks", "300"]
+    with jax.threefry_partitionable(False):
+        rc_want = rval.main(argv)
+    want = capsys.readouterr().out
+    rc_got = tval.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert rc_got == rc_want
+    assert got == want and "2/2 sharded cells identical" in got
 
 
 # ---------------------------------------------------------------------- CLI --
@@ -305,18 +318,21 @@ def test_fuzz_smoke_deterministic(tmp_path):
 # ------------------------------------------------------------ later slices --
 def test_features_of_later_slices_raise():
     """Files with telemetry, shard or the batch server load and
-    round-trip (above); running a sharded one raises with the slice that
-    ports it (A9), while telemetry and the batch server, ported since,
-    run (``test_torch_telemetry.py`` and ``test_torch_llmserve.py`` hold
-    them to the reference).  Without a card the default device raises
-    too."""
+    round-trip (above), and each runs now: a sharded sweep equals the
+    unsharded one row for row (``test_torch_shard.py`` holds it to the
+    reference), and telemetry and the batch server run
+    (``test_torch_telemetry.py`` and ``test_torch_llmserve.py`` hold them
+    to the reference).  Without a card the default device raises."""
     from repro_torch.fleetsim.shard import ShardSpec
     from repro_torch.fleetsim.telemetry import TelemetrySpec
 
     sc = tspec.Scenario(servers=4, workers=8, n_ticks=100)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tspec.SweepSpec(base=sc, policies=("netclone",),
-                        shard=ShardSpec()).run_fleetsim(device="cpu")
+    spec = tspec.SweepSpec(base=sc, policies=("netclone",), loads=(0.2, 0.5),
+                           shard=ShardSpec(devices=2))
+    sharded = spec.run_fleetsim(device="cpu")
+    assert sharded.n_devices == 2 and sharded.shard == ShardSpec(devices=2)
+    assert sharded.results == replace(spec, shard=None).run_fleetsim(
+        device="cpu").results
     result, tel = tspec.Scenario(
         servers=4, workers=8, n_ticks=100,
         telemetry=TelemetrySpec(window_ticks=50)).run_traced(device="cpu")
