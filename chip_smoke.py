@@ -155,10 +155,14 @@ Phases (each fails the run on error; nothing is caught):
     merged ``grid_hist`` bit-identical to phase 4's, timed; then
     ``shard_equivalence`` on ``validate_grid.json``'s SweepSpec at 1,000
     ticks (one card holds one slab);
-20. training: B3's backward kernel (``csrc/flash_attention_bwd.cu``)
-    against autograd through ``attention_ref`` at qwen2.5-3b's training
-    shape, whisper-tiny's encoder and cross shapes and one float32 case,
-    timed beside its bound, its plain version and SDPA's backward;
+20. training: B3's backward kernel (``csrc/flash_attention_bwd.cu``: the
+    TMA + ``wgmma`` kernels for bf16, the scalar ones for float32, its
+    build's registers and spills logged) against autograd through
+    ``attention_ref`` at qwen2.5-3b's training shape, whisper-tiny's
+    encoder and cross shapes, one float32 case and the tensor-core
+    kernels' edge cases (ragged, a window of 16, a group of 8, views TMA
+    cannot read in place), two calls bit-equal, each timed beside its
+    bound, its plain version and SDPA's backward;
     qwen2.5-3b at full width and depth (float32 master weights, bf16
     activations, remat): a gradient on every leaf, then 3 AdamW steps of 2
     x 4,096 tokens (72 B3 and 36 backward launches a step), ms a step and
@@ -330,6 +334,16 @@ BWD_CASES = (
     (QWEN_TRAIN_B, 6, 6, 1500, 64, False, None, "bfloat16"),
     (QWEN_TRAIN_B, 6, 6, WHISPER_TRAIN_S, 64, False, None, "bfloat16", 1500),
     (QWEN_TRAIN_B, 8, 2, 512, 128, True, 128, "float32"),
+)
+#: the tensor-core backward's edge cases, timed as BWD_CASES: ragged 255
+#: rows, a window of 16 (GQA, head dim 64), a group of 8 over one kv head,
+#: and qwen2.5-3b's heads as views TMA cannot read in place (a sequence
+#: stride of 264 bytes: the wrapper copies them)
+BWD_EDGE_CASES = (
+    ((1, 16, 2, 255, 128, True, None, "bfloat16"), "transposed"),
+    ((2, 8, 2, 512, 64, True, 16, "bfloat16"), "transposed"),
+    ((1, 8, 1, 1024, 128, True, None, "bfloat16"), "transposed"),
+    ((1, 16, 2, 512, 128, True, None, "bfloat16"), "misaligned"),
 )
 FA_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SMALL_TRAIN = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
@@ -761,14 +775,20 @@ def seq_lens(case) -> tuple[int, int]:
     return case[3], case[8] if len(case) > 8 else case[3]
 
 
-def qkv_on_card(torch, case, seed, transposed=False):
+def qkv_on_card(torch, case, seed, transposed=False, misaligned=False):
     """q, k, v of ``case`` on the card from ``seed``; ``transposed``: as
     the model passes them, (B, S, H, D) tensors transposed to (B, H, S,
-    D)."""
+    D); ``misaligned``: so, but cut from rows of D + 4 values (strides
+    that are no multiple of 16 bytes)."""
     b, h, hkv, _, d, _, _, dtype = case[:8]
     sq, skv = seq_lens(case)
     g = torch.Generator(device=DEV).manual_seed(seed)
     dt = getattr(torch, dtype)
+    if misaligned:
+        return [torch.randn(shape[:3] + (d + 4,), generator=g,
+                            device=DEV).to(dt)[..., :d].transpose(1, 2)
+                for shape in ((b, sq, h, d), (b, skv, hkv, d),
+                              (b, skv, hkv, d))]
     if transposed:
         return [torch.randn(shape, generator=g, device=DEV).to(dt)
                 .transpose(1, 2) for shape in
@@ -2579,33 +2599,48 @@ def band_mask(torch, case):
     return (j <= i) & (j >= i - case[6])
 
 
-def check_attention_bwd(torch, ref, fa_mod, case, label, seed):
+def check_attention_bwd(torch, ref, fa_mod, case, label, seed,
+                        view="transposed"):
     """B3's backward kernel against autograd through ``attention_ref`` on
-    the same inputs (the model's transposed views), then timed beside its
-    bound, its plain version and SDPA's backward; returns the row."""
+    the same inputs (the model's transposed views, or such views TMA
+    cannot read in place), from the forward's log-sum-exp as the train
+    step runs it; two calls bit-equal; then timed beside its bound, its
+    plain version and SDPA's backward; returns the row."""
     import torch.nn.functional as F
 
     causal, window, dtype = case[5:8]
-    q, k, v = qkv_on_card(torch, case, seed, transposed=True)
+    q, k, v = qkv_on_card(torch, case, seed, transposed=True,
+                          misaligned=view == "misaligned")
     g = torch.Generator(device=DEV).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
-    out = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
-    got = fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
-                                     window=window)
+    kernel = fa_mod.bwd_kernel_for(q.dtype, case[4])
+    if kernel == "wgmma":
+        out, lse = fa_mod.flash_attention_with_lse(q, k, v, causal=causal,
+                                                   window=window)
+    else:
+        out = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+        lse = None
+
+    def call():
+        return fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                          window=window, lse=lse)
+    got, again = call(), call()
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     want = ref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
     rel = [((a.float() - b.float()).abs().max()
             / b.float().abs().max()).item() for a, b in zip(got, want)]
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want))
-    if not max(rel) <= FA_BWD_RTOL[dtype]:
-        raise AssertionError(f"{label}: B3's backward differs from autograd "
-                             f"through the plain version at {case}: dq, dk, "
-                             f"dv {rel}")
+    if not max(rel) <= FA_BWD_RTOL[dtype] or not same:
+        raise AssertionError(f"{label}: B3's backward ({kernel} kernels) "
+                             f"differs from autograd through the plain "
+                             f"version at {case} ({view}): dq, dk, dv {rel}; "
+                             f"two calls {'equal' if same else 'DIFFER'}")
     del got, want
     reps = 3 if seq_lens(case)[0] >= 4096 else 20
-    ms = cuda_ms(lambda: fa_mod.flash_attention_bwd(
-        q, k, v, out, do, causal=causal, window=window), reps)
+    ms = cuda_ms(call, reps)
     plain_ms = cuda_ms(lambda: ref.attention_bwd_ref(
         q, k, v, do, causal=causal, window=window), 2)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -2629,13 +2664,15 @@ def check_attention_bwd(torch, ref, fa_mod, case, label, seed):
     del leaves
     bound, by, flops, nbytes = bwd_bound(case)
     sq, skv = seq_lens(case)
-    log(f"{label}: B3's backward vs autograd through attention_ref at q "
+    log(f"{label}: B3's backward ({kernel} kernels, {view} views) vs "
+        f"autograd through attention_ref at q "
         f"{tuple(q.shape)} k/v {tuple(k.shape)} {dtype} "
         f"{'causal' if causal else 'non-causal'}"
         f"{f' window {window}' if window is not None else ''} (Sq {sq}, "
         f"Skv {skv}): dq, dk, dv max |diff| / max |grad| "
         f"{', '.join(f'{r:.3g}' for r in rel)} (tolerance "
-        f"{FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}; {ms:.4f} ms per call "
+        f"{FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}, two calls "
+        f"bit-equal; {ms:.4f} ms per call "
         f"(CUDA events over {reps} calls), bound {bound:.5f} ms ({by}: "
         f"{flops:.4g} FLOP, {nbytes} B) = {100 * bound / ms:.2f}% of it; "
         f"plain {plain_ms:.4f} ms; SDPA's backward ({backend}, enable_gqa "
@@ -2707,11 +2744,19 @@ def run_training(torch, kernels, get_config):
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import batch_on, loss_and_grads
 
-    # (a) the backward kernel at the training shapes
+    # (a) the backward kernel at the training shapes and its edge cases
+    for d in fa_mod.BWD_HEAD_DIMS:
+        attrs = fa_mod.bwd_wgmma_attributes(d)
+        log(f"phase 20: the backward's TMA + wgmma kernels at head dim {d}: "
+            f"{attrs}")
+        if any(a["local_bytes"] for a in attrs.values()):
+            raise AssertionError(f"phase 20: the backward's kernels spill "
+                                 f"at head dim {d}: {attrs}")
     row = None
-    for i, case in enumerate(BWD_CASES):
+    cases = [(c, "transposed") for c in BWD_CASES] + list(BWD_EDGE_CASES)
+    for i, (case, view) in enumerate(cases):
         r = check_attention_bwd(torch, ref, fa_mod, case, "phase 20",
-                                seed=200 + i)
+                                seed=200 + i, view=view)
         row = row or r
     torch.cuda.empty_cache()
 

@@ -37,7 +37,10 @@
 //   flag.  `setmaxnreg` moves the producer's registers to the consumers (O
 //   is 64 x 256 float32 at D 256, 128 registers a thread).  Tiles are
 //   128-byte-swizzled slabs of 64 columns, the layout TMA writes and
-//   `wgmma` reads.  The tensor cores are kept busy two ways, together
+//   `wgmma` reads.  Under grad the epilogue also writes each row's
+//   log-sum-exp, which it holds as m and l, for the backward
+//   (flash_attention_bwd.cu); inference passes a null pointer and runs the
+//   same work.  The tensor cores are kept busy two ways, together
 //   measured faster on the card than the kernel without them (PERF.md):
 //   within a warpgroup, S of the next tile and P·V of this one are issued
 //   together and the softmax runs while P·V does; between the two
@@ -237,6 +240,7 @@ constexpr int kCtaRows = 2 * kWgRows;      // query rows per CTA
 constexpr int kWgThreads = 128;
 constexpr int kWgmmaThreads = 3 * kWgThreads;  // consumers 0, 1; producer 2
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMaskedLog2 = kMasked * kLog2e;  // -1e30 in log2 units
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -477,8 +481,8 @@ template <int D>
 __device__ __forceinline__ void wgmma_consumer(
     int wg, uint32_t q_s, uint32_t k_s, uint32_t v_s,
     Barriers<WgmmaTile<D>::STAGES> bars, const CUtensorMap* o_map,
-    int o_order, int h, int b, int q0, int kb_lo, int kb_hi, int skv,
-    float scale_log2, int causal, int window) {
+    int o_order, float* lse, int h, int b, int q0, int kb_lo, int kb_hi,
+    int sq, int skv, float scale_log2, int causal, int window) {
   using T = WgmmaTile<D>;
   constexpr int BK = T::BK;
   const int tid = threadIdx.x % kWgThreads;
@@ -572,6 +576,14 @@ __device__ __forceinline__ void wgmma_consumer(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
   }
+  // under grad: each row's log-sum-exp of its scaled scores, for the
+  // backward (m and l are in log2 units)
+  if (lse != nullptr && c.tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (c.row0 + 8 * r < sq)
+        lse[c.row0 + 8 * r] = (m[r] + log2f(l[r])) * kLn2;
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
@@ -604,7 +616,8 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
                                  const __grid_constant__ CUtensorMap o_map,
-                                 int4 orders, int q_per_kv, int sq, int skv,
+                                 float* __restrict__ lse, int4 orders,
+                                 int q_per_kv, int sq, int skv,
                                  float scale_log2, int causal, int window) {
   using T = WgmmaTile<D>;
   constexpr int BK = T::BK;
@@ -668,8 +681,10 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    wgmma_consumer<D>(wg, q_s, k_s, v_s, bars, &o_map, orders.w, h, b, q0,
-                      kb_lo, kb_hi, skv, scale_log2, causal, window);
+    float* lse_h =
+        lse == nullptr ? nullptr : lse + ((int64_t)b * gridDim.x + h) * sq;
+    wgmma_consumer<D>(wg, q_s, k_s, v_s, bars, &o_map, orders.w, lse_h, h, b,
+                      q0, kb_lo, kb_hi, sq, skv, scale_log2, causal, window);
   }
 }
 
@@ -692,7 +707,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int batch, int n_heads, int n_kv_heads, int sq, int skv,
+                 float* lse, int batch, int n_heads, int n_kv_heads, int sq,
+                 int skv,
                  const int64_t* st, float sm_scale, int causal, int window,
                  cudaStream_t stream) {
   using T = WgmmaTile<D>;
@@ -717,7 +733,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (a != cudaSuccess) return (int)a;
   const dim3 grid(n_heads, batch, (sq + kCtaRows - 1) / kCtaRows);
   kern<<<grid, kWgmmaThreads, T::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3],
+      maps[0], maps[1], maps[2], maps[3], lse,
       make_int4(orders[0], orders[1], orders[2], orders[3]),
       n_heads / n_kv_heads, sq, skv, sm_scale * kLog2e, causal, window);
   return (int)cudaGetLastError();
@@ -758,24 +774,30 @@ int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
 // in elements; the head-dim stride is 1.  window < 0: no window.  bf16 at
 // head dim 64, 128 or 256 takes the TMA + wgmma kernel, which needs the
 // base addresses of q, k and v and their strides in multiples of 16 bytes,
-// and no stride 0 on a dim longer than 1 (the wrapper sees to it).  Returns
-// 0, a cudaError_t, or (TMA map encoding) kNoEncoder / kEncodeFailed +
-// CUresult.
+// and no stride 0 on a dim longer than 1 (the wrapper sees to it).  lse:
+// null, or (B, H, Sq) float32 that the TMA + wgmma kernel fills with each
+// row's log-sum-exp of its scaled scores (for the backward); the scalar
+// kernel takes null only.  Returns 0, a cudaError_t, or (TMA map encoding)
+// kNoEncoder / kEncodeFailed + CUresult.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
+                                      const void* v, void* out, void* lse,
+                                      int dtype,
                                       int batch, int n_heads, int n_kv_heads,
                                       int sq, int skv, int d,
                                       const int64_t* strides, float sm_scale,
                                       int causal, int window, void* stream) {
   if (batch == 0 || n_heads == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool wgmma = dtype == 1 && (d == 64 || d == 128 || d == 256);
+  if (lse != nullptr && !wgmma) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_dim<float>(d, q, k, v, out, batch, n_heads, n_kv_heads, sq,
                              skv, strides, sm_scale, causal, window, s);
 #define FA_WGMMA(DIM)                                                       \
   if (dtype == 1 && d == DIM)                                               \
-    return launch_wgmma<DIM>(q, k, v, out, batch, n_heads, n_kv_heads, sq, \
-                             skv, strides, sm_scale, causal, window, s);
+    return launch_wgmma<DIM>(q, k, v, out, (float*)lse, batch, n_heads,    \
+                             n_kv_heads, sq, skv, strides, sm_scale,       \
+                             causal, window, s);
   FA_WGMMA(64)
   FA_WGMMA(128)
   FA_WGMMA(256)

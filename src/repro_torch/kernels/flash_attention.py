@@ -26,7 +26,11 @@ grad, the wrapper runs as a ``torch.autograd.Function`` whose forward is
 the same kernel launch and whose backward is :func:`flash_attention_bwd`
 (``csrc/flash_attention_bwd.cu``, head dims :data:`BWD_HEAD_DIMS`): what
 ``jax.grad`` of the reference's XLA attention computes, since the
-reference has no Pallas backward.  Without grad the wrapper launches the
+reference has no Pallas backward.  :func:`bwd_kernel_for` says which
+backward takes an input: bf16 runs on the tensor cores (TMA + ``wgmma``,
+a dK/dV pass and a dQ pass as :func:`bwd_tile_schedule` lists their
+tiles), from the row log-sum-exp that the Hopper forward writes under
+grad; float32 on scalar FMAs.  Without grad the wrapper launches the
 forward alone, as before, and records nothing for autograd.
 """
 
@@ -56,6 +60,15 @@ WG_ROWS = 64
 CTA_ROWS = 2 * WG_ROWS
 #: error codes of the C interface beyond ``cudaError_t``'s
 _NO_ENCODER, _ENCODE_FAILED = 199999, 200000
+#: the backward's tensor-core kernels: 64 x 64 tiles; a dK/dV CTA owns 64
+#: keys and deals the ring's (Q, dO) tiles to its two consumer warpgroups
+#: in turn; a dQ CTA owns 128 query rows, 64 a warpgroup, over (K, V)
+#: tiles of 64 keys
+BWD_TILE = 64
+BWD_DQ_ROWS = 2 * BWD_TILE
+BWD_DKDV_WARPGROUPS = 2
+#: the row statistics' buffers are padded to this many rows a head
+BWD_PAD_ROWS = 128
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -66,6 +79,18 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "scalar"
+
+
+def bwd_kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The backward kernels that take ``dtype`` inputs at head dim ``d``:
+    ``"wgmma"`` (bf16: TMA + ``wgmma`` on the tensor cores) or
+    ``"scalar"`` (float32, which the tensor cores would round); raises
+    ``NotImplementedError`` at a head dim outside :data:`BWD_HEAD_DIMS`."""
+    if d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention's backward kernel is built for head dims "
+            f"{BWD_HEAD_DIMS}, not {d}")
+    return "wgmma" if dtype == torch.bfloat16 else "scalar"
 
 
 def block_k(d: int) -> int:
@@ -124,11 +149,74 @@ def tile_schedule(sq: int, skv: int, d: int, causal: bool,
     return out
 
 
+def _bwd_band(q0: int, k0: int, causal: bool, w: int) -> tuple[bool, bool]:
+    """(outside, inside) of the 64 x 64 tile of query rows from ``q0`` and
+    keys from ``k0``, as ``Band`` in ``csrc/flash_attention_bwd.cu``: no
+    pair visible, every pair visible (rows past Sq and keys past Skv do
+    not count: their tiles are zero-filled)."""
+    t = BWD_TILE - 1
+    outside = (causal and k0 > q0 + t) or (w >= 0 and k0 + t < q0 - w)
+    inside = (not causal or k0 + t <= q0) and (w < 0 or k0 >= q0 + t - w)
+    return outside, inside
+
+
+def bwd_tile_schedule(sq: int, skv: int, d: int, causal: bool,
+                      window: int | None, group: int) -> dict:
+    """The tensor-core backward's schedule, as ``fa_bwd_dkdv_wgmma`` and
+    ``fa_bwd_dq_wgmma`` compute it, in launch order (at head dims 64 and
+    128 alike, ``d`` changes no tile).
+
+    ``"dkdv"``: a CTA a key block ``kb`` of :data:`BWD_TILE` keys (of one
+    batch and kv head); ``"items"`` the ring's (query head ``g`` of the
+    group, query tile ``qt``) in the order the producer loads them (every
+    one meets the band); for each of its :data:`BWD_DKDV_WARPGROUPS`
+    consumer warpgroups the items it computes, dealt in turn, as ``(g, qt,
+    masked)``.  ``"dq"``: a CTA a query block ``qb`` of
+    :data:`BWD_DQ_ROWS` rows, its key tiles ``[kb_lo, kb_hi)`` and, for
+    each of its two warpgroups, the tiles it computes as ``(kb,
+    masked)``.  A tile wholly outside the band is skipped; one wholly
+    inside it runs without the mask."""
+    w = -1 if window is None else window
+    t = BWD_TILE
+    nq, nk = -(-sq // t), -(-skv // t)
+    dkdv = []
+    for kb in range(nk):
+        k0 = kb * t
+        qt_lo = k0 // t if causal else 0
+        qt_hi = nq if w < 0 else min(nq, (k0 + t - 1 + w) // t + 1)
+        items = [(g, qt) for g in range(group) for qt in range(qt_lo, qt_hi)]
+        tiles = [(g, qt, not _bwd_band(qt * t, k0, causal, w)[1])
+                 for g, qt in items]
+        dkdv.append({"kb": kb, "items": items,
+                     "warpgroups": [tiles[wg::BWD_DKDV_WARPGROUPS]
+                                    for wg in range(BWD_DKDV_WARPGROUPS)]})
+    dq = []
+    for qb in reversed(range(-(-sq // BWD_DQ_ROWS))):
+        q0 = qb * BWD_DQ_ROWS
+        kb_lo, kb_hi = 0, nk
+        if causal:
+            kb_hi = min(nk, (q0 + BWD_DQ_ROWS - 1) // t + 1)
+        if w >= 0 and q0 - w > 0:
+            kb_lo = (q0 - w) // t
+        groups = []
+        for wg in range(BWD_DQ_ROWS // t):
+            r_lo = q0 + wg * t
+            tiles = []
+            for kb in range(kb_lo, kb_hi):
+                outside, inside = _bwd_band(r_lo, kb * t, causal, w)
+                if r_lo < sq and not outside:
+                    tiles.append((kb, not inside))
+            groups.append(tiles)
+        dq.append({"qb": qb, "kb_lo": kb_lo, "kb_hi": kb_hi,
+                   "warpgroups": groups})
+    return {"dkdv": dkdv, "dq": dq}
+
+
 @functools.cache
 def _lib():
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float,
         _I, _I, _P]
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_wgmma_attributes.argtypes = [_I, _P]
@@ -142,7 +230,13 @@ def _bwd_lib():
     lib.flash_attention_bwd_launch.argtypes = [_P] * 10 + [_I] * 7 + [
         _P, ctypes.c_float, _I, _I, _P]
     lib.flash_attention_bwd_launch.restype = _I
+    lib.flash_attention_bwd_attributes.argtypes = [_I, _I, _P]
+    lib.flash_attention_bwd_attributes.restype = _I
     return lib
+
+
+_ATTRIBUTE_NAMES = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                    "max_threads")
 
 
 def wgmma_attributes(d: int) -> dict:
@@ -156,8 +250,45 @@ def wgmma_attributes(d: int) -> dict:
     if err:
         raise RuntimeError(f"flash_attention_wgmma_attributes({d}) failed: "
                            f"cudaError_t {err}")
-    return dict(zip(("registers", "static_smem", "dynamic_smem",
-                     "local_bytes", "max_threads"), attrs))
+    return dict(zip(_ATTRIBUTE_NAMES, attrs))
+
+
+def bwd_wgmma_attributes(d: int) -> dict:
+    """The backward's tensor-core kernels at head dim ``d`` (64 or 128), as
+    :func:`wgmma_attributes` reports them: ``"dkdv"`` and ``"dq"``.  Needs
+    a card."""
+    lib = _bwd_lib()
+    out = {}
+    for which, name in enumerate(("dkdv", "dq")):
+        attrs = (ctypes.c_int * 5)()
+        err = lib.flash_attention_bwd_attributes(d, which, attrs)
+        if err:
+            raise RuntimeError(f"flash_attention_bwd_attributes({d}, "
+                               f"{which}) failed: cudaError_t {err}")
+        out[name] = dict(zip(_ATTRIBUTE_NAMES, attrs))
+    return out
+
+
+def _raise_on(err: int, what: str) -> None:
+    """Raise on a C interface's error code (0 is success)."""
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _ENCODE_FAILED})")
+    if err == _NO_ENCODER:
+        raise RuntimeError(f"{what}: no cuTensorMapEncodeTiled entry point "
+                           "(CUDA 12.0 or later is needed)")
+    if err:
+        raise RuntimeError(f"{what} launch failed: cudaGetLastError() = "
+                           f"{err}")
+
+
+def _tma_inputs(q, k, v):
+    """q, k, v with a unit head-dim stride, copied where TMA cannot read
+    them in place."""
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    return tuple(t if tma_ready(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
 
 
 def check_attention_args(q, k, v, causal: bool, window) -> None:
@@ -187,18 +318,22 @@ def check_attention_args(q, k, v, causal: bool, window) -> None:
             "attention_ref at the end (ROADMAP C2)")
 
 
-def _launch(q, k, v, causal: bool, window, sm_scale: float):
+def _forward(q, k, v, causal: bool, window, sm_scale: float, lse=None):
     """One launch of the forward kernel on CUDA tensors that
-    :func:`check_attention_args` accepted."""
+    :func:`check_attention_args` accepted; ``lse``, a ``(B, H, Sq)``
+    float32 tensor, gets each row's log-sum-exp (the TMA + ``wgmma``
+    kernel only).  Counts nothing."""
     b, h, sq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not built; the kernel takes "
                          f"{HEAD_DIMS}")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     if kernel_for(q.dtype, d) == "wgmma":
-        # TMA reads q, k and v in place only where they are aligned
-        q, k, v = (t if tma_ready(t)
-                   else t.clone(memory_format=torch.contiguous_format)
+        q, k, v = _tma_inputs(q, k, v)
+    elif lse is not None:
+        raise ValueError("only the TMA + wgmma kernel (bf16 at head dims "
+                         f"{WGMMA_HEAD_DIMS}) writes the log-sum-exp")
+    else:
+        q, k, v = (t if t.stride(3) == 1 else t.contiguous()
                    for t in (q, k, v))
     lib = _lib()
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
@@ -207,19 +342,18 @@ def _launch(q, k, v, causal: bool, window, sm_scale: float):
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPE_CODE[q.dtype], b, h, k.shape[1], sq, k.shape[2], d,
             ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
             int(causal), -1 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if err >= _ENCODE_FAILED:
-        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
-                           f"(CUresult {err - _ENCODE_FAILED})")
-    if err == _NO_ENCODER:
-        raise RuntimeError("flash_attention: no cuTensorMapEncodeTiled "
-                           "entry point (CUDA 12.0 or later is needed)")
-    if err:
-        raise RuntimeError(f"flash_attention launch failed: "
-                           f"cudaGetLastError() = {err}")
+    _raise_on(err, "flash_attention")
+    return out
+
+
+def _launch(q, k, v, causal: bool, window, sm_scale: float, lse=None):
+    """:func:`_forward`, counted in ``flash_attention.launches``."""
+    out = _forward(q, k, v, causal, window, sm_scale, lse)
     flash_attention.launches += 1
     return out
 
@@ -231,17 +365,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sm_scale):
-        out = _launch(q, k, v, causal, window, sm_scale)
-        ctx.save_for_backward(q, k, v, out)
+        lse = None
+        if bwd_kernel_for(q.dtype, q.shape[3]) == "wgmma":
+            lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+        out = _launch(q, k, v, causal, window, sm_scale, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, sm_scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, sm_scale = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                         window=window, sm_scale=sm_scale)
+                                         window=window, sm_scale=sm_scale,
+                                         lse=lse)
         return dq, dk, dv, None, None, None
 
 
@@ -265,10 +404,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if d not in BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash_attention's backward kernel is built for head dims "
-                f"{BWD_HEAD_DIMS}, not {d}")
+        bwd_kernel_for(q.dtype, d)  # raises at a head dim it is not built for
         return _FlashAttention.apply(q, k, v, causal, window, sm_scale)
     return _launch(q, k, v, causal, window, sm_scale)
 
@@ -276,15 +412,42 @@ def flash_attention(q, k, v, *, causal: bool = True,
 flash_attention.launches = 0
 
 
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int | None = None,
+                             sm_scale: float | None = None):
+    """:func:`flash_attention`'s output and each row's log-sum-exp of its
+    scaled, masked scores, ``(B, H, Sq)`` float32: what the backward reads.
+    On CUDA tensors one launch of the TMA + ``wgmma`` kernel (bf16 at head
+    dims :data:`WGMMA_HEAD_DIMS`), counted in ``flash_attention.launches``;
+    on CPU tensors the plain versions."""
+    check_attention_args(q, k, v, causal, window)
+    b, h, sq, d = q.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if q.device.type == "cpu":
+        return (ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  sm_scale=sm_scale),
+                ref.attention_lse_ref(q, k, v, causal=causal, window=window,
+                                      sm_scale=sm_scale))
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, sm_scale, lse), lse
+
+
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
                         window: int | None = None,
-                        sm_scale: float | None = None):
+                        sm_scale: float | None = None, lse=None):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` at q, k, v
     (its output ``out``) for the incoming gradient ``dout`` (both ``(B, H,
     Sq, D)``), in the inputs' dtype.  On CUDA tensors: one call of
-    ``csrc/flash_attention_bwd.cu`` (three kernels: row statistics, dK and
-    dV, dQ), counted once in ``flash_attention_bwd.launches``; on CPU
-    tensors the plain version, autograd through
+    ``csrc/flash_attention_bwd.cu``, counted once in
+    ``flash_attention_bwd.launches``.  bf16 (:func:`bwd_kernel_for`) runs
+    the tensor-core kernels (D and the statistics, dK and dV, dQ) from
+    ``lse``, the forward's row log-sum-exp (:func:`flash_attention_with_lse`;
+    without it this call runs the forward once more to get it); float32
+    the scalar kernels (row statistics, dK and dV, dQ), which ignore
+    ``lse``.  On CPU tensors the plain version, autograd through
     :func:`~repro_torch.kernels.ref.attention_ref`."""
     check_attention_args(q, k, v, causal, window)
     b, h, sq, d = q.shape
@@ -301,28 +464,41 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {d}: the backward kernel takes "
                          f"{BWD_HEAD_DIMS}")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     out = out.to(q.dtype).contiguous()
     dout = dout.to(q.dtype).contiguous()
+    if bwd_kernel_for(q.dtype, d) == "wgmma":
+        q, k, v = _tma_inputs(q, k, v)
+        if lse is None:
+            lse = torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device)
+            _forward(q, k, v, causal, window, sm_scale, lse)
+        elif lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+            raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
+                             f"{tuple(lse.shape)} {lse.dtype}")
+        lse = lse.contiguous()
+        sq_pad = -(-sq // BWD_PAD_ROWS) * BWD_PAD_ROWS
+        scratch = torch.empty((2, b, h, sq_pad), dtype=torch.float32,
+                              device=q.device)
+    else:
+        q, k, v = (t if t.stride(3) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        scratch = torch.empty_like(lse)
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
     strides = (ctypes.c_int64 * 9)(*(t.stride(i) for t in (q, k, v)
                                      for i in range(3)))
     with torch.cuda.device(q.device):
         err = _bwd_lib().flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _DTYPE_CODE[q.dtype], b, h,
+            lse.data_ptr(), scratch.data_ptr(), _DTYPE_CODE[q.dtype], b, h,
             k.shape[1], sq, k.shape[2], d,
             ctypes.cast(strides, ctypes.c_void_p), float(sm_scale),
             int(causal), -1 if window is None else int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed: "
-                           f"cudaGetLastError() = {err}")
+    _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -72,6 +72,30 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return torch.cat(chunks, dim=2).to(q.dtype)
 
 
+def attention_lse_ref(q, k, v, *, causal: bool = True,
+                      window: int | None = None,
+                      sm_scale: float | None = None):
+    """The plain version of the log-sum-exp B3's Hopper forward writes for
+    the backward: ``logsumexp`` of each row's scaled scores over the keys
+    its mask keeps (as :func:`attention_ref` masks, rows aligned at the
+    end), ``(B, H, Sq)`` float32."""
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if hkv != h:
+        k = torch.repeat_interleave(k, h // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    rows = (skv - sq) + torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= cols >= rows - window
+    return torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)
+
+
 def attention_bwd_ref(q, k, v, dout, *, causal: bool = True,
                       window: int | None = None,
                       sm_scale: float | None = None):

@@ -601,6 +601,151 @@ def test_tma_alignment_checks():
     assert fa_mod.tma_ready(one.expand(1, 1, 64, 64))
 
 
+#: (sq, skv, d, causal, window, group) of the backward's schedule:
+#: causal at both head dims, ragged 255 rows, a window of 16 with a group
+#: of 8, a window wider than a tile, whisper's cross-attention (448 rows
+#: over 1,500 keys) and encoder, bidirectional Sq != Skv both ways, a
+#: window without the causal mask, a 4-token sequence
+BWD_SCHEDULE_CASES = [
+    (512, 512, 128, True, None, 8),
+    (512, 512, 64, True, None, 1),
+    (255, 255, 128, True, None, 2),
+    (512, 512, 64, True, 16, 8),
+    (1024, 1024, 128, True, 300, 2),
+    (300, 300, 64, True, 100, 1),
+    (448, 1500, 64, False, None, 1),
+    (1500, 1500, 64, False, None, 1),
+    (256, 512, 128, False, None, 4),
+    (512, 200, 128, False, None, 2),
+    (300, 300, 64, False, 50, 2),
+    (4, 4, 128, True, None, 8),
+]
+
+
+def _band_keep(sq, skv, causal, window):
+    rows = np.arange(sq)[:, None]
+    cols = np.arange(skv)[None, :]
+    keep = np.ones((sq, skv), bool)
+    if causal:
+        keep &= cols <= rows
+    if window is not None:
+        keep &= cols >= rows - window
+    return keep
+
+
+def _edge_tile(q0, k0, causal, window):
+    """The 64 x 64 tile from (q0, k0), unbounded, holds pairs on both
+    sides of the band's edge."""
+    t = fa_mod.BWD_TILE
+    keep = _band_keep(q0 + t, k0 + t, causal, window)[q0:, k0:]
+    return keep.any() and not keep.all()
+
+
+@pytest.mark.parametrize("sq,skv,d,causal,window,group", BWD_SCHEDULE_CASES)
+def test_bwd_tile_schedule_covers_the_band(sq, skv, d, causal, window, group):
+    """The tensor-core backward's schedule (its Python mirror): the dK/dV
+    pass computes every visible (query row, key) pair exactly once for each
+    query head of the group, the dQ pass exactly once; a tile runs masked
+    only where the band's edge crosses it, and one that runs unmasked keeps
+    all its pairs."""
+    t = fa_mod.BWD_TILE
+    keep = _band_keep(sq, skv, causal, window)
+    wgs = fa_mod.BWD_DKDV_WARPGROUPS
+    sched = fa_mod.bwd_tile_schedule(sq, skv, d, causal, window, group)
+    assert [c["kb"] for c in sched["dkdv"]] == list(range(-(-skv // t)))
+    count = np.zeros((group, sq, skv), np.int64)
+    for cta in sched["dkdv"]:
+        items = cta["items"]
+        kw = cta["kb"] * t
+        assert len(cta["warpgroups"]) == wgs
+        # the ring's items dealt in turn
+        for wg, tiles in enumerate(cta["warpgroups"]):
+            assert [(g, qt) for g, qt, _ in tiles] == items[wg::wgs]
+            for g, qt, masked in tiles:
+                r, c = slice(qt * t, (qt + 1) * t), slice(kw, kw + t)
+                assert keep[r, c].any()  # every item meets the band
+                count[g, r, c] += keep[r, c]
+                assert masked == _edge_tile(qt * t, kw, causal, window)
+                if not masked:
+                    assert keep[r, c].all()
+    assert (count == keep[None]).all()
+    count = np.zeros((sq, skv), np.int64)
+    for cta in sched["dq"]:
+        q0 = cta["qb"] * fa_mod.BWD_DQ_ROWS
+        for wg, tiles in enumerate(cta["warpgroups"]):
+            r = slice(q0 + wg * t, q0 + (wg + 1) * t)
+            assert [kb for kb, _ in tiles] == sorted(kb for kb, _ in tiles)
+            for kb, masked in tiles:
+                assert cta["kb_lo"] <= kb < cta["kb_hi"]
+                c = slice(kb * t, (kb + 1) * t)
+                count[r, c] += keep[r, c]
+                assert masked == _edge_tile(q0 + wg * t, kb * t, causal,
+                                            window)
+                if not masked:
+                    assert keep[r, c].all()
+    assert (count == keep).all()
+
+
+@pytest.mark.parametrize("sq,window", [(4096, None), (1024, 300),
+                                       (512, 16), (1500, None)])
+def test_bwd_tile_schedule_starts_the_longest_band(sq, window):
+    """CTAs launch longest band first, so the grid's tail is short: under a
+    causal mask the tiles a CTA computes never grow along the launch order
+    of either pass; with a window the first CTA still has the most."""
+    sched = fa_mod.bwd_tile_schedule(sq, sq, 128, True, window, 8)
+    for ctas in (sched["dkdv"], sched["dq"]):
+        work = [sum(map(len, c["warpgroups"])) for c in ctas]
+        assert work[0] == max(work)
+        if window is None:
+            assert work == sorted(work, reverse=True)
+    # qwen2.5-3b's training shape: 64 dK/dV CTAs a (batch, kv head), from
+    # 8 heads x 64 query tiles, 256 a warpgroup, down to the diagonal's 8
+    if (sq, window) == (4096, None):
+        assert [len(w) for w in sched["dkdv"][0]["warpgroups"]] == [256, 256]
+        assert [len(w) for w in sched["dkdv"][-1]["warpgroups"]] == [4, 4]
+        assert sched["dq"][0]["qb"] == 31 and sched["dq"][-1]["qb"] == 0
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
+    (torch.bfloat16, 256, None), (torch.float32, 96, None)])
+def test_bwd_kernel_routing(dtype, d, kernel):
+    """Which backward each dtype and head dim goes to: bf16 at 64 and 128
+    to the TMA + wgmma kernels, float32 to the scalar ones; other head dims
+    have none and raise."""
+    if kernel is None:
+        with pytest.raises(NotImplementedError, match="head dims"):
+            fa_mod.bwd_kernel_for(dtype, d)
+    else:
+        assert fa_mod.bwd_kernel_for(dtype, d) == kernel
+
+
+@pytest.mark.parametrize("causal,window,skv", [(True, None, None),
+                                               (True, 40, None),
+                                               (False, None, 200)])
+def test_flash_attention_with_lse_on_cpu_is_the_plain_versions(causal, window,
+                                                               skv):
+    """On CPU tensors the output is the plain version's and the log-sum-exp
+    is each row's over the keys its mask keeps, as numpy computes it."""
+    arrs, ts = _qkv(2, 4, 2, 130, 64, "float32", seed=5, skv=skv)
+    before = flash_attention.launches
+    out, lse = fa_mod.flash_attention_with_lse(*ts, causal=causal,
+                                               window=window)
+    assert flash_attention.launches == before
+    assert torch.equal(out, ref.attention_ref(*ts, causal=causal,
+                                              window=window))
+    q, k, _ = arrs
+    k = np.repeat(k, 2, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) * 64 ** -0.5
+    keep = _band_keep(s.shape[2], s.shape[3], causal, window)
+    s = np.where(keep, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 130)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-5)
+
+
 #: the reference's sweep plus qwen2.5-3b's heads (16 q, 2 kv, D 128) at a
 #: ragged 255 rows, the TMA + wgmma kernel (bf16, D 64, 128 and 256)
 #: windowed and bidirectional, and the scalar kernel at the other head dims
@@ -760,6 +905,97 @@ def test_cuda_flash_attention_bwd_matches_plain_version(case):
             err = float((g.float() - w.float()).abs().max()
                         / w.float().abs().max())
             assert err <= FA_BWD_RTOL[dtype], err
+
+
+#: the tensor-core backward's edge cases (bf16): D 64 and 128, ragged 255
+#: rows, a window of 16, a group of 8, whisper's cross-attention (Sq 448
+#: over 1,500 keys), a window wider than a tile, bidirectional, a 4-token
+#: sequence, fewer keys than one tile
+FA_BWD_WGMMA_CASES = [
+    (1, 4, 4, 256, 256, 64, True, None, "bfloat16"),
+    (1, 16, 2, 512, 512, 128, True, None, "bfloat16"),
+    (1, 16, 2, 255, 255, 128, True, None, "bfloat16"),
+    (2, 8, 2, 512, 512, 64, True, 16, "bfloat16"),
+    (1, 8, 1, 384, 384, 128, True, None, "bfloat16"),
+    (1, 6, 6, 448, 1500, 64, False, None, "bfloat16"),
+    (1, 2, 2, 300, 300, 64, True, 100, "bfloat16"),
+    (1, 4, 2, 200, 700, 128, False, None, "bfloat16"),
+    (2, 4, 2, 4, 4, 64, True, None, "bfloat16"),
+    (1, 2, 1, 70, 33, 128, False, None, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FA_BWD_WGMMA_CASES)
+def test_cuda_flash_attention_bwd_wgmma_edge_cases(case):
+    """The TMA + wgmma backward at its edge cases against autograd through
+    ``attention_ref`` on the model's transposed views; two calls give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    b, h, hkv, sq, skv, d, causal, window, dtype = case
+    assert fa_mod.bwd_kernel_for(torch.bfloat16, d) == "wgmma"
+    q, k, v, do = _bwd_inputs(b, h, hkv, sq, skv, d, dtype, seed=sq + d,
+                              device="cuda")
+    want = ref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    out, lse = fa_mod.flash_attention_with_lse(q, k, v, causal=causal,
+                                               window=window)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                     window=window, lse=lse)
+    again = fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                       window=window, lse=lse)
+    # without the forward's LSE the call computes it itself
+    alone = fa_mod.flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    for g, a, s, w in zip(got, again, alone, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a) and torch.equal(g, s)
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= FA_BWD_RTOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_reads_misaligned_views():
+    """q, k, v whose sequence stride is no multiple of 16 bytes (TMA cannot
+    read them in place: the wrapper copies them) give the gradients of
+    their contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    g = torch.Generator().manual_seed(9)
+    wide = [torch.randn(shape, generator=g).to(torch.bfloat16).cuda()
+            for shape in ((1, 8, 256, 132), (1, 2, 256, 132),
+                          (1, 2, 256, 132))]
+    q, k, v = (t[..., :128] for t in wide)
+    assert not any(fa_mod.tma_ready(t) for t in (q, k, v))
+    do = torch.randn((1, 8, 256, 128), generator=g).to(torch.bfloat16).cuda()
+    out = flash_attention(q, k, v)
+    got = fa_mod.flash_attention_bwd(q, k, v, out, do)
+    want = fa_mod.flash_attention_bwd(*(t.contiguous() for t in (q, k, v)),
+                                      out, do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,window", [(64, True, None),
+                                             (128, True, 16),
+                                             (256, False, None)])
+def test_cuda_flash_attention_lse_matches_logsumexp(d, causal, window):
+    """The log-sum-exp the Hopper forward writes under grad against
+    ``torch.logsumexp`` of the plain scores; the output is the kernel's
+    without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    q, k, v, _ = _bwd_inputs(2, 8, 2, 300, 300, d, "bfloat16", seed=d,
+                             device="cuda")
+    out, lse = fa_mod.flash_attention_with_lse(q, k, v, causal=causal,
+                                               window=window)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    want = ref.attention_lse_ref(q, k, v, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
