@@ -96,7 +96,7 @@ Phases (each fails the run on error; nothing is caught):
     ``Metrics`` bit-identical, fused; (e) ``hedge_vs_netclone.json`` (G =
     6, cut from 40,000 to 2,000 ticks) under B2 and ``vectorized``: rows
     bit-identical, p99s printed; (f) a ``hedge_delays = [25, 75, 150]``
-    sweep (1,000 ticks); each of (c)-(e) also runs its first 128 ticks on
+    sweep (1,000 ticks); each of (c)-(e) also runs its first 64 ticks on
     the staged loop, the wrapper counting one B1 or B2 launch a tick, held
     equal to the same ticks replayed from graphs; (g) for (c) and (e): ms a
     tick fused and staged, and for (c) a profile of replays (B2 launches
@@ -108,7 +108,7 @@ Phases (each fails the run on error; nothing is caught):
     and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) at their
     full 4,000 ticks on the batch server, fused, bit-identical to
     ``vectorized``, each row equal to the reference's CPU row
-    (``tools/serve_reference.json``), and each one's first 128 ticks
+    (``tools/serve_reference.json``), and each one's first 64 ticks
     staged (one B1 or B2 launch a tick, counted by the wrapper) equal to
     the same ticks replayed; then ``llm_gemma7b`` at ``batch_coupling``
     0.5 (the slots' decode speed falls with occupancy: the batch stage's
@@ -153,7 +153,7 @@ Phases (each fails the run on error; nothing is caught):
 19. the sharded runner: phase 4's 200-config sweep with
     ``shard=ShardSpec(devices=1)`` on the fused backend, every row and the
     merged ``grid_hist`` bit-identical to phase 4's, timed; then
-    ``shard_equivalence`` on ``validate_grid.json``'s SweepSpec at 1,000
+    ``shard_equivalence`` on ``validate_grid.json``'s SweepSpec at 500
     ticks (one card holds one slab);
 20. training: B3's backward kernel (``csrc/flash_attention_bwd.cu``: the
     TMA + ``wgmma`` kernels for bf16, the scalar ones for float32, its
@@ -164,14 +164,28 @@ Phases (each fails the run on error; nothing is caught):
     cannot read in place), two calls bit-equal, each timed beside its
     bound, its plain version and SDPA's backward;
     qwen2.5-3b at full width and depth (float32 master weights, bf16
-    activations, remat): a gradient on every leaf, then 3 AdamW steps of 2
-    x 4,096 tokens (72 B3 and 36 backward launches a step), ms a step and
-    peak memory; the 0.1 B model of ``examples/train_100m.py --full``: its
-    attention gradients held to the plain attention's, 40 steps of 8 x 512
+    activations, remat) through the train cell of ``launch.steps.
+    build_cell`` on the card's host mesh: a gradient on every leaf, then 3
+    AdamW steps of 2 x 4,096 tokens (72 B3 and 36 backward launches a
+    step), ms a step and peak memory; the 0.1 B model of
+    ``examples/train_100m.py --full``: its attention gradients held to the plain attention's, 40 steps of 8 x 512
     with an async checkpoint at 20, the loss falling, and a restart
     through ``launch/train.py``'s restore path (state bit-equal, step 20's
     loss bit-equal, later steps within 1e-3); whisper-tiny, 3 steps on
-    frames (2, 1500, 384) and 2 x 448 tokens.
+    frames (2, 1500, 384) and 2 x 448 tokens;
+21. B4's backward (``csrc/ssd_scan_bwd.cu``, its build's registers and
+    spills logged) against autograd through ``ssd_scan_ref`` at
+    mamba2-370m's training shape (b and c broadcast over heads), the
+    reference's float32 scan-test shapes with h0 and a final-state
+    gradient, a zero decay mid-chunk and a length of 100, two calls
+    bit-equal, each timed beside its bound and its plain version;
+    mamba2-370m at full width and depth through the train cell of
+    ``build_cell``: a gradient on every leaf, step 1's loss held to the
+    plain scan's (bf16) and each leaf's gradient to the plain scan's (in
+    float32 activations), then 3 AdamW steps of 2 x 4,096 tokens (96 B4
+    and 48 backward launches a step), ms a step and peak memory; then
+    ``build_cell``'s prefill and decode cells at phase 10's shapes,
+    bit-equal to ``lm.prefill`` and ``lm.decode_step``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -183,6 +197,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -225,14 +240,15 @@ XVAL_REFERENCE = ROOT / "tools" / "validate_grid_reference.json"
 # its CPU lets it clone), hedge_vs_netclone.json cut from 40,000 ticks by
 # the time limit, the hedge-delay sweep, and the staged window each run is
 # held to (ticks replayed from graphs against the same ticks staged, the
-# wrappers counting every staged launch)
+# wrappers counting every staged launch: one graph's 64, cut from 128 to pay
+# for phase 21; phase 14 shares it)
 LAEDGE_TICKS = 1_500
 LAEDGE_RACK_TICKS = 1_000
 HEDGE_TICKS = 2_000
 HEDGE_FULL_TICKS = 40_000
 DELAY_TICKS = 1_000
 HEDGE_DELAYS = (25.0, 75.0, 150.0)
-STAGED_WINDOW = 128
+STAGED_WINDOW = 64
 # graph replays in phase 13's profiles (~1,000 kernels a tick: a profile
 # of 8 replays takes the profiler most of a minute; cut
 # from 2 to 1 for phases 14-15)
@@ -318,8 +334,9 @@ WHISPER_FA = (
     (PREFILL_B, 6, 6, 1, 64, False, None, "bfloat16", 1500))
 
 # phase 19: shard_equivalence's ticks on validate_grid.json (an exact
-# comparison: the reference's CLI defaults to 6,000)
-SHARD_TICKS = 1_000
+# comparison: the reference's CLI defaults to 6,000; cut from 1,000 to 500
+# to pay for phase 21)
+SHARD_TICKS = 500
 # phase 20: B3's backward at qwen2.5-3b's training shape (2 x 4,096 tokens),
 # whisper-tiny's encoder and cross-attention (Sq 448, the published
 # decoder's context, over 1,500 frames) and one float32 case (GQA, a
@@ -350,6 +367,33 @@ SMALL_TRAIN = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
                    head_dim=64, d_ff=2048, vocab_size=32_000,
                    max_seq_len=1024)
 SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 40, 20
+
+# phase 21: B4's backward at mamba2-370m's training shape (2 x 4,096 tokens,
+# 32 heads of P 64, N 128, b and c broadcast over heads, bf16), at the
+# reference's float32 scan-test shapes with h0 and a final-state gradient,
+# a zero decay mid-chunk, and a length under 128 that is no multiple of 64
+# (bf16, h0 and a final-state gradient): b, s, h, p, n, dtype, h0 and final
+# state, zero decay; tolerances of max |diff| / max |grad| as B3's backward;
+# mamba2-370m trains 3 steps of 2 x 4,096 tokens (the train_4k batch of 256
+# cut by the run's time), its step 1 held to the plain scan's: the loss
+# within 1e-2 relative in bf16, each leaf's gradient within 5e-2 of its max
+# |grad| in float32 activations, and in bf16 at the same width cut to
+# MAMBA_GATE_DEPTH layers each leaf whose plain bf16 gradient lies within
+# 5e-2 of the plain float32 one (the others, which bf16 itself moves by
+# more than the gate, are listed with their readings; at full depth bf16
+# alone moves every leaf by more)
+MAMBA_TRAIN_B, MAMBA_TRAIN_S, MAMBA_TRAIN_STEPS = 2, 4096, 3
+MAMBA_GATE_DEPTH = 2
+SSD_BWD_CASES = (
+    (MAMBA_TRAIN_B, MAMBA_TRAIN_S, 32, 64, 128, "bfloat16", False, False),
+    (1, 256, 2, 64, 64, "float32", True, False),
+    (2, 128, 1, 32, 128, "float32", True, False),
+    (1, 512, 3, 16, 32, "float32", True, False),
+    (1, 128, 2, 16, 16, "float32", True, False),
+    (1, 256, 2, 64, 128, "bfloat16", False, True),
+    (2, 100, 3, 64, 128, "bfloat16", True, False),
+)
+SSD_TRAIN_LOSS_RTOL = 1e-2
 
 # phase 9: the reference's scan test shapes (tests/test_kernels.py:118-188)
 # with h0, in float32 at its tolerances, then the full-width shapes in bf16
@@ -2696,15 +2740,15 @@ def sdpa_backend(torch, q, k, v, **kw) -> str:
     return names.get(idx, f"backend {idx}")
 
 
-def train_steps(torch, bundle, state, batches, kernels, label):
-    """Run one train step a batch, each synchronised and timed, the
-    kernels' counts reset before each; returns ``(state, losses, ms a
-    step, launches of each step)``."""
+def train_steps(torch, step, state, batches, kernels, label):
+    """Run ``step`` (state, batch) -> (state, metrics) once a batch, each
+    synchronised and timed, the kernels' counts reset before each; returns
+    ``(state, losses, ms a step, launches of each step)``."""
     losses, step_ms, counts = [], [], []
     for batch in batches:
         reset(kernels)
         t0 = time.perf_counter()
-        state, m = bundle.step_fn(state, batch)
+        state, m = step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         counts.append({n: fn.launches for n, fn in kernels.items()})
@@ -2714,12 +2758,14 @@ def train_steps(torch, bundle, state, batches, kernels, label):
     return state, losses, step_ms, counts
 
 
-def check_train_launches(counts, n_fwd, n_bwd, label) -> None:
-    """Each step launches B3 ``n_fwd`` times (forward and the remat
-    recompute) and its backward ``n_bwd`` times, and nothing else."""
+def check_train_launches(counts, n_fwd, n_bwd, label,
+                         kernel="flash_attention") -> None:
+    """Each step launches ``kernel`` (B3, or B4) ``n_fwd`` times (forward
+    and the remat recompute) and its backward ``n_bwd`` times, and nothing
+    else."""
     for c in counts:
         want = {n: 0 for n in c}
-        want.update(flash_attention=n_fwd, flash_attention_bwd=n_bwd)
+        want.update({kernel: n_fwd, f"{kernel}_bwd": n_bwd})
         if c != want:
             raise AssertionError(f"{label}: step launches {c}, expected "
                                  f"{want}")
@@ -2738,8 +2784,11 @@ def run_training(torch, kernels, get_config):
     from repro_torch import checkpoint as ckpt
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.configs import SHAPES
     from repro_torch.kernels import ref
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import batch_on, loss_and_grads
@@ -2760,12 +2809,13 @@ def run_training(torch, kernels, get_config):
         row = row or r
     torch.cuda.empty_cache()
 
-    # (b) qwen2.5-3b at full width and depth
+    # (b) qwen2.5-3b at full width and depth, the train cell of
+    # launch.steps.build_cell on the card's host mesh
     cfg = get_config("qwen2.5-3b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    bundle = make_train_step(cfg, DEV, OptimizerConfig())
-    state = bundle.init_state_fn(0)
+    cell = build_cell(cfg, SHAPES["train_4k"], make_host_mesh())
+    state = cell.init_state(0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in ttree.leaves(state.params))
     log(f"phase 20: {cfg.name}: {cfg.n_layers} layers, d_model "
@@ -2805,7 +2855,7 @@ def run_training(torch, kernels, get_config):
     # the main path: reset, train, read the counts
     reset(kernels)
     state, losses, step_ms, counts = train_steps(
-        torch, bundle, state, batches, kernels, "phase 20")
+        torch, cell.run, state, batches, kernels, "phase 20")
     check_train_launches(counts, 2 * cfg.n_layers, cfg.n_layers,
                          "phase 20")
     qwen_launches = {n: sum(c[n] for c in counts) for n in counts[0]}
@@ -2815,8 +2865,9 @@ def run_training(torch, kernels, get_config):
         f"synchronised), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
         f"{counts[0]['flash_attention']} B3 launches and "
-        f"{counts[0]['flash_attention_bwd']} of its backward")
-    del state, bundle
+        f"{counts[0]['flash_attention_bwd']} of its backward (the train "
+        f"cell of build_cell, host mesh {cell.mesh.shape})")
+    del state, cell
     torch.cuda.empty_cache()
 
     # (c) the 0.1 B model: 40 steps, a checkpoint at 20, a restart
@@ -2907,7 +2958,7 @@ def run_training(torch, kernels, get_config):
                 np.float32)
         batches.append(batch)
     state, losses, step_ms, counts = train_steps(
-        torch, bundle, state, batches, kernels, "phase 20")
+        torch, bundle.step_fn, state, batches, kernels, "phase 20")
     n_attn = cfg.encoder.n_layers + 2 * cfg.n_layers
     check_train_launches(counts, 2 * n_attn, n_attn, "phase 20")
     log(f"phase 20: {cfg.name}: 3 steps on frames ({QWEN_TRAIN_B}, "
@@ -2920,6 +2971,314 @@ def run_training(torch, kernels, get_config):
     del state, bundle
     torch.cuda.empty_cache()
     return row, qwen_launches
+
+
+def ssd_bwd_inputs(torch, case, seed):
+    """B4's backward inputs on the card at ``case`` (b, s, h, p, n, dtype,
+    h0 and final-state gradient, zero decay), in ``ssd_scan_bwd``'s order:
+    x, a (a zero mid-chunk if asked), b and c one head's columns broadcast
+    over the heads (the model's views), dy, h0 and the final state's
+    gradient."""
+    b, s, h, p, n, dtype, with_h0, zero = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=DEV).to(dt)
+    a = torch.empty((b, s, h), device=DEV).uniform_(0.6, 1.0,
+                                                    generator=g).to(dt)
+    if zero:
+        a[:, s // 2 + 3] = 0
+    bm, cm = ((torch.randn((b, s, 1, n), generator=g, device=DEV)
+               * n ** -0.5).to(dt).expand(b, s, h, n) for _ in range(2))
+    h0 = torch.randn((b, h, p, n), generator=g, device=DEV) \
+        if with_h0 else None
+    dy = torch.randn((b, s, h, p), generator=g, device=DEV).to(dt)
+    ds = torch.randn((b, h, p, n), generator=g, device=DEV) \
+        if with_h0 else None
+    return x, a, bm, cm, dy, h0, ds
+
+
+def ssd_bwd_bound(case) -> tuple[float, str, float, int]:
+    """(bound ms, what bounds it, FLOPs, bytes) of B4's backward at
+    ``case``, reckoned as :func:`scan_bound` reckons the forward: x, dy, a,
+    one head's b and c (broadcast), h0 and the final state's gradient read
+    once; dx, da, one head's db and dc (the broadcast inputs' gradient is
+    their sum over heads) and dh0 written once.  The operations are the
+    chunked form's backward on the tensor cores at 128-step chunks, the
+    chunk length of B4's chunked kernel: each of the forward's four
+    products (C·Bᵀ, the masked product with X, the state's contribution and
+    its update) gives two of its size, 2 × (2L²(N+P) + 4LNP) a chunk, at
+    the bf16 rate."""
+    b, s, h, p, n, dtype, with_h0, _ = case
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n)
+    if with_h0:
+        nbytes += 3 * 4 * b * h * p * n
+    ell = min(128, s)
+    flops = 2.0 * b * h * -(-s // ell) * (2 * ell * ell * (n + p)
+                                          + 4 * ell * n * p)
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def check_ssd_bwd(torch, ref, ssd_mod, case, seed):
+    """B4's backward kernel against autograd through ``ssd_scan_ref`` on
+    the same inputs, as max |diff| / max |grad| of each gradient; two
+    calls bit-equal; then timed beside its bound and its plain version;
+    returns the row."""
+    ins = ssd_bwd_inputs(torch, case, seed)
+    dtype = case[5]
+
+    def call():
+        return ssd_mod.ssd_scan_bwd(*ins)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None)
+    del again
+    want = ref.ssd_scan_bwd_ref(*ins)
+    names = ("dx", "da", "db", "dc", "dh0")
+    rel = {nm: ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+           for nm, a, b in zip(names, got, want) if b is not None}
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want) if b is not None)
+    if not max(rel.values()) <= FA_BWD_RTOL[dtype] or not same:
+        raise AssertionError(f"phase 21: B4's backward differs from "
+                             f"autograd through the plain scan at {case}: "
+                             f"{rel}; two calls "
+                             f"{'equal' if same else 'DIFFER'}")
+    del got, want
+    reps = 5 if case[1] >= 4096 else 20
+    ms = cuda_ms(call, reps)
+    plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd_ref(*ins), 2)
+    bound, by, ops, nbytes = ssd_bwd_bound(case)
+    b, s, h, p, n, _, with_h0, zero = case
+    log(f"phase 21: B4's backward vs autograd through ssd_scan_ref at x "
+        f"({b}, {s}, {h}, {p}) b/c ({b}, {s}, {h}, {n}) broadcast over "
+        f"heads {dtype}{', h0 and a final-state gradient' if with_h0 else ''}"
+        f"{', a zero decay mid-chunk' if zero else ''}: max |diff| / max "
+        f"|grad| {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
+        f"(tolerance {FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}, two calls "
+        f"bit-equal; {ms:.4f} ms per call (CUDA events over {reps} calls), "
+        f"bound {bound:.5f} ms ({by}: {ops:.4g} FLOP, {nbytes} B) = "
+        f"{100 * bound / ms:.2f}% of it; plain {plain_ms:.4f} ms; library: "
+        f"none (no torch call computes the scan's backward)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, library_ms=None)
+
+
+def run_mamba_training(torch, kernels, get_config):
+    """Phase 21 (a)-(b): B4's backward kernel at its cases, then mamba2-370m
+    at full width and depth trained through the train cell of
+    ``launch.steps.build_cell`` on the host mesh: a gradient on every
+    leaf, step 1 held to the plain scan's step (the loss in bf16, each
+    leaf in float32 activations, and each leaf in bf16 at
+    :data:`MAMBA_GATE_DEPTH` layers by the bf16 gate's rule), 3 AdamW
+    steps.  Returns the backward's row and the training run's launches."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train import tree as ttree
+    from repro_torch.train.step import batch_on, loss_and_grads
+
+    for dtype in (torch.float32, torch.bfloat16):
+        a = ssd_mod.bwd_attributes(dtype)
+        log(f"phase 21: B4's backward kernel ({dtype}): {a['registers']} "
+            f"registers a thread, {a['static_smem']} B static shared "
+            f"memory, {a['local_bytes']} B local (spill) a thread")
+        if a["local_bytes"]:
+            raise AssertionError(f"phase 21: B4's backward spills: {a}")
+    row = None
+    for i, case in enumerate(SSD_BWD_CASES):
+        r = check_ssd_bwd(torch, ref, ssd_mod, case, seed=210 + i)
+        row = row or r
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-370m")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell(cfg, SHAPES["train_4k"], make_host_mesh())
+    state = cell.init_state(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in ttree.leaves(state.params))
+    log(f"phase 21: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.d_model * cfg.ssm.expand // cfg.ssm.headdim} "
+        f"heads of P {cfg.ssm.headdim}, N {cfg.ssm.d_state}, chunk "
+        f"{cfg.ssm.chunk}; {n_params:,} float32 master parameters (bf16 "
+        f"activations), remat {cfg.remat}; the train cell of build_cell on "
+        f"the host mesh {cell.mesh.shape}: state built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=MAMBA_TRAIN_S,
+                                  global_batch=MAMBA_TRAIN_B, seed=0))
+    batches = [data.batch(i) for i in range(MAMBA_TRAIN_STEPS)]
+    b0 = batch_on(batches[0], DEV)
+    paths = [p for p, _ in ttree.flatten(state.params)]
+
+    def rel(got, want):
+        """Each leaf's max |diff| / max |grad|."""
+        return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(got, want)]
+
+    def by_rule(kx, xx, names):
+        """The bf16 gate's rule: the leaves whose plain bf16 gradient lies
+        within the gate of the plain float32 one are held (the number, the
+        worst B4-vs-plain distance among them and its leaf); the others,
+        which bf16 alone moves by more, are listed by kind with their
+        readings."""
+        held = [i for i in range(len(kx)) if xx[i] <= MODEL_RTOL]
+        w = max(held, key=kx.__getitem__) if held else None
+        left = collections.defaultdict(list)
+        for i in range(len(kx)):
+            if xx[i] > MODEL_RTOL:
+                left[names[i][-1]].append(i)
+        out = "; ".join(
+            f"{len(ix)} {k} (plain bf16 vs float32 "
+            f"{min(xx[i] for i in ix):.3g}-{max(xx[i] for i in ix):.3g}, "
+            f"B4 vs plain {min(kx[i] for i in ix):.3g}-"
+            f"{max(kx[i] for i in ix):.3g})"
+            for k, ix in sorted(left.items())) or "none"
+        return (len(held), kx[w] if held else float("nan"),
+                names[w] if held else None, out)
+
+    reset(kernels)
+    loss, _, grads = loss_and_grads(cfg, state.params, b0)
+    fwd, bwd = kernels["ssd_scan"].launches, kernels["ssd_scan_bwd"].launches
+    missing = [p for p, g in zip(paths, grads) if g is None]
+    bad = [p for p, g in zip(paths, grads)
+           if g is not None and not torch.isfinite(g).all()]
+    zero = [p for p, g in zip(paths, grads)
+            if g is not None and float(g.abs().max()) == 0]
+    if missing or bad:
+        raise AssertionError(f"phase 21: gradients: missing {missing[:3]}, "
+                             f"non-finite {bad[:3]}")
+    loss_x, _, grads_x = loss_and_grads(cfg.replace(attn_impl="xla"),
+                                        state.params, b0)
+    loss_rel = abs(float(loss) - float(loss_x)) / abs(float(loss_x))
+    kx = rel(grads, grads_x)
+    del grads
+    c32 = cfg.replace(dtype="float32")
+    _, _, g32 = loss_and_grads(c32, state.params, b0)
+    _, _, g32x = loss_and_grads(c32.replace(attn_impl="xla"), state.params,
+                                b0)
+    k32 = rel(g32, g32x)
+    del g32
+    xx = rel(grads_x, g32x)
+    del g32x, grads_x
+    torch.cuda.empty_cache()
+    i32 = max(range(len(k32)), key=k32.__getitem__)
+    n_full = by_rule(kx, xx, paths)[0]
+    # bf16's own rounding grows with depth at random init (PERF.md §6, PR
+    # 23): the bf16 step is held leaf by leaf at the same width cut to
+    # MAMBA_GATE_DEPTH layers, where the rule holds most leaves
+    c2 = cfg.replace(n_layers=MAMBA_GATE_DEPTH)
+    s2 = build_cell(c2, SHAPES["train_4k"], make_host_mesh()).init_state(0)
+    p2 = [p for p, _ in ttree.flatten(s2.params)]
+    g2 = [loss_and_grads(c, s2.params, b0)[2] for c in
+          (c2, c2.replace(attn_impl="xla"),
+           c2.replace(attn_impl="xla", dtype="float32"))]
+    n2, worst2, at2, left2 = by_rule(rel(g2[0], g2[1]), rel(g2[1], g2[2]),
+                                     p2)
+    del s2, g2
+    torch.cuda.empty_cache()
+    log(f"phase 21: loss and gradients of one batch ({MAMBA_TRAIN_B} x "
+        f"{MAMBA_TRAIN_S} tokens): loss {float(loss):.6f} through B4 and its "
+        f"backward, {float(loss_x):.6f} through the plain scan "
+        f"(attn_impl='xla'): {loss_rel:.3g} relative (tolerance "
+        f"{SSD_TRAIN_LOSS_RTOL}); {len(paths)} leaves, {len(missing)} "
+        f"without a gradient, {len(bad)} non-finite, {len(zero)} all-zero; "
+        f"B4 launches {fwd} (forward and remat recompute), backward kernel "
+        f"launches {bwd}; worst leaf max |diff| / max |grad| in float32 "
+        f"activations {k32[i32]:.3g} at {paths[i32]} (tolerance "
+        f"{MODEL_RTOL}); in bf16 B4 vs plain median "
+        f"{statistics.median(kx):.3g}, max {max(kx):.3g}, plain bf16 vs "
+        f"float32 median {statistics.median(xx):.3g}: {n_full} of "
+        f"{len(paths)} leaves within {MODEL_RTOL}; at {MAMBA_GATE_DEPTH} "
+        f"layers {n2} of {len(p2)} leaves held in bf16, worst {worst2:.3g} "
+        f"at {at2} (tolerance {MODEL_RTOL}), left out: {left2}")
+    if (fwd, bwd) != (2 * cfg.n_layers, cfg.n_layers) \
+            or not loss_rel <= SSD_TRAIN_LOSS_RTOL \
+            or not k32[i32] <= MODEL_RTOL or not worst2 <= MODEL_RTOL:
+        raise AssertionError(f"phase 21: loss {loss_rel:.3g}, worst leaf in "
+                             f"float32 {k32[i32]:.3g} at {paths[i32]}, in "
+                             f"bf16 at {MAMBA_GATE_DEPTH} layers "
+                             f"{worst2:.3g} at {at2}, launches {fwd} / {bwd}")
+    # the main path: reset, train, read the counts
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    state, losses, step_ms, counts = train_steps(
+        torch, cell.run, state, batches, kernels, "phase 21")
+    check_train_launches(counts, 2 * cfg.n_layers, cfg.n_layers,
+                         "phase 21", kernel="ssd_scan")
+    launches = {n: sum(c[n] for c in counts) for n in counts[0]}
+    log(f"phase 21: {MAMBA_TRAIN_STEPS} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}, "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step (host clock, "
+        f"synchronised), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
+        f"{counts[0]['ssd_scan']} B4 launches and "
+        f"{counts[0]['ssd_scan_bwd']} of its backward")
+    del state, cell
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def run_mamba_cells(torch, lm, get_config):
+    """Phase 21 (c): the prefill and decode cells of ``build_cell`` for
+    mamba2-370m at phase 10's shapes on the host mesh, bit-equal to
+    ``lm.prefill`` and ``lm.decode_step`` called directly."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train import tree as ttree
+
+    cfg = get_config("mamba2-370m")
+    mesh = make_host_mesh()
+    params = lm.init_params(cfg, 0, device=DEV, cast=True)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MAMBA_B, MAMBA_PREFILL_S),
+                           generator=g, device=DEV)
+    prefill = build_cell(cfg, ShapeSpec("prefill", "prefill",
+                                        MAMBA_PREFILL_S, MAMBA_B), mesh)
+    t0 = time.perf_counter()
+    logits, cache = prefill.run(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    cell_ms = (time.perf_counter() - t0) * 1e3
+    want, wcache = lm.prefill(cfg, params, tokens, MAMBA_PREFILL_S,
+                              device=DEV)
+    same = torch.equal(logits, want) and all(
+        torch.equal(a, b) for a, b in zip(ttree.leaves(cache),
+                                          ttree.leaves(wcache)))
+    del want, wcache
+    decode = build_cell(cfg, ShapeSpec("decode", "decode", MAMBA_PREFILL_S,
+                                       MAMBA_B), mesh)
+    theirs = ttree.tree_map(torch.clone, cache)
+    held = ttree.leaves(cache)
+    tok = tokens[:, -1:]
+    pos = torch.full((MAMBA_B,), MAMBA_PREFILL_S - 1, dtype=torch.int32,
+                     device=DEV)
+    got, out = decode.run(params, tok, pos, cache)
+    want, wcache = lm.decode_step(cfg, params, tok, pos, theirs, device=DEV)
+    torch.cuda.synchronize()
+    same_d = torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(ttree.leaves(out),
+                                          ttree.leaves(wcache)))
+    in_place = all(a is b for a, b in zip(ttree.leaves(out), held))
+    log(f"phase 21: {cfg.name}'s prefill cell ({MAMBA_B} x "
+        f"{MAMBA_PREFILL_S} tokens, {cell_ms:.1f} ms) "
+        f"{'bit-equal' if same else 'DIFFERS from'} lm.prefill (logits and "
+        f"caches); its decode cell {'bit-equal' if same_d else 'DIFFERS'} "
+        f"to lm.decode_step, the cache written in place: {in_place}")
+    if not (same and same_d and in_place):
+        raise AssertionError("phase 21: build_cell's serve cells differ "
+                             "from the direct calls")
+    del params, cache, theirs
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2951,6 +3310,7 @@ def main() -> int:
                "flash_attention": ops.flash_attention,
                "flash_attention_bwd": fa_mod.flash_attention_bwd,
                "ssd_scan": ssd_mod.ssd_scan,
+               "ssd_scan_bwd": ssd_mod.ssd_scan_bwd,
                "lru_scan": lru_mod.lru_scan}
     t_start = time.perf_counter()
 
@@ -3228,6 +3588,17 @@ def main() -> int:
                                  f"{n}")
     log(f"phase 20 ended at {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 21: B4's backward and mamba2-370m training, build_cell's
+    # serve cells ----------------------------------------------------------
+    rows["ssd_scan_bwd"], mamba_launches = run_mamba_training(
+        torch, kernels, get_config)
+    for n in ("ssd_scan", "ssd_scan_bwd"):
+        if not mamba_launches[n]:
+            raise AssertionError(f"phase 21: the training run launched no "
+                                 f"{n}")
+    run_mamba_cells(torch, lm, get_config)
+    log(f"phase 21 ended at {time.perf_counter() - t_start:.1f} s")
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -3240,6 +3611,9 @@ def main() -> int:
                 "none: jax.grad through src/repro/kernels/ops.py:30-31 "
                 "(the XLA attention_ref)",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:76",
+                "ssd_scan_bwd":
+                "none: jax.grad through src/repro/kernels/ops.py:60-68 "
+                "(the XLA ssd_scan_ref)",
                 "lru_scan": "src/repro/kernels/lru_scan.py:51"}
     sources = {"fingerprint_filter":
                "src/repro_torch/kernels/csrc/fingerprint_filter.cu",
@@ -3250,13 +3624,17 @@ def main() -> int:
                "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "ssd_scan_bwd":
+               "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                "lru_scan": "src/repro_torch/kernels/csrc/lru_scan.cu"}
     launches = {"fingerprint_filter": rack_launches["fingerprint_filter"],
                 "tickfuse_response_path":
                 sweep_launches["tickfuse_response_path"],
                 "flash_attention": prefill_launches,
                 "flash_attention_bwd": train_launches["flash_attention_bwd"],
-                "ssd_scan": ssd_launches, "lru_scan": lru_launches}
+                "ssd_scan": ssd_launches,
+                "ssd_scan_bwd": mamba_launches["ssd_scan_bwd"],
+                "lru_scan": lru_launches}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": sources[n],
          "replaces": replaces[n], "launches": launches[n],

@@ -239,6 +239,26 @@ def ssd_scan_ref(x, a, b_mat, c_mat, h0=None, chunk: int = 128):
     return y.reshape(bsz, s, h, p).to(x.dtype), state
 
 
+def ssd_scan_bwd_ref(x, a, b_mat, c_mat, dy, h0=None, dstate=None,
+                     chunk: int = 128):
+    """The plain version of B4's backward: ``(dx, da, db, dc, dh0)`` by
+    autograd through :func:`ssd_scan_ref` (what ``jax.grad`` of the
+    reference's XLA scan computes) for the incoming gradients ``dy`` of y
+    and ``dstate`` of the final state (``None`` is zero); ``db`` and ``dc``
+    per head, ``dh0`` ``None`` without ``h0``."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_()
+               for t in (x, a, b_mat, c_mat, h0)]
+        y, state = ssd_scan_ref(*ins, chunk=chunk)
+        outs, grads = [y], [dy.to(y.dtype)]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate.to(state.dtype))
+        want = [t for t in ins if t is not None]
+        got = iter(torch.autograd.grad(outs, want, grads))
+        return tuple(None if t is None else next(got) for t in ins)
+
+
 # ------------------------------------------------------------- LRU scan -----
 def lru_scan_naive(x, a, h0=None):
     """Step-by-step diagonal recurrence ``h_t = a_t ⊙ h_{t-1} + x_t`` in

@@ -195,13 +195,44 @@ def _launch(kernel: str, x, a, b_mat, c_mat, h0):
     return y, h_t
 
 
+def _forward(x, a, b_mat, c_mat, h0):
+    """:func:`kernel_for`'s kernel, counted in ``ssd_scan.launches`` (and
+    ``ssd_scan.chunked_launches``)."""
+    kernel = kernel_for(x.dtype, x.shape[3], b_mat.shape[3])
+    out = _launch(kernel, x, a, b_mat, c_mat, h0)
+    ssd_scan.launches += 1
+    ssd_scan.chunked_launches += kernel == "chunked"
+    return out
+
+
+class _SSDScan(torch.autograd.Function):
+    """B4 with its backward kernel: the forward is :func:`_forward`, the
+    backward :func:`ssd_scan_bwd` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, a, b_mat, c_mat, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, a, b_mat, c_mat, h0)
+        return _forward(x, a, b_mat, c_mat, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, a, b_mat, c_mat, h0 = ctx.saved_tensors
+        dx, da, db, dc, dh0 = ssd_scan_bwd(x, a, b_mat, c_mat, dy, h0,
+                                           dstate)
+        return dx, da, db, dc, dh0
+
+
 def ssd_scan(x, a, b_mat, c_mat, h0=None, *, chunk: int = 128):
     """x ``(B, S, H, P)``, a ``(B, S, H)``, b/c ``(B, S, H, N)`` (any
     strides: the model passes b and c broadcast over heads), optional h0
     ``(B, H, P, N)``; float32 or bfloat16.  Returns ``(y (B, S, H, P) in
     x's dtype, final state (B, H, P, N) float32)``.  ``ssd_scan.launches``
     counts the kernel launches, ``ssd_scan.chunked_launches`` those that
-    took the chunked kernel."""
+    took the chunked kernel.  On a CUDA tensor that needs a gradient (grad
+    mode on, an input requiring grad) the result carries the backward
+    kernel (:func:`ssd_scan_bwd`), which takes ``P <=``
+    :data:`BWD_MAX_P`."""
     check_ssd_args(x, a, b_mat, c_mat, h0, chunk)
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, a, b_mat, c_mat, h0, chunk=chunk)
@@ -210,16 +241,110 @@ def ssd_scan(x, a, b_mat, c_mat, h0=None, *, chunk: int = 128):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, a, b_mat, c_mat, h0)):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet: its CUDA path cannot "
-            "carry a gradient (ROADMAP.md queue B, B4-bwd); run it under "
-            "torch.no_grad() or with inputs that do not require grad")
-    kernel = kernel_for(x.dtype, x.shape[3], b_mat.shape[3])
-    out = _launch(kernel, x, a, b_mat, c_mat, h0)
-    ssd_scan.launches += 1
-    ssd_scan.chunked_launches += kernel == "chunked"
-    return out
+        _check_bwd_width(x.shape[3])
+        return _SSDScan.apply(x, a, b_mat, c_mat, h0)
+    return _forward(x, a, b_mat, c_mat, h0)
 
 
 ssd_scan.launches = 0
 ssd_scan.chunked_launches = 0
+
+#: head dims P the backward kernel takes (one CTA holds all P state rows)
+BWD_MAX_P = 64
+
+
+def _check_bwd_width(p: int) -> None:
+    if p > BWD_MAX_P:
+        raise ValueError(f"head dim P={p}: the backward kernel takes P <= "
+                         f"{BWD_MAX_P}")
+
+
+@functools.cache
+def _bwd_lib():
+    lib = build.load("ssd_scan_bwd")
+    lib.ssd_scan_bwd_launch.argtypes = [_P] * 13 + [_I] * 6 + [_P, _P]
+    lib.ssd_scan_bwd_launch.restype = _I
+    lib.ssd_scan_bwd_scratch.argtypes = [_I] * 5
+    lib.ssd_scan_bwd_scratch.restype = ctypes.c_int64
+    lib.ssd_scan_bwd_attributes.argtypes = [_I, _P]
+    lib.ssd_scan_bwd_attributes.restype = _I
+    return lib
+
+
+def bwd_attributes(dtype: torch.dtype) -> dict:
+    """The backward's main kernel as built for ``dtype`` (float32 or
+    bfloat16), from ``cudaFuncGetAttributes``: registers a thread, static
+    shared memory, local (spill) bytes a thread.  Needs a card."""
+    attrs = (ctypes.c_int * 5)()
+    err = _bwd_lib().ssd_scan_bwd_attributes(_DTYPE_CODE[dtype], attrs)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd_attributes failed: cudaError_t "
+                           f"{err}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes", "max_threads"), attrs))
+
+
+def ssd_scan_bwd(x, a, b_mat, c_mat, dy, h0=None, dstate=None):
+    """The gradients ``(dx, da, db, dc, dh0)`` of :func:`ssd_scan` at its
+    inputs for the incoming ``dy`` (of y) and ``dstate`` (of the final
+    state; ``None`` is zero), each in its input's dtype; ``db`` and ``dc``
+    are per head ``(B, S, H, N)`` (for broadcast b and c, autograd sums
+    them), ``dh0`` is ``None`` without ``h0``.  On CUDA tensors one call of
+    ``csrc/ssd_scan_bwd.cu`` (its main kernel and the pass that adds the
+    column blocks' partial sums), counted once in
+    ``ssd_scan_bwd.launches``; on CPU tensors the plain version, autograd
+    through :func:`~repro_torch.kernels.ref.ssd_scan_ref`."""
+    check_ssd_args(x, a, b_mat, c_mat, h0, chunk=x.shape[1])
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    if dy is not None and dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got {tuple(dy.shape)}")
+    if dstate is not None and dstate.shape != (bsz, h, p, n):
+        raise ValueError(f"dstate must be {(bsz, h, p, n)}, got "
+                         f"{tuple(dstate.shape)}")
+    if x.device.type == "cpu":
+        return ref.ssd_scan_bwd_ref(x, a, b_mat, c_mat, dy, h0, dstate)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_bwd_width(p)
+    if dy is None:
+        dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    dy = dy.to(x.dtype).contiguous()
+    x, b_mat, c_mat = (t if t.stride(3) == 1 else t.contiguous()
+                       for t in (x, b_mat, c_mat))
+    h0f = None if h0 is None else h0.to(torch.float32).contiguous()
+    dsf = None if dstate is None else dstate.to(torch.float32).contiguous()
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.ssd_scan_bwd_scratch(bsz, s, h, p, n),
+                          dtype=torch.float32, device=x.device)
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    da = torch.empty((bsz, s, h), dtype=x.dtype, device=x.device)
+    db = torch.empty((bsz, s, h, n), dtype=x.dtype, device=x.device)
+    dc = torch.empty_like(db)
+    dh0 = None if h0 is None else torch.empty(
+        (bsz, h, p, n), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (x, a, b_mat,
+                                                            c_mat)
+                                      for i in range(3)))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            dy.data_ptr(), ptr(h0f), ptr(dsf), dx.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dc.data_ptr(), ptr(dh0), scratch.data_ptr(),
+            _DTYPE_CODE[x.dtype], bsz, s, h, p, n,
+            ctypes.cast(strides, ctypes.c_void_p),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaGetLastError() "
+                           f"= {err}")
+    ssd_scan_bwd.launches += 1
+    if dh0 is not None:
+        dh0 = dh0.to(h0.dtype)
+    return dx, da, db, dc, dh0
+
+
+ssd_scan_bwd.launches = 0

@@ -34,6 +34,7 @@ from repro_torch.models.common import (
     rms_norm,
     rope_angles,
 )
+from repro_torch.sharding import context as sharding_ctx
 
 
 class KVCache(NamedTuple):
@@ -99,6 +100,10 @@ def attention_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       ) -> tuple[torch.Tensor, KVCache | None]:
     """Train / prefill path: x (B, S, D), positions (B, S)."""
     q, k, v = _qkv(cfg, p, x, positions)
+    if cfg.pin_attention_heads:
+        q = sharding_ctx.constrain_heads(q)
+        k = sharding_ctx.constrain_heads(k)
+        v = sharding_ctx.constrain_heads(v)
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2), causal=causal, window=window,
                       impl=cfg.attn_impl).transpose(1, 2)   # (B, S, H, hd)

@@ -94,30 +94,60 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def capacity_slots(cfg: ModelConfig, ids: torch.Tensor, b: int, s: int,
+                   dropless: bool) -> tuple[torch.Tensor, int]:
+    """``(pos (T, K), capacity)``: each (token, k) pair's position in its
+    expert's buffer, counting the pairs before it in its group, token-major
+    over (T·K); the pair is kept when ``pos < capacity``."""
+    m = cfg.moe
+    tg, g, cap = capacity_groups(cfg, b, s, dropless)
+    flat = ids.reshape(g, tg * m.top_k)
+    onehot = F.one_hot(flat, m.n_experts)                   # (G, Tg·K, E)
+    pos = onehot.cumsum(dim=1).gather(-1, flat[..., None])[..., 0] - 1
+    return pos.reshape(b * s, m.top_k), cap
+
+
 def route(cfg: ModelConfig, p: dict, x: torch.Tensor, dropless: bool):
     """The router of :func:`moe_forward`: x (B, S, D) → ``(logits (T, E)
     float32, probs, gates (T, K) float32, expert ids (T, K), keep (T, K)
     or None when nothing is dropped)``, T = B·S in token order.  ``keep``
-    holds the reference's capacity rule: each (token, k) pair's position
-    in its expert's buffer counts the pairs before it in its group,
-    token-major over (T·K)."""
-    m = cfg.moe
+    holds the reference's capacity rule (:func:`capacity_slots`)."""
     b, s, d = x.shape
-    k = m.top_k
     # float32 logits from the activation-dtype operands (the reference's
     # preferred_element_type=float32); float32 products of bf16 values are
     # exact, so only the accumulation order differs
     logits = x.reshape(b * s, d).float() @ p["router"].to(x.dtype).float()
     probs = torch.softmax(logits, dim=-1)
-    gates, ids = _top_k(probs, k)
+    gates, ids = _top_k(probs, cfg.moe.top_k)
     gates = gates / gates.sum(dim=-1, keepdim=True)
     if dropless:
         return logits, probs, gates, ids, None
-    tg, g, cap = capacity_groups(cfg, b, s, dropless)
-    flat = ids.reshape(g, tg * k)
-    onehot = F.one_hot(flat, m.n_experts)                   # (G, Tg·K, E)
-    pos = onehot.cumsum(dim=1).gather(-1, flat[..., None])[..., 0] - 1
-    return logits, probs, gates, ids, (pos < cap).reshape(b * s, k)
+    pos, cap = capacity_slots(cfg, ids, b, s, dropless)
+    return logits, probs, gates, ids, pos < cap
+
+
+def _plus_shared(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+    """``y`` plus the always-on shared experts' gated MLP on ``x``."""
+    if not cfg.moe.n_shared:
+        return y
+    sp, dt, act = p["shared"], x.dtype, activation(cfg.act)
+    gs = act(torch.einsum("bsd,df->bsf", x, sp["wi_gate"].to(dt)))
+    us = torch.einsum("bsd,df->bsf", x, sp["wi_up"].to(dt))
+    return y + torch.einsum("bsf,fd->bsd", gs * us, sp["wo"].to(dt))
+
+
+def _aux_losses(cfg: ModelConfig, logits: torch.Tensor, probs: torch.Tensor,
+                counts: torch.Tensor) -> dict:
+    """The reference's auxiliary losses from the pre-drop routing:
+    Switch-style load balance (``counts``: the pairs routed to each
+    expert) and router z."""
+    m = cfg.moe
+    me = probs.mean(dim=0)
+    ce = counts.float() / probs.shape[0]
+    return {"moe_aux": m.n_experts * torch.sum(me * ce) * m.aux_loss_coef,
+            "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+            * m.router_z_coef}
 
 
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -129,7 +159,10 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     Costs a layer: one host sync (the pairs an expert takes), plus one in
     capacity mode (the kept pairs), and about six launches for each expert
-    that takes a pair."""
+    that takes a pair.  On the ``meta`` device, which has no values to
+    route by, :func:`moe_dense_dispatch` stands in (a dry-run lowering)."""
+    if x.device.type == "meta":
+        return moe_dense_dispatch(cfg, p, x, dropless)
     m = cfg.moe
     dt = x.dtype
     b, s, d = x.shape
@@ -158,18 +191,44 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                          device=x.device)
     placed[pairs] = w[:, None] * out.float()
     y = placed.view(n_tok, k, d).sum(dim=1).to(dt).view(b, s, d)
+    routed = torch.bincount(flat_e, minlength=m.n_experts)
+    return _plus_shared(cfg, p, x, y), _aux_losses(cfg, logits, probs,
+                                                   routed)
 
-    if m.n_shared:
-        sp = p["shared"]
-        gs = act(torch.einsum("bsd,df->bsf", x, sp["wi_gate"].to(dt)))
-        us = torch.einsum("bsd,df->bsf", x, sp["wi_up"].to(dt))
-        y = y + torch.einsum("bsf,fd->bsd", gs * us, sp["wo"].to(dt))
 
-    # aux losses from the pre-drop routing (Switch-style load balance and
-    # router z), as the reference computes them
-    me = probs.mean(dim=0)
-    ce = torch.bincount(flat_e, minlength=m.n_experts).float() / n_tok
-    aux = {"moe_aux": m.n_experts * torch.sum(me * ce) * m.aux_loss_coef,
-           "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-           * m.router_z_coef}
-    return y, aux
+def moe_dense_dispatch(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       dropless: bool = False) -> tuple[torch.Tensor, dict]:
+    """The reference's GShard dispatch as written: one-hot ``(G, T, E, C)``
+    dispatch and combine tensors, the experts run on every capacity slot.
+    This is the work the reference lowers; the dry-run's lowering on the
+    ``meta`` device takes it (shapes and FLOPs only: nothing here reads a
+    value on the host).  The routing, shared experts and aux losses are
+    :func:`moe_forward`'s; only the dispatch differs."""
+    m = cfg.moe
+    dt = x.dtype
+    b, s, d = x.shape
+    e, k = m.n_experts, m.top_k
+    logits, probs, gates, ids, _ = route(cfg, p, x, dropless=True)
+    pos, cap = capacity_slots(cfg, ids, b, s, dropless)
+    tg, g, _ = capacity_groups(cfg, b, s, dropless)
+    xg = x.reshape(g, tg, d)
+    ids_g, pos_g, gates_g = (t.reshape(g, tg, k) for t in (ids, pos, gates))
+    keep = pos_g < cap
+    dispatch = combine = None
+    for kk in range(k):
+        oe = F.one_hot(ids_g[..., kk], e).to(dt)
+        oc = F.one_hot(pos_g[..., kk].clamp(0, cap - 1), cap).to(dt)
+        term = (oe[..., :, None] * oc[..., None, :]
+                * keep[..., kk, None, None].to(dt))             # (G,T,E,C)
+        dispatch = term if dispatch is None else dispatch + term
+        cterm = term * gates_g[..., kk, None, None].to(dt)
+        combine = cterm if combine is None else combine + cterm
+    x_e = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    act = activation(cfg.act)
+    h_g = act(torch.einsum("gecd,edf->gecf", x_e, p["wi_gate"].to(dt)))
+    h_u = torch.einsum("gecd,edf->gecf", x_e, p["wi_up"].to(dt))
+    y_e = torch.einsum("gecf,efd->gecd", h_g * h_u, p["wo"].to(dt))
+    y = torch.einsum("gtec,gecd->gtd", combine, y_e).reshape(b, s, d)
+    routed = F.one_hot(ids, e).sum(dim=(0, 1))
+    return _plus_shared(cfg, p, x, y), _aux_losses(cfg, logits, probs,
+                                                   routed)

@@ -43,6 +43,7 @@ from repro_torch.models.common import (
     init_norm,
     unembed,
 )
+from repro_torch.sharding import context as sharding_ctx
 
 LayerSpec = tuple[str, str]  # (mixer, ffn)
 
@@ -192,6 +193,13 @@ def _apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, positions,
                  cache, mode: str, pos):
     """One layer: returns (x, its new cache, its MoE aux loss or None)."""
     mixer, ffn = spec
+    # ZeRO-3's use site (the reference's hooks; the same objects off a mesh)
+    p = sharding_ctx.fsdp_use(
+        p, cast=cfg.activation_dtype if cfg.cast_weights_on_gather else None)
+    if cfg.sequence_parallel and mode == "train":
+        x = sharding_ctx.constrain_seq(x)
+    else:
+        x = sharding_ctx.constrain_batch(x)
     h = apply_norm(cfg, p["pre_norm"], x)
     make_cache = mode == "prefill"
     if mixer == "ssm":
@@ -269,6 +277,19 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return x, (new_cache if keep else None), aux
 
 
+def _emb(params: dict, cfg: ModelConfig, out: bool = False) -> dict:
+    """The embed table's leaf that the input embedding reads (``out``: that
+    the unembedding reads) at its gathered use-site sharding (ZeRO-3's use
+    point; ``params["embed"]``'s own tensor off a mesh).  Only that leaf
+    goes through the hook: the reference gathers the whole table, and its
+    lowering drops the gather of the leaf a pass does not read."""
+    cast = cfg.activation_dtype if cfg.cast_weights_on_gather else None
+    emb = params["embed"]
+    name = "unembed" if out and "unembed" in emb else "tokens"
+    return sharding_ctx.fsdp_use({"embed": {name: emb[name]}},
+                                 cast=cast)["embed"]
+
+
 def _inputs(params: dict, device, *tensors):
     """Resolve the run's device, check the parameters live there, and move
     the integer inputs onto it."""
@@ -304,10 +325,10 @@ def forward(cfg: ModelConfig, params: dict, tokens, positions=None,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = embed_tokens(cfg, _emb(params, cfg), tokens)
     x, _, aux = backbone(cfg, params, x, positions,
                          mode="eval" if eval_mode else "train")
-    return unembed(cfg, params["embed"], x), aux
+    return unembed(cfg, _emb(params, cfg, out=True), x), aux
 
 
 #: sequence-chunk length of the cross-entropy: the (B, chunk, V) float32
@@ -376,9 +397,11 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, device=None):
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = embed_tokens(cfg, _emb(params, cfg), tokens)
     x, _, aux = backbone(cfg, params, x, positions, mode="train")
-    return ce_metrics(*_chunked_ce(cfg, params["embed"], x, labels), aux)
+    x = sharding_ctx.constrain_batch(x)   # CE chunks re-split the seq dim
+    return ce_metrics(*_chunked_ce(cfg, _emb(params, cfg, out=True), x,
+                                  labels), aux)
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, s_max: int | None = None,
@@ -390,9 +413,9 @@ def prefill(cfg: ModelConfig, params: dict, tokens, s_max: int | None = None,
     s_max = s_max or s
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None].expand(b, s)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = embed_tokens(cfg, _emb(params, cfg), tokens)
     x, caches, _ = backbone(cfg, params, x, positions, mode="prefill")
-    logits = unembed(cfg, params["embed"], x[:, -1:, :])
+    logits = unembed(cfg, _emb(params, cfg, out=True), x[:, -1:, :])
     if s_max > s:
         caches = _pad_caches(cfg, caches, s, s_max)
     return logits, caches
@@ -422,7 +445,7 @@ def decode_step(cfg: ModelConfig, params: dict, tokens, pos, cache: list,
     The attention caches are updated in place, the recurrent states
     replaced; the new list is returned."""
     tokens, pos = _inputs(params, device, tokens, pos)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    x = embed_tokens(cfg, _emb(params, cfg), tokens)
     x, new_cache, _ = backbone(cfg, params, x, pos[:, None], cache=cache,
                                mode="decode", pos=pos)
-    return unembed(cfg, params["embed"], x), new_cache
+    return unembed(cfg, _emb(params, cfg, out=True), x), new_cache

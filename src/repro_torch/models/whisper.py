@@ -44,6 +44,7 @@ from repro_torch.models.common import (
 from repro_torch.models.ffn import init_mlp, mlp_forward
 from repro_torch.models.lm import _chunked_ce, _inputs, ce_metrics, \
     generator, remat_layers
+from repro_torch.sharding import context as sharding_ctx
 
 
 class WhisperCache(NamedTuple):
@@ -108,6 +109,10 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 # --------------------------------------------------------------- encoder ----
 def _enc_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+    p = sharding_ctx.fsdp_use(
+        p, cast=cfg.activation_dtype if cfg.cast_weights_on_gather else None)
+    x = (sharding_ctx.constrain_seq(x) if cfg.sequence_parallel
+         else sharding_ctx.constrain_batch(x))
     h = apply_norm(cfg, p["pre_norm"], x)
     y, _ = attn.attention_forward(cfg, p["attn"], h, positions, causal=False)
     x = x + y
@@ -119,7 +124,8 @@ def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
             mode: str = "eval"):
     b, f, _ = frames.shape
     dt = cfg.activation_dtype
-    x = frames.to(dt) + params["enc_pos"][None, :f].to(dt)
+    pos_tab = sharding_ctx.fsdp_use({"enc_pos": params["enc_pos"]})["enc_pos"]
+    x = frames.to(dt) + pos_tab[None, :f].to(dt)
     positions = _positions(b, f, x.device)
     remat = remat_layers(cfg, mode, x)
     for p in params["enc"]:
@@ -159,14 +165,22 @@ def _enc_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
 # --------------------------------------------------------------- decoder ----
 def _embed_dec(cfg: ModelConfig, params: dict, tokens, positions):
     dt = cfg.activation_dtype
-    x = params["embed"]["tokens"].to(dt)[tokens]
-    return x + params["dec_pos"].to(dt)[positions]
+    emb = sharding_ctx.fsdp_use({"embed": params["embed"],
+                                 "dec_pos": params["dec_pos"]})
+    x = emb["embed"]["tokens"].to(dt)[tokens]
+    return x + emb["dec_pos"].to(dt)[positions]
 
 
 def _dec_layer(cfg: ModelConfig, p: dict, x, positions, enc_out, mode: str,
                pos, cache, s_max=None):
     """One decoder layer in train/prefill/decode mode; returns (x, its
     cache: ``(self KVCache, (cross_k, cross_v))`` or None in train)."""
+    p = sharding_ctx.fsdp_use(
+        p, cast=cfg.activation_dtype if cfg.cast_weights_on_gather else None)
+    if mode == "train" and cfg.sequence_parallel:
+        x = sharding_ctx.constrain_seq(x)
+    elif mode != "decode":
+        x = sharding_ctx.constrain_batch(x)
     h = apply_norm(cfg, p["pre_norm"], x)
     new_cache = None
     if mode == "decode":
@@ -228,7 +242,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, device=None):
     frames, tokens, labels = _inputs(params, device, batch["frames"],
                                      batch["tokens"], batch["labels"])
     x = _trunk(cfg, params, frames, tokens)
-    sums = _chunked_ce(cfg, params["embed"], x, labels)
+    x = sharding_ctx.constrain_batch(x)
+    emb = sharding_ctx.fsdp_use({"embed": params["embed"]})["embed"]
+    sums = _chunked_ce(cfg, emb, x, labels)
     return ce_metrics(*sums, torch.zeros((), dtype=torch.float32,
                                          device=x.device))
 

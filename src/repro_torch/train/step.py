@@ -2,7 +2,11 @@
 ``backward`` → optional int8 compression → AdamW.
 
 The reference jits the step with FSDP × TP shardings over a mesh; the
-port runs eagerly on one device (the shardings are ROADMAP A13b).  The
+port runs eagerly on one device.  Its sharding rules
+(:mod:`repro_torch.sharding`) give the same specs, which
+:func:`repro_torch.launch.steps.build_train_cell` records beside this
+step and the dry-run lowers (:mod:`repro_torch.launch.dryrun`); a step
+over several cards is ROADMAP A9-shard-multi.  The
 parameters are float32 master weights (``lm.init_params(cast=False)``)
 that the model casts to the activation dtype at each use; their leaves
 require grad, and the step updates them, the AdamW moments and the error

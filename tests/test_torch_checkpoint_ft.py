@@ -1,7 +1,8 @@
 """Checkpointing (``repro_torch.checkpoint``), fault tolerance
 (``repro_torch.ft``) and the training launcher's resume, on the CPU: the
 reference's ``tests/test_checkpoint_ft.py`` on the port (its elastic
-reshard across meshes needs the sharding rules, ROADMAP A13b), a
+reshard across meshes needs real device placements, ROADMAP
+A9-shard-multi), a
 reference-written params checkpoint restored by the port, and a train
 state restored bit for bit.
 """

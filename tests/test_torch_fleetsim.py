@@ -442,6 +442,9 @@ import repro_torch.fleetsim.telemetry.export, repro_torch.analysis.roofline
 import repro_torch.fleetsim.shard, repro_torch.train, repro_torch.train.step
 import repro_torch.data, repro_torch.checkpoint, repro_torch.ft
 import repro_torch.launch.train
+import repro_torch.sharding, repro_torch.launch.mesh
+import repro_torch.launch.specs, repro_torch.launch.steps
+import repro_torch.launch.dryrun
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

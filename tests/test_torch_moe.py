@@ -104,6 +104,25 @@ def test_moe_forward_matches_reference(layer, case):
         assert int((~keep).sum()) >= pairs // 4
 
 
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_dense_dispatch_matches_moe_forward(layer, case):
+    """The dry-run's one-hot dispatch (taken on ``meta``) gives the sorted
+    dispatch's outputs and aux losses, dropped pairs included."""
+    dropless, cf, s = MOE_CASES[case]
+    _, p = layer
+    cfg = _with_capacity(get_config(ARCH, smoke=True), cf)
+    x = torch.from_numpy(_x((B, s, cfg.d_model), seed=s))
+    y, aux = ffn.moe_forward(cfg, p, x, dropless=dropless)
+    y_d, aux_d = ffn.moe_dense_dispatch(cfg, p, x, dropless=dropless)
+    _close(y_d, y.numpy(), 1e-5)
+    for name in ("moe_aux", "router_z"):
+        np.testing.assert_allclose(float(aux_d[name]), float(aux[name]),
+                                   rtol=1e-6)
+    meta = ffn.moe_forward(cfg, convert._map(p, lambda t: t.to("meta")),
+                           x.to("meta"), dropless=dropless)
+    assert meta[0].shape == y.shape and meta[0].device.type == "meta"
+
+
 def test_top_k_breaks_ties_toward_the_lower_index():
     probs = torch.tensor([[0.1, 0.3, 0.3, 0.2, 0.3]])
     vals, idx = ffn._top_k(probs, 3)

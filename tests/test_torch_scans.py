@@ -546,21 +546,144 @@ def test_lru_plain_version_carries_the_naive_gradient():
 
 
 @pytest.mark.cuda
-def test_cuda_scans_raise_under_grad():
-    """B4 and B5 have no backward kernel yet: on the card they raise when a
-    gradient is needed, and run as before without one."""
+def test_cuda_ssd_scan_carries_a_gradient():
+    """B4 has its backward kernel: under grad on the card the result
+    carries it (one backward launch), and without grad it carries
+    nothing."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn((1, 64, 2, 16), generator=g, device="cuda")
     a = torch.rand((1, 64, 2), generator=g, device="cuda")
     bm = torch.randn((1, 64, 2, 16), generator=g, device="cuda")
-    with pytest.raises(NotImplementedError, match="B4-bwd"):
-        ssd_scan(x.requires_grad_(), a, bm, bm, chunk=64)
+    before = ssd_mod.ssd_scan_bwd.launches
+    y, _ = ssd_scan(x.requires_grad_(), a, bm, bm, chunk=64)
+    y.sum().backward()
+    assert x.grad is not None and ssd_mod.ssd_scan_bwd.launches == before + 1
     with torch.no_grad():
-        ssd_scan(x, a, bm, bm, chunk=64)
+        y, _ = ssd_scan(x, a, bm, bm, chunk=64)
+    assert y.grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_raises_under_grad():
+    """B5 has no backward kernel yet: on the card it raises when a gradient
+    is needed, and runs as before without one."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
     xl = torch.randn((1, 64, 32), generator=g, device="cuda")
     al = torch.rand((1, 64, 32), generator=g, device="cuda")
     with pytest.raises(NotImplementedError, match="B5-bwd"):
         lru_scan(xl, al.requires_grad_())
     y, _ = lru_scan(xl, al.detach())
     assert y.grad_fn is None
+
+
+# the backward kernel's cases (small sizes of chip_smoke.py phase 21's):
+# b, s, h, p, n, dtype, h0 and a final-state gradient, zero decay mid-chunk
+SSD_BWD_CASES = [(1, 256, 2, 64, 64, "float32", True, False),
+                 (2, 128, 1, 32, 128, "float32", True, False),
+                 (1, 512, 3, 16, 32, "float32", True, False),
+                 (1, 128, 2, 16, 16, "float32", True, False),
+                 (1, 256, 2, 64, 128, "bfloat16", False, True),
+                 (2, 100, 3, 64, 128, "bfloat16", True, False),
+                 (2, 100, 3, 64, 128, "float32", True, True),
+                 (2, 512, 4, 64, 128, "bfloat16", False, False)]
+SSD_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _bwd_inputs(b, s, h, p, n, dtype, h0, zero, seed, device):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=device).to(dt)
+    a = torch.empty((b, s, h), device=device).uniform_(
+        0.6, 1.0, generator=g).to(dt)
+    if zero:
+        a[:, s // 2 + 3] = 0
+    bm = (torch.randn((b, s, 1, n), generator=g, device=device)
+          * n ** -0.5).to(dt).expand(b, s, h, n)
+    cm = (torch.randn((b, s, 1, n), generator=g, device=device)
+          * n ** -0.5).to(dt).expand(b, s, h, n)
+    hh = torch.randn((b, h, p, n), generator=g, device=device) if h0 \
+        else None
+    dy = torch.randn((b, s, h, p), generator=g, device=device).to(dt)
+    ds = torch.randn((b, h, p, n), generator=g, device=device) if h0 \
+        else None
+    return x, a, bm, cm, dy, hh, ds
+
+
+def test_ssd_bwd_plain_version_carries_the_naive_gradient():
+    """The plain backward (autograd through the chunked plain scan) equals
+    autograd through the step-by-step oracle, float32, with h0 and a
+    final-state gradient, b and c broadcast over heads (where no decay is
+    clamped the two are the same function)."""
+    for s in (100,):
+        x, a, bm, cm, dy, hh, ds = _bwd_inputs(2, s, 2, 16, 32, "float32",
+                                               True, False, seed=s,
+                                               device="cpu")
+        got = ref.ssd_scan_bwd_ref(x, a, bm, cm, dy, hh, ds)
+        ins = [t.detach().requires_grad_() for t in (x, a, bm, cm, hh)]
+        y, state = ref.ssd_scan_naive(*ins)
+        want = torch.autograd.grad([y, state], ins, [dy, ds])
+        for name, gv, wv in zip(("dx", "da", "db", "dc", "dh0"), got, want):
+            assert gv.shape == wv.shape, name
+            torch.testing.assert_close(gv, wv, rtol=1e-4, atol=1e-4,
+                                       msg=name)
+    # the wrapper takes the plain version on the CPU, h0 absent
+    x, a, bm, cm, dy, _, _ = _bwd_inputs(1, 64, 2, 16, 16, "float32", False,
+                                         False, seed=3, device="cpu")
+    got = ssd_mod.ssd_scan_bwd(x, a, bm, cm, dy)
+    assert got[4] is None
+    for gv, wv in zip(got[:4], ref.ssd_scan_bwd_ref(x, a, bm, cm, dy)):
+        assert torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,dtype,h0,zero", SSD_BWD_CASES)
+def test_cuda_ssd_scan_bwd_matches_plain_version(b, s, h, p, n, dtype, h0,
+                                                 zero):
+    """B4's backward kernel against autograd through the plain scan
+    (``ssd_scan_bwd_ref``), as max |diff| / max |grad| per gradient (B3's
+    backward gates), and two calls bit-equal."""
+    _card()
+    ins = _bwd_inputs(b, s, h, p, n, dtype, h0, zero, seed=s + n,
+                      device="cuda")
+    before = ssd_mod.ssd_scan_bwd.launches
+    got = ssd_mod.ssd_scan_bwd(*ins)
+    again = ssd_mod.ssd_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_scan_bwd.launches == before + 2
+    want = ref.ssd_scan_bwd_ref(*ins)
+    for name, gv, av, wv in zip(("dx", "da", "db", "dc", "dh0"), got, again,
+                                want):
+        if wv is None:
+            assert gv is None
+            continue
+        assert torch.equal(gv, av), name
+        assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
+        rel = ((gv.float() - wv.float()).abs().max()
+               / wv.float().abs().max()).item()
+        assert rel <= SSD_BWD_RTOL[dtype], (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_gradient_through_a_broadcast_view(dtype):
+    """The model's b and c, one head's columns broadcast over the heads:
+    autograd's expand backward sums the kernel's per-head gradients, held
+    to autograd through the plain scan."""
+    _card()
+    b, s, h, p, n = 2, 256, 4, 64, 128
+    x, a, bm, cm, dy, _, _ = _bwd_inputs(b, s, h, p, n, dtype, False, False,
+                                         seed=9, device="cuda")
+    grads = []
+    for fn in (ssd_scan, ref.ssd_scan_ref):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (x, a, bm[:, :, :1].contiguous(), cm[:, :, :1].contiguous())]
+        y, _ = fn(leaves[0], leaves[1], leaves[2].expand(b, s, h, n),
+                  leaves[3].expand(b, s, h, n))
+        y.backward(dy)
+        grads.append([t.grad for t in leaves])
+    for gv, wv in zip(*grads):
+        rel = ((gv.float() - wv.float()).abs().max()
+               / wv.float().abs().max()).item()
+        assert rel <= SSD_BWD_RTOL[dtype], rel
