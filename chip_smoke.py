@@ -173,17 +173,23 @@ Phases (each fails the run on error; nothing is caught):
     through ``launch/train.py``'s restore path (state bit-equal, step 20's
     loss bit-equal, later steps within 1e-3); whisper-tiny, 3 steps on
     frames (2, 1500, 384) and 2 x 448 tokens;
-21. B4's backward (``csrc/ssd_scan_bwd.cu``, its build's registers and
-    spills logged) against autograd through ``ssd_scan_ref`` at
-    mamba2-370m's training shape (b and c broadcast over heads), the
-    reference's float32 scan-test shapes with h0 and a final-state
-    gradient, a zero decay mid-chunk and a length of 100, two calls
-    bit-equal, each timed beside its bound and its plain version;
+21. B4's backward, both of its kernels (their builds' registers and
+    spills logged): the chunked kernel on the tensor cores
+    (``csrc/ssd_scan_bwd_chunked.cu``, bf16 at P 64, N 64/128) and the
+    step kernel (``csrc/ssd_scan_bwd.cu``, float32 and other widths), each
+    against autograd through ``ssd_scan_ref`` at the cases its route takes:
+    mamba2-370m's training shape in bf16 (b and c broadcast over heads) and
+    in float32, the reference's float32 scan-test shapes with h0 and a
+    final-state gradient, a zero decay mid-chunk and a length of 100, two
+    calls bit-equal, each timed beside its bound and its plain version (and
+    the step kernel held to the same gate and timed on the chunked kernel's
+    training-shape inputs);
     mamba2-370m at full width and depth through the train cell of
     ``build_cell``: a gradient on every leaf, step 1's loss held to the
     plain scan's (bf16) and each leaf's gradient to the plain scan's (in
-    float32 activations), then 3 AdamW steps of 2 x 4,096 tokens (96 B4
-    and 48 backward launches a step), ms a step and peak memory; then
+    float32 activations, whose 48 backward calls take the step kernel),
+    then 3 AdamW steps of 2 x 4,096 tokens (96 B4 and 48 chunked backward
+    launches a step), ms a step and peak memory; then
     ``build_cell``'s prefill and decode cells at phase 10's shapes,
     bit-equal to ``lm.prefill`` and ``lm.decode_step``.
 
@@ -369,7 +375,8 @@ SMALL_TRAIN = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
 SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 40, 20
 
 # phase 21: B4's backward at mamba2-370m's training shape (2 x 4,096 tokens,
-# 32 heads of P 64, N 128, b and c broadcast over heads, bf16), at the
+# 32 heads of P 64, N 128, b and c broadcast over heads, bf16 on the chunked
+# kernel, float32 on the step kernel as the float32 gate runs it), at the
 # reference's float32 scan-test shapes with h0 and a final-state gradient,
 # a zero decay mid-chunk, and a length under 128 that is no multiple of 64
 # (bf16, h0 and a final-state gradient): b, s, h, p, n, dtype, h0 and final
@@ -386,6 +393,7 @@ MAMBA_TRAIN_B, MAMBA_TRAIN_S, MAMBA_TRAIN_STEPS = 2, 4096, 3
 MAMBA_GATE_DEPTH = 2
 SSD_BWD_CASES = (
     (MAMBA_TRAIN_B, MAMBA_TRAIN_S, 32, 64, 128, "bfloat16", False, False),
+    (MAMBA_TRAIN_B, MAMBA_TRAIN_S, 32, 64, 128, "float32", False, False),
     (1, 256, 2, 64, 64, "float32", True, False),
     (2, 128, 1, 32, 128, "float32", True, False),
     (1, 512, 3, 16, 32, "float32", True, False),
@@ -2997,43 +3005,64 @@ def ssd_bwd_inputs(torch, case, seed):
     return x, a, bm, cm, dy, h0, ds
 
 
-def ssd_bwd_bound(case) -> tuple[float, str, float, int]:
-    """(bound ms, what bounds it, FLOPs, bytes) of B4's backward at
-    ``case``, reckoned as :func:`scan_bound` reckons the forward: x, dy, a,
-    one head's b and c (broadcast), h0 and the final state's gradient read
-    once; dx, da, one head's db and dc (the broadcast inputs' gradient is
-    their sum over heads) and dh0 written once.  The operations are the
-    chunked form's backward on the tensor cores at 128-step chunks, the
-    chunk length of B4's chunked kernel: each of the forward's four
+def ssd_bwd_bound(case) -> tuple[float, str, float, int, int]:
+    """(bound ms, what bounds it, FLOPs, bytes, chunk length) of B4's
+    backward at ``case``, reckoned as :func:`scan_bound` reckons the
+    forward: x, dy, a, one head's b and c (broadcast), h0 and the final
+    state's gradient read once; dx, da, one head's db and dc (the broadcast
+    inputs' gradient is their sum over heads) and dh0 written once.  The
+    operations are the chunked form's backward: each of the forward's four
     products (C·Bᵀ, the masked product with X, the state's contribution and
-    its update) gives two of its size, 2 × (2L²(N+P) + 4LNP) a chunk, at
-    the bf16 rate."""
+    its update) gives two of its size, 2 × (2L²(N+P) + 4LNP) a chunk of L
+    steps, at the rate of the inputs' type: bf16 on the tensor cores,
+    float32 on the CUDA cores (the tensor cores would round it).  Shorter
+    chunks take fewer operations and the same bytes, so the bound takes the
+    L of 1, 2, 4, ..., 128 at which max(operations, bytes) is least, the
+    longest of those that tie: at mamba2-370m's training shape in bf16 the
+    bytes bound every L up to 64 (the chunk length of B4's chunked kernel),
+    and float32 takes L = 1, the step form."""
     b, s, h, p, n, dtype, with_h0, _ = case
     size = 2 if dtype == "bfloat16" else 4
     nbytes = size * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n)
     if with_h0:
         nbytes += 3 * 4 * b * h * p * n
-    ell = min(128, s)
-    flops = 2.0 * b * h * -(-s // ell) * (2 * ell * ell * (n + p)
-                                          + 4 * ell * n * p)
-    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else SCALAR_OPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (max(ops_ms, bytes_ms),
-            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+    best = None
+    for ell in (1, 2, 4, 8, 16, 32, 64, 128):
+        ell = min(ell, s)
+        flops = 2.0 * b * h * -(-s // ell) * (2 * ell * ell * (n + p)
+                                              + 4 * ell * n * p)
+        ops_ms = flops / rate * 1e3
+        if best is None or max(ops_ms, bytes_ms) <= best[0]:
+            best = (max(ops_ms, bytes_ms),
+                    "operations" if ops_ms >= bytes_ms else "bytes", flops,
+                    nbytes, ell)
+    return best
 
 
 def check_ssd_bwd(torch, ref, ssd_mod, case, seed):
-    """B4's backward kernel against autograd through ``ssd_scan_ref`` on
-    the same inputs, as max |diff| / max |grad| of each gradient; two
-    calls bit-equal; then timed beside its bound and its plain version;
-    returns the row."""
+    """B4's backward, through the kernel its route takes
+    (``bwd_kernel_for``), against autograd through ``ssd_scan_ref`` on the
+    same inputs, as max |diff| / max |grad| of each gradient; two calls
+    bit-equal; then timed beside its bound and its plain version; at the
+    training length the step kernel too is held to the same gate on the
+    chunked case's inputs and timed beside it; returns ``(kernel, row)``."""
     ins = ssd_bwd_inputs(torch, case, seed)
     dtype = case[5]
+    kernel = ssd_mod.bwd_kernel_for(ins[0].dtype, case[3], case[4])
+    counter = (ssd_mod.ssd_scan_bwd_chunked if kernel == "chunked"
+               else ssd_mod.ssd_scan_bwd_step)
+    before = counter.launches
 
     def call():
         return ssd_mod.ssd_scan_bwd(*ins)
     got, again = call(), call()
     torch.cuda.synchronize()
+    if counter.launches != before + 2:
+        raise AssertionError(f"phase 21: two calls at {case} launched the "
+                             f"{kernel} backward {counter.launches - before} "
+                             f"times")
     same = all(torch.equal(a, b) for a, b in zip(got, again)
                if a is not None)
     del again
@@ -3045,28 +3074,56 @@ def check_ssd_bwd(torch, ref, ssd_mod, case, seed):
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want) if b is not None)
     if not max(rel.values()) <= FA_BWD_RTOL[dtype] or not same:
-        raise AssertionError(f"phase 21: B4's backward differs from "
-                             f"autograd through the plain scan at {case}: "
-                             f"{rel}; two calls "
+        raise AssertionError(f"phase 21: B4's {kernel} backward differs "
+                             f"from autograd through the plain scan at "
+                             f"{case}: {rel}; two calls "
                              f"{'equal' if same else 'DIFFER'}")
+    b, s, h, p, n, _, with_h0, zero = case
+    step = None
+    if kernel == "chunked" and s >= 4096:
+        # the step kernel (the earlier route) on the same inputs, held to
+        # the same gate, then timed beside the chunked one
+        dyc = ins[4].contiguous()
+
+        def step():
+            return ssd_mod.ssd_scan_bwd_step(*ins[:4], dyc, *ins[5:])
+        step_rel = max(((u.float() - v.float()).abs().max()
+                        / v.float().abs().max()).item()
+                       for u, v in zip(step(), want) if v is not None)
+        if not step_rel <= FA_BWD_RTOL[dtype]:
+            raise AssertionError(f"phase 21: B4's step backward differs "
+                                 f"from autograd through the plain scan at "
+                                 f"{case}: max |diff| / max |grad| "
+                                 f"{step_rel:.3g} (tolerance "
+                                 f"{FA_BWD_RTOL[dtype]})")
     del got, want
-    reps = 5 if case[1] >= 4096 else 20
+    reps = 5 if s >= 4096 else 20
+    if kernel == "chunked":
+        reps *= 4
     ms = cuda_ms(call, reps)
     plain_ms = cuda_ms(lambda: ref.ssd_scan_bwd_ref(*ins), 2)
-    bound, by, ops, nbytes = ssd_bwd_bound(case)
-    b, s, h, p, n, _, with_h0, zero = case
-    log(f"phase 21: B4's backward vs autograd through ssd_scan_ref at x "
+    bound, by, ops, nbytes, ell = ssd_bwd_bound(case)
+    beside = ""
+    if step is not None:
+        step_ms = cuda_ms(step, 5)
+        beside = (f"; the step kernel (the earlier route) on the same "
+                  f"inputs: max |diff| / max |grad| {step_rel:.3g}, "
+                  f"{step_ms:.4f} ms, {step_ms / ms:.1f}x the chunked "
+                  f"kernel's time")
+    log(f"phase 21: B4's {kernel} backward vs autograd through "
+        f"ssd_scan_ref at x "
         f"({b}, {s}, {h}, {p}) b/c ({b}, {s}, {h}, {n}) broadcast over "
         f"heads {dtype}{', h0 and a final-state gradient' if with_h0 else ''}"
         f"{', a zero decay mid-chunk' if zero else ''}: max |diff| / max "
         f"|grad| {', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
         f"(tolerance {FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}, two calls "
         f"bit-equal; {ms:.4f} ms per call (CUDA events over {reps} calls), "
-        f"bound {bound:.5f} ms ({by}: {ops:.4g} FLOP, {nbytes} B) = "
+        f"bound {bound:.5f} ms ({by}: {ops:.4g} FLOP at {ell}-step chunks, "
+        f"{nbytes} B) = "
         f"{100 * bound / ms:.2f}% of it; plain {plain_ms:.4f} ms; library: "
-        f"none (no torch call computes the scan's backward)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                max_abs_err=err, library_ms=None)
+        f"none (no torch call computes the scan's backward){beside}")
+    return kernel, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, max_abs_err=err, library_ms=None)
 
 
 def run_mamba_training(torch, kernels, get_config):
@@ -3076,7 +3133,10 @@ def run_mamba_training(torch, kernels, get_config):
     leaf, step 1 held to the plain scan's step (the loss in bf16, each
     leaf in float32 activations, and each leaf in bf16 at
     :data:`MAMBA_GATE_DEPTH` layers by the bf16 gate's rule), 3 AdamW
-    steps.  Returns the backward's row and the training run's launches."""
+    steps.  Returns the rows of the backward's two kernels (``{"ssd_scan_
+    bwd": chunked, "ssd_scan_bwd_step": step}``, each at the first case its
+    route takes), the training run's launches and the step kernel's
+    launches in the float32 gate's pass (the path that runs it)."""
     from repro_torch.configs import SHAPES
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import ref
@@ -3088,15 +3148,26 @@ def run_mamba_training(torch, kernels, get_config):
 
     for dtype in (torch.float32, torch.bfloat16):
         a = ssd_mod.bwd_attributes(dtype)
-        log(f"phase 21: B4's backward kernel ({dtype}): {a['registers']} "
-            f"registers a thread, {a['static_smem']} B static shared "
-            f"memory, {a['local_bytes']} B local (spill) a thread")
+        log(f"phase 21: B4's step backward kernel ({dtype}): "
+            f"{a['registers']} registers a thread, {a['static_smem']} B "
+            f"static shared memory, {a['local_bytes']} B local (spill) a "
+            f"thread")
         if a["local_bytes"]:
             raise AssertionError(f"phase 21: B4's backward spills: {a}")
-    row = None
+    for n in ssd_mod.CHUNKED_STATE_DIMS:
+        for k, a in ssd_mod.chunked_bwd_attributes(n).items():
+            log(f"phase 21: B4's chunked backward at N {n}, its {k} kernel: "
+                f"{a['registers']} registers a thread, {a['static_smem']} B "
+                f"static + {a['dynamic_smem']} B dynamic shared memory, "
+                f"{a['local_bytes']} B local (spill) a thread")
+            if a["local_bytes"]:
+                raise AssertionError(f"phase 21: B4's chunked backward "
+                                     f"spills: {k} {a}")
+    rows = {}
+    names = {"chunked": "ssd_scan_bwd", "step": "ssd_scan_bwd_step"}
     for i, case in enumerate(SSD_BWD_CASES):
-        r = check_ssd_bwd(torch, ref, ssd_mod, case, seed=210 + i)
-        row = row or r
+        kernel, r = check_ssd_bwd(torch, ref, ssd_mod, case, seed=210 + i)
+        rows.setdefault(names[kernel], r)
     torch.cuda.empty_cache()
 
     cfg = get_config("mamba2-370m")
@@ -3163,7 +3234,15 @@ def run_mamba_training(torch, kernels, get_config):
     kx = rel(grads, grads_x)
     del grads
     c32 = cfg.replace(dtype="float32")
+    reset(kernels)
     _, _, g32 = loss_and_grads(c32, state.params, b0)
+    step_launches = kernels["ssd_scan_bwd_step"].launches
+    if step_launches != cfg.n_layers \
+            or kernels["ssd_scan_bwd"].launches:
+        raise AssertionError(f"phase 21: the float32 pass launched the step "
+                             f"backward {step_launches} times and the "
+                             f"chunked one "
+                             f"{kernels['ssd_scan_bwd'].launches}")
     _, _, g32x = loss_and_grads(c32.replace(attn_impl="xla"), state.params,
                                 b0)
     k32 = rel(g32, g32x)
@@ -3194,7 +3273,8 @@ def run_mamba_training(torch, kernels, get_config):
         f"without a gradient, {len(bad)} non-finite, {len(zero)} all-zero; "
         f"B4 launches {fwd} (forward and remat recompute), backward kernel "
         f"launches {bwd}; worst leaf max |diff| / max |grad| in float32 "
-        f"activations {k32[i32]:.3g} at {paths[i32]} (tolerance "
+        f"activations (the step backward) {k32[i32]:.3g} at {paths[i32]} "
+        f"(tolerance "
         f"{MODEL_RTOL}); in bf16 B4 vs plain median "
         f"{statistics.median(kx):.3g}, max {max(kx):.3g}, plain bf16 vs "
         f"float32 median {statistics.median(xx):.3g}: {n_full} of "
@@ -3222,10 +3302,12 @@ def run_mamba_training(torch, kernels, get_config):
         f"synchronised), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
         f"{counts[0]['ssd_scan']} B4 launches and "
-        f"{counts[0]['ssd_scan_bwd']} of its backward")
+        f"{counts[0]['ssd_scan_bwd']} of its chunked backward "
+        f"({counts[0]['ssd_scan_bwd_step']} of the step backward); the "
+        f"float32 pass took the step backward {step_launches} times")
     del state, cell
     torch.cuda.empty_cache()
-    return row, launches
+    return rows, launches, step_launches
 
 
 def run_mamba_cells(torch, lm, get_config):
@@ -3310,7 +3392,8 @@ def main() -> int:
                "flash_attention": ops.flash_attention,
                "flash_attention_bwd": fa_mod.flash_attention_bwd,
                "ssd_scan": ssd_mod.ssd_scan,
-               "ssd_scan_bwd": ssd_mod.ssd_scan_bwd,
+               "ssd_scan_bwd": ssd_mod.ssd_scan_bwd_chunked,
+               "ssd_scan_bwd_step": ssd_mod.ssd_scan_bwd_step,
                "lru_scan": lru_mod.lru_scan}
     t_start = time.perf_counter()
 
@@ -3590,8 +3673,9 @@ def main() -> int:
 
     # -- phase 21: B4's backward and mamba2-370m training, build_cell's
     # serve cells ----------------------------------------------------------
-    rows["ssd_scan_bwd"], mamba_launches = run_mamba_training(
+    bwd_rows, mamba_launches, step_launches = run_mamba_training(
         torch, kernels, get_config)
+    rows.update(bwd_rows)
     for n in ("ssd_scan", "ssd_scan_bwd"):
         if not mamba_launches[n]:
             raise AssertionError(f"phase 21: the training run launched no "
@@ -3614,6 +3698,9 @@ def main() -> int:
                 "ssd_scan_bwd":
                 "none: jax.grad through src/repro/kernels/ops.py:60-68 "
                 "(the XLA ssd_scan_ref)",
+                "ssd_scan_bwd_step":
+                "none: jax.grad through src/repro/kernels/ops.py:60-68 "
+                "(the XLA ssd_scan_ref)",
                 "lru_scan": "src/repro/kernels/lru_scan.py:51"}
     sources = {"fingerprint_filter":
                "src/repro_torch/kernels/csrc/fingerprint_filter.cu",
@@ -3625,6 +3712,8 @@ def main() -> int:
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                "ssd_scan_bwd":
+               "src/repro_torch/kernels/csrc/ssd_scan_bwd_chunked.cu",
+               "ssd_scan_bwd_step":
                "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                "lru_scan": "src/repro_torch/kernels/csrc/lru_scan.cu"}
     launches = {"fingerprint_filter": rack_launches["fingerprint_filter"],
@@ -3634,6 +3723,9 @@ def main() -> int:
                 "flash_attention_bwd": train_launches["flash_attention_bwd"],
                 "ssd_scan": ssd_launches,
                 "ssd_scan_bwd": mamba_launches["ssd_scan_bwd"],
+                # the step backward is off the bf16 main path: its count is
+                # the float32 gate's pass of mamba2-370m, the path it takes
+                "ssd_scan_bwd_step": step_launches,
                 "lru_scan": lru_launches}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": sources[n],

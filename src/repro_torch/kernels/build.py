@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("fingerprint_filter", "tickfuse", "flash_attention",
-           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd", "lru_scan")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+           "ssd_scan_bwd_chunked", "lru_scan")
 
 
 def nvcc_path() -> str:

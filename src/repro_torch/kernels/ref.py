@@ -259,6 +259,93 @@ def ssd_scan_bwd_ref(x, a, b_mat, c_mat, dy, h0=None, dstate=None,
         return tuple(None if t is None else next(got) for t in ins)
 
 
+def ssd_scan_bwd_chunked_ref(x, a, b_mat, c_mat, dy, h0=None, dstate=None,
+                             chunk: int = 64):
+    """The chunked backward of B4 in plain torch, with the rounding points
+    of its chunked kernel (``csrc/ssd_scan_bwd_chunked.cu``): ``(dx, da,
+    db, dc, dh0)`` as :func:`ssd_scan_bwd_ref` returns them.  Chunks of
+    ``chunk`` steps (a ragged tail padded with x = dy = b = c = 0 and decay
+    1), cum in log2, per chunk the local states ``V = (X⊙w)ᵀB`` and ``U =
+    (dY⊙2^cum)ᵀC``, a pass over the chunks for the state entering each
+    (``H_prev``) and the gradient of the one leaving it (``G``), then the
+    chunk-local products; for bf16 inputs the operands the kernel rounds
+    to bf16 are rounded here (X⊙w, dY⊙2^cum, ``H_prev``, ``G``, S⊙M and
+    dS⊙M), everything else stays float32.  The gradient of log a' is the
+    reverse prefix sum of ``dcum`` within each chunk, and ``da`` is 0 where
+    the forward clamped the decay."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    f32 = torch.float32
+    if x.dtype == torch.bfloat16:
+        def rnd(t):
+            return t.to(torch.bfloat16).to(f32)
+    else:
+        def rnd(t):
+            return t
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+
+    def chunks(t, value=0.0):
+        """(B, S, H, ...) -> (B, NC, H, L, ...) in float32, padded."""
+        t = t.to(f32)
+        t = torch.cat([t, t.new_full((bsz, pad) + t.shape[2:], value)], 1)
+        t = t.reshape((bsz, nc, chunk) + t.shape[2:])
+        return t.transpose(2, 3)
+
+    xc, dyc, bc, cc = (chunks(t) for t in (x, dy, b_mat, c_mat))
+    ac = chunks(a, 1.0)                                   # (B, NC, H, L)
+    cum = torch.cumsum(torch.log2(torch.clamp(ac, min=1e-37)), dim=-1)
+    last = cum[..., -1:]
+    w = torch.exp2(last - cum)                            # <= 1
+    e = torch.exp2(cum)
+    decay = torch.exp2(last)[..., None]                   # (B, NC, H, 1, 1)
+    # the chunks' local states, then the pass over the chunks
+    v = rnd(xc * w[..., None]).transpose(-1, -2) @ bc     # (B, NC, H, P, N)
+    u = rnd(dyc * e[..., None]).transpose(-1, -2) @ cc
+    state = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+             if h0 is None else h0.to(f32))
+    h_prev = torch.empty_like(v)
+    for c in range(nc):
+        h_prev[:, c] = state
+        state = decay[:, c] * state + v[:, c]
+    g_state = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+               if dstate is None else dstate.to(f32))
+    g = torch.empty_like(u)
+    for c in reversed(range(nc)):
+        g[:, c] = g_state
+        g_state = decay[:, c] * g_state + u[:, c]
+    h_prev, g = rnd(h_prev), rnd(g)
+    # the chunk-local products: rows t, columns s
+    below = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=x.device))
+    m = torch.exp2(torch.where(below, cum[..., :, None] - cum[..., None, :],
+                               -torch.inf))
+    sm = (cc @ bc.transpose(-1, -2)) * m                  # S⊙M
+    ds = dyc @ xc.transpose(-1, -2)
+    q = sm * ds
+    dsm = ds * m
+    bg = bc @ g.transpose(-1, -2)                         # (…, L, P)
+    dx = rnd(sm).transpose(-1, -2) @ dyc + w[..., None] * bg
+    db = rnd(dsm).transpose(-1, -2) @ cc + rnd(xc * w[..., None]) @ g
+    inter = e[..., None] * (dyc @ h_prev)
+    dc = rnd(dsm) @ bc + inter
+    r = w * (xc * bg).sum(-1)
+    dcum = q.sum(-1) - q.sum(-2) + (cc * inter).sum(-1) - r
+    dcum[..., -1] += r.sum(-1) + torch.exp2(last[..., 0]) * (
+        g * h_prev).sum((-1, -2))
+    dlog = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    da = torch.where(ac >= 1e-37, dlog / ac, 0.0)
+
+    def back(t):
+        """(B, NC, H, L, ...) -> (B, S, H, ...) in x's dtype."""
+        t = t.transpose(2, 3).reshape((bsz, nc * chunk) + t.shape[2:3]
+                                      + t.shape[4:])
+        return t[:, :s].to(x.dtype)
+
+    dh0 = None if h0 is None else g_state.to(h0.dtype)
+    return back(dx), back(da), back(db), back(dc), dh0
+
+
 # ------------------------------------------------------------- LRU scan -----
 def lru_scan_naive(x, a, h0=None):
     """Step-by-step diagonal recurrence ``h_t = a_t ⊙ h_{t-1} + x_t`` in

@@ -20,6 +20,15 @@ Length contract: the reference's Pallas kernel needs ``S`` divisible by
 it accepts exactly what both of the reference's paths accept (ROADMAP C5).
 The chunked kernel's own chunk length is its design choice: the sums
 differ from the plain version's 128-step chunks by rounding only.
+
+The backward (:func:`ssd_scan_bwd`, under autograd through ``_SSDScan``)
+has two kernels too, routed by :func:`bwd_kernel_for` from dtype and shape
+alone: bf16 at ``P = 64`` and ``N`` 64 or 128 (mamba2-370m's training) runs
+the chunked form on the tensor cores (``csrc/ssd_scan_bwd_chunked.cu``,
+64-step chunks; its plain version with the same rounding points is
+:func:`repro_torch.kernels.ref.ssd_scan_bwd_chunked_ref`), every
+other input the step kernel (``csrc/ssd_scan_bwd.cu``, P <=
+:data:`BWD_MAX_P`).
 """
 
 from __future__ import annotations
@@ -60,6 +69,19 @@ def kernel_for(dtype: torch.dtype, p: int, n: int) -> str:
     if n not in STATE_DIMS:
         raise ValueError(f"state width N={n} not built; the kernels take "
                          f"{STATE_DIMS}")
+    if dtype == torch.bfloat16 and p == CHUNKED_P \
+            and n in CHUNKED_STATE_DIMS:
+        return "chunked"
+    return "step"
+
+
+def bwd_kernel_for(dtype: torch.dtype, p: int, n: int) -> str:
+    """The CUDA kernel that takes the backward of ``dtype`` inputs at head
+    dim ``p`` and state width ``n``: ``"chunked"`` (the chunked form on the
+    tensor cores, ``csrc/ssd_scan_bwd_chunked.cu``: bf16 at ``P =``
+    :data:`CHUNKED_P`, ``N`` in :data:`CHUNKED_STATE_DIMS`) or ``"step"``
+    (``csrc/ssd_scan_bwd.cu``, step by step on the CUDA cores: float32,
+    which the tensor cores would round, and every other width)."""
     if dtype == torch.bfloat16 and p == CHUNKED_P \
             and n in CHUNKED_STATE_DIMS:
         return "chunked"
@@ -271,17 +293,148 @@ def _bwd_lib():
     return lib
 
 
-def bwd_attributes(dtype: torch.dtype) -> dict:
-    """The backward's main kernel as built for ``dtype`` (float32 or
-    bfloat16), from ``cudaFuncGetAttributes``: registers a thread, static
-    shared memory, local (spill) bytes a thread.  Needs a card."""
+@functools.cache
+def _bwd_chunked_lib():
+    lib = build.load("ssd_scan_bwd_chunked")
+    lib.ssd_scan_bwd_chunked_launch.argtypes = [_P] * 13 + [_I] * 5 + [_P,
+                                                                       _P]
+    lib.ssd_scan_bwd_chunked_launch.restype = _I
+    lib.ssd_scan_bwd_chunked_scratch.argtypes = [_I] * 4
+    lib.ssd_scan_bwd_chunked_scratch.restype = ctypes.c_int64
+    lib.ssd_scan_bwd_chunked_attributes.argtypes = [_I, _I, _P]
+    lib.ssd_scan_bwd_chunked_attributes.restype = _I
+    return lib
+
+
+def _attrs(fn, *args) -> dict:
     attrs = (ctypes.c_int * 5)()
-    err = _bwd_lib().ssd_scan_bwd_attributes(_DTYPE_CODE[dtype], attrs)
+    err = fn(*args, attrs)
     if err:
-        raise RuntimeError(f"ssd_scan_bwd_attributes failed: cudaError_t "
-                           f"{err}")
+        raise RuntimeError(f"{fn.__name__}{args} failed: cudaError_t {err}")
     return dict(zip(("registers", "static_smem", "dynamic_smem",
                      "local_bytes", "max_threads"), attrs))
+
+
+def bwd_attributes(dtype: torch.dtype) -> dict:
+    """The step backward's main kernel as built for ``dtype`` (float32 or
+    bfloat16), from ``cudaFuncGetAttributes``: registers a thread, static
+    shared memory, local (spill) bytes a thread.  Needs a card."""
+    return _attrs(_bwd_lib().ssd_scan_bwd_attributes, _DTYPE_CODE[dtype])
+
+
+#: the chunked backward's kernels, in launch order
+CHUNKED_BWD_KERNELS = ("walk", "main")
+
+
+def chunked_bwd_attributes(n: int) -> dict:
+    """The chunked backward's two kernels (:data:`CHUNKED_BWD_KERNELS`)
+    as built for state width ``n`` (64 or 128), each as
+    :func:`bwd_attributes`.  Needs a card."""
+    lib = _bwd_chunked_lib()
+    return {k: _attrs(lib.ssd_scan_bwd_chunked_attributes, i, n)
+            for i, k in enumerate(CHUNKED_BWD_KERNELS)}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_outputs(x, b_mat, h0):
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    da = torch.empty((bsz, s, h), dtype=x.dtype, device=x.device)
+    db = torch.empty((bsz, s, h, n), dtype=x.dtype, device=x.device)
+    dc = torch.empty_like(db)
+    dh0 = None if h0 is None else torch.empty(
+        (bsz, h, p, n), dtype=torch.float32, device=x.device)
+    return dx, da, db, dc, dh0
+
+
+def _strides(x, a, b_mat, c_mat):
+    return (ctypes.c_int64 * 12)(*(t.stride(i) for t in (x, a, b_mat, c_mat)
+                                   for i in range(3)))
+
+
+def ssd_scan_bwd_step(x, a, b_mat, c_mat, dy, h0=None, dstate=None):
+    """One call of the step backward (``csrc/ssd_scan_bwd.cu``: its main
+    kernel and the pass that adds the column blocks' partial sums) on CUDA
+    tensors that :func:`ssd_scan_bwd` checked, ``dy`` contiguous in x's
+    dtype; counted in ``ssd_scan_bwd_step.launches``.  Returns ``(dx, da,
+    db, dc, dh0 float32 or None)``.  :func:`ssd_scan_bwd` routes here for
+    float32 and the widths the chunked kernel is not built for; a benchmark
+    may call it at any width it takes (P <= 64)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    _check_bwd_width(p)
+    x, b_mat, c_mat = (t if t.stride(3) == 1 else t.contiguous()
+                       for t in (x, b_mat, c_mat))
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.ssd_scan_bwd_scratch(bsz, s, h, p, n),
+                          dtype=torch.float32, device=x.device)
+    dx, da, db, dc, dh0 = _bwd_outputs(x, b_mat, h0)
+    strides = _strides(x, a, b_mat, c_mat)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            dy.data_ptr(), _ptr(h0), _ptr(dstate), dx.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dc.data_ptr(), _ptr(dh0),
+            scratch.data_ptr(), _DTYPE_CODE[x.dtype], bsz, s, h, p, n,
+            ctypes.cast(strides, ctypes.c_void_p),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd (step kernel) launch failed: "
+                           f"cudaGetLastError() = {err}")
+    ssd_scan_bwd_step.launches += 1
+    return dx, da, db, dc, dh0
+
+
+ssd_scan_bwd_step.launches = 0
+
+
+def ssd_scan_bwd_chunked(x, a, b_mat, c_mat, dy, h0=None, dstate=None):
+    """One call of the chunked backward (``csrc/ssd_scan_bwd_chunked.cu``:
+    the state walks and the main kernel, two launches counted once in
+    ``ssd_scan_bwd_chunked.launches``) on CUDA
+    tensors that :func:`ssd_scan_bwd` checked and :func:`bwd_kernel_for`
+    routes here (bf16, P 64, N 64 or 128), ``dy`` contiguous bf16.  Returns
+    ``(dx, da, db, dc, dh0 float32 or None)``."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    if bwd_kernel_for(x.dtype, p, n) != "chunked":
+        raise ValueError(f"the chunked backward takes bf16 at P="
+                         f"{CHUNKED_P}, N in {CHUNKED_STATE_DIMS}; got "
+                         f"{x.dtype}, P={p}, N={n}")
+    # TMA reads x, b and c in place only where they are aligned
+    x, b_mat, c_mat = (t if t.stride(3) == 1 and tma_ready(t)
+                       else t.contiguous() for t in (x, b_mat, c_mat))
+    lib = _bwd_chunked_lib()
+    scratch = torch.empty(lib.ssd_scan_bwd_chunked_scratch(bsz, s, h, n),
+                          dtype=torch.float32, device=x.device)
+    dx, da, db, dc, dh0 = _bwd_outputs(x, b_mat, h0)
+    strides = _strides(x, a, b_mat, c_mat)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_chunked_launch(
+            x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+            dy.data_ptr(), _ptr(h0), _ptr(dstate), dx.data_ptr(),
+            da.data_ptr(), db.data_ptr(), dc.data_ptr(), _ptr(dh0),
+            scratch.data_ptr(), bsz, s, h, p, n,
+            ctypes.cast(strides, ctypes.c_void_p),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"ssd_scan_bwd: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _ENCODE_FAILED})")
+    if err == _NO_ENCODER:
+        raise RuntimeError("ssd_scan_bwd: no cuTensorMapEncodeTiled entry "
+                           "point (CUDA 12.0 or later is needed)")
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd (chunked kernel) launch failed: "
+                           f"cudaGetLastError() = {err}")
+    ssd_scan_bwd_chunked.launches += 1
+    return dx, da, db, dc, dh0
+
+
+ssd_scan_bwd_chunked.launches = 0
 
 
 def ssd_scan_bwd(x, a, b_mat, c_mat, dy, h0=None, dstate=None):
@@ -290,10 +443,10 @@ def ssd_scan_bwd(x, a, b_mat, c_mat, dy, h0=None, dstate=None):
     state; ``None`` is zero), each in its input's dtype; ``db`` and ``dc``
     are per head ``(B, S, H, N)`` (for broadcast b and c, autograd sums
     them), ``dh0`` is ``None`` without ``h0``.  On CUDA tensors one call of
-    ``csrc/ssd_scan_bwd.cu`` (its main kernel and the pass that adds the
-    column blocks' partial sums), counted once in
-    ``ssd_scan_bwd.launches``; on CPU tensors the plain version, autograd
-    through :func:`~repro_torch.kernels.ref.ssd_scan_ref`."""
+    :func:`bwd_kernel_for`'s kernel (:func:`ssd_scan_bwd_chunked` or
+    :func:`ssd_scan_bwd_step`), counted once in ``ssd_scan_bwd.launches``;
+    on CPU tensors the plain version, autograd through
+    :func:`~repro_torch.kernels.ref.ssd_scan_ref`."""
     check_ssd_args(x, a, b_mat, c_mat, h0, chunk=x.shape[1])
     bsz, s, h, p = x.shape
     n = b_mat.shape[3]
@@ -310,37 +463,11 @@ def ssd_scan_bwd(x, a, b_mat, c_mat, dy, h0=None, dstate=None):
     if dy is None:
         dy = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
     dy = dy.to(x.dtype).contiguous()
-    x, b_mat, c_mat = (t if t.stride(3) == 1 else t.contiguous()
-                       for t in (x, b_mat, c_mat))
     h0f = None if h0 is None else h0.to(torch.float32).contiguous()
     dsf = None if dstate is None else dstate.to(torch.float32).contiguous()
-    lib = _bwd_lib()
-    scratch = torch.empty(lib.ssd_scan_bwd_scratch(bsz, s, h, p, n),
-                          dtype=torch.float32, device=x.device)
-    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
-    da = torch.empty((bsz, s, h), dtype=x.dtype, device=x.device)
-    db = torch.empty((bsz, s, h, n), dtype=x.dtype, device=x.device)
-    dc = torch.empty_like(db)
-    dh0 = None if h0 is None else torch.empty(
-        (bsz, h, p, n), dtype=torch.float32, device=x.device)
-    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (x, a, b_mat,
-                                                            c_mat)
-                                      for i in range(3)))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        err = lib.ssd_scan_bwd_launch(
-            x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            dy.data_ptr(), ptr(h0f), ptr(dsf), dx.data_ptr(), da.data_ptr(),
-            db.data_ptr(), dc.data_ptr(), ptr(dh0), scratch.data_ptr(),
-            _DTYPE_CODE[x.dtype], bsz, s, h, p, n,
-            ctypes.cast(strides, ctypes.c_void_p),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaGetLastError() "
-                           f"= {err}")
+    fn = ssd_scan_bwd_chunked if bwd_kernel_for(x.dtype, p, n) == "chunked" \
+        else ssd_scan_bwd_step
+    dx, da, db, dc, dh0 = fn(x, a, b_mat, c_mat, dy, h0f, dsf)
     ssd_scan_bwd.launches += 1
     if dh0 is not None:
         dh0 = dh0.to(h0.dtype)

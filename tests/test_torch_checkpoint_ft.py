@@ -23,6 +23,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import convert
 from repro_torch.train import tree as ttree
 from repro_torch.train.step import make_train_state_shapes
+from test_torch_common import _one_torch_thread  # noqa: F401
 
 
 def _tree(seed=0):

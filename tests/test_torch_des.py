@@ -36,6 +36,8 @@ from repro_torch.scenarios import registry
 from repro_torch.scenarios.arrival import PoissonArrival, TraceArrival, \
     arrival_from_json
 from repro_torch.scenarios.service import ServiceSpec
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 DES_GOLDEN = Path(__file__).parent / "golden" / "des_hedge_laedge.json"
 DES_POLICIES = ("baseline", "c-clone", "netclone", "racksched",

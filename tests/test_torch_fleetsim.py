@@ -41,6 +41,8 @@ from repro_torch.fleetsim import stages as tst
 from repro_torch.fleetsim.engine import batched_params
 from repro_torch.fleetsim.state import to_numpy
 from repro_torch.scenarios.service import load_to_rate
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 GOLDEN = Path(__file__).parent / "golden" / "fleetsim_single_tor.json"
 SRC = Path(__file__).resolve().parents[1] / "src"

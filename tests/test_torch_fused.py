@@ -43,6 +43,8 @@ from repro_torch.fleetsim.options import EngineOptions
 from repro_torch.fleetsim.shard import ShardSpec
 from repro_torch.fleetsim.state import init_fleet_state
 from repro_torch.scenarios.service import load_to_rate
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 GOLDEN = Path(__file__).parent / "golden" / "fleetsim_single_tor.json"
 FUSED_POLICIES = ("baseline", "c-clone", "netclone", "racksched",

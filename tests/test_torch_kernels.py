@@ -27,6 +27,8 @@ from repro_torch.kernels.inputs import EDGE_CASES, OUTSIDE_REFERENCE, \
     edge_lanes, filter_lanes
 from repro_torch.kernels.tickfuse import tickfuse_masked, \
     tickfuse_response_path
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 G, K = 5, 32
 

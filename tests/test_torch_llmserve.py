@@ -38,6 +38,8 @@ from repro_torch.fleetsim.engine import batched_params
 from repro_torch.fleetsim.options import EngineOptions
 from repro_torch.fleetsim.state import to_numpy
 from repro_torch.scenarios.service import load_to_rate
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 CPU = torch.device("cpu")
 POLICIES = ("baseline", "c-clone", "netclone", "racksched",

@@ -1,0 +1,175 @@
+"""The port's RG-LRU scan (B5) against the JAX reference.
+
+The port's two plain scans (``repro_torch.kernels.ref``) are held to the
+reference's oracles (``repro.kernels.ref``) and to its Pallas kernel in
+interpret mode (its default off a TPU), at the reference's own test shapes
+(``tests/test_kernels.py``), with and without h0, in float32 and bfloat16;
+the LRU wrapper takes any length, as the reference's XLA path does.  The
+reference's oracles are jitted once a shape (eager jax dispatches its
+associative scan op by op, several times the compile).  The CUDA cases
+need a card (marker ``cuda``) and skip without one; the reference is
+imported only by the tests that use it, so on a machine with a card and
+no ``jax``
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lru.py
+
+runs the kernel cases alone.
+
+Tolerances: the reference's own, 1e-4 in float32.  In bfloat16 both sides
+compute in float32 from the same rounded inputs and round once, so they
+differ by at most about one bfloat16 step: held to 1e-2 of max |h|.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.lru_scan import lru_scan
+from test_torch_common import (_card, _jax,  # noqa: F401
+                               _one_torch_thread, _round, _torch,
+                               close_scans)
+
+
+#: the reference's LRU kernel tests: b, s, d, chunk, block_d
+LRU_CASES = [(2, 256, 256, 128, 128), (1, 512, 128, 256, 128),
+             (1, 128, 384, 64, 128)]
+TOL = 1e-4
+BF16_RTOL = 1e-2
+
+
+def _lru_inputs(b, s, d, seed=1, dtype="float32", h0=True):
+    rng = np.random.default_rng(seed)
+    arrs = [_round(rng.standard_normal((b, s, d)).astype(np.float32), dtype),
+            _round(rng.uniform(0.5, 1.0, (b, s, d)).astype(np.float32),
+                   dtype)]
+    state = (rng.standard_normal((b, d)) * 0.1).astype(np.float32) \
+        if h0 else None
+    return arrs, state
+
+
+@functools.cache
+def _jref():
+    """The reference's two LRU oracles, jitted, and its Pallas kernel
+    (jitted by the reference)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+    from repro.kernels.lru_scan import lru_scan as jlru
+    return jax.jit(jref.lru_scan_naive), jax.jit(jref.lru_scan_ref), jlru
+
+
+def _close(got, want, dtype):
+    """h and the final state of one scan against another's."""
+    close_scans(got, want, dtype, TOL, BF16_RTOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("b,s,d,chunk,bd", LRU_CASES)
+def test_lru_plain_matches_reference(b, s, d, chunk, bd, h0, dtype):
+    """The port's naive and log-depth LRU scans against the reference's
+    two oracles and its Pallas kernel (interpret mode)."""
+    jnaive, jlog, jlru = _jref()
+    arrs, state = _lru_inputs(b, s, d, seed=s + d, dtype=dtype, h0=h0)
+    ts, t0 = _torch(arrs, state, dtype)
+    js, j0 = _jax(arrs, state, dtype)
+    naive = ref.lru_scan_naive(*ts, t0)
+    logd = ref.lru_scan_ref(*ts, t0)
+    assert logd[0].dtype == ts[0].dtype and logd[1].dtype == torch.float32
+    _close(naive, jnaive(*js, j0), dtype)
+    _close(logd, jlog(*js, j0), dtype)
+    _close(logd, naive, dtype)
+    _close(logd, jlru(*js, j0, chunk=chunk, block_d=bd), dtype)
+
+
+def test_lru_log_depth_matches_naive_at_an_odd_length():
+    """The reference's own check at S = 333 (no power of two)."""
+    arrs, _ = _lru_inputs(2, 333, 32, seed=3, h0=False)
+    ts, _ = _torch(arrs, None, "float32")
+    _close(ref.lru_scan_ref(*ts), ref.lru_scan_naive(*ts), "float32")
+
+
+def test_lru_wrapper_keeps_the_pallas_contract():
+    """The contract of the reference's model path off a TPU, where
+    ``impl="auto"`` resolves to its XLA path (ROADMAP C6): any S, D >= 1.
+    Lengths and widths the Pallas kernel's blocks reject (S 333, D 192)
+    run through the wrapper and both ``ops`` impls and match the
+    reference's ``lru_scan_ref``; an empty scan raises."""
+    _, jlog, _ = _jref()
+    before = lru_scan.launches
+    for b, s, d in ((1, 333, 32), (1, 512, 192), (2, 333, 192),
+                    (1, 255, 64), (1, 512, 384)):
+        arrs, state = _lru_inputs(b, s, d, seed=s)
+        ts, t0 = _torch(arrs, state, "float32")
+        js, j0 = _jax(arrs, state, "float32")
+        want = jlog(*js, j0)
+        for fn in (lambda: lru_scan(*ts, t0),
+                   lambda: ops.lru_scan(*ts, t0, impl="xla"),
+                   lambda: ops.lru_scan(*ts, t0)):
+            y, h_t = fn()
+            assert y.shape == (b, s, d) and h_t.shape == (b, d)
+            _close((y, h_t), want, "float32")
+    with pytest.raises(ValueError, match="empty"):
+        lru_scan(ts[0][:, :0], ts[1][:, :0])
+    with pytest.raises(TypeError):
+        lru_scan(ts[0], ts[1].double())
+    with pytest.raises(ValueError):
+        lru_scan(ts[0], ts[1], t0[:, :5])
+    assert lru_scan.launches == before
+
+
+def test_lru_plain_version_carries_the_naive_gradient():
+    """Autograd through the log-depth plain scan equals autograd through
+    the step-by-step one: each doubling reads its operands as they were
+    (training differentiates the plain version on the CPU)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 37, 8), generator=g, requires_grad=True)
+    a = torch.rand((2, 37, 8), generator=g).requires_grad_()
+    h0 = torch.randn((2, 8), generator=g, requires_grad=True)
+    w = torch.randn((2, 37, 8), generator=g)
+    grads = []
+    for fn in (ref.lru_scan_ref, ref.lru_scan_naive):
+        y, h_t = fn(x, a, h0)
+        grads.append(torch.autograd.grad((y * w).sum() + h_t.sum(),
+                                         (x, a, h0)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ============================================================ on the card ===
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("b,s,d,dtype", [c[:3] + (dt,) for c in LRU_CASES
+                                         + [(2, 255, 64, 0, 0),
+                                            (2, 40, 100, 0, 0),
+                                            (2, 333, 192, 0, 0)]
+                                         for dt in ("float32", "bfloat16")])
+def test_cuda_lru_scan_matches_plain_version(b, s, d, dtype, h0):
+    """The reference's shapes, a length that is no multiple of the
+    kernel's 32-step look-ahead, a width that is no multiple of its
+    64-thread blocks, and a length and width the Pallas kernel's blocks
+    reject (ROADMAP C6)."""
+    _card()
+    arrs, state = _lru_inputs(b, s, d, seed=s + d, dtype=dtype, h0=h0)
+    ts, t0 = _torch(arrs, state, dtype, "cuda")
+    before = lru_scan.launches
+    got = lru_scan(*ts, t0)
+    torch.cuda.synchronize()
+    assert lru_scan.launches == before + 1
+    _close(got, ref.lru_scan_naive(*ts, t0), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_raises_under_grad():
+    """B5 has no backward kernel yet: on the card it raises when a gradient
+    is needed, and runs as before without one."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xl = torch.randn((1, 64, 32), generator=g, device="cuda")
+    al = torch.rand((1, 64, 32), generator=g, device="cuda")
+    with pytest.raises(NotImplementedError, match="B5-bwd"):
+        lru_scan(xl, al.requires_grad_())
+    y, _ = lru_scan(xl, al.detach())
+    assert y.grad_fn is None

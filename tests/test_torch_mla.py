@@ -22,6 +22,8 @@ from repro.models import lm as ref_lm
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import attention, common, convert, ffn, lm
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 ARCH = "deepseek-v2-lite-16b"
 B, S = 2, 32

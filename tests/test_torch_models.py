@@ -25,6 +25,8 @@ from repro.models import lm as ref_lm
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import attention, common, convert, ffn, lm, whisper
 from repro_torch.models import family_of
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 ARCH = "qwen2.5-3b"
 B, S = 2, 32

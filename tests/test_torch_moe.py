@@ -29,6 +29,8 @@ from repro.serve import NetCloneServer as RefServer
 from repro_torch.configs import get_config
 from repro_torch.models import common, convert, ffn, lm
 from repro_torch.serve import DecodeReplica, NetCloneServer
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 ARCH = "deepseek-moe-16b"
 B, S = 2, 32

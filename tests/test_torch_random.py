@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch import random as jr
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 SEEDS = np.array([0, 1, 7, 123456, -5, 2 ** 31 - 1], np.int32)
 

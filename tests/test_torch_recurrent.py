@@ -30,6 +30,8 @@ from repro_torch.configs import get_config
 from repro_torch.models import RGLRUConfig, convert, lm, recurrent
 from repro_torch.models.attention import KVCache
 from repro_torch.serve import DecodeReplica, ServeRequest
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 ARCHS = ["mamba2-370m", "recurrentgemma-9b"]
 B, S = 2, 32

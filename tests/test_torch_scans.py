@@ -1,12 +1,14 @@
-"""The port's SSD (B4) and RG-LRU (B5) scans against the JAX reference.
+"""The port's SSD scan (B4) and its backward against the JAX reference.
 
-The port's four plain scans (``repro_torch.kernels.ref``) are held to the
-reference's oracles (``repro.kernels.ref``) and to its Pallas kernels in
-interpret mode (their default off a TPU), at the reference's own test
-shapes (``tests/test_kernels.py``), with and without h0, in float32 and
-bfloat16; the SSD wrapper and ``ops`` keep the reference's length
-contracts, the LRU wrapper takes any length, as the reference's XLA path
-does.
+The port's two plain scans (``repro_torch.kernels.ref``) are held to the
+reference's oracles (``repro.kernels.ref``) and to its Pallas kernel in
+interpret mode (its default off a TPU), at the reference's own test shapes
+(``tests/test_kernels.py``), with and without h0, in float32 and bfloat16;
+the SSD wrapper and ``ops`` keep the reference's length contracts.  The
+plain chunked backward (``ssd_scan_bwd_chunked_ref``) is held to
+``jax.vjp`` of the reference's ``ssd_scan_ref``.  The reference's oracles
+are jitted once a shape (eager jax costs several times the compile).  The
+RG-LRU scan (B5) is in ``test_torch_lru.py``.
 The CUDA cases need a card (marker ``cuda``) and skip without one; the
 reference is imported only by the tests that use it, so on a machine with
 a card and no ``jax``
@@ -16,14 +18,20 @@ a card and no ``jax``
 runs the kernel cases alone.
 
 Tolerances: the reference's own, 2e-3 for SSD (its chunked form and the
-step form sum in different orders) and 1e-4 for LRU, in float32.  In
-bfloat16 both sides compute in float32 from the same rounded inputs and
-round y once, so they differ by at most about one bfloat16 step where a
-float32 sum straddles a rounding boundary: held to 1e-2 of max |y|.  The
+step form sum in different orders), in float32.  In bfloat16 both sides
+compute in float32 from the same rounded inputs and round y once, so
+they differ by at most about one bfloat16 step where a float32 sum
+straddles a rounding boundary: held to 1e-2 of max |y|.  The
 chunked SSD kernel (bf16 on the tensor cores) also rounds S⊙M, X⊙w and
 its operand copy of the state to bf16; a CPU emulation of exactly those
 rounding points is held to the step-by-step oracle at the same 1e-2.
+The backward is held as max |diff| / max |grad| of each gradient (B3's
+backward gates): 1e-4 in float32 (the same function, summed in another
+order), 2e-2 in bf16 (the kernel's rounding points against exact float32
+arithmetic on the same rounded values).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -32,23 +40,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as ssd_mod
-from repro_torch.kernels.lru_scan import lru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
+from test_torch_common import (_card, _jax,  # noqa: F401
+                               _one_torch_thread, _round, _torch,
+                               close_scans)
+
 
 #: the reference's SSD kernel tests: b, s, h, p, n, chunk
 SSD_CASES = [(1, 256, 2, 64, 64, 64), (2, 128, 1, 32, 128, 128),
              (1, 512, 3, 16, 32, 128)]
-#: the reference's LRU kernel tests: b, s, d, chunk, block_d
-LRU_CASES = [(2, 256, 256, 128, 128), (1, 512, 128, 256, 128),
-             (1, 128, 384, 64, 128)]
-TOL = {"ssd": 2e-3, "lru": 1e-4}
+TOL = {"ssd": 2e-3}
 BF16_RTOL = 1e-2
-
-
-def _round(a, dtype):
-    """``a`` rounded to ``dtype`` and back to float32 numpy (exact both
-    ways), so both packages see the same values."""
-    return torch.from_numpy(a).to(getattr(torch, dtype)).float().numpy()
 
 
 def _ssd_inputs(b, s, h, p, n, seed=0, dtype="float32", h0=True,
@@ -64,39 +66,20 @@ def _ssd_inputs(b, s, h, p, n, seed=0, dtype="float32", h0=True,
     return arrs, state
 
 
-def _lru_inputs(b, s, d, seed=1, dtype="float32", h0=True):
-    rng = np.random.default_rng(seed)
-    arrs = [_round(rng.standard_normal((b, s, d)).astype(np.float32), dtype),
-            _round(rng.uniform(0.5, 1.0, (b, s, d)).astype(np.float32),
-                   dtype)]
-    state = (rng.standard_normal((b, d)) * 0.1).astype(np.float32) \
-        if h0 else None
-    return arrs, state
-
-
-def _torch(arrs, state, dtype, device="cpu"):
-    ts = [torch.from_numpy(a).to(getattr(torch, dtype)).to(device)
-          for a in arrs]
-    return ts, None if state is None else torch.from_numpy(state).to(device)
-
-
-def _jax(arrs, state, dtype):
-    jnp = pytest.importorskip("jax.numpy")
-    return ([jnp.asarray(a, getattr(jnp, dtype)) for a in arrs],
-            None if state is None else jnp.asarray(state))
+@functools.cache
+def _jref():
+    """The reference's two SSD oracles, jitted (chunk static), and its
+    Pallas kernel (jitted by the reference)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+    from repro.kernels.ssd_scan import ssd_scan as jssd
+    return (jax.jit(jref.ssd_scan_naive),
+            jax.jit(jref.ssd_scan_ref, static_argnames="chunk"), jssd)
 
 
 def _close(got, want, dtype, kind):
     """y and the final state of one scan against another's."""
-    for g, w in zip(got, want):
-        g = g.detach().float().cpu().numpy() if isinstance(g, torch.Tensor) \
-            else np.asarray(g, np.float32)
-        w = w.detach().float().cpu().numpy() if isinstance(w, torch.Tensor) \
-            else np.asarray(w, np.float32)
-        assert g.shape == w.shape
-        tol = TOL[kind] if dtype == "float32" \
-            else BF16_RTOL * np.abs(w).max()
-        np.testing.assert_allclose(g, w, atol=tol, rtol=0)
+    close_scans(got, want, dtype, TOL[kind], BF16_RTOL)
 
 
 # ================================================================ SSD scan ===
@@ -106,8 +89,7 @@ def _close(got, want, dtype, kind):
 def test_ssd_plain_matches_reference(b, s, h, p, n, chunk, h0, dtype):
     """The port's naive and chunked SSD against the reference's two
     oracles and its Pallas kernel (interpret mode), on the same inputs."""
-    from repro.kernels import ref as jref
-    from repro.kernels.ssd_scan import ssd_scan as jssd
+    jnaive, jchunked, jssd = _jref()
     arrs, state = _ssd_inputs(b, s, h, p, n, seed=s + n, dtype=dtype, h0=h0)
     ts, t0 = _torch(arrs, state, dtype)
     js, j0 = _jax(arrs, state, dtype)
@@ -115,9 +97,9 @@ def test_ssd_plain_matches_reference(b, s, h, p, n, chunk, h0, dtype):
     chunked = ref.ssd_scan_ref(*ts, t0, chunk=chunk)
     assert naive[0].dtype == ts[0].dtype and naive[1].dtype == torch.float32
     assert chunked[1].shape == (b, h, p, n)
-    want_naive = jref.ssd_scan_naive(*js, j0)
+    want_naive = jnaive(*js, j0)
     _close(naive, want_naive, dtype, "ssd")
-    _close(chunked, jref.ssd_scan_ref(*js, j0, chunk=chunk), dtype, "ssd")
+    _close(chunked, jchunked(*js, j0, chunk=chunk), dtype, "ssd")
     _close(chunked, want_naive, dtype, "ssd")
     _close(chunked, jssd(*js, j0, chunk=chunk), dtype, "ssd")
 
@@ -320,70 +302,7 @@ def test_ssd_chunked_rounding_plan_with_a_zero_decay():
     _close(got, ref.ssd_scan_naive(*ts, t0), "bfloat16", "ssd")
 
 
-# ================================================================ LRU scan ===
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
-@pytest.mark.parametrize("b,s,d,chunk,bd", LRU_CASES)
-def test_lru_plain_matches_reference(b, s, d, chunk, bd, h0, dtype):
-    """The port's naive and log-depth LRU scans against the reference's
-    two oracles and its Pallas kernel (interpret mode)."""
-    from repro.kernels import ref as jref
-    from repro.kernels.lru_scan import lru_scan as jlru
-    arrs, state = _lru_inputs(b, s, d, seed=s + d, dtype=dtype, h0=h0)
-    ts, t0 = _torch(arrs, state, dtype)
-    js, j0 = _jax(arrs, state, dtype)
-    naive = ref.lru_scan_naive(*ts, t0)
-    logd = ref.lru_scan_ref(*ts, t0)
-    assert logd[0].dtype == ts[0].dtype and logd[1].dtype == torch.float32
-    _close(naive, jref.lru_scan_naive(*js, j0), dtype, "lru")
-    _close(logd, jref.lru_scan_ref(*js, j0), dtype, "lru")
-    _close(logd, naive, dtype, "lru")
-    _close(logd, jlru(*js, j0, chunk=chunk, block_d=bd), dtype, "lru")
-
-
-def test_lru_log_depth_matches_naive_at_an_odd_length():
-    """The reference's own check at S = 333 (no power of two)."""
-    arrs, _ = _lru_inputs(2, 333, 32, seed=3, h0=False)
-    ts, _ = _torch(arrs, None, "float32")
-    _close(ref.lru_scan_ref(*ts), ref.lru_scan_naive(*ts), "float32", "lru")
-
-
-def test_lru_wrapper_keeps_the_pallas_contract():
-    """The contract of the reference's model path off a TPU, where
-    ``impl="auto"`` resolves to its XLA path (ROADMAP C6): any S, D >= 1.
-    Lengths and widths the Pallas kernel's blocks reject (S 333, D 192)
-    run through the wrapper and both ``ops`` impls and match the
-    reference's ``lru_scan_ref``; an empty scan raises."""
-    from repro.kernels import ref as jref
-    before = lru_scan.launches
-    for b, s, d in ((1, 333, 32), (1, 512, 192), (2, 333, 192),
-                    (1, 255, 64), (1, 512, 384)):
-        arrs, state = _lru_inputs(b, s, d, seed=s)
-        ts, t0 = _torch(arrs, state, "float32")
-        js, j0 = _jax(arrs, state, "float32")
-        want = jref.lru_scan_ref(*js, j0)
-        for fn in (lambda: lru_scan(*ts, t0),
-                   lambda: ops.lru_scan(*ts, t0, impl="xla"),
-                   lambda: ops.lru_scan(*ts, t0)):
-            y, h_t = fn()
-            assert y.shape == (b, s, d) and h_t.shape == (b, d)
-            _close((y, h_t), want, "float32", "lru")
-    with pytest.raises(ValueError, match="empty"):
-        lru_scan(ts[0][:, :0], ts[1][:, :0])
-    with pytest.raises(TypeError):
-        lru_scan(ts[0], ts[1].double())
-    with pytest.raises(ValueError):
-        lru_scan(ts[0], ts[1], t0[:, :5])
-    assert lru_scan.launches == before
-
-
 # ============================================================ on the card ===
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 SSD_CUDA_CASES = [c + (dt,) for c in SSD_CASES + [(2, 8, 8, 16, 16, 32),
                                                   (1, 256, 2, 16, 256, 128),
                                                   (1, 100, 1, 3, 16, 128)]
@@ -506,46 +425,6 @@ def test_cuda_ssd_scan_raises_outside_the_built_state_widths():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
-@pytest.mark.parametrize("b,s,d,dtype", [c[:3] + (dt,) for c in LRU_CASES
-                                         + [(2, 255, 64, 0, 0),
-                                            (2, 40, 100, 0, 0),
-                                            (2, 333, 192, 0, 0)]
-                                         for dt in ("float32", "bfloat16")])
-def test_cuda_lru_scan_matches_plain_version(b, s, d, dtype, h0):
-    """The reference's shapes, a length that is no multiple of the
-    kernel's 32-step look-ahead, a width that is no multiple of its
-    64-thread blocks, and a length and width the Pallas kernel's blocks
-    reject (ROADMAP C6)."""
-    _card()
-    arrs, state = _lru_inputs(b, s, d, seed=s + d, dtype=dtype, h0=h0)
-    ts, t0 = _torch(arrs, state, dtype, "cuda")
-    before = lru_scan.launches
-    got = lru_scan(*ts, t0)
-    torch.cuda.synchronize()
-    assert lru_scan.launches == before + 1
-    _close(got, ref.lru_scan_naive(*ts, t0), dtype, "lru")
-
-
-def test_lru_plain_version_carries_the_naive_gradient():
-    """Autograd through the log-depth plain scan equals autograd through
-    the step-by-step one: each doubling reads its operands as they were
-    (training differentiates the plain version on the CPU)."""
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn((2, 37, 8), generator=g, requires_grad=True)
-    a = torch.rand((2, 37, 8), generator=g).requires_grad_()
-    h0 = torch.randn((2, 8), generator=g, requires_grad=True)
-    w = torch.randn((2, 37, 8), generator=g)
-    grads = []
-    for fn in (ref.lru_scan_ref, ref.lru_scan_naive):
-        y, h_t = fn(x, a, h0)
-        grads.append(torch.autograd.grad((y * w).sum() + h_t.sum(),
-                                         (x, a, h0)))
-    for got, want in zip(*grads):
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.cuda
 def test_cuda_ssd_scan_carries_a_gradient():
     """B4 has its backward kernel: under grad on the card the result
     carries it (one backward launch), and without grad it carries
@@ -561,20 +440,6 @@ def test_cuda_ssd_scan_carries_a_gradient():
     assert x.grad is not None and ssd_mod.ssd_scan_bwd.launches == before + 1
     with torch.no_grad():
         y, _ = ssd_scan(x, a, bm, bm, chunk=64)
-    assert y.grad_fn is None
-
-
-@pytest.mark.cuda
-def test_cuda_lru_scan_raises_under_grad():
-    """B5 has no backward kernel yet: on the card it raises when a gradient
-    is needed, and runs as before without one."""
-    _card()
-    g = torch.Generator(device="cuda").manual_seed(1)
-    xl = torch.randn((1, 64, 32), generator=g, device="cuda")
-    al = torch.rand((1, 64, 32), generator=g, device="cuda")
-    with pytest.raises(NotImplementedError, match="B5-bwd"):
-        lru_scan(xl, al.requires_grad_())
-    y, _ = lru_scan(xl, al.detach())
     assert y.grad_fn is None
 
 
@@ -687,3 +552,184 @@ def test_cuda_ssd_scan_gradient_through_a_broadcast_view(dtype):
         rel = ((gv.float() - wv.float()).abs().max()
                / wv.float().abs().max()).item()
         assert rel <= SSD_BWD_RTOL[dtype], rel
+
+
+# ================================================ the chunked backward ===
+@pytest.mark.parametrize("dtype,p,n,want", [
+    (torch.bfloat16, 64, 128, "chunked"),   # mamba2-370m's training
+    (torch.bfloat16, 64, 64, "chunked"),
+    (torch.float32, 64, 128, "step"),       # the tensor cores would round
+    (torch.float32, 64, 64, "step"),
+    (torch.float32, 16, 32, "step"),
+    (torch.bfloat16, 64, 16, "step"),
+    (torch.bfloat16, 64, 32, "step"),
+    (torch.bfloat16, 64, 256, "step"),
+    (torch.bfloat16, 64, 48, "step"),       # a width no forward is built for
+    (torch.bfloat16, 32, 128, "step"),
+    (torch.bfloat16, 16, 32, "step"),
+    (torch.bfloat16, 3, 16, "step"),
+])
+def test_ssd_bwd_kernel_routing(dtype, p, n, want):
+    """The backward's kernel depends on dtype and shape alone, as the
+    forward's: bf16 at P 64 and N 64 or 128 on the chunked kernel, every
+    other input on the step kernel."""
+    assert ssd_mod.bwd_kernel_for(dtype, p, n) == want
+
+
+def _bwd_numpy(b, s, h, p, n, dtype, seed, zero=False):
+    """The backward's inputs from numpy, rounded to ``dtype``: x, a, b and
+    c one head's columns broadcast over the heads (the model's views), dy,
+    h0 and the final state's gradient (float32)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p))
+    a = rng.uniform(0.6, 1.0, (b, s, h))
+    if zero:
+        a[:, s // 2 + 3] = 0.0
+    bm, cm = (np.broadcast_to(rng.standard_normal((b, s, 1, n)) * n ** -0.5,
+                              (b, s, h, n)) for _ in range(2))
+    dy = rng.standard_normal((b, s, h, p))
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    ds = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return ([_round(np.ascontiguousarray(t, np.float32), dtype)
+             for t in (x, a, bm, cm, dy)], h0, ds)
+
+
+@functools.cache
+def _jax_bwd():
+    """``jax.vjp`` of the reference's ``ssd_scan_ref`` at (y, final state),
+    jitted (chunk static): ``(dx, da, db, dc, dh0)``."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+
+    def vjp(x, a, b_mat, c_mat, h0, dy, ds, chunk):
+        _, pull = jax.vjp(lambda *ins: jref.ssd_scan_ref(*ins, chunk=chunk),
+                          x, a, b_mat, c_mat, h0)
+        return pull((dy, ds))
+    return jax.jit(vjp, static_argnames="chunk")
+
+
+#: b, s, h, p, n, dtype, zero decay mid-chunk: the reference's scan shapes
+#: in float32, mamba2's P and N in bf16, a zero decay, a length under 128
+#: that is no multiple of the kernel's 64-step chunks
+SSD_BWD_CHUNKED_CASES = [(1, 256, 2, 64, 64, "float32", False),
+                         (2, 128, 1, 32, 128, "float32", False),
+                         (1, 512, 3, 16, 32, "float32", False),
+                         (2, 256, 2, 64, 128, "bfloat16", False),
+                         (1, 256, 2, 64, 128, "bfloat16", True),
+                         (2, 100, 3, 64, 128, "bfloat16", False),
+                         (2, 100, 3, 64, 128, "float32", True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,dtype,zero", SSD_BWD_CHUNKED_CASES)
+def test_ssd_bwd_chunked_plain_matches_jax_grad(b, s, h, p, n, dtype, zero):
+    """The chunked backward's plain version, with the kernel's rounding
+    points in bf16, against ``jax.vjp`` of the reference's XLA scan on the
+    same numpy-seeded values (float32 arithmetic, h0 and a final-state
+    gradient) and against autograd through the port's plain scan
+    (``ssd_scan_bwd_ref``), each gradient as max |diff| / max |grad|."""
+    arrs, h0, ds = _bwd_numpy(b, s, h, p, n, dtype, seed=s + n + zero,
+                              zero=zero)
+    dt = getattr(torch, dtype)
+    x, a, bm, cm, dy = (torch.from_numpy(t).to(dt) for t in arrs)
+    th0, tds = torch.from_numpy(h0), torch.from_numpy(ds)
+    got = ref.ssd_scan_bwd_chunked_ref(x, a, bm, cm, dy, th0, tds)
+    want = _jax_bwd()(*arrs[:4], h0, arrs[4], ds, chunk=min(128, s))
+    port = ref.ssd_scan_bwd_ref(x, a, bm, cm, dy, th0, tds)
+    for name, gv, wv, pv in zip(("dx", "da", "db", "dc", "dh0"), got, want,
+                                port):
+        wv = np.asarray(wv, np.float32)
+        assert gv.shape == wv.shape and gv.dtype == pv.dtype, name
+        assert torch.isfinite(gv).all(), name
+        gf = gv.float().numpy()
+        rel = np.abs(gf - wv).max() / np.abs(wv).max()
+        assert rel <= SSD_BWD_RTOL[dtype], (name, rel)
+        rel = ((gv.float() - pv.float()).abs().max()
+               / pv.float().abs().max()).item()
+        assert rel <= SSD_BWD_RTOL[dtype], (name, rel)
+    # where the forward clamped the decay its gradient is 0
+    if zero:
+        assert (got[1][:, s // 2 + 3] == 0).all()
+
+
+def test_ssd_bwd_chunked_plain_without_h0_or_a_final_gradient():
+    """No h0 and no final-state gradient: dh0 is None and the rest equal
+    the same call with zeros for both."""
+    arrs, h0, ds = _bwd_numpy(1, 128, 2, 64, 64, "bfloat16", seed=5)
+    x, a, bm, cm, dy = (torch.from_numpy(t).to(torch.bfloat16)
+                        for t in arrs)
+    got = ref.ssd_scan_bwd_chunked_ref(x, a, bm, cm, dy)
+    zeros = torch.zeros(h0.shape)
+    want = ref.ssd_scan_bwd_chunked_ref(x, a, bm, cm, dy, zeros, zeros)
+    assert got[4] is None and want[4] is not None
+    for gv, wv in zip(got[:4], want[:4]):
+        assert torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,dtype,h0,zero",
+                         [c for c in SSD_BWD_CASES if c[5] == "bfloat16"]
+                         + [(1, 256, 2, 64, 64, "bfloat16", True, False),
+                            (1, 8, 2, 64, 128, "bfloat16", True, False),
+                            (2, 4096, 32, 64, 128, "bfloat16", False,
+                             False)])
+def test_cuda_ssd_scan_bwd_chunked_kernel(b, s, h, p, n, dtype, h0, zero):
+    """The chunked backward kernel (the route of bf16 at P 64, N 64/128)
+    against autograd through the plain scan, at the bf16 cases, N 64, a
+    sequence shorter than one chunk and mamba2-370m's training shape: one
+    chunked launch a call, two calls
+    bit-equal, every gradient finite and within 2e-2 of its max |grad|."""
+    _card()
+    ins = _bwd_inputs(b, s, h, p, n, dtype, h0, zero, seed=s + n,
+                      device="cuda")
+    before = ssd_mod.ssd_scan_bwd_chunked.launches
+    step = ssd_mod.ssd_scan_bwd_step.launches
+    got = ssd_mod.ssd_scan_bwd(*ins)
+    again = ssd_mod.ssd_scan_bwd(*ins)
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_scan_bwd_chunked.launches == before + 2
+    assert ssd_mod.ssd_scan_bwd_step.launches == step
+    want = ref.ssd_scan_bwd_ref(*ins)
+    for name, gv, av, wv in zip(("dx", "da", "db", "dc", "dh0"), got, again,
+                                want):
+        if wv is None:
+            assert gv is None
+            continue
+        assert torch.equal(gv, av), name
+        assert torch.isfinite(gv).all(), name
+        assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
+        rel = ((gv.float() - wv.float()).abs().max()
+               / wv.float().abs().max()).item()
+        assert rel <= SSD_BWD_RTOL[dtype], (name, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_chunked_kernel_follows_its_plain_version():
+    """The kernel against its own plain version (the same rounding
+    points) at mamba2's P and N with h0, a final-state gradient and a zero
+    decay: the two differ by float32 summation order and the bf16
+    roundings that order moves, far inside the gate."""
+    _card()
+    ins = _bwd_inputs(2, 512, 4, 64, 128, "bfloat16", True, True, seed=11,
+                      device="cuda")
+    got = ssd_mod.ssd_scan_bwd(*ins)
+    want = ref.ssd_scan_bwd_chunked_ref(*ins)
+    for name, gv, wv in zip(("dx", "da", "db", "dc", "dh0"), got, want):
+        rel = ((gv.float() - wv.float()).abs().max()
+               / wv.float().abs().max()).item()
+        assert rel <= SSD_BWD_RTOL["bfloat16"] / 4, (name, rel)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_step_kernel_still_takes_bf16():
+    """The step kernel, the route of bf16 at the widths the chunked
+    kernel is not built for, called directly at mamba2's widths, holds the
+    same gate."""
+    _card()
+    ins = _bwd_inputs(2, 100, 3, 64, 128, "bfloat16", True, False, seed=3,
+                      device="cuda")
+    got = ssd_mod.ssd_scan_bwd_step(*ins[:4], ins[4].contiguous(), *ins[5:])
+    want = ref.ssd_scan_bwd_ref(*ins)
+    for name, gv, wv in zip(("dx", "da", "db", "dc", "dh0"), got, want):
+        rel = ((gv.float() - wv.float()).abs().max()
+               / wv.float().abs().max()).item()
+        assert rel <= SSD_BWD_RTOL["bfloat16"], (name, rel)

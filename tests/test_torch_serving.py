@@ -21,6 +21,8 @@ from repro_torch.core.header import CLO_CLONE, CLO_NONE
 from repro_torch.kernels.fingerprint_filter import fingerprint_filter
 from repro_torch.models import convert, lm
 from repro_torch.serve import DecodeReplica, NetCloneServer, ServeRequest
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 ARCH = "qwen2.5-3b"
 POLICIES = ["baseline", "netclone", "netclone+racksched", "c-clone"]

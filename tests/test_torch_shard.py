@@ -26,6 +26,8 @@ from repro_torch.fleetsim import EngineOptions, ShardSpec
 from repro_torch.fleetsim.shard import as_shard, pad_params, plan_grid
 from repro_torch.fleetsim.validate import shard_equivalence
 from repro_torch.scenarios import Scenario, SweepSpec, TraceArrival
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 SVC = tf.ServiceSpec.exponential(25.0)
 

@@ -48,6 +48,8 @@ from repro_torch.sharding import context, rules
 from repro_torch.sharding.rules import P
 from repro_torch.train import make_train_step
 from repro_torch.train import tree as ttree
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 CPU = "cpu"
 MESHES = {"16x16": {"data": 16, "model": 16},

@@ -5,16 +5,13 @@
 * one tick, stage by stage, from a mid-run reference state that carries a
   coordinator ring and a timer wheel, for a batch of laedge, hedge and
   netclone;
-* the seven registered policies with both stages on, at 1 and 2 racks,
-  under each filter backend: every ``Metrics`` field bit-identical to the
-  reference (the counterpart of ``test_enabled_stages_leave_stock_
-  policies_bit_identical``, which the goldens pin for the always-on five);
 * the fused backend equal to the staged loop with the stages on, for
   several chunk lengths; the ``hedge_delays`` axis's rows; a coordinator
   hook without a rank rule (called for each pop) equal to LÆDGE's
   tabulated one.
 
-The reference runs under ``jax.threefry_partitionable(False)`` (ROADMAP
+The seven policies' whole runs are in ``test_torch_stages_runs.py``.  The
+reference runs under ``jax.threefry_partitionable(False)`` (ROADMAP
 C0), set per test.  The ``cuda``-marked case replays the stages from CUDA
 graphs under B1 and B2 on a card and skips here; the reference is imported
 only by the tests that use it, so on a machine with a card and no ``jax``
@@ -41,6 +38,8 @@ from repro_torch.fleetsim.options import EngineOptions
 from repro_torch.fleetsim.state import WH, HedgeWheel, to_numpy
 from repro_torch.scenarios import registry
 from repro_torch.scenarios.service import load_to_rate
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 CPU = torch.device("cpu")
 POLICIES = ("baseline", "c-clone", "netclone", "racksched",
@@ -272,34 +271,6 @@ def _leaves(got, want, path=""):
             yield from _leaves(a, b, f"{path}{name}.")
         else:
             yield f"{path}{name}", np.asarray(a), np.asarray(b)
-
-
-# ------------------------------------------------- whole runs, 7 policies ----
-@functools.lru_cache(maxsize=None)
-def _reference_run(n_racks: int):
-    jax, _, rf = _ref()[:3]
-    rcfg, _ = _cfgs(n_racks=n_racks, n_ticks=1500)
-    with jax.threefry_partitionable(False):
-        return jax.device_get(rf.simulate(rcfg, _params(rf, rcfg, POLICIES)))
-
-
-@pytest.mark.parametrize("backend",
-                         ["vectorized", "scan", "pallas", "tickfuse"])
-@pytest.mark.parametrize("n_racks", [1, 2])
-def test_stages_on_every_policy_bit_identical(n_racks, backend):
-    """The seven policies as one batch with the coordinator and hedge
-    timer on, 1,500 ticks: every ``Metrics`` field equals the reference's
-    (its ``vectorized`` run; the reference's filter backends agree bit for
-    bit).  LÆDGE's lanes pair at the top tier (filter group ``n_racks``),
-    so B1 and B2's plain versions filter there."""
-    tcfg = _cfg(tf, n_racks=n_racks, n_ticks=1500, filter_backend=backend)
-    got = tf.simulate(tcfg, _params(tf, tcfg, POLICIES), device="cpu")
-    want = _reference_run(n_racks)
-    _assert_metrics_equal(got, want, f"{n_racks} racks, {backend}")
-    lae, hdg = POLICIES.index("laedge"), POLICIES.index("hedge")
-    assert int(got.n_coord_queued[lae]) > 0 and int(got.n_cloned[lae]) > 0
-    assert int(got.n_filtered[lae]) > 0
-    assert int(got.n_hedges_armed[hdg]) > 0 and int(got.n_cloned[hdg]) > 0
 
 
 @pytest.mark.parametrize("k", [1, 7, 256])

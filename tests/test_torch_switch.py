@@ -16,6 +16,8 @@ from repro.core.tables import fingerprint_hash as ref_fingerprint_hash
 from repro_torch.core import switch as tsw
 from repro_torch.core.tables import GroupTable, fingerprint_hash
 from repro_torch.scatter import scatter_add_drop, scatter_last
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 G = 4
 

@@ -50,6 +50,8 @@ from repro_torch.fleetsim.telemetry.events import (
     REC,
 )
 from repro_torch.scenarios.service import load_to_rate
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 POLICIES = ("baseline", "c-clone", "netclone", "racksched",
             "netclone+racksched", "laedge", "hedge")

@@ -46,6 +46,8 @@ from repro_torch.train import OptimizerConfig, adamw_update, \
     compress_grads, init_ef_state, init_opt_state, lr_at, make_train_step
 from repro_torch.train import tree as ttree
 from repro_torch.train.step import loss_and_grads
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 B, S = 2, 32
 #: family → (arch, sequence length, the CE's chunk in both packages,

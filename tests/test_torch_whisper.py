@@ -20,6 +20,8 @@ from repro.configs import get_config as ref_get_config
 from repro.models import whisper as ref_whisper
 from repro_torch.configs import get_config
 from repro_torch.models import common, convert, family_of, lm, whisper
+from test_torch_common import _one_torch_thread  # noqa: F401
+
 
 ARCH = "whisper-tiny"
 B, S = 2, 12

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Check and time B4's backward (``csrc/ssd_scan_bwd.cu``) on one NVIDIA
-GPU, and profile a mamba2-370m train step.
+"""Check and time B4's backward on one NVIDIA GPU, and profile a
+mamba2-370m train step.
 
     PYTHONPATH=src python tools/bench_ssd_scan_bwd.py [--parent DIR] \\
         [--profile-step] [--bf16-spread]
 
-Prints the card (name and power limit) and the backward's build for
-float32 and bf16 (registers, shared memory, spill bytes), then its largest
-difference from autograd through the plain scan (``ssd_scan_bwd_ref``) at
-mamba2-370m's training shape, x (2, 4096, 32, 64) bf16 with b and c (2,
-4096, 128) broadcast over the 32 heads, and times it there with CUDA
-events beside its bound (the chunked form's backward on the bf16 tensor
-cores at 989 TFLOP/s, or the bytes at 3.35 TB/s) and the plain version.  ``--parent
-DIR`` names another tree holding ``src/repro_torch/kernels/csrc/
-ssd_scan_bwd.cu`` with the same C interface (an earlier build, or another
-checkout unpacked with ``git archive`` into ``build/``): it is built with
-this tree's flags, checked against this one, and both are timed in turns
+Prints the card (name and power limit) and the builds of the backward's
+two kernels (registers, shared memory, spill bytes): the step kernel
+(``csrc/ssd_scan_bwd.cu``) for float32 and bf16 and the chunked one
+(``csrc/ssd_scan_bwd_chunked.cu``, two kernels a call) at N 64 and 128.
+Then, at mamba2-370m's training shape, x (2, 4096, 32, 64) bf16 with b and
+c (2, 4096, 128) broadcast over the 32 heads, the route's kernel (the
+chunked one) and the step kernel on the same inputs: their largest
+difference from autograd through the plain scan (``ssd_scan_bwd_ref``),
+and their times by CUDA events beside the bound (``chip_smoke.py``'s
+``ssd_bwd_bound``: the chunked form's backward on the bf16 tensor cores at
+989 TFLOP/s, at the chunk length where it is least, or the bytes at 3.35
+TB/s) and the plain version's, then each build's host time a call (the
+Python wrapper, and its C launch entry alone).  ``--parent DIR`` names
+another tree (an
+earlier checkout unpacked with ``git archive`` into ``build/``, which
+``.gitignore`` lists): its backward for these inputs (its
+``ssd_scan_bwd_chunked.cu`` if it has one, else its ``ssd_scan_bwd.cu``,
+with the C interface of this tree's file of that name) is built with this
+tree's flags, checked against this one, and both are timed in turns
 (parent, this, this, parent) in this one process.  ``--profile-step``
 runs mamba2-370m at full width and depth through ``build_cell``'s train
-cell (2 x 4,096 tokens) and profiles one step: wall time, device busy and
-the kernels that take the most device time.  ``--bf16-spread`` takes the
+cell (2 x 4,096 tokens): two steps' wall time and the host time of their
+calls of B4's backward, then one step profiled: wall time, device busy
+and the kernels that take the most device time.  ``--bf16-spread`` takes the
 same model and batch and holds each leaf's gradient through B4 (bf16
 activations) against the plain scan's (``attn_impl="xla"``) in bf16 and
 in float32 activations, then looks for what moves the plain path's bf16
@@ -44,8 +53,9 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import ssd_scan as ssd
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import ssd_bwd_bound  # noqa: E402
+
 TRAIN = (2, 4096, 32, 64, 128)
 DEPTHS = (1, 2, 4, 8, 16)   # --bf16-spread: mamba2-370m cut to these
 
@@ -79,19 +89,11 @@ def inputs(shape, seed):
 
 
 def bound(shape) -> tuple[float, str]:
-    """The least time of the backward at ``shape``, reckoned as
-    ``chip_smoke.py``'s ``ssd_bwd_bound``: the bytes (x, dy, a, one head's
-    b, c, db and dc, dx, da) against the chunked form's backward on the
-    bf16 tensor cores (twice the forward's products at 128-step chunks)."""
-    b, s, h, p, n = shape
-    nbytes = 2 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n)
-    ell = min(128, s)
-    flops = 2.0 * b * h * -(-s // ell) * (2 * ell * ell * (n + p)
-                                          + 4 * ell * n * p)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_OPS_PER_S * 1e3
-    return ((t_bytes, f"bytes: {nbytes} B") if t_bytes >= t_ops
-            else (t_ops, f"operations: {flops:.4g} FLOP"))
+    """The least time of the backward at ``shape`` in bf16, as
+    ``chip_smoke.py``'s ``ssd_bwd_bound`` reckons it."""
+    t, by, flops, nbytes, ell = ssd_bwd_bound((*shape, "bfloat16", False,
+                                              False))
+    return t, (f"{by}: {flops:.4g} FLOP at {ell}-step chunks, {nbytes} B")
 
 
 def worst(got, want) -> float:
@@ -100,37 +102,98 @@ def worst(got, want) -> float:
                for a, b in zip(got, want) if b is not None)
 
 
-def build_parent(root: Path) -> ctypes.CDLL:
-    """The other tree's ``ssd_scan_bwd.cu``, built with this tree's flags
-    into ``build/kernels``, its C interface declared as this one's."""
+#: a backward source, the loader of this tree's build of it, its C entry
+#: points and the function that launches it
+KERNELS = {"ssd_scan_bwd_chunked": ("_bwd_chunked_lib",
+                                    ("ssd_scan_bwd_chunked_launch",
+                                     "ssd_scan_bwd_chunked_scratch"),
+                                    "ssd_scan_bwd_chunked"),
+           "ssd_scan_bwd": ("_bwd_lib", ("ssd_scan_bwd_launch",
+                                         "ssd_scan_bwd_scratch"),
+                            "ssd_scan_bwd_step")}
+
+
+def build_parent(root: Path) -> tuple[str, ctypes.CDLL]:
+    """The other tree's backward for bf16 at P 64 (its chunked kernel's
+    source if it has one, else its step kernel's), built with this tree's
+    flags into ``build/kernels``, its C interface declared as this tree's
+    file of that name; returns ``(source name, library)``."""
     csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+    name = next(n for n in KERNELS if (csrc / f"{n}.cu").is_file())
     h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
-    for src in sorted(csrc.glob("*.cuh")) + [csrc / "ssd_scan_bwd.cu"]:
+    for src in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(src.read_bytes())
-    out = build.BUILD_DIR / f"libparent_ssd_scan_bwd-{h.hexdigest()[:16]}.so"
+    out = build.BUILD_DIR / f"libparent_{name}-{h.hexdigest()[:16]}.so"
     if not out.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
-                        str(csrc / "ssd_scan_bwd.cu")], check=True)
+                        str(csrc / f"{name}.cu")], check=True)
     lib = ctypes.CDLL(str(out))
-    mine = ssd._bwd_lib()
-    for name in ("ssd_scan_bwd_launch", "ssd_scan_bwd_scratch"):
-        getattr(lib, name).argtypes = getattr(mine, name).argtypes
-        getattr(lib, name).restype = getattr(mine, name).restype
-    return lib
+    loader, entries, _ = KERNELS[name]
+    mine = getattr(ssd, loader)()
+    for fn in entries:
+        getattr(lib, fn).argtypes = getattr(mine, fn).argtypes
+        getattr(lib, fn).restype = getattr(mine, fn).restype
+    return name, lib
 
 
-def call_with(lib, ins):
-    """``ssd.ssd_scan_bwd`` on ``ins`` through ``lib`` (``None``: this
+def call_with(kernel, lib, ins):
+    """The backward of ``kernel`` (a key of :data:`KERNELS`) on ``ins``
+    (bf16 at P 64, ``dy`` contiguous), through ``lib`` (``None``: this
     tree's build)."""
+    loader, _, fn = KERNELS[kernel]
     if lib is None:
-        return ssd.ssd_scan_bwd(*ins)
-    saved = ssd._bwd_lib
-    ssd._bwd_lib = lambda: lib
+        return getattr(ssd, fn)(*ins)
+    saved = getattr(ssd, loader)
+    setattr(ssd, loader, lambda: lib)
     try:
-        return ssd.ssd_scan_bwd(*ins)
+        return getattr(ssd, fn)(*ins)
     finally:
-        ssd._bwd_lib = saved
+        setattr(ssd, loader, saved)
+
+
+class _TimedLib:
+    """A kernel library whose launch entry point ``entry`` adds its host
+    time to ``seconds``."""
+
+    def __init__(self, lib, entry):
+        self._lib, self._entry, self.seconds = lib, entry, 0.0
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != self._entry:
+            return fn
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return timed
+
+
+def host_us(kernel, lib, ins, calls=50) -> tuple[float, float]:
+    """Host time a call of ``kernel``'s backward (a key of
+    :data:`KERNELS`, through ``lib``; ``None``: this tree's build) on
+    ``ins``, in µs: the whole Python wrapper (from the call to its return;
+    the launches are asynchronous) and its C launch entry point alone
+    (encoding the TMA maps, setting attributes, launching), medians over
+    ``calls`` calls."""
+    loader, entries, _ = KERNELS[kernel]
+    timed = _TimedLib(lib if lib is not None else getattr(ssd, loader)(),
+                      entries[0])
+    call_with(kernel, timed, ins)
+    torch.cuda.synchronize()
+    whole, entry = [], []
+    for _ in range(calls):
+        timed.seconds = 0.0
+        t0 = time.perf_counter()
+        call_with(kernel, timed, ins)
+        whole.append(time.perf_counter() - t0)
+        entry.append(timed.seconds)
+    torch.cuda.synchronize()
+    return (1e6 * sorted(whole)[calls // 2], 1e6 * sorted(entry)[calls // 2])
 
 
 def profile_step() -> None:
@@ -149,12 +212,29 @@ def profile_step() -> None:
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=TRAIN[1], global_batch=TRAIN[0],
                                   seed=0))
+    wrapped, host = ssd.ssd_scan_bwd, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return wrapped(*args)
+        finally:
+            host.append(time.perf_counter() - t0)
     for i in range(2):
+        host.clear()
+        # the wrapper counts its calls on the module's name, here `timed`
+        timed.launches = wrapped.launches
+        ssd.ssd_scan_bwd = timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = cell.run(state, data.batch(i))
-        torch.cuda.synchronize()
-        print(f"step {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        try:
+            state, _ = cell.run(state, data.batch(i))
+            torch.cuda.synchronize()
+        finally:
+            ssd.ssd_scan_bwd, wrapped.launches = wrapped, timed.launches
+        print(f"step {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms; B4's "
+              f"backward: {len(host)} calls, {1e3 * sum(host):.2f} ms host "
+              f"time in all (the wrapper, from call to return)")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -360,32 +440,49 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_ssd_scan_bwd: no CUDA device", file=sys.stderr)
         return 2
-    build.build(("ssd_scan", "ssd_scan_bwd"))
+    build.build(("ssd_scan", "ssd_scan_bwd", "ssd_scan_bwd_chunked"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}")
     for dt in (torch.float32, torch.bfloat16):
-        print(f"build ({dt}): {ssd.bwd_attributes(dt)}")
+        print(f"step kernel build ({dt}): {ssd.bwd_attributes(dt)}")
+    for n in ssd.CHUNKED_STATE_DIMS:
+        for k, a in ssd.chunked_bwd_attributes(n).items():
+            print(f"chunked build at N {n}, {k} kernel: {a}")
     ins = list(inputs(TRAIN, seed=0)) + [None, None]
-    got = call_with(None, ins)
-    print(f"at x {TRAIN[:4]}, N {TRAIN[4]} (bf16, b/c broadcast): max "
-          f"|diff| / max |grad| against autograd through the plain scan "
-          f"{worst(got, ref.ssd_scan_bwd_ref(*ins)):.3g}")
-    runs = {"this": None}
-    order = ["this"]
+    ins[4] = ins[4].contiguous()
+    want = ref.ssd_scan_bwd_ref(*ins)
+    route = ssd.bwd_kernel_for(torch.bfloat16, TRAIN[3], TRAIN[4])
+    got = ssd.ssd_scan_bwd(*ins)
+    print(f"at x {TRAIN[:4]}, N {TRAIN[4]} (bf16, b/c broadcast), the "
+          f"route's {route} kernel: max |diff| / max |grad| against autograd "
+          f"through the plain scan {worst(got, want):.3g}")
+    runs = {"this": ("ssd_scan_bwd_chunked", None),
+            "step": ("ssd_scan_bwd", None)}
+    print(f"the step kernel on the same inputs: "
+          f"{worst(call_with('ssd_scan_bwd', None, ins), want):.3g}")
+    order = ["step", "this", "this", "step"]
     if args.parent is not None:
         runs["parent"] = build_parent(args.parent)
-        print(f"parent vs this: max |diff| / max |grad| "
-              f"{worst(call_with(runs['parent'], ins), got):.3g}")
-        order = ["parent", "this", "this", "parent"]
+        print(f"parent ({runs['parent'][0]}.cu) vs this: max |diff| / max "
+              f"|grad| {worst(call_with(*runs['parent'], ins), got):.3g}")
+        order = ["parent", "this", "this", "parent"] + order
     t_bound, by = bound(TRAIN)
     for name in order:
-        ms = cuda_ms(lambda: call_with(runs[name], ins), 10)
-        print(f"{name}: {ms:.4f} ms a call (CUDA events over 10 calls); "
-              f"bound {t_bound:.5f} ms ({by}) = {100 * t_bound / ms:.2f}%")
+        reps = 10 if name == "step" or runs[name][0] == "ssd_scan_bwd" \
+            else 50
+        ms = cuda_ms(lambda: call_with(*runs[name], ins), reps)
+        print(f"{name} ({runs[name][0]}.cu): {ms:.4f} ms a call (CUDA "
+              f"events over {reps} calls); bound {t_bound:.5f} ms ({by}) = "
+              f"{100 * t_bound / ms:.2f}%")
     print(f"plain: {cuda_ms(lambda: ref.ssd_scan_bwd_ref(*ins), 2):.4f} ms "
           f"a call")
+    for name in order:
+        whole, entry = host_us(*runs[name], ins)
+        print(f"{name} ({runs[name][0]}.cu): host time a call {whole:.1f} "
+              f"us (the Python wrapper, call to return), of which its C "
+              f"launch entry {entry:.1f} us (medians over 50 calls)")
     if args.profile_step:
         profile_step()
     if args.bf16_spread:
