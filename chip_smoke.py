@@ -43,10 +43,10 @@ Phases (each fails the run on error; nothing is caught):
 7. qwen2.5-3b at full width and depth (36 layers, random weights from
    seed 0, bf16 activations): a 4 x 4,096-token prefill through B3 held to
    the same prefill through the plain attention, a 1 x 300-token prefill
-   held the same way, 16 decode steps, and prefill/decode consistency (255
+   held the same way, 8 decode steps, and prefill/decode consistency (255
    + 1 tokens against 256);
 8. the serving tier at full width: ``launch/serve.py``'s defaults (4
-   replicas of 2 slots, a 20-tick straggler; 24 requests over 40 ticks,
+   replicas of 2 slots, a 20-tick straggler; 18 requests over 30 ticks,
    cut from its 48 over 80)
    under ``netclone`` (B1 on every tick with completions, each launch
    replayed against the plain filter) and under ``baseline``;
@@ -63,12 +63,12 @@ Phases (each fails the run on error; nothing is caught):
 10. mamba2-370m at full width and depth (48 layers, random weights from
     seed 0, bf16 activations): a 4 x 16,384-token prefill through B4 (48
     launches, all on the chunked kernel, counted by the wrapper and the
-    profiler) held to the same prefill through the plain scan, 16 decode
+    profiler) held to the same prefill through the plain scan, 8 decode
     steps (no B4), and prefill 128 + decode 8 against the forward over 256
     tokens;
 11. recurrentgemma-9b at full width and depth (38 layers: 26 RG-LRU through
     B5, 12 local attention through B3): a 4 x 4,096-token prefill held to
-    the plain prefill (logits, LRU states, ring KV caches), 16 decode
+    the plain prefill (logits, LRU states, ring KV caches), 8 decode
     steps, and prefill 255 + decode 1 against prefill 256;
 12. the fused backend (each block of 64 ticks replayed from a CUDA graph):
     (a) the 6 golden cases under ``pallas``, ``tickfuse`` and
@@ -76,7 +76,7 @@ Phases (each fails the run on error; nothing is caught):
     tail), every field bit-exact;
     (b) phase 4's sweep through ``sweep_grid(engine=EngineOptions(backend=
     "fused"))``, every row and the grid histogram bit-identical to phase
-    4's staged sweep; then the same grid fused at 4,000 ticks, timed
+    4's staged sweep; then the same grid fused at 2,000 ticks, timed
     beside phase 4 (config-ticks/s, ms a tick, the graph's capture and
     instantiation, device busy a tick and the idle share from a profile of
     replays, whose B2 launches must equal the ticks replayed); (c) ``cross_validate_spec`` over the bundled
@@ -90,11 +90,11 @@ Phases (each fails the run on error; nothing is caught):
 13. the Scenario layer and the optional stages: (a) the scenario CLI's
     ``--list`` and a JSON round trip of every library file; (b)
     ``golden_single_tor.json`` through ``Scenario`` bit-identical to the
-    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (1,500 ticks)
+    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (1,000 ticks)
     under B2 and ``vectorized``, and (d) LÆDGE over 2 racks (1,000 ticks)
     under B1 and ``vectorized``, its pairs filtered at the top tier:
     ``Metrics`` bit-identical, fused; (e) ``hedge_vs_netclone.json`` (G =
-    6, cut from 40,000 to 2,000 ticks) under B2 and ``vectorized``: rows
+    6, cut from 40,000 to 1,000 ticks) under B2 and ``vectorized``: rows
     bit-identical, p99s printed; (f) a ``hedge_delays = [25, 75, 150]``
     sweep (1,000 ticks); each of (c)-(e) also runs its first 64 ticks on
     the staged loop, the wrapper counting one B1 or B2 launch a tick, held
@@ -113,8 +113,9 @@ Phases (each fails the run on error; nothing is caught):
     the same ticks replayed; then ``llm_gemma7b`` at ``batch_coupling``
     0.5 (the slots' decode speed falls with occupancy: the batch stage's
     float path), fused under B2, bit-identical to ``vectorized`` and its
-    row equal to the reference's; (c) a 200-config batch sweep (5 policies × 8
-    loads × 5 seeds) on llm_gemma7b's cluster and service, fused through
+    row equal to the reference's; (c) a 200-config batch sweep (5 policies
+    × 8 loads × 5 seeds, 2,000 ticks) on llm_gemma7b's cluster and
+    service, fused through
     B2: config-ticks/s, ms a tick, a profile of 2 replays (kernels and
     device busy a tick, the idle share), its first 500 ticks bit-identical
     to ``vectorized``; (d) ``serve_equivalence`` at the reference's
@@ -134,7 +135,7 @@ Phases (each fails the run on error; nothing is caught):
     plain attention where B3 acts: each layer's attention sublayer on the
     same input and the float32-activation prefill's logits (the whole
     layers, the bf16 whole prefill and the float32 caches reported beside
-    the tokens a near top-k tie reroutes); 16 decode steps (dropless
+    the tokens a near top-k tie reroutes); 8 decode steps (dropless
     routing), prefill 255 + decode 1 against prefill 256 (float32 held,
     bf16 reported); B3 at the prefill's MHA shape (4, 16, 4096, 128)
     against its plain version, timed beside its bound and SDPA;
@@ -144,7 +145,7 @@ Phases (each fails the run on error; nothing is caught):
     phase 16;
 18. whisper-tiny at full width: frames (4, 1500, 384) and a 4 x 64-token
     prompt, prefill through B3 (12 launches: 4 encoder, 4 causal self, 4
-    cross) held to the plain-attention prefill, 16 decode steps (4 B3
+    cross) held to the plain-attention prefill, 8 decode steps (4 B3
     launches each: cross-attention at Sq = 1) each held to the plain
     path, prefill 63 + decode 1 against prefill 64, and B3 at the three
     whisper shapes (non-causal over 1,500 frames, a 64-token and a
@@ -168,8 +169,8 @@ Phases (each fails the run on error; nothing is caught):
     build_cell`` on the card's host mesh: a gradient on every leaf, then 3
     AdamW steps of 2 x 4,096 tokens (72 B3 and 36 backward launches a
     step), ms a step and peak memory; the 0.1 B model of
-    ``examples/train_100m.py --full``: its attention gradients held to the plain attention's, 40 steps of 8 x 512
-    with an async checkpoint at 20, the loss falling, and a restart
+    ``examples/train_100m.py --full``: its attention gradients held to the
+    plain attention's, 24 steps of 8 x 512 with an async checkpoint at 12, the loss falling, and a restart
     through ``launch/train.py``'s restore path (state bit-equal, step 20's
     loss bit-equal, later steps within 1e-3); whisper-tiny, 3 steps on
     frames (2, 1500, 384) and 2 x 448 tokens;
@@ -191,7 +192,22 @@ Phases (each fails the run on error; nothing is caught):
     then 3 AdamW steps of 2 x 4,096 tokens (96 B4 and 48 chunked backward
     launches a step), ms a step and peak memory; then
     ``build_cell``'s prefill and decode cells at phase 10's shapes,
-    bit-equal to ``lm.prefill`` and ``lm.decode_step``.
+    bit-equal to ``lm.prefill`` and ``lm.decode_step``;
+22. B5's backward (``csrc/lru_scan_bwd.cu``) and B3's backward at head
+    dim 256 (their builds' registers and spills logged): B5's against
+    autograd through ``lru_scan_ref`` at recurrentgemma-9b's training
+    shape in bf16 and float32 (timed beside its bound and plain version),
+    phase 9's LRU cases with h0 and a final-state gradient, S = 1 and
+    channels at a = 0 and a = 1; B3's against autograd through
+    ``attention_ref`` at recurrentgemma-9b's and gemma-7b's training
+    shapes (timed beside bound, plain version and SDPA's backward), ragged
+    255 rows, float32 windowed and views TMA cannot read in place; two
+    calls bit-equal; then recurrentgemma-9b at full width and 12 of its
+    38 layers through the train cell of ``build_cell``: step 1 held to the
+    plain step (each leaf at 3 layers in float32 activations and by phase
+    21's bf16 rule; the bf16 loss at 12 layers), a gradient on every leaf,
+    3 AdamW steps of 2 x 4,096 tokens (8 B3, 4 B3 backward, 16 B5 and 8 B5
+    backward launches a step), ms a step and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
@@ -219,11 +235,12 @@ GOLDEN = ROOT / "tests" / "golden" / "fleetsim_single_tor.json"
 # forced by the time limit (1,200 s for the whole script, build included)
 FULL_TICKS = 50_000
 # below the benchmark's own fast cap of 10,000: phase 4's staged loop cut
-# to 4,000 for phases 12c and 13, and to 1,000 for phases 14 and 15;
-# phase 12b times the fused sweep at 4,000 ticks (62 graph replays of 64
-# ticks and a 32-tick staged tail), as before the cut
-SWEEP_TICKS = 1_000
-FUSED_SWEEP_TICKS = 4_000
+# to 4,000 for phases 12c and 13, to 1,000 for phases 14 and 15, and to
+# 500 (its scan check's length) for phase 22; phase 12b times the fused
+# sweep at 2,000 ticks (31 graph replays of 64 ticks and a 16-tick staged
+# tail; 4,000 until phase 22)
+SWEEP_TICKS = 500
+FUSED_SWEEP_TICKS = 2_000
 SCAN_CHECK_TICKS = 500
 PROFILE_TICKS = 20
 # cut from 4,000 to 2,000 for phases 12c and 13, to 1,000 for 14-15 and
@@ -244,15 +261,16 @@ XVAL_REQUESTS = 20_000
 XVAL_REFERENCE = ROOT / "tools" / "validate_grid_reference.json"
 # phase 13: LÆDGE at one rack (4 x 8, load 0.5) and two (load 0.1, where
 # its CPU lets it clone), hedge_vs_netclone.json cut from 40,000 ticks by
-# the time limit, the hedge-delay sweep, and the staged window each run is
+# the time limit (LÆDGE's 1,500 and hedge's 2,000 cut to 1,000 each for
+# phase 22), the hedge-delay sweep, and the staged window each run is
 # held to (ticks replayed from graphs against the same ticks staged, the
 # wrappers counting every staged launch: one graph's 64, cut from 128 to pay
 # for phase 21; phase 14 shares it)
-LAEDGE_TICKS = 1_500
+LAEDGE_TICKS = 1_000
 LAEDGE_RACK_TICKS = 1_000
-HEDGE_TICKS = 2_000
+HEDGE_TICKS = 1_000
 HEDGE_FULL_TICKS = 40_000
-DELAY_TICKS = 1_000
+DELAY_TICKS = 500  # 1,000 until phase 22
 HEDGE_DELAYS = (25.0, 75.0, 150.0)
 STAGED_WINDOW = 64
 # graph replays in phase 13's profiles (~1,000 kernels a tick: a profile
@@ -275,6 +293,9 @@ LLM_FILES_KERNELS = (("llm_gemma7b", "tickfuse", "tickfuse_response_path"),
                      ("llm_moe_hetero", "pallas", "fingerprint_filter"))
 LLM_COUPLING = 0.5
 BATCH_CHECK_TICKS = 500
+# phase 14 (c): the batch sweep's ticks, llm_gemma7b's 4,000 cut to 2,000
+# for phase 22
+BATCH_SWEEP_TICKS = 2_000
 SERVE_REFERENCE = ROOT / "tools" / "serve_reference.json"
 # phase 14 (d): serve_equivalence's horizon, its default (at 1,000 ticks
 # the reference's own netclone@0.6 check fails); phase 15: trace_burst's
@@ -321,8 +342,9 @@ FA_C6_CASES = ((1, 16, 2, 300, 128, True, None, "bfloat16"),
                (1, 16, 2, 384, 128, True, None, "float32"))
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # phase 7: prefill_32k's 32 x 32,768 tokens cut to 4 x 4,096 by the run's
-# time limit; 16 decode steps after it (every model's)
-PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 4096, 16
+# time limit; 8 decode steps after it (every model's; cut from 16 for
+# phase 22)
+PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 4096, 8
 QWEN_FA = (PREFILL_B, 16, 2, PREFILL_S, 128, True, None, "bfloat16")
 # whole-model bf16 comparisons: max |diff| within this share of the
 # reference's max |value| (36 layers round to bf16 at different points)
@@ -348,8 +370,8 @@ SHARD_TICKS = 500
 # decoder's context, over 1,500 frames) and one float32 case (GQA, a
 # window); tolerances of max |diff| / max |grad| against autograd through
 # attention_ref; qwen2.5-3b trains 3 steps of 2 x 4,096 tokens, the 0.1 B
-# model of examples/train_100m.py --full 40 steps of 8 x 512 (checkpoint at
-# 20), whisper-tiny 3 steps of 2 x 448 tokens
+# model of examples/train_100m.py --full 24 steps of 8 x 512 (checkpoint at
+# 12), whisper-tiny 3 steps of 2 x 448 tokens
 QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_STEPS = 2, 4096, 3
 WHISPER_TRAIN_S = 448
 BWD_CASES = (
@@ -372,7 +394,8 @@ FA_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SMALL_TRAIN = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
                    head_dim=64, d_ff=2048, vocab_size=32_000,
                    max_seq_len=1024)
-SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 40, 20
+# (40 steps with the checkpoint at 20, cut to 24 and 12 for phase 22)
+SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 24, 12
 
 # phase 21: B4's backward at mamba2-370m's training shape (2 x 4,096 tokens,
 # 32 heads of P 64, N 128, b and c broadcast over heads, bf16 on the chunked
@@ -403,6 +426,7 @@ SSD_BWD_CASES = (
 )
 SSD_TRAIN_LOSS_RTOL = 1e-2
 
+
 # phase 9: the reference's scan test shapes (tests/test_kernels.py:118-188)
 # with h0, in float32 at its tolerances, then the full-width shapes in bf16
 SSD_CASES = ((1, 256, 2, 64, 64, 64), (2, 128, 1, 32, 128, 128),
@@ -430,6 +454,42 @@ GRIFFIN_FA = (PREFILL_B, 16, 1, PREFILL_S, 256, True, 2048, "bfloat16")
 # (2^-8 of the value) where the float32 sums straddle a rounding boundary;
 # held to 1e-2 of the plain version's max |value|
 SCAN_BF16_RTOL = 1e-2
+
+# phase 22: B5's backward at recurrentgemma-9b's training shape (2 x 4,096
+# tokens, d_rnn 4,096) in bf16 and float32, at phase 9's LRU cases with h0
+# and a final-state gradient (the last a length and width the Pallas blocks
+# reject), at S = 1, and with a channel at a = 0 and one at a = 1: b, s, d,
+# dtype, h0 and final-state gradient, a = 0 / 1 channels; B3's backward at
+# head dim 256: recurrentgemma-9b's local attention (16 heads over one kv
+# head, window 2,048) and gemma-7b's (16 x 16 heads) at the training shape,
+# ragged 255 rows, a float32 windowed case and views TMA cannot read in
+# place; tolerances FA_BWD_RTOL; recurrentgemma-9b at full width cut to
+# GRIFFIN_TRAIN_LAYERS layers (four (rec, rec, attn) groups: 3.67 B float32
+# masters, 58.8 GB with gradients and AdamW moments; 15 layers would be
+# 69.3 GB before activations) trains 3 steps of 2 x 4,096 tokens, step 1
+# held to the plain step: the bf16 loss within SSD_TRAIN_LOSS_RTOL at that
+# depth, each leaf within MODEL_RTOL in float32 activations and, by phase
+# 21's bf16 rule, in bf16, both at GRIFFIN_GATE_LAYERS layers (one group)
+GRIFFIN_TRAIN_B, GRIFFIN_TRAIN_S, GRIFFIN_TRAIN_STEPS = 2, 4096, 3
+GRIFFIN_TRAIN_LAYERS, GRIFFIN_GATE_LAYERS = 12, 3
+LRU_BWD_CASES = (
+    (GRIFFIN_TRAIN_B, GRIFFIN_TRAIN_S, 4096, "bfloat16", False, False),
+    (GRIFFIN_TRAIN_B, GRIFFIN_TRAIN_S, 4096, "float32", False, False),
+    *((b, s, d, "float32", True, False) for b, s, d in LRU_CASES),
+    (2, 333, 192, "bfloat16", True, False),
+    (2, 1, 256, "float32", True, False),
+    (2, 300, 256, "float32", True, True),
+    (2, 300, 256, "bfloat16", True, True),
+)
+BWD_256_CASES = (
+    ((GRIFFIN_TRAIN_B, 16, 1, GRIFFIN_TRAIN_S, 256, True, 2048, "bfloat16"),
+     "transposed"),
+    ((GRIFFIN_TRAIN_B, 16, 16, GRIFFIN_TRAIN_S, 256, True, None, "bfloat16"),
+     "transposed"),
+    ((1, 16, 1, 255, 256, True, None, "bfloat16"), "transposed"),
+    ((1, 8, 1, 512, 256, True, 128, "float32"), "transposed"),
+    ((1, 16, 1, 512, 256, True, None, "bfloat16"), "misaligned"),
+)
 
 
 def log(msg: str) -> None:
@@ -1015,7 +1075,9 @@ def run_model(torch, lm, kernels, get_config):
 
 # phase 8: launch/serve.py's 48 requests over 80 ticks, cut to 24 over 40
 # to pay for phases 16-18
-SERVE_REQUESTS, SERVE_HORIZON = 24, 40
+# launch/serve.py's 48 requests over 80 ticks, cut to 24 over 40 and, for
+# phase 22, to 18 over 30
+SERVE_REQUESTS, SERVE_HORIZON = 18, 30
 
 
 def serve_workload(cfg, n_requests=SERVE_REQUESTS, horizon=SERVE_HORIZON,
@@ -2084,7 +2146,8 @@ def run_serve_sim(torch, tf, kernels, ops, get_config) -> dict:
 
     # (c) a 200-config batch sweep on llm_gemma7b's cluster and service
     base = load_any("llm_gemma7b")
-    cfg = base.fleet_config(filter_backend="tickfuse")
+    cfg = base.fleet_config(filter_backend="tickfuse",
+                            n_ticks=BATCH_SWEEP_TICKS)
     sw = tf.sweep_grid(cfg.service, SWEEP_POLICIES, SWEEP_LOADS,
                        SWEEP_SEEDS, cfg=cfg,
                        engine=EngineOptions(backend="fused"))
@@ -2393,7 +2456,7 @@ def compare_moe_layers(torch, lm, cfg, params, tokens):
 def run_deepseek(torch, lm, kernels, get_config, arch, batch, label):
     """Phases 16-17: ``arch`` at full width and depth, bf16 activations:
     a ``batch`` x 4,096-token prefill (B3 launches counted: one a layer
-    for MHA, none for MLA, which pins the plain attention), 16 decode
+    for MHA, none for MLA, which pins the plain attention), 8 decode
     steps (dropless routing, one token a group) and the consistency check
     (held in float32 activations, reported in bf16, as phase 11's).
 
@@ -2488,7 +2551,7 @@ def run_deepseek(torch, lm, kernels, get_config, arch, batch, label):
 def run_whisper(torch, lm, kernels, get_config):
     """Phase 18: whisper-tiny at full width: a prefill of frames (4, 1500,
     384) and a 4 x 64-token prompt (12 B3 launches: 4 encoder, 4 causal
-    self, 4 cross) held to the plain-attention prefill, 16 decode steps
+    self, 4 cross) held to the plain-attention prefill, 8 decode steps
     (4 B3 launches each: cross-attention at Sq = 1), each step's logits
     held to the plain path's, and prefill 63 + decode 1 against prefill
     64."""
@@ -2801,8 +2864,9 @@ def run_training(torch, kernels, get_config):
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import batch_on, loss_and_grads
 
-    # (a) the backward kernel at the training shapes and its edge cases
-    for d in fa_mod.BWD_HEAD_DIMS:
+    # (a) the backward kernel at the training shapes and its edge cases (head
+    # dim 256 in phase 22)
+    for d in (64, 128):
         attrs = fa_mod.bwd_wgmma_attributes(d)
         log(f"phase 20: the backward's TMA + wgmma kernels at head dim {d}: "
             f"{attrs}")
@@ -2878,7 +2942,7 @@ def run_training(torch, kernels, get_config):
     del state, cell
     torch.cuda.empty_cache()
 
-    # (c) the 0.1 B model: 40 steps, a checkpoint at 20, a restart
+    # (c) the 0.1 B model: 24 steps, a checkpoint at 12, a restart
     cfg = get_config("qwen2.5-3b").replace(**SMALL_TRAIN)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=10,
                           total_steps=SMALL_STEPS)
@@ -3363,6 +3427,286 @@ def run_mamba_cells(torch, lm, get_config):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 22 --
+def lru_bwd_inputs(torch, case, seed):
+    """B5's backward inputs on the card at ``case`` (b, s, d, dtype, h0 and
+    final-state gradient, a = 0 / 1 channels), in ``lru_scan_bwd``'s order:
+    x, a in [0.5, 1) (channel 0 at a = 0 and channel 1 at a = 1 if asked),
+    dy, h0 and the final state's gradient (None unless asked)."""
+    b, s, d, dtype, with_h0, edges = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((b, s, d), generator=g, device=DEV).to(dt)
+    a = 0.5 + 0.5 * torch.rand((b, s, d), generator=g, device=DEV)
+    if edges:
+        a[..., 0] = 0.0
+        a[..., 1] = 1.0
+    dy = torch.randn((b, s, d), generator=g, device=DEV).to(dt)
+    h0 = torch.randn((b, d), generator=g, device=DEV) * 0.1 \
+        if with_h0 else None
+    dht = torch.randn((b, d), generator=g, device=DEV) if with_h0 else None
+    return x, a.to(dt), dy, h0, dht
+
+
+def lru_bwd_bound(case) -> tuple[float, str, float, int]:
+    """(bound ms, what bounds it, FLOPs, bytes) of B5's backward at
+    ``case``, reckoned as :func:`scan_bound` reckons the forward: x, a and
+    dy read once, dx and da written once, and with h0 the float32 h0 and
+    the final state's gradient read and dh0 written; the operations, five
+    an element (the state's recomputation and the reverse recurrence, an
+    FMA each, and da's product), at the float32 rate."""
+    b, s, d, dtype, with_h0, _ = case
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = 5 * b * s * d * size + (3 * 4 * b * d if with_h0 else 0)
+    flops = 5 * b * s * d
+    ops_ms = flops / SCALAR_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def check_lru_bwd(torch, ref, lru_mod, case, seed):
+    """B5's backward kernel against autograd through ``ref.lru_scan_ref``
+    on the same inputs, as max |diff| / max |grad| of each gradient; two
+    calls bit-equal; at the training length timed beside its bound and its
+    plain version (``ref.lru_scan_bwd_ref``); returns the row."""
+    x, a, dy, h0, dht = lru_bwd_inputs(torch, case, seed)
+    b, s, d, dtype, with_h0, edges = case
+    before = lru_mod.lru_scan_bwd.launches
+
+    def call():
+        return lru_mod.lru_scan_bwd(x, a, dy, h0, dht)
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    if lru_mod.lru_scan_bwd.launches != before + 2:
+        raise AssertionError(f"phase 22: two calls at {case} launched B5's "
+                             f"backward {lru_mod.lru_scan_bwd.launches - before}"
+                             f" times")
+    same = all(torch.equal(u, v) for u, v in zip(got, again)
+               if u is not None)
+    del again
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, a)] + (
+            [h0.detach().requires_grad_()] if with_h0 else [])
+        y, h_t = ref.lru_scan_ref(*leaves[:2], leaves[2] if with_h0 else None)
+        outs, cots = ([y, h_t], [dy, dht]) if with_h0 else ([y], [dy])
+        want = torch.autograd.grad(outs, leaves, cots)
+    del leaves, y, h_t, outs
+    names = ("dx", "da", "dh0")
+    rel = {nm: ((u.float() - v.float()).abs().max()
+                / v.float().abs().max()).item()
+           for nm, u, v in zip(names, got, want)}
+    err = max((u.float() - v.float()).abs().max().item()
+              for u, v in zip(got, want))
+    if not max(rel.values()) <= FA_BWD_RTOL[dtype] or not same \
+            or (got[2] is None) == with_h0:
+        raise AssertionError(f"phase 22: B5's backward differs from "
+                             f"autograd through lru_scan_ref at {case}: {rel}"
+                             f"; two calls {'equal' if same else 'DIFFER'}")
+    del got, want
+    what = (f"x, a ({b}, {s}, {d}) {dtype}"
+            f"{', h0 and a final-state gradient' if with_h0 else ''}"
+            f"{', a channel at a = 0 and one at a = 1' if edges else ''}")
+    if s < GRIFFIN_TRAIN_S:
+        log(f"phase 22: B5's backward vs autograd through lru_scan_ref at "
+            f"{what}: max |diff| / max |grad| "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
+            f"(tolerance {FA_BWD_RTOL[dtype]}), two calls bit-equal")
+        return None
+    reps = 20
+    ms = cuda_ms(call, reps)
+    plain_ms = cuda_ms(lambda: ref.lru_scan_bwd_ref(x, a, dy, h0, dht), 2)
+    bound, by, flops, nbytes = lru_bwd_bound(case)
+    log(f"phase 22: B5's backward vs autograd through lru_scan_ref at "
+        f"{what}: max |diff| / max |grad| "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in rel.items())} (tolerance "
+        f"{FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}, two calls bit-equal; "
+        f"{ms:.4f} ms per call (CUDA events over {reps} calls), bound "
+        f"{bound:.5f} ms ({by}: {flops:.4g} FLOP, {nbytes} B) = "
+        f"{100 * bound / ms:.2f}% of it; plain {plain_ms:.4f} ms; library: "
+        f"none (no torch call computes the recurrence's backward)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, library_ms=None)
+
+
+def run_griffin_training(torch, kernels, get_config):
+    """Phase 22: B5's backward and B3's backward at head dim 256 (their
+    builds' registers and spills, then their cases), then
+    recurrentgemma-9b at full width, cut to :data:`GRIFFIN_TRAIN_LAYERS`
+    layers, through the train cell of ``launch.steps.build_cell`` on the
+    host mesh: step 1 held to the plain step (each leaf at
+    :data:`GRIFFIN_GATE_LAYERS` layers in float32 activations and, by phase
+    21's bf16 rule, in bf16; the bf16 loss at the training depth), a
+    gradient on every leaf, 3 AdamW steps.  Returns the B5 backward's row
+    (the bf16 training shape), B3's backward rows at 256 and the training
+    run's launches."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import lru_scan as lru_mod
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import family_of
+    from repro_torch.train import tree as ttree
+    from repro_torch.train.step import batch_on, loss_and_grads
+
+    # (a) the new kernels' builds
+    for dtype in (torch.bfloat16, torch.float32):
+        a = lru_mod.bwd_attributes(dtype)
+        log(f"phase 22: B5's backward kernel ({dtype}): {a['registers']} "
+            f"registers a thread, {a['static_smem']} B static shared memory, "
+            f"{a['local_bytes']} B local (spill) a thread")
+        if a["local_bytes"]:
+            raise AssertionError(f"phase 22: B5's backward spills: {a}")
+    for k, a in fa_mod.bwd_wgmma_attributes(256).items():
+        log(f"phase 22: B3's backward at head dim 256, its {k} kernel: "
+            f"{a['registers']} registers a thread (before setmaxnreg), "
+            f"{a['dynamic_smem']} B dynamic shared memory, "
+            f"{a['local_bytes']} B local (spill) a thread")
+        if a["local_bytes"]:
+            raise AssertionError(f"phase 22: B3's backward spills at head "
+                                 f"dim 256: {k} {a}")
+    # (b) B5's backward, (c) B3's backward at head dim 256
+    lru_row = None
+    for i, case in enumerate(LRU_BWD_CASES):
+        r = check_lru_bwd(torch, ref, lru_mod, case, seed=220 + i)
+        lru_row = lru_row or r
+    fa_rows = [check_attention_bwd(torch, ref, fa_mod, case, "phase 22",
+                                   seed=230 + i, view=view)
+               for i, (case, view) in enumerate(BWD_256_CASES)]
+    torch.cuda.empty_cache()
+
+    # (d) recurrentgemma-9b: the gates at GRIFFIN_GATE_LAYERS layers, then
+    # the training depth
+    cfg = get_config("recurrentgemma-9b", n_layers=GRIFFIN_TRAIN_LAYERS)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=GRIFFIN_TRAIN_S,
+                                  global_batch=GRIFFIN_TRAIN_B, seed=0))
+    batches = [data.batch(i) for i in range(GRIFFIN_TRAIN_STEPS)]
+    b0 = batch_on(batches[0], DEV)
+
+    def rel(got, want):
+        """Each leaf's max |diff| / max |grad|."""
+        return [((u - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                for u, v in zip(got, want)]
+
+    c3 = cfg.replace(n_layers=GRIFFIN_GATE_LAYERS)
+    s3 = build_cell(c3, SHAPES["train_4k"], make_host_mesh()).init_state(0)
+    p3 = [p for p, _ in ttree.flatten(s3.params)]
+    f32 = c3.replace(dtype="float32")
+    reset(kernels)
+    g_k = loss_and_grads(f32, s3.params, b0)[2]
+    n32 = (kernels["flash_attention_bwd"].launches,
+           kernels["lru_scan_bwd"].launches)
+    g_x32 = loss_and_grads(f32.replace(attn_impl="xla"), s3.params, b0)[2]
+    k32 = rel(g_k, g_x32)
+    del g_k
+    g_k = loss_and_grads(c3, s3.params, b0)[2]
+    g_x = loss_and_grads(c3.replace(attn_impl="xla"), s3.params, b0)[2]
+    kx, xx = rel(g_k, g_x), rel(g_x, g_x32)
+    del g_k, g_x, g_x32, s3
+    torch.cuda.empty_cache()
+    i32 = max(range(len(k32)), key=k32.__getitem__)
+    held = [i for i in range(len(kx)) if xx[i] <= MODEL_RTOL]
+    w16 = max(held, key=kx.__getitem__)
+    left = collections.defaultdict(list)
+    for i in range(len(kx)):
+        if xx[i] > MODEL_RTOL:
+            left[p3[i][-1]].append(i)
+    left_s = "; ".join(
+        f"{len(ix)} {k} (plain bf16 vs float32 "
+        f"{min(xx[i] for i in ix):.3g}-{max(xx[i] for i in ix):.3g}, "
+        f"kernels vs plain {min(kx[i] for i in ix):.3g}-"
+        f"{max(kx[i] for i in ix):.3g})"
+        for k, ix in sorted(left.items())) or "none"
+    log(f"phase 22: {cfg.name} at {GRIFFIN_GATE_LAYERS} layers (one (rec, "
+        f"rec, attn) group, full width): step 1's gradients through B3, B5 "
+        f"and their backward kernels vs the plain step (attn_impl='xla'), "
+        f"{len(p3)} leaves: in float32 activations (B3's and B5's backward "
+        f"launched {n32[0]} and {n32[1]} times) worst max |diff| / max "
+        f"|grad| {k32[i32]:.3g} at {p3[i32]} (tolerance {MODEL_RTOL}); in "
+        f"bf16 {len(held)} leaves held, worst {kx[w16]:.3g} at {p3[w16]} "
+        f"(tolerance {MODEL_RTOL}), left out: {left_s}")
+    if not k32[i32] <= MODEL_RTOL or not kx[w16] <= MODEL_RTOL \
+            or n32 != (1, 2):
+        raise AssertionError(f"phase 22: step 1's gradients at "
+                             f"{GRIFFIN_GATE_LAYERS} layers: float32 "
+                             f"{k32[i32]:.3g} at {p3[i32]}, bf16 "
+                             f"{kx[w16]:.3g} at {p3[w16]}, backward launches "
+                             f"{n32}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell(cfg, SHAPES["train_4k"], make_host_mesh())
+    state = cell.init_state(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in ttree.leaves(state.params))
+    n_attn = sum(k == "attn_local" for k in cfg.pattern) * (
+        cfg.n_layers // len(cfg.pattern))
+    n_rec = cfg.n_layers - n_attn
+    log(f"phase 22: {cfg.name}: {cfg.n_layers} layers ({n_rec} RG-LRU, "
+        f"{n_attn} local attention; the arch has 38), d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads} kv head, window {cfg.window}, d_rnn "
+        f"{cfg.rglru.d_rnn}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params:,} float32 master parameters (bf16 activations), AdamW "
+        f"moments float32, remat {cfg.remat}; the train cell of build_cell "
+        f"on the host mesh {cell.mesh.shape}: state built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held")
+    reset(kernels)
+    loss, _, grads = loss_and_grads(cfg, state.params, b0)
+    counts = {n: fn.launches for n, fn in kernels.items()}
+    paths = [p for p, _ in ttree.flatten(state.params)]
+    missing = [p for p, g in zip(paths, grads) if g is None]
+    bad = [p for p, g in zip(paths, grads)
+           if g is not None and not torch.isfinite(g).all()]
+    del grads
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        loss_x, _ = family_of(cfg).loss_fn(cfg.replace(attn_impl="xla"),
+                                           state.params, b0, device=DEV)
+    loss_rel = abs(float(loss) - float(loss_x)) / abs(float(loss_x))
+    want = only(kernels, flash_attention=2 * n_attn,
+                flash_attention_bwd=n_attn, lru_scan=2 * n_rec,
+                lru_scan_bwd=n_rec)
+    log(f"phase 22: loss and gradients of one batch ({GRIFFIN_TRAIN_B} x "
+        f"{GRIFFIN_TRAIN_S} tokens): loss {float(loss):.6f} through B3, B5 "
+        f"and their backward kernels, {float(loss_x):.6f} through the plain "
+        f"attention and scan (attn_impl='xla'): {loss_rel:.3g} relative "
+        f"(tolerance {SSD_TRAIN_LOSS_RTOL}); {len(paths)} leaves, "
+        f"{len(missing)} without a gradient, {len(bad)} non-finite; "
+        f"launches {counts}")
+    if missing or bad or counts != want \
+            or not loss_rel <= SSD_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"phase 22: gradients: missing {missing[:3]}, "
+                             f"non-finite {bad[:3]}; loss {loss_rel:.3g}; "
+                             f"launches {counts}, expected {want}")
+    # the main path: reset, train, read the counts
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    state, losses, step_ms, counts = train_steps(
+        torch, cell.run, state, batches, kernels, "phase 22")
+    for c in counts:
+        if c != want:
+            raise AssertionError(f"phase 22: step launches {c}, expected "
+                                 f"{want}")
+    launches = {n: sum(c[n] for c in counts) for n in counts[0]}
+    log(f"phase 22: {GRIFFIN_TRAIN_STEPS} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}, "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step (host clock, "
+        f"synchronised), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
+        f"{counts[0]['flash_attention']} B3, "
+        f"{counts[0]['flash_attention_bwd']} B3 backward, "
+        f"{counts[0]['lru_scan']} B5 and {counts[0]['lru_scan_bwd']} B5 "
+        f"backward launches (forward and remat recompute)")
+    del state, cell
+    torch.cuda.empty_cache()
+    return lru_row, fa_rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -3394,7 +3738,8 @@ def main() -> int:
                "ssd_scan": ssd_mod.ssd_scan,
                "ssd_scan_bwd": ssd_mod.ssd_scan_bwd_chunked,
                "ssd_scan_bwd_step": ssd_mod.ssd_scan_bwd_step,
-               "lru_scan": lru_mod.lru_scan}
+               "lru_scan": lru_mod.lru_scan,
+               "lru_scan_bwd": lru_mod.lru_scan_bwd}
     t_start = time.perf_counter()
 
     # -- phase 1: build + device ------------------------------------------
@@ -3683,6 +4028,17 @@ def main() -> int:
     run_mamba_cells(torch, lm, get_config)
     log(f"phase 21 ended at {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 22: B5's backward, B3's backward at head dim 256 and
+    # recurrentgemma-9b training --------------------------------------------
+    rows["lru_scan_bwd"], _, griffin_launches = run_griffin_training(
+        torch, kernels, get_config)
+    for n in ("flash_attention", "flash_attention_bwd", "lru_scan",
+              "lru_scan_bwd"):
+        if not griffin_launches[n]:
+            raise AssertionError(f"phase 22: the training run launched no "
+                                 f"{n}")
+    log(f"phase 22 ended at {time.perf_counter() - t_start:.1f} s")
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -3701,7 +4057,10 @@ def main() -> int:
                 "ssd_scan_bwd_step":
                 "none: jax.grad through src/repro/kernels/ops.py:60-68 "
                 "(the XLA ssd_scan_ref)",
-                "lru_scan": "src/repro/kernels/lru_scan.py:51"}
+                "lru_scan": "src/repro/kernels/lru_scan.py:51",
+                "lru_scan_bwd":
+                "none: jax.grad through src/repro/kernels/ops.py:71-77 "
+                "(the XLA lru_scan_ref)"}
     sources = {"fingerprint_filter":
                "src/repro_torch/kernels/csrc/fingerprint_filter.cu",
                "tickfuse_response_path":
@@ -3715,7 +4074,9 @@ def main() -> int:
                "src/repro_torch/kernels/csrc/ssd_scan_bwd_chunked.cu",
                "ssd_scan_bwd_step":
                "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
-               "lru_scan": "src/repro_torch/kernels/csrc/lru_scan.cu"}
+               "lru_scan": "src/repro_torch/kernels/csrc/lru_scan.cu",
+               "lru_scan_bwd":
+               "src/repro_torch/kernels/csrc/lru_scan_bwd.cu"}
     launches = {"fingerprint_filter": rack_launches["fingerprint_filter"],
                 "tickfuse_response_path":
                 sweep_launches["tickfuse_response_path"],
@@ -3726,7 +4087,8 @@ def main() -> int:
                 # the step backward is off the bf16 main path: its count is
                 # the float32 gate's pass of mamba2-370m, the path it takes
                 "ssd_scan_bwd_step": step_launches,
-                "lru_scan": lru_launches}
+                "lru_scan": lru_launches,
+                "lru_scan_bwd": griffin_launches["lru_scan_bwd"]}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": sources[n],
          "replaces": replaces[n], "launches": launches[n],

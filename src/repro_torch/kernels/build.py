@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("fingerprint_filter", "tickfuse", "flash_attention",
            "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
-           "ssd_scan_bwd_chunked", "lru_scan")
+           "ssd_scan_bwd_chunked", "lru_scan", "lru_scan_bwd")
 
 
 def nvcc_path() -> str:

@@ -21,8 +21,8 @@
 // kv heads, S 4,096, D 128, causal), 0.348 ms at the bf16 tensor cores'
 // 989 TFLOP/s; only `wgmma` reaches that rate.
 //
-// bf16 at head dims 64 and 128 (every backward the port trains) runs on
-// the tensor cores, in three kernels:
+// bf16 at head dims 64, 128 and 256 (every backward the port trains) runs
+// on the tensor cores, in three kernels:
 // * `fa_bwd_prep`: D = rowsum(dO ∘ O) a row, and the forward's row
 //   log-sum-exp (written by the Hopper forward's epilogue under grad, so
 //   no score product is spent on it) times log2(e), both into buffers
@@ -51,11 +51,23 @@
 //   of three stages (four at D 64).  S = Q·Kᵀ and dP = dO·Vᵀ (`wgmma`,
 //   shared memory), P and dS in registers, then dQ += dS·K with K read
 //   MN-major through the transpose-B flag, as the forward reads V.
-// Both loops are software-pipelined: the next tile's S and dP (dQ pass)
-// or Sᵀ (dK/dV pass, where dPᵀ's accumulators would not fit beside the
-// others) are issued right behind this tile's last product, so the tensor
-// cores run them back to back, and a tile is released once its products
-// are done.  That is seven products where five would do (S and dP are
+// At head dim 256 the registers and shared memory of that design do not
+// fit (dK and dV of 64 keys would take 256 accumulators a thread, a (Q,
+// dO) stage 64 KB), so the two passes split their work otherwise (SPLIT
+// in DkdvTile and DqTile): a dK/dV CTA's two warpgroups share one two-stage
+// ring and both compute every item, each for its 128 columns of dK and dV
+// (Sᵀ and dPᵀ contract over all 256, so each warpgroup computes them: 1.5x
+// the pass's products); a dQ CTA owns 64 rows and deals its (K, V) tiles
+// to the two warpgroups in turn, each summing a whole dQ (128 accumulators
+// a thread) over its own, the two sums added in a fixed order at the end.
+// Bound at recurrentgemma-9b's training shape (q (2, 16, 4,096, 256) over
+// one kv head, causal, window 2,048): 5.157e11 FLOP, 0.521 ms.
+// Both loops at head dims 64 and 128 are software-pipelined: the next
+// tile's S and dP (dQ pass) or Sᵀ (dK/dV pass, where dPᵀ's accumulators
+// would not fit beside the others) are issued right behind this tile's
+// last product, so the tensor cores run them back to back, and a tile is
+// released once its products are done (at 256 the dQ pass's warpgroups
+// take turns on the tensor cores instead).  That is seven products where five would do (S and dP are
 // computed in both passes): the price of summing dQ without atomics.
 // Tiles are 128-byte-swizzled slabs of 64 columns, the layout TMA writes
 // and `wgmma` reads; TMA zero-fills rows past Sq and keys past Skv, which
@@ -71,7 +83,8 @@
 // kernels: `fa_bwd_stats` (the row log-sum-exp, recomputed from q·kᵀ, and
 // D), `fa_bwd_dkdv` (a CTA a (batch, kv head, 64 keys)) and `fa_bwd_dq` (a
 // CTA a (batch, head, 64 rows)), every product a float32 FMA on tiles
-// staged in shared memory.
+// staged in shared memory; at head dim 256 their tiles are 32 rows, so
+// four of them fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,9 +97,13 @@
 
 namespace {
 
-constexpr int kRows = 64;        // query rows and keys a tile
 constexpr int kThreads = 256;
-constexpr int kLdP = kRows + 1;  // row stride of the P and dS tiles
+
+// Rows (query rows and keys) a tile of the scalar kernels at head dim D:
+// 64, or 32 at D 256, where four 64-row float32 tiles would not fit in
+// shared memory.
+template <int D>
+constexpr int kScalarRows = D == 256 ? 32 : 64;
 
 struct Args {
   int batch, n_heads, n_kv_heads, sq, skv;
@@ -100,26 +117,28 @@ __device__ __forceinline__ bool visible(const Args& a, int i, int j) {
          (a.window < 0 || j >= i - a.window);
 }
 
-// The key tiles a query tile starting at q0 meets: [lo, hi).
+// The key tiles of R keys a query tile of R rows starting at q0 meets:
+// [lo, hi).
+template <int R>
 __device__ __forceinline__ void key_tiles(const Args& a, int q0, int* lo,
                                           int* hi) {
-  int h = (a.skv + kRows - 1) / kRows;
-  if (a.causal) h = min(h, (q0 + kRows - 1) / kRows + 1);
+  int h = (a.skv + R - 1) / R;
+  if (a.causal) h = min(h, (q0 + R - 1) / R + 1);
   int l = 0;
-  if (a.window >= 0 && q0 - a.window > 0) l = (q0 - a.window) / kRows;
+  if (a.window >= 0 && q0 - a.window > 0) l = (q0 - a.window) / R;
   *lo = l;
   *hi = h;
 }
 
-// Rows [row0, row0 + 64) of a (rows, D) matrix at `src` with row stride
+// Rows [row0, row0 + R) of a (rows, D) matrix at `src` with row stride
 // `stride`, as float32 into `dst` (row stride D + 1); rows at or past
 // `n_rows` are zero.
-template <typename T, int D>
+template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t stride, int row0,
                                           int n_rows) {
   constexpr int LD = D + 1;
-  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     float val = 0.f;
     if (row0 + r < n_rows) val = to_f32(src[(int64_t)(row0 + r) * stride + c]);
@@ -127,45 +146,47 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16 i][d] · B[tx + 16 j][d] (A·Bᵀ on two tiles).
-template <int D>
-__device__ __forceinline__ void mm_abt(float acc[4][4], const float* A,
-                                       const float* B, int ty, int tx) {
-  constexpr int LD = D + 1;
+// acc[i][j] = sum_d A[ty + 16 i][d] · B[tx + 16 j][d] (A·Bᵀ on two R-row
+// tiles).
+template <int D, int R>
+__device__ __forceinline__ void mm_abt(float acc[R / 16][R / 16],
+                                       const float* A, const float* B, int ty,
+                                       int tx) {
+  constexpr int LD = D + 1, N = R / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
+    float x[N], y[N];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = A[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < N; ++i) x[i] = A[(ty + 16 * i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = B[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < N; ++j) y[j] = B[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+      for (int j = 0; j < N; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
   }
 }
 
 // acc[i][j] += sum_m M[m][w + 8 i] · X[m][lane + 32 j]: rows w + 8 i of
-// Mᵀ·X, M a (64, 64) tile of stride kLdP, X a (64, D) tile.
-template <int D>
-__device__ __forceinline__ void mm_atb_acc(float acc[8][D / 32],
+// Mᵀ·X, M an (R, R) tile of stride R + 1, X an (R, D) tile.
+template <int D, int R>
+__device__ __forceinline__ void mm_atb_acc(float acc[R / 8][D / 32],
                                            const float* M, const float* X,
                                            int w, int lane) {
-  constexpr int LD = D + 1;
+  constexpr int LD = D + 1, LP = R + 1;
 #pragma unroll 2
-  for (int m = 0; m < kRows; ++m) {
-    float p[8], x[D / 32];
+  for (int m = 0; m < R; ++m) {
+    float p[R / 8], x[D / 32];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = M[m * kLdP + w + 8 * i];
+    for (int i = 0; i < R / 8; ++i) p[i] = M[m * LP + w + 8 * i];
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) x[j] = X[m * LD + lane + 32 * j];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < R / 8; ++i)
 #pragma unroll
       for (int j = 0; j < D / 32; ++j) acc[i][j] = fmaf(p[i], x[j], acc[i][j]);
   }
@@ -173,20 +194,20 @@ __device__ __forceinline__ void mm_atb_acc(float acc[8][D / 32],
 
 // acc[i][j] += sum_c M[w + 8 i][c] · X[c][lane + 32 j]: rows w + 8 i of
 // M·X.
-template <int D>
-__device__ __forceinline__ void mm_ab_acc(float acc[8][D / 32],
+template <int D, int R>
+__device__ __forceinline__ void mm_ab_acc(float acc[R / 8][D / 32],
                                           const float* M, const float* X,
                                           int w, int lane) {
-  constexpr int LD = D + 1;
+  constexpr int LD = D + 1, LP = R + 1;
 #pragma unroll 2
-  for (int c = 0; c < kRows; ++c) {
-    float p[8], x[D / 32];
+  for (int c = 0; c < R; ++c) {
+    float p[R / 8], x[D / 32];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = M[(w + 8 * i) * kLdP + c];
+    for (int i = 0; i < R / 8; ++i) p[i] = M[(w + 8 * i) * LP + c];
 #pragma unroll
     for (int j = 0; j < D / 32; ++j) x[j] = X[c * LD + lane + 32 * j];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < R / 8; ++i)
 #pragma unroll
       for (int j = 0; j < D / 32; ++j) acc[i][j] = fmaf(p[i], x[j], acc[i][j]);
   }
@@ -199,18 +220,19 @@ __global__ void __launch_bounds__(kThreads)
 fa_bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ o, const T* __restrict__ dout,
              float* __restrict__ lse, float* __restrict__ delta, Args a) {
+  constexpr int R = kScalarRows<D>, N = R / 16;
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   float* Qs = smem;
-  float* Ks = Qs + kRows * LD;
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  float* Ks = Qs + R * LD;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.n_heads / a.n_kv_heads);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int64_t row_base = ((int64_t)b * a.n_heads + h) * a.sq;
 
   // D = rowsum(dO ∘ O): a warp a row
   const int w = tid / 32, lane = tid % 32;
-  for (int r = w; r < kRows; r += kThreads / 32) {
+  for (int r = w; r < R; r += kThreads / 32) {
     const int row = q0 + r;
     if (row >= a.sq) break;
     const T* op = o + (row_base + row) * D;
@@ -223,27 +245,27 @@ fa_bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
     if (lane == 0) delta[row_base + row] = s;
   }
 
-  load_tile<T, D>(Qs, q + b * a.qb + h * a.qh, a.qs, q0, a.sq);
-  float m[4], l[4];
+  load_tile<T, D, R>(Qs, q + b * a.qb + h * a.qh, a.qs, q0, a.sq);
+  float m[N], l[N];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
   }
   int lo, hi;
-  key_tiles(a, q0, &lo, &hi);
+  key_tiles<R>(a, q0, &lo, &hi);
   const T* kp = k + b * a.kb + hk * a.kh;
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kRows;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D>(Ks, kp, a.ks, k0, a.skv);
+    load_tile<T, D, R>(Ks, kp, a.ks, k0, a.skv);
     __syncthreads();
-    float s[4][4];
-    mm_abt<D>(s, Qs, Ks, ty, tx);
+    float s[N][N];
+    mm_abt<D, R>(s, Qs, Ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < N; ++j) {
         if (!visible(a, q0 + ty + 16 * i, k0 + tx + 16 * j)) continue;
         const float x = s[i][j] * a.scale;
         if (x > m[i]) {
@@ -256,7 +278,7 @@ fa_bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
   }
   // merge the 16 column threads of each row (lanes of one half-warp)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
@@ -275,13 +297,15 @@ fa_bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
 
 // P (and dS) of one (query tile, key tile) pair from the row statistics:
 // p = exp(S·scale − lse) on visible entries, 0 elsewhere.
-__device__ __forceinline__ void probs(float p[4][4], const float s[4][4],
+template <int R>
+__device__ __forceinline__ void probs(float p[R / 16][R / 16],
+                                      const float s[R / 16][R / 16],
                                       const Args& a, const float* lse_s,
                                       int q0, int k0, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R / 16; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R / 16; ++j) {
       const int r = ty + 16 * i;
       p[i][j] = visible(a, q0 + r, k0 + tx + 16 * j)
                     ? expf(s[i][j] * a.scale - lse_s[r])
@@ -289,7 +313,7 @@ __device__ __forceinline__ void probs(float p[4][4], const float s[4][4],
     }
 }
 
-// dK and dV of 64 keys of one (batch, kv head), summed over the group's
+// dK and dV of R keys of one (batch, kv head), summed over the group's
 // query heads and every query tile of the band.  Grid (key tiles, kv
 // heads, batch).
 template <typename T, int D>
@@ -298,68 +322,69 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, Args a) {
+  constexpr int R = kScalarRows<D>, N = R / 16, LP = R + 1;
   extern __shared__ float smem[];
   constexpr int LD = D + 1, DJ = D / 32;
   float* Ks = smem;
-  float* Vs = Ks + kRows * LD;
-  float* Qs = Vs + kRows * LD;
-  float* Gs = Qs + kRows * LD;  // dO
-  float* Ps = Gs + kRows * LD;
-  float* Ss = Ps + kRows * kLdP;  // dS
-  float* lse_s = Ss + kRows * kLdP;
-  float* dl_s = lse_s + kRows;
-  const int k0 = blockIdx.x * kRows, hk = blockIdx.y, b = blockIdx.z;
+  float* Vs = Ks + R * LD;
+  float* Qs = Vs + R * LD;
+  float* Gs = Qs + R * LD;  // dO
+  float* Ps = Gs + R * LD;
+  float* Ss = Ps + R * LP;  // dS
+  float* lse_s = Ss + R * LP;
+  float* dl_s = lse_s + R;
+  const int k0 = blockIdx.x * R, hk = blockIdx.y, b = blockIdx.z;
   const int group = a.n_heads / a.n_kv_heads;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int w = tid / 32, lane = tid % 32;
 
-  load_tile<T, D>(Ks, k + b * a.kb + hk * a.kh, a.ks, k0, a.skv);
-  load_tile<T, D>(Vs, v + b * a.vb + hk * a.vh, a.vs, k0, a.skv);
-  float gk[8][DJ], gv[8][DJ];
+  load_tile<T, D, R>(Ks, k + b * a.kb + hk * a.kh, a.ks, k0, a.skv);
+  load_tile<T, D, R>(Vs, v + b * a.vb + hk * a.vh, a.vs, k0, a.skv);
+  float gk[R / 8][DJ], gv[R / 8][DJ];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < R / 8; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) gk[i][j] = gv[i][j] = 0.f;
 
-  const int nq = (a.sq + kRows - 1) / kRows;
-  const int qt_lo = a.causal ? k0 / kRows : 0;
+  const int nq = (a.sq + R - 1) / R;
+  const int qt_lo = a.causal ? k0 / R : 0;
   int qt_hi = nq;
   if (a.window >= 0)
-    qt_hi = min(nq, (min(k0 + kRows, a.skv) - 1 + a.window) / kRows + 1);
+    qt_hi = min(nq, (min(k0 + R, a.skv) - 1 + a.window) / R + 1);
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const int64_t row_base = ((int64_t)b * a.n_heads + h) * a.sq;
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * kRows;
+      const int q0 = qt * R;
       __syncthreads();
-      load_tile<T, D>(Qs, q + b * a.qb + h * a.qh, a.qs, q0, a.sq);
-      load_tile<T, D>(Gs, dout + row_base * D, D, q0, a.sq);
-      if (tid < kRows) {
+      load_tile<T, D, R>(Qs, q + b * a.qb + h * a.qh, a.qs, q0, a.sq);
+      load_tile<T, D, R>(Gs, dout + row_base * D, D, q0, a.sq);
+      if (tid < R) {
         const bool in = q0 + tid < a.sq;
         lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
         dl_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
       }
       __syncthreads();
-      float s[4][4], p[4][4], dp[4][4];
-      mm_abt<D>(s, Qs, Ks, ty, tx);
-      probs(p, s, a, lse_s, q0, k0, ty, tx);
-      mm_abt<D>(dp, Gs, Vs, ty, tx);
+      float s[N][N], p[N][N], dp[N][N];
+      mm_abt<D, R>(s, Qs, Ks, ty, tx);
+      probs<R>(p, s, a, lse_s, q0, k0, ty, tx);
+      mm_abt<D, R>(dp, Gs, Vs, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < N; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < N; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
-          Ps[r * kLdP + c] = p[i][j];
-          Ss[r * kLdP + c] = p[i][j] * (dp[i][j] - dl_s[r]);
+          Ps[r * LP + c] = p[i][j];
+          Ss[r * LP + c] = p[i][j] * (dp[i][j] - dl_s[r]);
         }
       __syncthreads();
-      mm_atb_acc<D>(gv, Ps, Gs, w, lane);
-      mm_atb_acc<D>(gk, Ss, Qs, w, lane);
+      mm_atb_acc<D, R>(gv, Ps, Gs, w, lane);
+      mm_atb_acc<D, R>(gk, Ss, Qs, w, lane);
     }
   }
   const int64_t base = ((int64_t)b * a.n_kv_heads + hk) * a.skv;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < R / 8; ++i) {
     const int key = k0 + w + 8 * i;
     if (key >= a.skv) continue;
 #pragma unroll
@@ -371,7 +396,7 @@ fa_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dQ of 64 query rows of one (batch, head), over the key tiles of the
+// dQ of R query rows of one (batch, head), over the key tiles of the
 // band.  Grid (query tiles, heads, batch).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -379,59 +404,60 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, Args a) {
+  constexpr int R = kScalarRows<D>, N = R / 16, LP = R + 1;
   extern __shared__ float smem[];
   constexpr int LD = D + 1, DJ = D / 32;
   float* Qs = smem;
-  float* Gs = Qs + kRows * LD;  // dO
-  float* Ks = Gs + kRows * LD;
-  float* Vs = Ks + kRows * LD;
-  float* Ss = Vs + kRows * LD;  // dS
-  float* lse_s = Ss + kRows * kLdP;
-  float* dl_s = lse_s + kRows;
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  float* Gs = Qs + R * LD;  // dO
+  float* Ks = Gs + R * LD;
+  float* Vs = Ks + R * LD;
+  float* Ss = Vs + R * LD;  // dS
+  float* lse_s = Ss + R * LP;
+  float* dl_s = lse_s + R;
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.n_heads / a.n_kv_heads);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int w = tid / 32, lane = tid % 32;
   const int64_t row_base = ((int64_t)b * a.n_heads + h) * a.sq;
 
-  load_tile<T, D>(Qs, q + b * a.qb + h * a.qh, a.qs, q0, a.sq);
-  load_tile<T, D>(Gs, dout + row_base * D, D, q0, a.sq);
-  if (tid < kRows) {
+  load_tile<T, D, R>(Qs, q + b * a.qb + h * a.qh, a.qs, q0, a.sq);
+  load_tile<T, D, R>(Gs, dout + row_base * D, D, q0, a.sq);
+  if (tid < R) {
     const bool in = q0 + tid < a.sq;
     lse_s[tid] = in ? lse[row_base + q0 + tid] : 0.f;
     dl_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
   }
-  float gq[8][DJ];
+  float gq[R / 8][DJ];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < R / 8; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) gq[i][j] = 0.f;
   int lo, hi;
-  key_tiles(a, q0, &lo, &hi);
+  key_tiles<R>(a, q0, &lo, &hi);
   const T* kp = k + b * a.kb + hk * a.kh;
   const T* vp = v + b * a.vb + hk * a.vh;
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kRows;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<T, D>(Ks, kp, a.ks, k0, a.skv);
-    load_tile<T, D>(Vs, vp, a.vs, k0, a.skv);
+    load_tile<T, D, R>(Ks, kp, a.ks, k0, a.skv);
+    load_tile<T, D, R>(Vs, vp, a.vs, k0, a.skv);
     __syncthreads();
-    float s[4][4], p[4][4], dp[4][4];
-    mm_abt<D>(s, Qs, Ks, ty, tx);
-    probs(p, s, a, lse_s, q0, k0, ty, tx);
-    mm_abt<D>(dp, Gs, Vs, ty, tx);
+    float s[N][N], p[N][N], dp[N][N];
+    mm_abt<D, R>(s, Qs, Ks, ty, tx);
+    probs<R>(p, s, a, lse_s, q0, k0, ty, tx);
+    mm_abt<D, R>(dp, Gs, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < N; ++j) {
         const int r = ty + 16 * i;
-        Ss[r * kLdP + tx + 16 * j] = p[i][j] * (dp[i][j] - dl_s[r]);
+        Ss[r * LP + tx + 16 * j] = p[i][j] * (dp[i][j] - dl_s[r]);
       }
     __syncthreads();
-    mm_ab_acc<D>(gq, Ss, Ks, w, lane);
+    mm_ab_acc<D, R>(gq, Ss, Ks, w, lane);
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < R / 8; ++i) {
     const int row = q0 + w + 8 * i;
     if (row >= a.sq) continue;
 #pragma unroll
@@ -443,17 +469,17 @@ fa_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int D>
 constexpr int stats_smem() {
-  return 2 * kRows * (D + 1) * (int)sizeof(float);
+  return 2 * kScalarRows<D> * (D + 1) * (int)sizeof(float);
 }
 template <int D>
 constexpr int dkdv_smem() {
-  return (4 * kRows * (D + 1) + 2 * kRows * kLdP + 2 * kRows) *
-         (int)sizeof(float);
+  constexpr int R = kScalarRows<D>;
+  return (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R) * (int)sizeof(float);
 }
 template <int D>
 constexpr int dq_smem() {
-  return (4 * kRows * (D + 1) + kRows * kLdP + 2 * kRows) *
-         (int)sizeof(float);
+  constexpr int R = kScalarRows<D>;
+  return (4 * R * (D + 1) + R * (R + 1) + 2 * R) * (int)sizeof(float);
 }
 
 // The scalar kernels (float32): row statistics, dK and dV, dQ.
@@ -462,6 +488,7 @@ int launch_scalar(const void* q, const void* k, const void* v, const void* o,
                   const void* dout, void* dq, void* dk, void* dv, float* lse,
                   float* delta, const Args& a, cudaStream_t s) {
   using T = float;
+  constexpr int R = kScalarRows<D>;
   cudaError_t e = cudaFuncSetAttribute(
       fa_bwd_stats<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       stats_smem<D>());
@@ -475,7 +502,7 @@ int launch_scalar(const void* q, const void* k, const void* v, const void* o,
                              dq_smem<D>());
   if (e != cudaSuccess) return (int)e;
   const dim3 block(kThreads);
-  const int nq = (a.sq + kRows - 1) / kRows, nk = (a.skv + kRows - 1) / kRows;
+  const int nq = (a.sq + R - 1) / R, nk = (a.skv + R - 1) / R;
   const T* tq = (const T*)q;
   const T* tk = (const T*)k;
   const T* tv = (const T*)v;
@@ -589,21 +616,23 @@ __device__ __forceinline__ void product_fx(float (&acc)[D / 2],
   wgmma_commit();
 }
 
-// A 64 x D accumulator's rows from `row0` (wgmma's D layout: this thread
-// holds rows row0 + warp·16 + group and + 8) as bf16, times `scale`, into
-// the contiguous (rows, D) `out`; rows at or past `n_rows` are not stored.
-template <int D>
+// Columns [C0, C0 + NC) of a 64 x N accumulator's rows from `row0`
+// (wgmma's D layout: this thread holds rows row0 + warp·16 + group and + 8)
+// as bf16, times `scale`, into `out` (row stride `ld`, column 0 at the
+// accumulator's column 0); rows at or past `n_rows` are not stored.
+template <int N, int C0 = 0, int NC = N>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[D / 2],
-                                           int row0, int n_rows, float scale,
-                                           int warp, int group, int tig) {
+                                           const float (&acc)[N / 2],
+                                           int row0, int n_rows, int ld,
+                                           float scale, int warp, int group,
+                                           int tig) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + warp * 16 + group + 8 * r;
     if (row >= n_rows) continue;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (int64_t)row * D);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (int64_t)row * ld);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = C0 / 8; j < (C0 + NC) / 8; ++j)
       dst[4 * j + tig] = pack_bf16(acc[4 * j + 2 * r] * scale,
                                    acc[4 * j + 2 * r + 1] * scale);
   }
@@ -646,16 +675,22 @@ fa_bwd_prep(const __nv_bfloat16* __restrict__ o,
 
 // Shared memory of a dK/dV CTA at head dim D: K and V (64 keys each); for
 // each of the two consumer warpgroups a ring of STAGES (Q, dO) tiles of 64
-// query rows, each stored as D / 64 slabs of (rows x 128 bytes), 128-byte
-// swizzled; the rings' LSE and D rows; the mbarriers (K and V full, then
-// full and empty for each warpgroup's stages).
+// query rows (at D 256 one ring the two share: SPLIT), each stored as D /
+// 64 slabs of (rows x 128 bytes), 128-byte swizzled; the rings' LSE and D
+// rows; the mbarriers (K and V full, then full and empty for each stage).
 template <int D>
 struct DkdvTile {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
   static constexpr int SLABS = D / kSlabCols;
-  static constexpr int NWG = 2;     // consumer warpgroups
-  static constexpr int STAGES = 2;  // a warpgroup's
-  static constexpr int SLOTS = NWG * STAGES;
+  static constexpr int NWG = 2;  // consumer warpgroups
+  // D 256: both warpgroups compute every item, each for its half of dK's
+  // and dV's columns (64 + 64 accumulators a thread, as at D 128); two
+  // (Q, dO) stages of 64 KB are all that fit beside K and V
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int DC = SPLIT ? D / 2 : D;  // columns a warpgroup sums
+  static constexpr int STAGES = 2;              // a ring's
+  static constexpr int SLOTS = SPLIT ? STAGES : NWG * STAGES;
+  static constexpr int RELEASERS = SPLIT ? 2 * 4 : 4;  // warps a slot waits
   static constexpr uint32_t KV_SLAB = kWgRows * kRowBytes;
   static constexpr uint32_t KV_BYTES = SLABS * KV_SLAB;
   static constexpr uint32_t T_SLAB = kTileRows * kRowBytes;
@@ -667,7 +702,7 @@ struct DkdvTile {
   static constexpr int SMEM = 2 * KV_BYTES + SLOTS * (SLOT_BYTES + STAT_BYTES) +
                               8 * (1 + 2 * SLOTS) + 1024;
   // the two warpgroups' partial sums pass through the rings at the end
-  static_assert(SLOTS * SLOT_BYTES >= 2 * D * kWgThreads * 2,
+  static_assert(SPLIT || SLOTS * SLOT_BYTES >= 2 * D * kWgThreads * 2,
                 "room for the partial sums");
 };
 
@@ -675,6 +710,9 @@ struct DkdvTile {
 // query heads and the query tiles of the band: the ring's items (head g,
 // query tile qt), in order, are dealt to the two warpgroups in turn, each
 // sums its own, and the two sums are added in a fixed order at the end.
+// At D 256 (SPLIT) both warpgroups take every item, each summing its half
+// of the columns (Sᵀ and dPᵀ, which contract over all 256, are computed by
+// both: 1.5x the pass's products), and each stores its half.
 // Grid (kv heads, batch, key blocks): the first key blocks, the longest
 // bands under a causal mask, start first.
 template <int D>
@@ -712,7 +750,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < T::SLOTS; ++i) {
       mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, 4);  // each warp of its warpgroup arrives
+      mbar_init(empty + 8 * i, T::RELEASERS);  // each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -733,8 +771,9 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int it = 0; it < n_items; ++it) {
       const int h = hk * a.group + it / n_tiles;
       const int q0 = (qt_lo + it % n_tiles) * kTileRows;
-      const int n = it / NWG;  // the warpgroup's own item count
-      const int slot = (it % NWG) * T::STAGES + n % T::STAGES;
+      // the ring's own item count, and its slot
+      const int n = T::SPLIT ? it : it / NWG;
+      const int slot = (T::SPLIT ? 0 : (it % NWG) * T::STAGES) + n % T::STAGES;
       mbar_wait(empty + 8 * slot, ((n / T::STAGES) & 1) ^ 1);
       mbar_expect_tx(full + 8 * slot, T::SLOT_BYTES + T::STAT_BYTES);
       const uint32_t dst = ring + slot * T::SLOT_BYTES;
@@ -763,14 +802,19 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   // rows of the tile) are 8j + 2·tig + e, j < 8, e < 2
   const int key0 = k0 + warp * 16 + group;
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  constexpr int DC = T::DC;
+  float dk_acc[DC / 2], dv_acc[DC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DC / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   float s[32], dp[32];
   uint32_t pf[4][4], df[4][4];
-  // this warpgroup's n-th item is the ring's item wg + NWG·n
-  const int n_mine = (n_items - wg + NWG - 1) / NWG;
-  auto slot = [&](int n) { return wg * T::STAGES + n % T::STAGES; };
+  // this warpgroup's n-th item is the ring's item wg + NWG·n (SPLIT: n),
+  // and its columns of dO and Q start `cols` bytes into a tile
+  const int n_mine = T::SPLIT ? n_items : (n_items - wg + NWG - 1) / NWG;
+  const uint32_t cols = T::SPLIT ? wg * (DC / kSlabCols) * T::T_SLAB : 0;
+  auto slot = [&](int n) {
+    return (T::SPLIT ? 0 : wg * T::STAGES) + n % T::STAGES;
+  };
   // Sᵀ = K·Qᵀ of item n, once it has landed: one group
   auto issue_s = [&](int n) {
     mbar_wait(full + 8 * slot(n), (n / T::STAGES) & 1);
@@ -786,7 +830,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   // and dV would not fit in the consumers' registers.)
   if (n_mine > 0) issue_s(0);
   for (int n = 0; n < n_mine; ++n) {
-    const int it = wg + NWG * n;
+    const int it = T::SPLIT ? n : wg + NWG * n;
     const int q0 = (qt_lo + it % n_tiles) * kTileRows;
     const uint32_t q_st = ring + slot(n) * T::SLOT_BYTES;
     const uint32_t do_st = q_st + T::T_BYTES;
@@ -816,7 +860,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     to_a_fragments(s, pf);
     wgmma_fence();
-    product_fx<D>(dv_acc, pf, do_st, T::T_SLAB);  // dV += Pᵀ·dO
+    product_fx<DC>(dv_acc, pf, do_st + cols, T::T_SLAB);  // dV += Pᵀ·dO
     wgmma_wait_all_but_one();                     // dPᵀ
     fence_regs(dp);
 #pragma unroll
@@ -826,7 +870,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     to_a_fragments(dp, df);
     wgmma_fence();
-    product_fx<D>(dk_acc, df, q_st, T::T_SLAB);  // dK += dSᵀ·Q
+    product_fx<DC>(dk_acc, df, q_st + cols, T::T_SLAB);  // dK += dSᵀ·Q
     if (n + 1 < n_mine) issue_s(n + 1);
   }
   if (n_mine > 0) {
@@ -836,42 +880,60 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     release(empty + 8 * slot(n_mine - 1), lane);
   }
 
-  // warpgroup 1 hands over its dK, warpgroup 0 its dV, through the rings
-  // (every tile is consumed): each thread's registers to the same thread
-  // of the other warpgroup, in the same layout; then warpgroup 0 stores dK
-  // and warpgroup 1 dV, each element summed as warpgroup 0's + warpgroup
-  // 1's
   const int64_t base = ((int64_t)b * a.n_kv_heads + hk) * a.skv * D;
-  float* part = reinterpret_cast<float*>(smem_raw + (ring - raw)) + tid;
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * kWgThreads) : "memory");
-  if (wg == 0) {
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) part[i * kWgThreads] = dv_acc[i];
+  if constexpr (T::SPLIT) {
+    // each warpgroup summed every item for its own columns
+    store_rows<DC>(dk + base + wg * DC, dk_acc, k0, a.skv, D, a.scale, warp,
+                   group, tig);
+    store_rows<DC>(dv + base + wg * DC, dv_acc, k0, a.skv, D, 1.f, warp,
+                   group, tig);
   } else {
+    // warpgroup 1 hands over its dK, warpgroup 0 its dV, through the rings
+    // (every tile is consumed): each thread's registers to the same thread
+    // of the other warpgroup, in the same layout; then warpgroup 0 stores dK
+    // and warpgroup 1 dV, each element summed as warpgroup 0's + warpgroup
+    // 1's
+    float* part = reinterpret_cast<float*>(smem_raw + (ring - raw)) + tid;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * kWgThreads) : "memory");
+    if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) part[(D / 2 + i) * kWgThreads] = dk_acc[i];
-  }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * kWgThreads) : "memory");
-  if (wg == 0) {
+      for (int i = 0; i < D / 2; ++i) part[i * kWgThreads] = dv_acc[i];
+    } else {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] += part[(D / 2 + i) * kWgThreads];
-    store_rows<D>(dk + base, dk_acc, k0, a.skv, a.scale, warp, group, tig);
-  } else {
+      for (int i = 0; i < D / 2; ++i)
+        part[(D / 2 + i) * kWgThreads] = dk_acc[i];
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * kWgThreads) : "memory");
+    if (wg == 0) {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dv_acc[i] = part[i * kWgThreads] + dv_acc[i];
-    store_rows<D>(dv + base, dv_acc, k0, a.skv, 1.f, warp, group, tig);
+      for (int i = 0; i < D / 2; ++i)
+        dk_acc[i] += part[(D / 2 + i) * kWgThreads];
+      store_rows<D>(dk + base, dk_acc, k0, a.skv, D, a.scale, warp, group,
+                    tig);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        dv_acc[i] = part[i * kWgThreads] + dv_acc[i];
+      store_rows<D>(dv + base, dv_acc, k0, a.skv, D, 1.f, warp, group, tig);
+    }
   }
 }
 
-// Shared memory of a dQ CTA at head dim D: Q and dO (128 rows each), then
+// Shared memory of a dQ CTA at head dim D: Q and dO (ROWS rows each), then
 // a ring of STAGES (K, V) tiles of 64 keys, each as D / 64 slabs; the
 // mbarriers (Q and dO full, then full and empty for each stage).
 template <int D>
 struct DqTile {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
   static constexpr int SLABS = D / kSlabCols;
-  static constexpr int STAGES = D == 64 ? 4 : 3;
-  static constexpr uint32_t Q_SLAB = 2 * kWgRows * kRowBytes;
+  // D 256: 64 rows a CTA, whose (K, V) tiles are dealt to the two
+  // warpgroups in turn, each summing a whole dQ (128 accumulators a
+  // thread) over its own; 128 rows would leave room for one 64 KB stage
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int ROWS = SPLIT ? kWgRows : 2 * kWgRows;
+  static constexpr int STAGES = SPLIT ? 2 : (D == 64 ? 4 : 3);
+  static constexpr int RELEASERS = SPLIT ? 4 : 2 * 4;  // warps a stage waits
+  static constexpr uint32_t Q_SLAB = ROWS * kRowBytes;
   static constexpr uint32_t Q_BYTES = SLABS * Q_SLAB;  // Q or dO
   static constexpr uint32_t KV_SLAB = kTileRows * kRowBytes;
   static constexpr uint32_t KV_BYTES = SLABS * KV_SLAB;  // K or V
@@ -883,7 +945,9 @@ struct DqTile {
 };
 
 // dQ of 128 query rows of one (batch, head) over the key tiles of the
-// band.  Grid (heads, batch, query blocks), the last query blocks (the
+// band, 64 a warpgroup; at D 256 (SPLIT) of 64 rows, the key tiles dealt
+// to the two warpgroups in turn and their sums added in a fixed order at
+// the end.  Grid (heads, batch, query blocks), the last query blocks (the
 // longest causal bands) first.
 template <int D>
 __global__ void __launch_bounds__(DqTile<D>::THREADS, 1)
@@ -903,10 +967,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const uint32_t full = q_full + 8, empty = full + 8 * T::STAGES;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * 2 * kWgRows;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * T::ROWS;
   const int nk = (a.skv + kTileRows - 1) / kTileRows;
   int kb_lo = 0, kb_hi = nk;
-  if (a.causal) kb_hi = min(nk, (q0 + 2 * kWgRows - 1) / kTileRows + 1);
+  if (a.causal) kb_hi = min(nk, (q0 + T::ROWS - 1) / kTileRows + 1);
   if (a.window >= 0 && q0 - a.window > 0)
     kb_lo = (q0 - a.window) / kTileRows;
 
@@ -915,7 +979,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int i = 0; i < T::STAGES; ++i) {
       mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, 8);  // each consumer warp arrives
+      mbar_init(empty + 8 * i, T::RELEASERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -930,7 +994,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int j = 0; j < T::SLABS; ++j)
 #pragma unroll
-      for (int w = 0; w < 2; ++w) {
+      for (int w = 0; w < T::ROWS / kWgRows; ++w) {
         const uint32_t at = j * T::Q_SLAB + w * kWgRows * kRowBytes;
         tma_load(q_s + at, &q_map, a.orders.x, q_full, j * kSlabCols,
                  q0 + w * kWgRows, h, b);
@@ -957,10 +1021,11 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   const int tid = threadIdx.x % kWgThreads;
   const int warp = tid / 32, lane = tid % 32, group = lane / 4, tig = lane % 4;
-  const int r_lo = q0 + wg * kWgRows;  // this warpgroup's first row
+  // this warpgroup's first row (SPLIT: the CTA's)
+  const int r_lo = q0 + (T::SPLIT ? 0 : wg * kWgRows);
   const bool live = r_lo < a.sq;
-  const uint32_t q_wg = q_s + wg * kWgRows * kRowBytes;
-  const uint32_t do_wg = do_s + wg * kWgRows * kRowBytes;
+  const uint32_t q_wg = q_s + (T::SPLIT ? 0 : wg * kWgRows * kRowBytes);
+  const uint32_t do_wg = do_s + (T::SPLIT ? 0 : wg * kWgRows * kRowBytes);
   const Band band{a.causal, a.window};
   // this thread's rows: row0 and row0 + 8 (the padded buffers hold them)
   const int row0 = r_lo + warp * 16 + group;
@@ -991,6 +1056,76 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(full + 8 * slot(kb), phase(kb));
     release(empty + 8 * slot(kb), lane);
   };
+  if constexpr (T::SPLIT) {
+    // tile kb_lo + i is warpgroup (i % 2)'s, in ring slot i % 2: each
+    // warpgroup waits for its tile, computes it whole, and releases it
+    // while the other computes its own
+    mbar_wait(q_full, 0);
+    for (int kb = kb_lo + wg; kb < kb_hi; kb += 2) {
+      const int k0 = kb * kTileRows;
+      if (band.outside(r_lo, k0)) {
+        pass(kb);
+        continue;
+      }
+      issue_s(kb);
+      wgmma_wait_all_but_one();  // S
+      fence_regs(s);
+      if (band.inside(r_lo, k0)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = fast_exp2(fmaf(s[i], a.scale_log2, -l2[(i >> 1) & 1]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i >> 1) & 1;
+          const int key = k0 + (i >> 2) * 8 + 2 * tig + (i & 1);
+          s[i] = band.visible(row0 + 8 * r, key)
+                     ? fast_exp2(fmaf(s[i], a.scale_log2, -l2[r]))
+                     : 0.f;
+        }
+      }
+      wgmma_wait_all();  // dP
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - d2[(i >> 1) & 1]);
+      to_a_fragments(dp, df);
+      wgmma_fence();
+      product_fx<D>(dq_acc, df, ring + slot(kb) * T::STAGE_BYTES,
+                    T::KV_SLAB);  // dQ += dS·K
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      release(empty + 8 * slot(kb), lane);
+    }
+    // warpgroup 0 hands over its columns D/2.., warpgroup 1 its columns
+    // ..D/2, through the ring (every tile is consumed); each half is then
+    // summed as warpgroup 0's + warpgroup 1's and stored by the warpgroup
+    // that holds it
+    float* part = reinterpret_cast<float*>(smem_raw + (ring - smem_addr(
+                                                          smem_raw))) + tid;
+    constexpr int H = D / 4;  // accumulators a thread holds of each half
+    asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWgThreads) : "memory");
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < H; ++i) part[(H + i) * kWgThreads] = dq_acc[H + i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < H; ++i) part[i * kWgThreads] = dq_acc[i];
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWgThreads) : "memory");
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < H; ++i) dq_acc[i] += part[i * kWgThreads];
+      store_rows<D, 0, D / 2>(dq + bh * a.sq * D, dq_acc, r_lo, a.sq, D,
+                              a.scale, warp, group, tig);
+    } else {
+#pragma unroll
+      for (int i = 0; i < H; ++i)
+        dq_acc[H + i] = part[(H + i) * kWgThreads] + dq_acc[H + i];
+      store_rows<D, D / 2, D / 2>(dq + bh * a.sq * D, dq_acc, r_lo, a.sq, D,
+                                  a.scale, warp, group, tig);
+    }
+    return;
+  }
   // the tiles [x, y) this warpgroup computes: the band is contiguous, so
   // the others lie at the ends of the CTA's [kb_lo, kb_hi)
   int x = kb_lo, y = live ? kb_hi : kb_lo;
@@ -1041,8 +1176,8 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
   for (int kb = y; kb < kb_hi; ++kb) pass(kb);
   if (!live) return;
-  store_rows<D>(dq + bh * a.sq * D, dq_acc, r_lo, a.sq, a.scale, warp, group,
-                tig);
+  store_rows<D>(dq + bh * a.sq * D, dq_acc, r_lo, a.sq, D, a.scale, warp,
+                group, tig);
 }
 
 template <typename K>
@@ -1111,8 +1246,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   using TQ = DqTile<D>;
   e = set_smem(fa_bwd_dq_wgmma<D>, TQ::SMEM);
   if (e) return e;
-  fa_bwd_dq_wgmma<D><<<dim3(n_heads, batch, (sq + 2 * kWgRows - 1) /
-                                                (2 * kWgRows)),
+  fa_bwd_dq_wgmma<D><<<dim3(n_heads, batch, (sq + TQ::ROWS - 1) / TQ::ROWS),
                        TQ::THREADS, TQ::SMEM, s>>>(
       maps[0], maps[1], maps[2], maps[3], lse2, delta,
       (__nv_bfloat16*)dq, a);
@@ -1150,9 +1284,9 @@ int attributes_d(int which, int* attrs) {
 // (the scalar kernels): lse and scratch are (B, H, Sq) float32 scratch.
 // dtype 1 bf16 (TMA + wgmma; q, k and v 16-byte aligned, their strides
 // multiples of 16 bytes): lse is the forward's row log-sum-exp (B, H, Sq)
-// float32, scratch 2 x (B, H, Sq rounded up to 128) float32.  Head dim 64 or 128.  Returns 0,
-// a cudaError_t, or (TMA map encoding) kNoEncoder / kEncodeFailed +
-// CUresult.
+// float32, scratch 2 x (B, H, Sq rounded up to 128) float32.  Head dim
+// 64, 128 or 256.  Returns 0, a cudaError_t, or (TMA map encoding)
+// kNoEncoder / kEncodeFailed + CUresult.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* scratch,
@@ -1170,6 +1304,7 @@ extern "C" int flash_attention_bwd_launch(
                              causal, window, s);
     FA_BWD_WGMMA(64)
     FA_BWD_WGMMA(128)
+    FA_BWD_WGMMA(256)
 #undef FA_BWD_WGMMA
     return (int)cudaErrorInvalidValue;
   }
@@ -1198,15 +1333,19 @@ extern "C" int flash_attention_bwd_launch(
   if (d == 128)
     return launch_scalar<128>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
                               (float*)scratch, a, s);
+  if (d == 256)
+    return launch_scalar<256>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
+                              (float*)scratch, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernels' build at head dim d (64 or 128): which 0 the
+// The tensor-core kernels' build at head dim d (64, 128 or 256): which 0 the
 // dK/dV kernel, 1 the dQ kernel.  attrs gets registers a thread, static
 // shared bytes, the dynamic shared bytes it is launched with, local
 // (spill) bytes a thread, and max threads a block.
 extern "C" int flash_attention_bwd_attributes(int d, int which, int* attrs) {
   if (d == 64) return attributes_d<64>(which, attrs);
   if (d == 128) return attributes_d<128>(which, attrs);
+  if (d == 256) return attributes_d<256>(which, attrs);
   return (int)cudaErrorInvalidValue;
 }

@@ -47,9 +47,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-#: head dims the backward kernel is built for (whisper-tiny's 64 and
-#: qwen2.5-3b's 128, the two that train on the card)
-BWD_HEAD_DIMS = (64, 128)
+#: head dims the backward kernel is built for (whisper-tiny's 64,
+#: qwen2.5-3b's 128, recurrentgemma-9b's and gemma-7b's 256)
+BWD_HEAD_DIMS = (64, 128, 256)
 #: bf16 at these head dims runs on the TMA + ``wgmma`` kernel; every other
 #: input on the scalar-FMA kernel
 WGMMA_HEAD_DIMS = (64, 128, 256)
@@ -63,10 +63,12 @@ _NO_ENCODER, _ENCODE_FAILED = 199999, 200000
 #: the backward's tensor-core kernels: 64 x 64 tiles; a dK/dV CTA owns 64
 #: keys and deals the ring's (Q, dO) tiles to its two consumer warpgroups
 #: in turn; a dQ CTA owns 128 query rows, 64 a warpgroup, over (K, V)
-#: tiles of 64 keys
+#: tiles of 64 keys.  At head dim BWD_SPLIT_D both passes split otherwise
+#: (:func:`bwd_tile_schedule`)
 BWD_TILE = 64
 BWD_DQ_ROWS = 2 * BWD_TILE
 BWD_DKDV_WARPGROUPS = 2
+BWD_SPLIT_D = 256
 #: the row statistics' buffers are padded to this many rows a head
 BWD_PAD_ROWS = 128
 
@@ -89,7 +91,8 @@ def bwd_kernel_for(dtype: torch.dtype, d: int) -> str:
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention's backward kernel is built for head dims "
-            f"{BWD_HEAD_DIMS}, not {d}")
+            f"{BWD_HEAD_DIMS}, not {d} (ROADMAP.md queue B item 3: B3 at "
+            f"head dim 96)")
     return "wgmma" if dtype == torch.bfloat16 else "scalar"
 
 
@@ -160,24 +163,38 @@ def _bwd_band(q0: int, k0: int, causal: bool, w: int) -> tuple[bool, bool]:
     return outside, inside
 
 
+def bwd_dq_rows(d: int) -> int:
+    """Query rows a dQ CTA of the tensor-core backward owns at head dim
+    ``d``: :data:`BWD_DQ_ROWS`, or one tile at :data:`BWD_SPLIT_D`, where
+    Q and dO of 128 rows (128 KB) leave room for one 64 KB (K, V) stage."""
+    return BWD_TILE if d == BWD_SPLIT_D else BWD_DQ_ROWS
+
+
 def bwd_tile_schedule(sq: int, skv: int, d: int, causal: bool,
                       window: int | None, group: int) -> dict:
     """The tensor-core backward's schedule, as ``fa_bwd_dkdv_wgmma`` and
-    ``fa_bwd_dq_wgmma`` compute it, in launch order (at head dims 64 and
-    128 alike, ``d`` changes no tile).
+    ``fa_bwd_dq_wgmma`` compute it, in launch order.  Head dims 64 and 128
+    share one schedule; at :data:`BWD_SPLIT_D` the warpgroups split the
+    work otherwise (``SPLIT`` in ``csrc/flash_attention_bwd.cu``).
 
     ``"dkdv"``: a CTA a key block ``kb`` of :data:`BWD_TILE` keys (of one
     batch and kv head); ``"items"`` the ring's (query head ``g`` of the
     group, query tile ``qt``) in the order the producer loads them (every
     one meets the band); for each of its :data:`BWD_DKDV_WARPGROUPS`
-    consumer warpgroups the items it computes, dealt in turn, as ``(g, qt,
-    masked)``.  ``"dq"``: a CTA a query block ``qb`` of
-    :data:`BWD_DQ_ROWS` rows, its key tiles ``[kb_lo, kb_hi)`` and, for
-    each of its two warpgroups, the tiles it computes as ``(kb,
-    masked)``.  A tile wholly outside the band is skipped; one wholly
+    consumer warpgroups the items it computes as ``(g, qt, masked)``, and
+    ``"columns"`` the ``[c0, c1)`` of dK and dV it sums: the items dealt in
+    turn, every column (64, 128), or every item, half the columns each
+    (256).  ``"dq"``: a CTA a query block ``qb`` of :func:`bwd_dq_rows`
+    rows, its key tiles ``[kb_lo, kb_hi)``, and for each of its two
+    warpgroups its ``"rows"`` ``[r0, r1)`` and the tiles it computes as
+    ``(kb, masked)``: 64 rows a warpgroup over every tile of its band (64,
+    128), or the CTA's 64 rows over the tiles dealt in turn, the two sums
+    added (256).  A tile wholly outside the band is skipped; one wholly
     inside it runs without the mask."""
     w = -1 if window is None else window
     t = BWD_TILE
+    nwg = BWD_DKDV_WARPGROUPS
+    split = d == BWD_SPLIT_D
     nq, nk = -(-sq // t), -(-skv // t)
     dkdv = []
     for kb in range(nk):
@@ -187,28 +204,38 @@ def bwd_tile_schedule(sq: int, skv: int, d: int, causal: bool,
         items = [(g, qt) for g in range(group) for qt in range(qt_lo, qt_hi)]
         tiles = [(g, qt, not _bwd_band(qt * t, k0, causal, w)[1])
                  for g, qt in items]
-        dkdv.append({"kb": kb, "items": items,
-                     "warpgroups": [tiles[wg::BWD_DKDV_WARPGROUPS]
-                                    for wg in range(BWD_DKDV_WARPGROUPS)]})
+        if split:
+            mine = [tiles] * nwg
+            columns = [(wg * d // nwg, (wg + 1) * d // nwg)
+                       for wg in range(nwg)]
+        else:
+            mine = [tiles[wg::nwg] for wg in range(nwg)]
+            columns = [(0, d)] * nwg
+        dkdv.append({"kb": kb, "items": items, "warpgroups": mine,
+                     "columns": columns})
+    rows = bwd_dq_rows(d)
     dq = []
-    for qb in reversed(range(-(-sq // BWD_DQ_ROWS))):
-        q0 = qb * BWD_DQ_ROWS
+    for qb in reversed(range(-(-sq // rows))):
+        q0 = qb * rows
         kb_lo, kb_hi = 0, nk
         if causal:
-            kb_hi = min(nk, (q0 + BWD_DQ_ROWS - 1) // t + 1)
+            kb_hi = min(nk, (q0 + rows - 1) // t + 1)
         if w >= 0 and q0 - w > 0:
             kb_lo = (q0 - w) // t
-        groups = []
-        for wg in range(BWD_DQ_ROWS // t):
-            r_lo = q0 + wg * t
+        groups, spans = [], []
+        for wg in range(2):
+            r_lo = q0 if split else q0 + wg * t
+            dealt = (range(kb_lo + wg, kb_hi, 2) if split
+                     else range(kb_lo, kb_hi))
             tiles = []
-            for kb in range(kb_lo, kb_hi):
+            for kb in dealt:
                 outside, inside = _bwd_band(r_lo, kb * t, causal, w)
                 if r_lo < sq and not outside:
                     tiles.append((kb, not inside))
             groups.append(tiles)
+            spans.append((r_lo, r_lo + t))
         dq.append({"qb": qb, "kb_lo": kb_lo, "kb_hi": kb_hi,
-                   "warpgroups": groups})
+                   "warpgroups": groups, "rows": spans})
     return {"dkdv": dkdv, "dq": dq}
 
 
@@ -254,9 +281,9 @@ def wgmma_attributes(d: int) -> dict:
 
 
 def bwd_wgmma_attributes(d: int) -> dict:
-    """The backward's tensor-core kernels at head dim ``d`` (64 or 128), as
-    :func:`wgmma_attributes` reports them: ``"dkdv"`` and ``"dq"``.  Needs
-    a card."""
+    """The backward's tensor-core kernels at head dim ``d`` (64, 128 or
+    256), as :func:`wgmma_attributes` reports them: ``"dkdv"`` and
+    ``"dq"``.  Needs a card."""
     lib = _bwd_lib()
     out = {}
     for which, name in enumerate(("dkdv", "dq")):
@@ -461,12 +488,10 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
                                      window=window, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the backward kernel takes "
-                         f"{BWD_HEAD_DIMS}")
+    kernel = bwd_kernel_for(q.dtype, d)  # raises at a head dim not built
     out = out.to(q.dtype).contiguous()
     dout = dout.to(q.dtype).contiguous()
-    if bwd_kernel_for(q.dtype, d) == "wgmma":
+    if kernel == "wgmma":
         q, k, v = _tma_inputs(q, k, v)
         if lse is None:
             lse = torch.empty((b, h, sq), dtype=torch.float32,

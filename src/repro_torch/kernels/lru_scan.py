@@ -13,6 +13,14 @@ them off a TPU, where ``impl="auto"`` resolves to its XLA path.  (The
 reference's Pallas kernel also needs ``S`` divisible by ``min(256, S)``
 and ``D`` by ``min(128, D)``, its default chunk and channel block; the
 CUDA kernel guards ``t < S`` and ``d < D`` instead, ROADMAP C6.)
+
+Gradients: on a CUDA tensor with grad mode on and an input that requires
+grad, the wrapper runs as a ``torch.autograd.Function`` whose forward is
+the same kernel launch and whose backward is :func:`lru_scan_bwd`
+(``csrc/lru_scan_bwd.cu``, B5-bwd): what ``jax.grad`` of the reference's
+XLA ``lru_scan_ref`` computes, since the reference has no Pallas
+backward.  Without grad the wrapper launches the forward alone and records
+nothing for autograd.
 """
 
 from __future__ import annotations
@@ -39,6 +47,35 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _bwd_lib():
+    lib = build.load("lru_scan_bwd")
+    lib.lru_scan_bwd_launch.argtypes = [_P] * 9 + [_I] * 4 + [_P, _P]
+    lib.lru_scan_bwd_launch.restype = _I
+    lib.lru_scan_bwd_attributes.argtypes = [_I, _P]
+    lib.lru_scan_bwd_attributes.restype = _I
+    return lib
+
+
+#: steps a chunk of the backward kernel (``kC`` in csrc/lru_scan_bwd.cu):
+#: it keeps the float32 state at the start of each
+BWD_CHUNK = 32
+_ATTRIBUTE_NAMES = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                    "max_threads")
+
+
+def bwd_attributes(dtype: torch.dtype) -> dict:
+    """The backward kernel as built for ``dtype`` (float32 or bfloat16),
+    from ``cudaFuncGetAttributes``: registers a thread, static shared
+    memory, local (spill) bytes a thread.  Needs a card."""
+    attrs = (ctypes.c_int * 5)()
+    err = _bwd_lib().lru_scan_bwd_attributes(_DTYPE_CODE[dtype], attrs)
+    if err:
+        raise RuntimeError(f"lru_scan_bwd_attributes failed: cudaError_t "
+                           f"{err}")
+    return dict(zip(_ATTRIBUTE_NAMES, attrs))
+
+
 def check_lru_args(x, a, h0) -> None:
     """Shapes, dtypes and devices; raises on what the kernel does not
     take."""
@@ -58,21 +95,9 @@ def check_lru_args(x, a, h0) -> None:
         raise ValueError(f"empty scan: S={s}, D={d}")
 
 
-def lru_scan(x, a, h0=None):
-    """x, a ``(B, S, D)`` float32 or bfloat16 (unit stride on D or they are
-    copied), optional h0 ``(B, D)``.  Returns ``(y (B, S, D) in x's dtype,
-    final state (B, D) float32)``."""
-    check_lru_args(x, a, h0)
-    if x.device.type == "cpu":
-        return ref.lru_scan_ref(x, a, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, a, h0)):
-        raise NotImplementedError(
-            "lru_scan has no backward kernel yet: its CUDA path cannot "
-            "carry a gradient (ROADMAP.md queue B, B5-bwd); run it under "
-            "torch.no_grad() or with inputs that do not require grad")
+def _launch(x, a, h0):
+    """One launch of the forward kernel on CUDA tensors that
+    :func:`check_lru_args` accepted, counted in ``lru_scan.launches``."""
     bsz, s, d = x.shape
     x, a = (t if t.stride(2) == 1 else t.contiguous() for t in (x, a))
     if h0 is not None:
@@ -94,4 +119,95 @@ def lru_scan(x, a, h0=None):
     return y, h_t
 
 
+class _LRUScan(torch.autograd.Function):
+    """B5 with its backward kernel: the forward is :func:`_launch`, the
+    backward :func:`lru_scan_bwd` on the saved inputs (an incoming
+    gradient of ``None`` is zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, a, h0)
+        return _launch(x, a, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        x, a, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return lru_scan_bwd(x, a, dy, h0, dhT)
+
+
+def lru_scan(x, a, h0=None):
+    """x, a ``(B, S, D)`` float32 or bfloat16 (unit stride on D or they are
+    copied), optional h0 ``(B, D)``.  Returns ``(y (B, S, D) in x's dtype,
+    final state (B, D) float32)``.  On a CUDA tensor that needs a gradient
+    (grad mode on, an input requiring grad) the result carries B5's
+    backward kernel (:func:`lru_scan_bwd`)."""
+    check_lru_args(x, a, h0)
+    if x.device.type == "cpu":
+        return ref.lru_scan_ref(x, a, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a, h0)):
+        return _LRUScan.apply(x, a, h0)
+    return _launch(x, a, h0)
+
+
 lru_scan.launches = 0
+
+
+def lru_scan_bwd(x, a, dy, h0=None, dhT=None):
+    """The gradients ``(dx, da, dh0)`` of :func:`lru_scan` at x, a, h0 for
+    the incoming gradients ``dy`` ``(B, S, D)`` of y and ``dhT`` ``(B, D)``
+    of the final state (None: zeros); dx and da in x's dtype, dh0 in h0's
+    (None without h0).  On CUDA tensors one launch of
+    ``csrc/lru_scan_bwd.cu``, counted in ``lru_scan_bwd.launches``; on CPU
+    tensors the plain version (:func:`~repro_torch.kernels.ref.
+    lru_scan_bwd_ref`)."""
+    check_lru_args(x, a, h0)
+    bsz, s, d = x.shape
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    if dhT is not None and dhT.shape != (bsz, d):
+        raise ValueError(f"dhT must be (B, D) = {(bsz, d)}, got "
+                         f"{tuple(dhT.shape)}")
+    if dy.device != x.device or (dhT is not None
+                                 and dhT.device != x.device):
+        raise ValueError("dy and dhT must be on x's device")
+    if x.device.type == "cpu":
+        return ref.lru_scan_bwd_ref(x, a, dy, h0, dhT)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x, a, dy = (t if t.stride(2) == 1 else t.contiguous()
+                for t in (x, a, dy.to(x.dtype)))
+    h0f, dhT = (None if t is None else t.to(torch.float32).contiguous()
+                for t in (h0, dhT))
+    dx = torch.empty((bsz, s, d), dtype=x.dtype, device=x.device)
+    da = torch.empty_like(dx)
+    dh0 = None if h0 is None else torch.empty((bsz, d), dtype=torch.float32,
+                                              device=x.device)
+    starts = torch.empty((bsz, -(-s // BWD_CHUNK), d), dtype=torch.float32,
+                         device=x.device)
+    strides = (ctypes.c_int64 * 6)(x.stride(0), x.stride(1), a.stride(0),
+                                   a.stride(1), dy.stride(0), dy.stride(1))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = _bwd_lib().lru_scan_bwd_launch(
+            x.data_ptr(), a.data_ptr(), dy.data_ptr(), ptr(h0f), ptr(dhT),
+            dx.data_ptr(), da.data_ptr(), ptr(dh0), starts.data_ptr(),
+            _DTYPE_CODE[x.dtype], bsz, s, d,
+            ctypes.cast(strides, ctypes.c_void_p),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"lru_scan_bwd launch failed: cudaGetLastError() "
+                           f"= {err}")
+    lru_scan_bwd.launches += 1
+    return dx, da, None if dh0 is None else dh0.to(h0.dtype)
+
+
+lru_scan_bwd.launches = 0

@@ -382,3 +382,28 @@ def lru_scan_ref(x, a, h0=None):
         af = torch.cat([af[:, :shift], af[:, shift:] * af[:, :-shift]], dim=1)
         shift *= 2
     return hs.to(x.dtype), hs[:, -1].clone()
+
+
+def lru_scan_bwd_ref(x, a, dy, h0=None, dhT=None):
+    """The plain version of B5's backward: the explicit reverse recurrence
+    in float32 for ``h_t = a_t·h_{t-1} + x_t`` (what ``jax.vjp`` of the
+    reference's ``lru_scan_ref`` computes): ``g_{S-1} = dy_{S-1} + dhT``,
+    ``g_t = dy_t + a_{t+1}·g_{t+1}``, ``dx_t = g_t``, ``da_t =
+    g_t·h_{t-1}`` (h from :func:`lru_scan_ref` in float32, h_{-1} = h0 or
+    zeros), ``dh0 = a_0·g_0``.  x, a, dy ``(B, S, D)``; h0, dhT ``(B, D)``
+    or None (zeros).  Returns ``(dx, da, dh0)``: dx and da in x's and a's
+    dtype, dh0 in h0's (None without h0)."""
+    bsz, s, d = x.shape
+    af = a.float()
+    hs = lru_scan_ref(x.float(), af, h0)[0]
+    start = (torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+             if h0 is None else h0.float())
+    h_prev = torch.cat([start[:, None], hs[:, :-1]], dim=1)
+    carry = (torch.zeros_like(start) if dhT is None else dhT.float())
+    dyf = dy.float()
+    g = torch.empty_like(hs)
+    for t in reversed(range(s)):
+        g[:, t] = dyf[:, t] + carry
+        carry = af[:, t] * g[:, t]
+    dh0 = None if h0 is None else carry.to(h0.dtype)
+    return g.to(x.dtype), (g * h_prev).to(a.dtype), dh0

@@ -14,6 +14,8 @@ the tests that use it, so on a machine with a card and no ``jax``
 runs the kernel cases alone.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -711,16 +713,135 @@ def test_bwd_tile_schedule_starts_the_longest_band(sq, window):
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
-    (torch.bfloat16, 256, None), (torch.float32, 96, None)])
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "scalar"),
+    (torch.bfloat16, 96, None), (torch.float32, 96, None)])
 def test_bwd_kernel_routing(dtype, d, kernel):
-    """Which backward each dtype and head dim goes to: bf16 at 64 and 128
-    to the TMA + wgmma kernels, float32 to the scalar ones; other head dims
-    have none and raise."""
+    """Which backward each dtype and head dim goes to: bf16 at 64, 128 and
+    256 to the TMA + wgmma kernels, float32 to the scalar ones; other head
+    dims have none and raise ``NotImplementedError`` naming the ROADMAP
+    item."""
     if kernel is None:
-        with pytest.raises(NotImplementedError, match="head dims"):
+        with pytest.raises(NotImplementedError,
+                           match="head dims .* queue B item 3"):
             fa_mod.bwd_kernel_for(dtype, d)
     else:
         assert fa_mod.bwd_kernel_for(dtype, d) == kernel
+
+
+#: (sq, skv, causal, window, group) of the backward's schedule at head dim
+#: 256: recurrentgemma-9b's training shape cut to 2,048 rows (window 1,024)
+#: and to 1,024 (a group of 16), gemma-7b's causal MHA, ragged 255 rows, a window narrower than a tile,
+#: bidirectional Sq != Skv, a 4-token sequence
+BWD_SCHEDULE_256_CASES = [
+    (2048, 2048, True, 1024, 2),
+    (1024, 1024, True, 512, 16),
+    (1024, 1024, True, None, 1),
+    (255, 255, True, None, 2),
+    (300, 300, True, 16, 4),
+    (448, 1500, False, None, 1),
+    (4, 4, True, None, 2),
+]
+
+
+@pytest.mark.parametrize("sq,skv,causal,window,group",
+                         BWD_SCHEDULE_256_CASES)
+def test_bwd_tile_schedule_at_head_dim_256_covers_the_band(sq, skv, causal,
+                                                           window, group):
+    """At head dim 256 the dK/dV pass gives every item to both warpgroups,
+    which split dK's and dV's 256 columns between them, and the dQ pass
+    owns 64 rows a CTA with its key tiles dealt to the two warpgroups in
+    turn: every visible (query row, key) pair is computed exactly once for
+    each column half and each query head (dK/dV) and exactly once (dQ); a
+    tile runs masked only where the band's edge crosses it."""
+    d, t = 256, fa_mod.BWD_TILE
+    assert fa_mod.bwd_dq_rows(d) == t and fa_mod.bwd_dq_rows(128) == 2 * t
+    keep = _band_keep(sq, skv, causal, window)
+    sched = fa_mod.bwd_tile_schedule(sq, skv, d, causal, window, group)
+    count = np.zeros((2, group, sq, skv), np.int8)
+    for cta in sched["dkdv"]:
+        kw = cta["kb"] * t
+        assert cta["columns"] == [(0, 128), (128, 256)]
+        for wg, tiles in enumerate(cta["warpgroups"]):
+            assert [(g, qt) for g, qt, _ in tiles] == cta["items"]
+            for g, qt, masked in tiles:
+                r, c = slice(qt * t, (qt + 1) * t), slice(kw, kw + t)
+                count[wg, g, r, c] += keep[r, c]
+                assert masked == _edge_tile(qt * t, kw, causal, window)
+    assert (count == keep[None, None]).all()
+    count = np.zeros((sq, skv), np.int8)
+    qbs = [cta["qb"] for cta in sched["dq"]]
+    assert qbs == sorted(qbs, reverse=True) and qbs[-1] == 0
+    for cta in sched["dq"]:
+        q0 = cta["qb"] * t
+        assert cta["rows"] == [(q0, q0 + t)] * 2
+        dealt = [[kb for kb, _ in tiles] for tiles in cta["warpgroups"]]
+        for wg, kbs in enumerate(dealt):
+            assert all((kb - cta["kb_lo"]) % 2 == wg for kb in kbs)
+        for tiles in cta["warpgroups"]:
+            for kb, masked in tiles:
+                assert cta["kb_lo"] <= kb < cta["kb_hi"]
+                r, c = slice(q0, q0 + t), slice(kb * t, (kb + 1) * t)
+                count[r, c] += keep[r, c]
+                assert masked == _edge_tile(q0, kb * t, causal, window)
+    assert (count == keep).all()
+
+
+@functools.cache
+def _jattention_vjp(causal, window):
+    """``jax.vjp`` of the reference's ``attention_ref``, jitted: (q, k, v,
+    dout) -> (dq, dk, dv)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+
+    def grads(q, k, v, do):
+        _, vjp = jax.vjp(lambda *t: jref.attention_ref(
+            *t, causal=causal, window=window), q, k, v)
+        return vjp(do)
+    return jax.jit(grads)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 24), (True, None)])
+def test_attention_bwd_plain_at_head_dim_256_matches_jax_vjp(causal, window,
+                                                             dtype):
+    """The backward's plain version (autograd through ``attention_ref``,
+    what ``flash_attention_bwd`` runs on CPU tensors) at head dim 256 with
+    GQA 16:1, recurrentgemma-9b's heads, under a window narrower than the
+    sequence, against ``jax.vjp`` of the reference's ``attention_ref``:
+    each gradient within FA_BWD_RTOL of its max |value|."""
+    jnp = pytest.importorskip("jax.numpy")
+    b, h, hkv, s, d = 1, 16, 1, 80, 256
+    arrs, ts = _qkv(b, h, hkv, s, d, dtype, seed=256)
+    rng = np.random.default_rng(7)
+    do_np = torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    jd = getattr(jnp, dtype)
+    want = _jattention_vjp(causal, window)(
+        *(jnp.asarray(a, jd) for a in arrs),
+        jnp.asarray(do_np.float().numpy(), jd))
+    out = ref.attention_ref(*ts, causal=causal, window=window)
+    before = fa_mod.flash_attention_bwd.launches
+    got = fa_mod.flash_attention_bwd(*ts, out, do_np, causal=causal,
+                                     window=window)
+    assert fa_mod.flash_attention_bwd.launches == before
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape and g.dtype == ts[0].dtype
+        err = np.abs(g.float().numpy() - w).max() / np.abs(w).max()
+        assert err <= FA_BWD_RTOL[dtype], err
+
+
+def test_bwd_raises_one_way_at_an_unbuilt_head_dim():
+    """Head dim 96 has no backward kernel: ``bwd_kernel_for`` raises
+    ``NotImplementedError`` naming the ROADMAP item, and
+    ``flash_attention_bwd`` raises through it on a CUDA tensor (checked on
+    the card); on CPU tensors the plain version takes any head dim."""
+    with pytest.raises(NotImplementedError, match="queue B item 3"):
+        fa_mod.bwd_kernel_for(torch.bfloat16, 96)
+    q, k, v, do = _bwd_inputs(1, 2, 2, 16, 16, 96, "float32", seed=2)
+    out = ref.attention_ref(q, k, v)
+    dq, dk, dv = fa_mod.flash_attention_bwd(q, k, v, out, do)
+    assert dq.shape == q.shape and dk.shape == k.shape
 
 
 @pytest.mark.parametrize("causal,window,skv", [(True, None, None),
@@ -828,6 +949,8 @@ FA_BWD_CASES = [
     (2, 8, 2, 300, 300, 128, True, None, "bfloat16"),
     (1, 2, 2, 512, 512, 128, True, 100, "bfloat16"),
     (2, 6, 6, 448, 1500, 64, False, None, "bfloat16"),
+    (1, 8, 1, 300, 300, 256, True, 100, "float32"),   # 32-row scalar tiles
+    (1, 16, 1, 512, 512, 256, True, 128, "bfloat16"),  # recurrentgemma's
 ]
 #: the backward against autograd through ``attention_ref``, max |diff| over
 #: max |grad| of each gradient: float32 sums in another order; bf16 also
@@ -924,6 +1047,14 @@ FA_BWD_WGMMA_CASES = [
     (1, 4, 2, 200, 700, 128, False, None, "bfloat16"),
     (2, 4, 2, 4, 4, 64, True, None, "bfloat16"),
     (1, 2, 1, 70, 33, 128, False, None, "bfloat16"),
+    # head dim 256: GQA 16:1 under a window, ragged, MHA causal, a window
+    # narrower than a tile, bidirectional Sq != Skv, a 4-token sequence
+    (2, 16, 1, 640, 640, 256, True, 256, "bfloat16"),
+    (1, 4, 1, 255, 255, 256, True, None, "bfloat16"),
+    (1, 4, 4, 384, 384, 256, True, None, "bfloat16"),
+    (1, 4, 2, 300, 300, 256, True, 16, "bfloat16"),
+    (1, 2, 2, 200, 700, 256, False, None, "bfloat16"),
+    (2, 4, 2, 4, 4, 256, True, None, "bfloat16"),
 ]
 
 
@@ -1007,11 +1138,13 @@ def test_cuda_flash_attention_without_grad_records_nothing():
     backward is not built for raises only when a gradient is needed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    q, k, v, _ = _bwd_inputs(1, 4, 4, 128, 128, 256, "bfloat16", seed=3,
-                             device="cuda")
+    q, k, v, do = _bwd_inputs(1, 4, 4, 128, 128, 96, "bfloat16", seed=3,
+                              device="cuda")
     assert flash_attention(q, k, v).grad_fn is None
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     with torch.no_grad():
         assert flash_attention(*leaves).grad_fn is None
-    with pytest.raises(NotImplementedError, match="head dims"):
+    with pytest.raises(NotImplementedError, match="queue B item 3"):
         flash_attention(*leaves)
+    with pytest.raises(NotImplementedError, match="queue B item 3"):
+        fa_mod.flash_attention_bwd(q, k, v, flash_attention(q, k, v), do)

@@ -53,10 +53,14 @@ B, S = 2, 32
 #: family → (arch, sequence length, the CE's chunk in both packages,
 #: config overrides): three chunks for the dense model, a chunk that does
 #: not divide S (the whole sequence then) for RG-LRU, one chunk elsewhere;
-#: RG-LRU at 4 layers, one stacked period of 3 and one epilogue layer
+#: RG-LRU at 4 layers, one stacked period of 3 and one epilogue layer, and
+#: once more at recurrentgemma-9b's head dim 256 (smoke widths otherwise,
+#: one (rec, rec, attn) period, a window of 12 under S = 32)
 FAMILIES = {"dense": ("qwen2.5-3b", 48, 16, {}),
             "mamba2": ("mamba2-370m", S, 512, {}),
             "rglru": ("recurrentgemma-9b", S, 12, {"n_layers": 4}),
+            "rglru256": ("recurrentgemma-9b", S, 512,
+                         {"n_layers": 3, "head_dim": 256, "window": 12}),
             "moe": ("deepseek-moe-16b", S, 512, {}),
             "mla": ("deepseek-v2-lite-16b", S, 512, {}),
             "whisper": ("whisper-tiny", S, 512, {})}
