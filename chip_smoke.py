@@ -57,7 +57,8 @@ Phases (each fails the run on error; nothing is caught):
    mamba2-370m's and recurrentgemma-9b's full prefill shapes (bf16, B4's
    b and c broadcast
    over heads: the chunked kernel), each case logging which B4 kernel ran,
-   timed beside their bounds and plain versions; B3 at recurrentgemma-9b's
+   timed beside their bounds and plain versions, B5 also at
+   recurrentgemma-9b's training shape (2 x 4,096 tokens); B3 at recurrentgemma-9b's
    local-attention shape the same way, beside SDPA with the band as a mask
    and SDPA causal without the window;
 10. mamba2-370m at full width and depth (48 layers, random weights from
@@ -194,11 +195,13 @@ Phases (each fails the run on error; nothing is caught):
     ``build_cell``'s prefill and decode cells at phase 10's shapes,
     bit-equal to ``lm.prefill`` and ``lm.decode_step``;
 22. B5's backward (``csrc/lru_scan_bwd.cu``) and B3's backward at head
-    dim 256 (their builds' registers and spills logged): B5's against
-    autograd through ``lru_scan_ref`` at recurrentgemma-9b's training
-    shape in bf16 and float32 (timed beside its bound and plain version),
-    phase 9's LRU cases with h0 and a final-state gradient, S = 1 and
-    channels at a = 0 and a = 1; B3's against autograd through
+    dim 256 (their builds' registers and spills logged, B5's forward's
+    too): B5's against autograd through ``lru_scan_ref`` at
+    recurrentgemma-9b's training shape in bf16 and float32 (from the chunk
+    starts its forward keeps, as the train step calls it, and rebuilding
+    them; timed beside its bound and plain version), phase 9's LRU cases
+    with h0 and a final-state gradient, S = 1 and channels at a = 0 and a
+    = 1; B5's forward under grad keeping its chunk starts; B3's against autograd through
     ``attention_ref`` at recurrentgemma-9b's and gemma-7b's training
     shapes (timed beside bound, plain version and SDPA's backward), ragged
     255 rows, float32 windowed and views TMA cannot read in place; two
@@ -448,6 +451,8 @@ SSD_FULL = (MAMBA_B, MAMBA_S, 32, 64, 128)
 # for phases 16-18 (phase 9 still times B4 at 32,768)
 MAMBA_PREFILL_S = 16384
 LRU_FULL = (PREFILL_B, PREFILL_S, 4096)
+# B5 at recurrentgemma-9b's training shape (phase 22's 2 x 4,096 tokens)
+LRU_TRAIN = (2, 4096, 4096)
 GRIFFIN_FA = (PREFILL_B, 16, 1, PREFILL_S, 256, True, 2048, "bfloat16")
 # bf16 scans: kernel and plain version compute in float32 from the same
 # bf16 inputs and round y once, so they differ by about one bf16 step
@@ -557,7 +562,7 @@ DEVICE_SYMBOL = {"fingerprint_filter": "fingerprint_filter_kernel",
                  "filter_floor": "filter_noop_kernel",
                  "flash_attention": "flash_attention",
                  "ssd_scan": "ssd_scan",  # the step and chunked kernels
-                 "lru_scan": "lru_scan_kernel"}
+                 "lru_scan": "lru_fwd_chunked"}
 SSD_CHUNKED_SYMBOL = "ssd_scan_chunked_kernel"
 
 
@@ -1259,7 +1264,8 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
              + [("ssd", c[:5], "bfloat16", 128, False, c[5])
                 for c in SSD_EDGE_CASES]
              + [("ssd", SSD_FULL, "bfloat16", 128, True, False),
-                ("lru", LRU_FULL, "bfloat16", None, True, False)])
+                ("lru", LRU_FULL, "bfloat16", None, True, False),
+                ("lru", LRU_TRAIN, "bfloat16", None, True, False)])
     for i, (kind, shape, dtype, chunk, full, zero) in enumerate(cases):
         args = scan_inputs(torch, kind, shape, dtype, seed=200 + i,
                            broadcast=full, zero_decay=zero)
@@ -1324,8 +1330,10 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
         chunked = kind == "ssd" and kernel == "chunked"
         bound, by, flops, nbytes = scan_bound(
             kind, timed, ssd_mod.CHUNK if chunked else 128)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by, library_ms=None, dev_us=dev_us)
+        # the kernels line keeps the prefill's row (the main path's shape)
+        rows.setdefault(name, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=by, library_ms=None,
+                                   dev_us=dev_us))
         log(f"phase 9: {name} at {shape} bf16: {ms:.4f} ms per call (CUDA "
             f"events over {reps} calls), {dev_us:.1f} us on the device per "
             f"launch ({dev_how}), bound {bound:.4f} ms ({by}: {flops:.4g} "
@@ -3472,19 +3480,21 @@ def check_lru_bwd(torch, ref, lru_mod, case, seed):
     plain version (``ref.lru_scan_bwd_ref``); returns the row."""
     x, a, dy, h0, dht = lru_bwd_inputs(torch, case, seed)
     b, s, d, dtype, with_h0, edges = case
+    starts = lru_mod._launch(x, a, h0, keep_starts=True)[2]
     before = lru_mod.lru_scan_bwd.launches
 
     def call():
-        return lru_mod.lru_scan_bwd(x, a, dy, h0, dht)
+        return lru_mod.lru_scan_bwd(x, a, dy, h0, dht, starts=starts)
     got, again = call(), call()
+    rebuilt = lru_mod.lru_scan_bwd(x, a, dy, h0, dht)
     torch.cuda.synchronize()
-    if lru_mod.lru_scan_bwd.launches != before + 2:
-        raise AssertionError(f"phase 22: two calls at {case} launched B5's "
+    if lru_mod.lru_scan_bwd.launches != before + 3:
+        raise AssertionError(f"phase 22: three calls at {case} launched B5's "
                              f"backward {lru_mod.lru_scan_bwd.launches - before}"
                              f" times")
-    same = all(torch.equal(u, v) for u, v in zip(got, again)
-               if u is not None)
-    del again
+    same = all(torch.equal(u, v) and torch.equal(v, w)
+               for u, v, w in zip(got, again, rebuilt) if u is not None)
+    del again, rebuilt
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (x, a)] + (
             [h0.detach().requires_grad_()] if with_h0 else [])
@@ -3502,7 +3512,8 @@ def check_lru_bwd(torch, ref, lru_mod, case, seed):
             or (got[2] is None) == with_h0:
         raise AssertionError(f"phase 22: B5's backward differs from "
                              f"autograd through lru_scan_ref at {case}: {rel}"
-                             f"; two calls {'equal' if same else 'DIFFER'}")
+                             f"; calls from starts and rebuilding them "
+                             f"{'equal' if same else 'DIFFER'}")
     del got, want
     what = (f"x, a ({b}, {s}, {d}) {dtype}"
             f"{', h0 and a final-state gradient' if with_h0 else ''}"
@@ -3511,7 +3522,8 @@ def check_lru_bwd(torch, ref, lru_mod, case, seed):
         log(f"phase 22: B5's backward vs autograd through lru_scan_ref at "
             f"{what}: max |diff| / max |grad| "
             f"{', '.join(f'{k} {v:.3g}' for k, v in rel.items())} "
-            f"(tolerance {FA_BWD_RTOL[dtype]}), two calls bit-equal")
+            f"(tolerance {FA_BWD_RTOL[dtype]}), two calls from the forward's "
+            f"starts and one rebuilding them bit-equal")
         return None
     reps = 20
     ms = cuda_ms(call, reps)
@@ -3520,13 +3532,43 @@ def check_lru_bwd(torch, ref, lru_mod, case, seed):
     log(f"phase 22: B5's backward vs autograd through lru_scan_ref at "
         f"{what}: max |diff| / max |grad| "
         f"{', '.join(f'{k} {v:.3g}' for k, v in rel.items())} (tolerance "
-        f"{FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}, two calls bit-equal; "
-        f"{ms:.4f} ms per call (CUDA events over {reps} calls), bound "
+        f"{FA_BWD_RTOL[dtype]}), max |diff| {err:.3g}, two calls from the "
+        f"forward's starts and one rebuilding them bit-equal; {ms:.4f} ms "
+        f"per call from the starts (CUDA events over {reps} calls), bound "
         f"{bound:.5f} ms ({by}: {flops:.4g} FLOP, {nbytes} B) = "
         f"{100 * bound / ms:.2f}% of it; plain {plain_ms:.4f} ms; library: "
         f"none (no torch call computes the recurrence's backward)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 max_abs_err=err, library_ms=None)
+
+
+def check_lru_starts(torch, ref, lru_mod, case, seed):
+    """B5's forward under grad keeps its chunk starts for the backward:
+    the tensor its autograd node saved is the float32 (B, ⌈S/CHUNK⌉, D)
+    the kernel writes without grad when asked (the same bits) and the
+    plain chunked version's (``ref.lru_scan_chunked_ref``) within
+    LRU_TOL of their max |value|."""
+    x, a, _, h0, _ = lru_bwd_inputs(torch, case, seed)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, a)]
+        y, _ = lru_mod.lru_scan(*leaves, h0)
+    kept = y.grad_fn.saved_tensors[3]
+    again = lru_mod._launch(x, a, h0, keep_starts=True)[2]
+    plain = ref.lru_scan_chunked_ref(x, a, h0, return_starts=True)[2]
+    want = (x.shape[0], lru_mod.n_chunks(x.shape[1]), x.shape[2])
+    rel = ((kept - plain).abs().max() / plain.abs().max()).item()
+    same = torch.equal(kept, again)
+    log(f"phase 22: B5's forward under grad at x, a {tuple(x.shape)} "
+        f"{case[3]} kept its chunk starts {tuple(kept.shape)} "
+        f"{kept.dtype}: {'bit-equal to' if same else 'DIFFER from'} the "
+        f"kernel's without grad, {rel:.3g} of max |value| from the plain "
+        f"chunked version's (tolerance {LRU_TOL})")
+    if tuple(kept.shape) != want or kept.dtype != torch.float32 \
+            or not same or not rel <= LRU_TOL:
+        raise AssertionError(f"phase 22: B5's forward under grad kept "
+                             f"{kept.dtype} {tuple(kept.shape)}, {rel:.3g} "
+                             f"from the plain starts")
+    del y, leaves, kept, again, plain
 
 
 def run_griffin_training(torch, kernels, get_config):
@@ -3551,14 +3593,16 @@ def run_griffin_training(torch, kernels, get_config):
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import batch_on, loss_and_grads
 
-    # (a) the new kernels' builds
+    # (a) the kernels' builds
     for dtype in (torch.bfloat16, torch.float32):
-        a = lru_mod.bwd_attributes(dtype)
-        log(f"phase 22: B5's backward kernel ({dtype}): {a['registers']} "
-            f"registers a thread, {a['static_smem']} B static shared memory, "
-            f"{a['local_bytes']} B local (spill) a thread")
-        if a["local_bytes"]:
-            raise AssertionError(f"phase 22: B5's backward spills: {a}")
+        for what, a in (("forward", lru_mod.attributes(dtype)),
+                        ("backward", lru_mod.bwd_attributes(dtype))):
+            log(f"phase 22: B5's {what} kernel ({dtype}): "
+                f"{a['registers']} registers a thread, {a['static_smem']} B "
+                f"static shared memory, {a['local_bytes']} B local (spill) "
+                f"a thread")
+            if a["local_bytes"]:
+                raise AssertionError(f"phase 22: B5's {what} spills: {a}")
     for k, a in fa_mod.bwd_wgmma_attributes(256).items():
         log(f"phase 22: B3's backward at head dim 256, its {k} kernel: "
             f"{a['registers']} registers a thread (before setmaxnreg), "
@@ -3572,6 +3616,7 @@ def run_griffin_training(torch, kernels, get_config):
     for i, case in enumerate(LRU_BWD_CASES):
         r = check_lru_bwd(torch, ref, lru_mod, case, seed=220 + i)
         lru_row = lru_row or r
+    check_lru_starts(torch, ref, lru_mod, LRU_BWD_CASES[0], seed=219)
     fa_rows = [check_attention_bwd(torch, ref, fa_mod, case, "phase 22",
                                    seed=230 + i, view=view)
                for i, (case, view) in enumerate(BWD_256_CASES)]

@@ -6,161 +6,238 @@
 // computes what `jax.grad` of `repro.kernels.ref.lru_scan_ref` computes.
 // For h_t = a_t·h_{t-1} + x_t in float32 from h0 (zeros when absent), y_t
 // = h_t in x's dtype and the final state h_{S-1} in float32, with the
-// incoming gradients dy and dhT:
-//   g_{S-1} = dy_{S-1} + dhT,  g_t = dy_t + a_{t+1}·g_{t+1},
-//   dx_t = g_t,  da_t = g_t·h_{t-1},  dh0 = a_0·g_0,
+// incoming gradients dy and dhT, and q the carry from the right (q = dhT
+// after the last step):
+//   g_t = dy_t + q_t,  q_{t-1} = a_t·g_t,
+//   dx_t = g_t,  da_t = g_t·h_{t-1},  dh0 = a_0·g_0 (the carry left of 0),
 // every sum in float32, dx and da written once in the input dtype, dh0 in
 // float32.
 //
 // What bounds it on an H100: bytes.  x, a and dy are read once and dx and
 // da written once (at recurrentgemma-9b's training shape, B 2, S 4,096, D
 // 4,096 in bf16: 335,544,320 B, 0.100 ms at 3.35 TB/s) for a few flops an
-// element.  As in B5 (csrc/lru_scan.cu) the recurrence is sequential in S,
-// so each thread owns one (batch, channel) pair and the bytes in flight
-// come from each thread loading ahead of its dependent chain.
+// element.  The design is the forward's (lru_chunked.cuh) run backward: a
+// CTA a (batch, 128-step chunk, tile of channels), a thread 4 steps of 8
+// bf16 or 4 float32 channels in registers (256 threads a CTA: 8 steps a
+// thread held 242 registers and ran at 70% of the bound in bf16, 4 steps
+// at 75%), every load 16 bytes.  The
+// reverse recurrence is linear in q, so a sub-chunk is summed up by (Π a,
+// the carry it passes left from a zero carry), folded in order through
+// shared memory, and the chunks of a chain are joined from the last one
+// down, each chunk's carry passed to the chunk before it through a link,
+// in chunk order (chunks taken by ticket from the last).
 //
-// da needs the float32 h_{t-1}, which the forward does not keep (it returns
-// y rounded to x's dtype).  The kernel recomputes it: a forward walk keeps
-// h at the start of every kC-step chunk in a float32 scratch (B, ⌈S/kC⌉,
-// D) the wrapper allocates (4 MB at the training shape); then a reverse
-// walk takes the chunks from the last, refills a chunk's h_{t-1} from its
-// start state into shared memory (a column a thread) and walks g back
-// through it.  That reads x and a twice: 1.4x the bound's bytes, against
-// keeping a float32 h from the forward (a (B, S, D) tensor a layer, 134 MB
-// at the training shape, alive from the forward to the backward).  Each
-// walk loads the next chunk (x and a; the reverse walk also dy) while it
-// computes the current one.  At the training shape that is 8,192 threads,
-// ~2 warps an SM: latency, not bandwidth, sets the pace (ROADMAP: a split
-// of S with a carry fix-up is the next step).
+// da needs the float32 h_{t-1}.  The forward kept the state entering each
+// chunk (`starts`, B × ⌈S/128⌉ × D float32, 1 MB at the training shape);
+// a CTA folds its sub-chunks' forward summaries from its chunk's start, so
+// every thread rebuilds its own h_{t-1} from x and a it already holds: x,
+// a and dy are read once.  Without starts (a direct call) the wrapper has
+// the forward kernel write them first, in the same call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "float_convert.cuh"
+#include "lru_chunked.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kC = 32;  // steps a chunk: the scratch's stride and the load-ahead
+constexpr int kBwdM = 4;  // steps a thread
+constexpr int kFwdM = 8;  // the forward's, when it rebuilds the starts
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lru_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ a,
-                    const T* __restrict__ dy, const float* __restrict__ h0,
-                    const float* __restrict__ dhT, T* __restrict__ dx,
-                    T* __restrict__ da, float* __restrict__ dh0,
-                    float* __restrict__ starts, int S, int D, int64_t x_b,
-                    int64_t x_s, int64_t a_b, int64_t a_s, int64_t g_b,
-                    int64_t g_s) {
-  __shared__ float h_prev[kC][kThreads];
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  const int bb = blockIdx.y;
-  if (d >= D) return;
-  const T* xp = x + bb * x_b + d;
-  const T* ap = a + bb * a_b + d;
-  const T* gp = dy + bb * g_b + d;
-  const int64_t out0 = (int64_t)bb * S * D + d;
-  const int n_chunks = (S + kC - 1) / kC;
-  float* hs = starts + (int64_t)bb * n_chunks * D + d;
-  float* hcol = &h_prev[0][threadIdx.x];
+template <typename T, int kM>
+__global__ void __launch_bounds__(kL / kM * kK)
+lru_bwd_chunked(const T* __restrict__ x, const T* __restrict__ a,
+                const T* __restrict__ dy, const float* __restrict__ starts,
+                const float* __restrict__ dhT, T* __restrict__ dx,
+                T* __restrict__ da, float* __restrict__ dh0,
+                unsigned long long* chain, int S, int D, int n_chunks,
+                int n_tiles,
+                int64_t x_b, int64_t x_s, int64_t a_b, int64_t a_s,
+                int64_t g_b, int64_t g_s, bool x_vec, bool a_vec, bool g_vec,
+                bool o_vec) {
+  constexpr int V = Tile<T>::V, C = Tile<T>::C, kJ = kL / kM;
+  __shared__ __align__(16) float sA[kJ][C];  // Π a, then forward prefix
+  __shared__ __align__(16) float sH[kJ][C];  // end state, then prefix
+  __shared__ __align__(16) float sP[kJ][C];  // Π a right of the sub-chunk
+  __shared__ __align__(16) float sG[kJ][C];  // carry passed left, then
+                                             // the one entering from the
+                                             // right
+  __shared__ __align__(16) float sIn[C];     // the chunk's start state
+  __shared__ __align__(16) float sQ[C];      // the carry entering it
+  const int n_chains = gridDim.x / n_chunks;
+  const Place p = take_ticket(chain, n_chains, n_tiles);
+  const int c = n_chunks - 1 - p.step;
+  const int tid = threadIdx.x, j = tid / kK, k = tid % kK;
+  const int d0 = p.tile * C + k * V;
+  const int nv = min(V, D - d0);
+  const int t0 = c * kL + j * kM;
 
-  // forward walk: h at the start of each chunk (every chunk but the last
-  // is whole)
-  float h = h0 != nullptr ? h0[(int64_t)bb * D + d] : 0.f;
-  T xn[kC], an[kC];
-  auto load_xa = [&](int t0) {
+  uint4 xr[kM], ar[kM], gr[kM];
+  const T* xp = x + p.batch * x_b + d0;
+  const T* ap = a + p.batch * a_b + d0;
+  const T* gp = dy + p.batch * g_b + d0;
 #pragma unroll
-    for (int u = 0; u < kC; ++u) {
-      xn[u] = xp[(t0 + u) * x_s];
-      an[u] = ap[(t0 + u) * a_s];
-    }
-  };
-  if (n_chunks > 1) load_xa(0);
-  for (int c = 0; c + 1 < n_chunks; ++c) {
-    T xc[kC], ac[kC];
-#pragma unroll
-    for (int u = 0; u < kC; ++u) {
-      xc[u] = xn[u];
-      ac[u] = an[u];
-    }
-    if (c + 2 < n_chunks) load_xa((c + 1) * kC);
-    hs[(int64_t)c * D] = h;
-#pragma unroll
-    for (int u = 0; u < kC; ++u) h = fmaf(to_f32(ac[u]), h, to_f32(xc[u]));
+  for (int u = 0; u < kM; ++u) {
+    const int t = t0 + u;
+    const bool in = t < S && nv > 0;
+    xr[u] = in ? load_row(xp + t * x_s, x_vec && nv == V, nv, 0.f)
+               : splat<T>(0.f);
+    ar[u] = in ? load_row(ap + t * a_s, a_vec && nv == V, nv, 1.f)
+               : splat<T>(1.f);
+    gr[u] = in ? load_row(gp + t * g_s, g_vec && nv == V, nv, 0.f)
+               : splat<T>(0.f);
   }
-  hs[(int64_t)(n_chunks - 1) * D] = h;
+  // the sub-chunk's summaries: forward (Π a, end state from zero) and
+  // reverse (the carry it passes left from a zero carry)
+  float A[V], H[V], G[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    A[v] = 1.f;
+    H[v] = 0.f;
+    G[v] = 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < kM; ++u)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float av = lane<T>(ar[u], v);
+      H[v] = fmaf(av, H[v], lane<T>(xr[u], v));
+      A[v] *= av;
+    }
+#pragma unroll
+  for (int u = kM - 1; u >= 0; --u)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      G[v] = lane<T>(ar[u], v) * (lane<T>(gr[u], v) + G[v]);
+#pragma unroll
+  for (int v = 0; v < V; v += 4) {
+    *reinterpret_cast<float4*>(&sA[j][k * V + v]) =
+        make_float4(A[v], A[v + 1], A[v + 2], A[v + 3]);
+    *reinterpret_cast<float4*>(&sH[j][k * V + v]) =
+        make_float4(H[v], H[v + 1], H[v + 2], H[v + 3]);
+    *reinterpret_cast<float4*>(&sG[j][k * V + v]) =
+        make_float4(G[v], G[v + 1], G[v + 2], G[v + 3]);
+  }
+  __syncthreads();
+  // a thread a channel folds the sub-chunks: right to left for the carry
+  // (exclusive suffixes), left to right for the state (exclusive prefixes)
+  const int dch = p.tile * C + tid;
+  float p_tot = 1.f, q_tot = 0.f;
+  if (tid < C) {
+#pragma unroll
+    for (int i = kJ - 1; i >= 0; --i) {
+      const float ai = sA[i][tid], gi = sG[i][tid];
+      sP[i][tid] = p_tot;
+      sG[i][tid] = q_tot;
+      q_tot = fmaf(ai, q_tot, gi);
+      p_tot *= ai;
+    }
+    float a_pre = 1.f, h_pre = 0.f;
+#pragma unroll
+    for (int i = 0; i < kJ; ++i) {
+      const float ai = sA[i][tid], hi = sH[i][tid];
+      sA[i][tid] = a_pre;
+      sH[i][tid] = h_pre;
+      h_pre = fmaf(ai, h_pre, hi);
+      a_pre *= ai;
+    }
+    if (dch < D)
+      sIn[tid] = starts[((int64_t)p.batch * n_chunks + c) * D + dch];
+  }
+  // the carry, from the last chunk down, in chunk order: the link from
+  // chunk c + 1, then the one to chunk c - 1
+  if (tid < C && dch < D) {
+    unsigned long long* link =
+        chain + 1 + (int64_t)p.batch * n_chunks * D + dch;
+    const float q_in =
+        c == n_chunks - 1
+            ? (dhT != nullptr ? dhT[(int64_t)p.batch * D + dch] : 0.f)
+            : await(link + (int64_t)c * D);
+    const float q_out = fmaf(p_tot, q_in, q_tot);
+    if (c > 0)
+      publish(link + (int64_t)(c - 1) * D, q_out);
+    else if (dh0 != nullptr)
+      dh0[(int64_t)p.batch * D + dch] = q_out;
+    sQ[tid] = q_in;
+  }
+  __syncthreads();
+  if (nv <= 0) return;
 
-  // reverse walk, chunk by chunk from the last (which may be ragged: its
-  // steps past S load as zeros and store nothing)
-  float carry = dhT != nullptr ? dhT[(int64_t)bb * D + d] : 0.f;
-  T gn[kC];
-  auto load_all = [&](int t0, bool ragged) {
+  // the sub-chunk: h_{t-1} forward from its true start, then g backward
+  float hp[kM][V], h[V], q[V];
 #pragma unroll
-    for (int u = 0; u < kC; ++u) {
-      const int t = t0 + u;
-      const bool in = !ragged || t < S;
-      xn[u] = in ? xp[t * x_s] : from_f32<T>(0.f);
-      an[u] = in ? ap[t * a_s] : from_f32<T>(0.f);
-      gn[u] = in ? gp[t * g_s] : from_f32<T>(0.f);
+  for (int v = 0; v < V; ++v) {
+    const int cv = k * V + v;
+    h[v] = fmaf(sA[j][cv], sIn[cv], sH[j][cv]);
+    q[v] = fmaf(sP[j][cv], sQ[cv], sG[j][cv]);
+  }
+#pragma unroll
+  for (int u = 0; u < kM; ++u)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      hp[u][v] = h[v];
+      h[v] = fmaf(lane<T>(ar[u], v), h[v], lane<T>(xr[u], v));
     }
-  };
-  load_all((n_chunks - 1) * kC, true);
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int t0 = c * kC;
-    T xc[kC], ac[kC], gc[kC];
+  const int64_t o = (int64_t)p.batch * S * D + d0;
 #pragma unroll
-    for (int u = 0; u < kC; ++u) {
-      xc[u] = xn[u];
-      ac[u] = an[u];
-      gc[u] = gn[u];
+  for (int u = kM - 1; u >= 0; --u) {
+    uint4 gx = make_uint4(0, 0, 0, 0), ga = make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float g = lane<T>(gr[u], v) + q[v];
+      set_lane<T>(gx, v, g);
+      set_lane<T>(ga, v, g * hp[u][v]);
+      q[v] = lane<T>(ar[u], v) * g;
     }
-    if (c > 0) load_all(t0 - kC, false);
-    // refill: h_prev[u] = h_{t0+u-1}
-    float hh = hs[(int64_t)c * D];
-#pragma unroll
-    for (int u = 0; u < kC; ++u) {
-      hcol[u * kThreads] = hh;
-      hh = fmaf(to_f32(ac[u]), hh, to_f32(xc[u]));
-    }
-    const int n = min(kC, S - t0);
-    if (n == kC) {
-#pragma unroll
-      for (int u = kC - 1; u >= 0; --u) {
-        const float g = to_f32(gc[u]) + carry;
-        dx[out0 + (int64_t)(t0 + u) * D] = from_f32<T>(g);
-        da[out0 + (int64_t)(t0 + u) * D] = from_f32<T>(g * hcol[u * kThreads]);
-        carry = to_f32(ac[u]) * g;
-      }
-    } else {
-#pragma unroll
-      for (int u = kC - 1; u >= 0; --u) {
-        if (u >= n) continue;
-        const float g = to_f32(gc[u]) + carry;
-        dx[out0 + (int64_t)(t0 + u) * D] = from_f32<T>(g);
-        da[out0 + (int64_t)(t0 + u) * D] = from_f32<T>(g * hcol[u * kThreads]);
-        carry = to_f32(ac[u]) * g;
-      }
+    if (t0 + u < S) {
+      const bool vec = o_vec && nv == V;
+      store_row(dx + o + (int64_t)(t0 + u) * D, gx, vec, nv);
+      store_row(da + o + (int64_t)(t0 + u) * D, ga, vec, nv);
     }
   }
-  if (dh0 != nullptr) dh0[(int64_t)bb * D + d] = carry;
 }
 
 template <typename T>
 int launch(const void* x, const void* a, const void* dy, const float* h0,
-           const float* dhT, void* dx, void* da, float* dh0, float* starts,
-           int batch, int S, int D, const int64_t* st, cudaStream_t stream) {
-  dim3 grid((D + kThreads - 1) / kThreads, batch);
-  lru_scan_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, (const T*)a, (const T*)dy, h0, dhT, (T*)dx, (T*)da, dh0,
-      starts, S, D, st[0], st[1], st[2], st[3], st[4], st[5]);
+           const float* dhT, const float* starts_in, void* dx, void* da,
+           float* dh0, float* starts, unsigned long long* chain,
+           int64_t n_chain, int batch, int S, int D, const int64_t* st,
+           cudaStream_t stream) {
+  constexpr int V = Tile<T>::V;
+  const int n_chunks = (S + kL - 1) / kL;
+  const int n_tiles = (D + Tile<T>::C - 1) / Tile<T>::C;
+  const int n_chains = batch * n_tiles;
+  const bool rebuild = starts_in == nullptr;
+  const int64_t per_pass = 1 + (int64_t)batch * n_chunks * D;
+  if (n_chain < (rebuild ? 2 : 1) * per_pass)
+    return (int)cudaErrorInvalidValue;
+  const bool x_vec = rows_aligned(x, st[0], st[1], V);
+  const bool a_vec = rows_aligned(a, st[2], st[3], V);
+  if (rebuild) {
+    lru_fwd_chunked<T, kFwdM><<<n_chunks * n_chains, kL / kFwdM * kK, 0,
+                                stream>>>(
+        (const T*)x, (const T*)a, h0, nullptr, nullptr, starts, chain, S, D,
+        n_chunks, n_tiles, st[0], st[1], st[2], st[3], x_vec, a_vec, false);
+    const int e = (int)cudaGetLastError();
+    if (e) return e;
+    chain += per_pass;
+    starts_in = starts;
+  }
+  lru_bwd_chunked<T, kBwdM><<<n_chunks * n_chains, kL / kBwdM * kK, 0,
+                              stream>>>(
+      (const T*)x, (const T*)a, (const T*)dy, starts_in, dhT, (T*)dx, (T*)da,
+      dh0, chain, S, D, n_chunks, n_tiles, st[0], st[1], st[2],
+      st[3], st[4], st[5], x_vec, a_vec, rows_aligned(dy, st[4], st[5], V),
+      rows_aligned(dx, D, D, V) && rows_aligned(da, D, D, V));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int attributes_of(int* attrs) {
   cudaFuncAttributes fa;
-  const cudaError_t e = cudaFuncGetAttributes(&fa, lru_scan_bwd_kernel<T>);
+  const cudaError_t e =
+      cudaFuncGetAttributes(&fa, lru_bwd_chunked<T, kBwdM>);
   if (e != cudaSuccess) return (int)e;
   attrs[0] = fa.numRegs;
   attrs[1] = (int)fa.sharedSizeBytes;
@@ -175,25 +252,32 @@ int attributes_of(int* attrs) {
 // dtype: 0 float32, 1 bfloat16 (x, a, dy, dx and da share it).  strides:
 // x's batch and sequence strides, then a's, then dy's (unit stride on D for
 // all three).  h0, dhT and dh0 (B, D) float32 may each be null (zeros; dh0
-// not written); dx and da are contiguous (B, S, D); starts is float32
-// scratch of (B, ⌈S / 32⌉, D).  Returns cudaGetLastError() after the
-// launch.
+// not written); dx and da are contiguous (B, S, D).  starts_in: the
+// forward's chunk starts (B, ⌈S / 128⌉, D) float32, or null, and then the
+// forward kernel first writes them into `starts` (same shape) from x, a
+// and h0; chain: n_chain uint64, zeroed, at least 1 + B·⌈S / 128⌉·D,
+// twice that without starts_in.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int lru_scan_bwd_launch(const void* x, const void* a,
                                    const void* dy, const void* h0,
-                                   const void* dhT, void* dx, void* da,
-                                   void* dh0, void* starts, int dtype,
-                                   int batch, int S, int D,
+                                   const void* dhT, const void* starts_in,
+                                   void* dx, void* da, void* dh0,
+                                   void* starts, void* chain, int64_t n_chain,
+                                   int dtype, int batch, int S, int D,
                                    const int64_t* strides, void* stream) {
   if (batch == 0 || D == 0 || S == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  auto* ch = (unsigned long long*)chain;
   if (dtype == 0)
-    return launch<float>(x, a, dy, (const float*)h0, (const float*)dhT, dx,
-                         da, (float*)dh0, (float*)starts, batch, S, D,
-                         strides, s);
+    return launch<float>(x, a, dy, (const float*)h0, (const float*)dhT,
+                         (const float*)starts_in, dx, da, (float*)dh0,
+                         (float*)starts, ch, n_chain, batch, S, D, strides,
+                         s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, a, dy, (const float*)h0,
-                                 (const float*)dhT, dx, da, (float*)dh0,
-                                 (float*)starts, batch, S, D, strides, s);
+    return launch<__nv_bfloat16>(
+        x, a, dy, (const float*)h0, (const float*)dhT,
+        (const float*)starts_in, dx, da, (float*)dh0, (float*)starts, ch,
+        n_chain, batch, S, D, strides, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -407,3 +407,137 @@ def lru_scan_bwd_ref(x, a, dy, h0=None, dhT=None):
         carry = af[:, t] * g[:, t]
     dh0 = None if h0 is None else carry.to(h0.dtype)
     return g.to(x.dtype), (g * h_prev).to(a.dtype), dh0
+
+
+def _fma32(a, b, c):
+    """``a·b + c`` rounded once to float32, as the kernels' ``fmaf``: the
+    product is exact in float64 and the sum rounds there first (a double
+    rounding that differs from ``fmaf`` only on the rarest ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lru_chunks(t, chunk, sub, pad):
+    """(B, S, D) -> float32 (B, NC, J, M, D): chunks of ``chunk`` steps cut
+    into ``chunk // sub`` sub-chunks of ``sub``, the ragged tail at
+    ``pad`` (an identity step: x = dy = 0, a = 1)."""
+    bsz, s, d = t.shape
+    nc = -(-s // chunk)
+    t = t.float()
+    if nc * chunk > s:
+        t = torch.cat([t, t.new_full((bsz, nc * chunk - s, d), pad)], 1)
+    return t.reshape(bsz, nc, chunk // sub, sub, d)
+
+
+def _lru_prefix(a_sub, h_sub):
+    """Exclusive prefixes of sub-chunk summaries ``(Π a, end state from
+    zero)`` (B, NC, J, D), folded in sub-chunk order as the kernels' fold
+    thread does, and the chunk's totals (B, NC, D)."""
+    a_pre, h_pre = torch.empty_like(a_sub), torch.empty_like(h_sub)
+    a_tot = torch.ones_like(a_sub[:, :, 0])
+    h_tot = torch.zeros_like(h_sub[:, :, 0])
+    for i in range(a_sub.shape[2]):
+        a_pre[:, :, i], h_pre[:, :, i] = a_tot, h_tot
+        h_tot = _fma32(a_sub[:, :, i], h_tot, h_sub[:, :, i])
+        a_tot = a_tot * a_sub[:, :, i]
+    return a_pre, h_pre, a_tot, h_tot
+
+
+def _lru_summaries(xc, ac):
+    """A sub-chunk's ``(Π a, end state from zero)`` step by step, as a
+    thread of the kernels sums it up."""
+    a_sub = torch.ones_like(xc[:, :, :, 0])
+    h_sub = torch.zeros_like(a_sub)
+    for u in range(xc.shape[3]):
+        h_sub = _fma32(ac[:, :, :, u], h_sub, xc[:, :, :, u])
+        a_sub = a_sub * ac[:, :, :, u]
+    return a_sub, h_sub
+
+
+def lru_scan_chunked_ref(x, a, h0=None, chunk: int = 128, sub: int = 8,
+                         return_starts: bool = False):
+    """B5's chunked form in plain torch, with the kernel's chunks, carry
+    order and rounding points (``csrc/lru_chunked.cuh``): sub-chunks of
+    ``sub`` steps summed up as ``(Π a, end state from zero)``, folded in
+    order within each chunk of ``chunk`` steps (exclusive prefixes), the
+    chunks joined in order from h0 (``start[c] = A[c-1]·start[c-1] +
+    H[c-1]``), then every sub-chunk run again from its true start; each
+    ``fmaf`` of the kernel rounded once (:func:`_fma32`), y rounded once to
+    x's dtype.  Returns ``(y, final state float32)`` and, with
+    ``return_starts``, the float32 chunk starts ``(B, ⌈S/chunk⌉, D)`` the
+    kernel keeps for the backward."""
+    bsz, s, d = x.shape
+    xc = _lru_chunks(x, chunk, sub, 0.0)
+    ac = _lru_chunks(a, chunk, sub, 1.0)
+    a_pre, h_pre, a_tot, h_tot = _lru_prefix(*_lru_summaries(xc, ac))
+    h = (torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    starts = torch.empty_like(a_tot)
+    for c in range(starts.shape[1]):
+        starts[:, c] = h
+        h = _fma32(a_tot[:, c], h, h_tot[:, c])
+    hs = _fma32(a_pre, starts[:, :, None], h_pre)
+    ys = torch.empty_like(xc)
+    for u in range(sub):
+        hs = _fma32(ac[:, :, :, u], hs, xc[:, :, :, u])
+        ys[:, :, :, u] = hs
+    y = ys.reshape(bsz, -1, d)[:, :s].to(x.dtype)
+    return (y, h, starts) if return_starts else (y, h)
+
+
+def lru_scan_bwd_chunked_ref(x, a, dy, h0=None, dhT=None, starts=None,
+                             chunk: int = 128, sub: int = 4):
+    """B5's backward in its chunked form in plain torch, with the kernel's
+    chunks, carry order and rounding points (``csrc/lru_scan_bwd.cu``):
+    ``(dx, da, dh0)`` as :func:`lru_scan_bwd_ref` returns them.  The state
+    from the chunk starts (``starts``, or :func:`lru_scan_chunked_ref`'s
+    when None) through each chunk's exclusive prefixes; the carry ``q``
+    (``g_t = dy_t + q``, ``q ← a_t·g_t``, dhT entering the last step)
+    summed up per sub-chunk from a zero carry, folded right to left within a
+    chunk and joined from the last chunk down; then each sub-chunk rebuilds
+    its ``h_{t-1}`` forward and runs g back.  Its sub-chunks are ``sub``
+    steps (the backward kernel's 4); rebuilt starts come from the forward's
+    own sub-chunks."""
+    bsz, s, d = x.shape
+    if starts is None:
+        starts = lru_scan_chunked_ref(x, a, h0, chunk,
+                                      return_starts=True)[2]
+    xc = _lru_chunks(x, chunk, sub, 0.0)
+    ac = _lru_chunks(a, chunk, sub, 1.0)
+    gc = _lru_chunks(dy, chunk, sub, 0.0)
+    a_sub, h_sub = _lru_summaries(xc, ac)
+    g_sub = torch.zeros_like(a_sub)
+    for u in reversed(range(sub)):
+        g_sub = ac[:, :, :, u] * (gc[:, :, :, u] + g_sub)
+    # right to left: the carry entering each sub-chunk from a zero chunk
+    # carry, and the product of a right of it
+    p_suf, g_suf = torch.empty_like(a_sub), torch.empty_like(g_sub)
+    p_tot = torch.ones_like(a_sub[:, :, 0])
+    q_tot = torch.zeros_like(p_tot)
+    for i in reversed(range(a_sub.shape[2])):
+        p_suf[:, :, i], g_suf[:, :, i] = p_tot, q_tot
+        q_tot = _fma32(a_sub[:, :, i], q_tot, g_sub[:, :, i])
+        p_tot = p_tot * a_sub[:, :, i]
+    a_pre, h_pre, _, _ = _lru_prefix(a_sub, h_sub)
+    q = (torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+         if dhT is None else dhT.float())
+    q_in = torch.empty_like(p_tot)
+    for c in reversed(range(q_in.shape[1])):
+        q_in[:, c] = q
+        q = _fma32(p_tot[:, c], q, q_tot[:, c])
+    h = _fma32(a_pre, starts.float()[:, :, None], h_pre)
+    qs = _fma32(p_suf, q_in[:, :, None], g_suf)
+    h_prev = torch.empty_like(xc)
+    for u in range(sub):
+        h_prev[:, :, :, u] = h
+        h = _fma32(ac[:, :, :, u], h, xc[:, :, :, u])
+    dx, da = torch.empty_like(xc), torch.empty_like(xc)
+    for u in reversed(range(sub)):
+        g = gc[:, :, :, u] + qs
+        dx[:, :, :, u] = g
+        da[:, :, :, u] = g * h_prev[:, :, :, u]
+        qs = ac[:, :, :, u] * g
+
+    def back(t):
+        return t.reshape(bsz, -1, d)[:, :s].to(x.dtype)
+    dh0 = None if h0 is None else q.to(h0.dtype)
+    return back(dx), back(da), dh0

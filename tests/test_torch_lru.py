@@ -161,7 +161,7 @@ def test_lru_plain_version_carries_the_naive_gradient():
 
 #: the backward's cases: b, s, d, with h0 and a final-state gradient,
 #: channels with a = 0 and a = 1; a length and a width no multiple of the
-#: kernel's 32-step chunks and 64-thread blocks, S = 1
+#: kernel's 128-step chunks and its tiles of channels, S = 1
 LRU_BWD_CASES = [(2, 64, 32, True, True), (1, 333, 192, True, False),
                  (2, 37, 5, False, True), (1, 1, 16, True, False),
                  (2, 100, 64, False, False)]
@@ -253,9 +253,9 @@ def test_lru_bwd_checks_its_inputs():
                                          for dt in ("float32", "bfloat16")])
 def test_cuda_lru_scan_matches_plain_version(b, s, d, dtype, h0):
     """The reference's shapes, a length that is no multiple of the
-    kernel's 32-step look-ahead, a width that is no multiple of its
-    64-thread blocks, and a length and width the Pallas kernel's blocks
-    reject (ROADMAP C6)."""
+    kernel's 128-step chunks, a width that is no multiple of its tiles
+    (64 bf16 or 32 float32 channels), and a length and width the Pallas
+    kernel's blocks reject (ROADMAP C6)."""
     _card()
     arrs, state = _lru_inputs(b, s, d, seed=s + d, dtype=dtype, h0=h0)
     ts, t0 = _torch(arrs, state, dtype, "cuda")
@@ -267,10 +267,10 @@ def test_cuda_lru_scan_matches_plain_version(b, s, d, dtype, h0):
 
 
 @pytest.mark.cuda
-def test_cuda_lru_scan_raises_under_grad():
-    """Under grad on the card B5 raises nothing any more: it runs as an
-    autograd Function whose backward is B5-bwd (one launch of each), its
-    gradients those of the plain version; also under
+def test_cuda_lru_scan_carries_a_gradient():
+    """Under grad on the card B5 runs as an autograd Function whose
+    backward is B5-bwd (one launch of each, from the chunk starts the
+    forward kept), its gradients those of the plain version; also under
     ``torch.utils.checkpoint``'s recompute, as the train step runs it.
     Without grad it records nothing."""
     _card()
@@ -304,7 +304,7 @@ def test_cuda_lru_scan_raises_under_grad():
                          + [(2, 4096, 256, False, False)])
 def test_cuda_lru_scan_bwd_matches_plain_version(b, s, d, h0, edges, dtype):
     """B5-bwd (``csrc/lru_scan_bwd.cu``) against its plain version on the
-    backward's cases and a long sequence (128 of its 32-step chunks); two
+    backward's cases and a long sequence (32 of its 128-step chunks); two
     calls give the same bits."""
     _card()
     x, a, dy, state = _lru_bwd_inputs(b, s, d, h0, edges, dtype, seed=s + d)
