@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it: FleetSim's sweep,
 the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b,
-deepseek-moe-16b, deepseek-v2-lite-16b, whisper-tiny), the NetClone
-serving tier, ServeSim, FleetScope telemetry, the sharded sweep runner
-and training.
+deepseek-moe-16b, deepseek-v2-lite-16b, whisper-tiny, phi3-mini-3.8b), the
+NetClone serving tier, ServeSim, FleetScope telemetry, the sharded sweep
+runner and training.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -11,8 +11,8 @@ Phases (each fails the run on error; nothing is caught):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together), print the card and the
-   registers, shared memory and spill bytes of B3's and B4's TMA +
-   ``wgmma`` kernels;
+   registers, shared memory and spill bytes of B3's (head dims 64, 96,
+   128 and 256) and B4's TMA + ``wgmma`` kernels;
 2. hold B1, B2 and B2's staged entry point bit-exact against their plain
    PyTorch versions at the main path's shapes (default sweep, 4-rack
    fabric, serving dispatcher), on random lanes and on every edge-lane case
@@ -41,10 +41,11 @@ Phases (each fails the run on error; nothing is caught):
    qwen2.5-3b's full prefill shape, timed there beside its bound, its plain
    version and PyTorch's SDPA;
 7. qwen2.5-3b at full width and depth (36 layers, random weights from
-   seed 0, bf16 activations): a 4 x 4,096-token prefill through B3 held to
-   the same prefill through the plain attention, a 1 x 300-token prefill
-   held the same way, 8 decode steps, and prefill/decode consistency (255
-   + 1 tokens against 256);
+   seed 0, bf16 activations): a 4 x 4,096-token prefill through B3 (its
+   launches on the TMA + ``wgmma`` kernel counted by the C dispatch) held
+   to the same prefill through the plain attention and timed as the
+   median of 3 more, a 1 x 300-token prefill held the same way, 8 decode
+   steps, and prefill/decode consistency (255 + 1 tokens against 256);
 8. the serving tier at full width: ``launch/serve.py``'s defaults (4
    replicas of 2 slots, a 20-tick straggler; 18 requests over 30 ticks,
    cut from its 48 over 80)
@@ -91,13 +92,13 @@ Phases (each fails the run on error; nothing is caught):
 13. the Scenario layer and the optional stages: (a) the scenario CLI's
     ``--list`` and a JSON round trip of every library file; (b)
     ``golden_single_tor.json`` through ``Scenario`` bit-identical to the
-    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (1,000 ticks)
-    under B2 and ``vectorized``, and (d) LÆDGE over 2 racks (1,000 ticks)
+    golden; (c) LÆDGE on one rack of 4 × 8 at load 0.5 (500 ticks)
+    under B2 and ``vectorized``, and (d) LÆDGE over 2 racks (500 ticks)
     under B1 and ``vectorized``, its pairs filtered at the top tier:
     ``Metrics`` bit-identical, fused; (e) ``hedge_vs_netclone.json`` (G =
-    6, cut from 40,000 to 1,000 ticks) under B2 and ``vectorized``: rows
+    6, cut from 40,000 to 500 ticks) under B2 and ``vectorized``: rows
     bit-identical, p99s printed; (f) a ``hedge_delays = [25, 75, 150]``
-    sweep (1,000 ticks); each of (c)-(e) also runs its first 64 ticks on
+    sweep (500 ticks); each of (c)-(e) also runs its first 64 ticks on
     the staged loop, the wrapper counting one B1 or B2 launch a tick, held
     equal to the same ticks replayed from graphs; (g) for (c) and (e): ms a
     tick fused and staged, and for (c) a profile of replays (B2 launches
@@ -106,8 +107,8 @@ Phases (each fails the run on error; nothing is caught):
 14. ServeSim: (a) ``llm_service("gemma-7b")`` from gemma-7b's full config
     counted on the meta device (no device memory allocated) equals both
     llm library files' ``params``; (b) ``llm_gemma7b.json`` (1 rack, B2)
-    and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) at their
-    full 4,000 ticks on the batch server, fused, bit-identical to
+    and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) over 2,000
+    of their 4,000 ticks on the batch server, fused, bit-identical to
     ``vectorized``, each row equal to the reference's CPU row
     (``tools/serve_reference.json``), and each one's first 64 ticks
     staged (one B1 or B2 launch a tick, counted by the wrapper) equal to
@@ -171,8 +172,9 @@ Phases (each fails the run on error; nothing is caught):
     AdamW steps of 2 x 4,096 tokens (72 B3 and 36 backward launches a
     step), ms a step and peak memory; the 0.1 B model of
     ``examples/train_100m.py --full``: its attention gradients held to the
-    plain attention's, 24 steps of 8 x 512 with an async checkpoint at 12, the loss falling, and a restart
-    through ``launch/train.py``'s restore path (state bit-equal, step 20's
+    plain attention's, 16 steps of 8 x 512 with an async checkpoint at 8,
+    the loss falling, and a restart through ``launch/train.py``'s restore
+    path (state bit-equal, step 8's
     loss bit-equal, later steps within 1e-3); whisper-tiny, 3 steps on
     frames (2, 1500, 384) and 2 x 448 tokens;
 21. B4's backward, both of its kernels (their builds' registers and
@@ -210,11 +212,35 @@ Phases (each fails the run on error; nothing is caught):
     plain step (each leaf at 3 layers in float32 activations and by phase
     21's bf16 rule; the bf16 loss at 12 layers), a gradient on every leaf,
     3 AdamW steps of 2 x 4,096 tokens (8 B3, 4 B3 backward, 16 B5 and 8 B5
-    backward launches a step), ms a step and peak memory.
+    backward launches a step), ms a step and peak memory;
+23. B3 and its backward at head dim 96 on the tensor cores (their builds'
+    registers and spills logged; 64-byte-swizzled slabs of 32 columns):
+    B3 at phi3-mini-3.8b's prefill shape (4, 32, 4096, 96) against its
+    plain version, timed beside its bound, its plain version and SDPA
+    (the back end SDPA takes, and its flash and cuDNN back ends); the
+    backward at phi3-mini's training shape (2, 32, 4096, 96) against
+    autograd through ``attention_ref`` from the forward's log-sum-exp, two
+    calls bit-equal, timed beside its bound, plain version and SDPA's
+    backward, and at that shape in float32 (the scalar kernels); both at
+    a ragged 300 rows, a window of 16 with GQA, views
+    TMA cannot read in place and a float32 window (the scalar kernels);
+    then phi3-mini-3.8b at full width and depth (32 layers) as phase 7: a
+    4 x 4,096-token prefill (32 B3 launches, all on the TMA + ``wgmma``
+    kernel) held to the plain-attention prefill, a 1 x 300-token prefill,
+    8 decode steps and prefill 255 + decode 1 against prefill 256; step
+    1 of training at 2 layers held to the plain step (the bf16 loss within
+    1e-2, each leaf in float32 activations and, by phase 21's rule, in
+    bf16), and at 32 layers through the train cell of ``build_cell``: a
+    gradient on every leaf, 3 AdamW steps of 2 x 4,096 tokens (64 B3 and
+    32 backward launches a step), ms a step and peak memory.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax``
-and nothing of the reference package ``repro``.
+The line before the last but one is a JSON object with one entry per
+kernel, and B3 and its backward once more at phi3-mini's shapes
+(``flash_attention_d96``, ``flash_attention_bwd_d96``); the line before
+the last is the card's name and power limit; the last line is ``{"ok":
+true, "device": {...}}``.  Imports nothing of ``jax`` and nothing of the
+reference package ``repro``.  ``tools/bench_flash_attention.py`` imports
+:func:`sdpa_backends_ms` from this file: renaming it breaks that tool.
 """
 
 from __future__ import annotations
@@ -265,13 +291,14 @@ XVAL_REFERENCE = ROOT / "tools" / "validate_grid_reference.json"
 # phase 13: LÆDGE at one rack (4 x 8, load 0.5) and two (load 0.1, where
 # its CPU lets it clone), hedge_vs_netclone.json cut from 40,000 ticks by
 # the time limit (LÆDGE's 1,500 and hedge's 2,000 cut to 1,000 each for
-# phase 22), the hedge-delay sweep, and the staged window each run is
+# phase 22, all three to 500 for phase 23), the hedge-delay sweep, and the
+# staged window each run is
 # held to (ticks replayed from graphs against the same ticks staged, the
 # wrappers counting every staged launch: one graph's 64, cut from 128 to pay
 # for phase 21; phase 14 shares it)
-LAEDGE_TICKS = 1_000
-LAEDGE_RACK_TICKS = 1_000
-HEDGE_TICKS = 1_000
+LAEDGE_TICKS = 500
+LAEDGE_RACK_TICKS = 500
+HEDGE_TICKS = 500
 HEDGE_FULL_TICKS = 40_000
 DELAY_TICKS = 500  # 1,000 until phase 22
 HEDGE_DELAYS = (25.0, 75.0, 150.0)
@@ -295,6 +322,9 @@ LLM_FILES = ("llm_gemma7b", "llm_moe_hetero")
 LLM_FILES_KERNELS = (("llm_gemma7b", "tickfuse", "tickfuse_response_path"),
                      ("llm_moe_hetero", "pallas", "fingerprint_filter"))
 LLM_COUPLING = 0.5
+# phase 14 (b): the llm files' and the coupled run's ticks, their 4,000 cut
+# to 2,000 for phase 23 (the reference's rows are made at these ticks)
+LLM_TICKS = 2_000
 BATCH_CHECK_TICKS = 500
 # phase 14 (c): the batch sweep's ticks, llm_gemma7b's 4,000 cut to 2,000
 # for phase 22
@@ -348,6 +378,8 @@ FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # time limit; 8 decode steps after it (every model's; cut from 16 for
 # phase 22)
 PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 4096, 8
+#: full-size prefills timed after the counted one (phases 7 and 23)
+PREFILL_TIMED = 3
 QWEN_FA = (PREFILL_B, 16, 2, PREFILL_S, 128, True, None, "bfloat16")
 # whole-model bf16 comparisons: max |diff| within this share of the
 # reference's max |value| (36 layers round to bf16 at different points)
@@ -373,8 +405,8 @@ SHARD_TICKS = 500
 # decoder's context, over 1,500 frames) and one float32 case (GQA, a
 # window); tolerances of max |diff| / max |grad| against autograd through
 # attention_ref; qwen2.5-3b trains 3 steps of 2 x 4,096 tokens, the 0.1 B
-# model of examples/train_100m.py --full 24 steps of 8 x 512 (checkpoint at
-# 12), whisper-tiny 3 steps of 2 x 448 tokens
+# model of examples/train_100m.py --full SMALL_STEPS steps of 8 x 512
+# (checkpoint at SMALL_SAVE), whisper-tiny 3 steps of 2 x 448 tokens
 QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_STEPS = 2, 4096, 3
 WHISPER_TRAIN_S = 448
 BWD_CASES = (
@@ -397,8 +429,9 @@ FA_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SMALL_TRAIN = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
                    head_dim=64, d_ff=2048, vocab_size=32_000,
                    max_seq_len=1024)
-# (40 steps with the checkpoint at 20, cut to 24 and 12 for phase 22)
-SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 24, 12
+# (40 steps with the checkpoint at 20, cut to 24 and 12 for phase 22, to
+# 16 and 8 for phase 23)
+SMALL_B, SMALL_S, SMALL_STEPS, SMALL_SAVE = 8, 512, 16, 8
 
 # phase 21: B4's backward at mamba2-370m's training shape (2 x 4,096 tokens,
 # 32 heads of P 64, N 128, b and c broadcast over heads, bf16 on the chunked
@@ -495,6 +528,31 @@ BWD_256_CASES = (
     ((1, 8, 1, 512, 256, True, 128, "float32"), "transposed"),
     ((1, 16, 1, 512, 256, True, None, "bfloat16"), "misaligned"),
 )
+
+# phase 23: phi3-mini-3.8b (32 layers, 32 heads of head dim 96 over 32 kv
+# heads) at full width and depth: B3 at its prefill shape (PREFILL_B x
+# PREFILL_S) beside SDPA, B3's backward at its training shape (2 x 4,096),
+# both at head dim 96's edge cases (a ragged 300 rows, a window narrower
+# than a tile with GQA, views TMA cannot read in place, a float32 window on
+# the scalar kernels); the model's prefill, decode and consistency as in
+# phase 7; 3 AdamW steps of 2 x 4,096 tokens (train_4k's batch of 256 cut
+# to 2 by the run's time, as qwen2.5-3b's), step 1 held to the plain step
+# at PHI3_GATE_LAYERS layers: the bf16 loss within SSD_TRAIN_LOSS_RTOL,
+# each leaf within MODEL_RTOL in float32 activations and, by phase 21's
+# rule, in bf16
+PHI3 = "phi3-mini-3.8b"
+PHI3_FA = (PREFILL_B, 32, 32, PREFILL_S, 96, True, None, "bfloat16")
+PHI3_TRAIN_B, PHI3_TRAIN_S, PHI3_TRAIN_STEPS = 2, 4096, 3
+PHI3_GATE_LAYERS = 2
+PHI3_EDGE_CASES = (
+    ((1, 32, 32, 300, 96, True, None, "bfloat16"), "transposed"),
+    ((1, 8, 2, 512, 96, True, 16, "bfloat16"), "transposed"),
+    ((1, 32, 32, 512, 96, True, None, "bfloat16"), "misaligned"),
+    ((1, 8, 8, 512, 96, True, 128, "float32"), "transposed"),
+)
+PHI3_BWD = (PHI3_TRAIN_B, 32, 32, PHI3_TRAIN_S, 96, True, None, "bfloat16")
+# the same shape in float32, on the scalar kernels
+PHI3_BWD_F32 = PHI3_BWD[:7] + ("float32",)
 
 
 def log(msg: str) -> None:
@@ -990,14 +1048,20 @@ def worst_rel(got, want) -> float:
             / want.float().abs().max()).item()
 
 
-def run_model(torch, lm, kernels, get_config):
-    """Phase 7: qwen2.5-3b at full width and depth; returns the bf16
-    weights (phase 8 serves them) and B3's launches per prefill."""
-    cfg = get_config("qwen2.5-3b")
+def run_model(torch, lm, kernels, get_config, arch="qwen2.5-3b",
+              label="phase 7"):
+    """Phase 7 (and 23): ``arch``, a dense decoder, at full width and
+    depth: a prefill through B3, every launch on the TMA + ``wgmma``
+    kernel, held to the plain-attention prefill; a 300-token prompt; decode
+    steps; prefill/decode consistency.  Returns the config, the bf16
+    weights (phase 8 serves qwen2.5-3b's) and B3's launches per prefill."""
+    from repro_torch.kernels.flash_attention import wgmma_launches
+
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, 0, device=DEV, cast=True)
     torch.cuda.synchronize()
-    log(f"phase 7: {cfg.name}: {cfg.n_layers} layers, d_model "
+    log(f"{label}: {cfg.name}: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_params():,} parameters, random init "
         f"(seed 0) in {cfg.param_dtype}, held as a {cfg.dtype} copy "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1005,25 +1069,46 @@ def run_model(torch, lm, kernels, get_config):
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
                            generator=g, device=DEV)
     s_max = PREFILL_S + DECODE_STEPS
-    lm.prefill(cfg, params, tokens[:, :256], s_max=256, device=DEV)
-    torch.cuda.synchronize()
     reset(kernels)
+    routed = wgmma_launches()
     t0 = time.perf_counter()
     logits, caches = lm.prefill(cfg, params, tokens, s_max=s_max,
                                 device=DEV)
     torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    first_s = time.perf_counter() - t0
+    routed = wgmma_launches() - routed
     counts = {n: fn.launches for n, fn in kernels.items()}
     want = {n: cfg.n_layers if n == "flash_attention" else 0
             for n in kernels}
-    if counts != want:
-        raise AssertionError(f"phase 7: prefill launches {counts}, "
-                             f"expected {want}")
+    if counts != want or routed != cfg.n_layers:
+        raise AssertionError(f"{label}: prefill launches {counts}, "
+                             f"expected {want}; {routed} on the TMA + "
+                             f"wgmma kernel at head dim {cfg.head_dim}")
+    # the counted prefill is the timed ones' warm-up at full size (the
+    # caching allocator's blocks, first-call set-up)
+    times, mallocs = [], []
+    for _ in range(PREFILL_TIMED):
+        m0 = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        lm.prefill(cfg, params, tokens, s_max=s_max, device=DEV)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        m1 = torch.cuda.memory_stats()
+        mallocs.append(tuple(m1[k] - m0[k] for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries")))
+    prefill_s = statistics.median(times)
     n_tok = PREFILL_B * PREFILL_S
-    log(f"phase 7: prefill {PREFILL_B} x {PREFILL_S} tokens (cut from "
+    log(f"{label}: prefill {PREFILL_B} x {PREFILL_S} tokens (cut from "
         f"prefill_32k's 32 x 32,768 by the run's time limit): "
-        f"{prefill_s * 1e3:.1f} ms, {n_tok / prefill_s:,.0f} tokens/s, "
-        f"B3 launches {counts['flash_attention']}")
+        f"{prefill_s * 1e3:.1f} ms (median of {PREFILL_TIMED}, "
+        f"{min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}; the counted "
+        f"one {first_s * 1e3:.1f}), "
+        f"{n_tok / prefill_s:,.0f} tokens/s, B3 launches "
+        f"{counts['flash_attention']}, {routed} of them on the TMA + "
+        f"wgmma kernel at head dim {cfg.head_dim} (the C dispatch's count); "
+        f"the caching allocator's cudaMalloc, cudaFree and retries in "
+        f"each timed prefill {mallocs}, device memory reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB")
 
     # the same prefill through the plain attention, on the card
     logits_p, caches_p = lm.prefill(cfg.replace(attn_impl="xla"), params,
@@ -1032,16 +1117,16 @@ def run_model(torch, lm, kernels, get_config):
     r_cache = max(max(worst_rel(a.k, b.k), worst_rel(a.v, b.v))
                   for a, b in zip(caches, caches_p))
     agree = (logits.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
-    log(f"phase 7: B3 prefill vs plain-attention prefill: logits max "
+    log(f"{label}: B3 prefill vs plain-attention prefill: logits max "
         f"|diff| / max |logit| {r_logits:.3g}, KV caches "
         f"({cfg.n_layers} layers) {r_cache:.3g}, argmax agreement "
         f"{agree:.2f} (tolerance {MODEL_RTOL})")
     if not (r_logits <= MODEL_RTOL and r_cache <= MODEL_RTOL):
-        raise AssertionError("phase 7: B3 prefill differs from the plain "
+        raise AssertionError(f"{label}: B3 prefill differs from the plain "
                              "prefill")
     del logits_p, caches_p
     if not torch.isfinite(logits).all():
-        raise AssertionError("phase 7: non-finite prefill logits")
+        raise AssertionError(f"{label}: non-finite prefill logits")
 
     # a prompt of 300 tokens, no multiple of the Pallas kernel's blocks
     # (ROADMAP C6): through B3 against the plain attention
@@ -1052,29 +1137,29 @@ def run_model(torch, lm, kernels, get_config):
     r300 = (worst_rel(lg_k, lg_p),
             max(max(worst_rel(a.k, b.k), worst_rel(a.v, b.v))
                 for a, b in zip(c_k, c_p)))
-    log(f"phase 7: B3 prefill of 1 x 300 tokens vs plain-attention prefill: "
+    log(f"{label}: B3 prefill of 1 x 300 tokens vs plain-attention prefill: "
         f"logits max |diff| / max |logit| {r300[0]:.3g}, KV caches "
         f"{r300[1]:.3g} (tolerance {MODEL_RTOL})")
     if not (max(r300) <= MODEL_RTOL and torch.isfinite(lg_k).all()):
-        raise AssertionError("phase 7: the 300-token prefill differs from "
+        raise AssertionError(f"{label}: the 300-token prefill differs from "
                              "the plain prefill")
     del lg_k, c_k, lg_p, c_p
 
-    # 16 greedy decode steps after the prefill
+    # greedy decode steps after the prefill
     reset(kernels)
     caches = decode_steps(torch, lm, cfg, params, caches,
                           logits[:, -1].argmax(-1)[:, None], PREFILL_S,
-                          DECODE_STEPS, "phase 7")
+                          DECODE_STEPS, label)
     if {n: fn.launches for n, fn in kernels.items()} != only(kernels):
-        raise AssertionError("phase 7: decode launched a kernel")
+        raise AssertionError(f"{label}: decode launched a kernel")
     del caches
 
     # prefill/decode consistency at full width
     r, what = consistency(torch, lm, cfg, params, tokens[:1, :256])
-    log(f"phase 7: {what}: logits max |diff| / max |logit| {r:.3g} "
+    log(f"{label}: {what}: logits max |diff| / max |logit| {r:.3g} "
         f"(tolerance {MODEL_RTOL})")
     if not r <= MODEL_RTOL:
-        raise AssertionError("phase 7: decode disagrees with prefill")
+        raise AssertionError(f"{label}: decode disagrees with prefill")
     return cfg, params, counts["flash_attention"]
 
 
@@ -2074,9 +2159,14 @@ def run_serve_sim(torch, tf, kernels, ops, get_config) -> dict:
         f"{spec.params}, equal to both llm library files' params; device "
         f"memory allocated unchanged ({mem0} B)")
 
-    # (b) the two llm library files at their full 4,000 ticks, fused,
-    # under B2 (1 rack) and B1 (2 racks) against vectorized, each row equal
-    # to the reference's CPU row; then a staged window held to its replay
+    # (b) the two llm library files over LLM_TICKS of their 4,000 ticks,
+    # fused, under B2 (1 rack) and B1 (2 racks) against vectorized, each
+    # row equal to the reference's CPU row at those ticks; then a staged
+    # window held to its replay
+    if ref.get("llm_ticks") != LLM_TICKS:
+        raise AssertionError(f"phase 14: {SERVE_REFERENCE.name} holds rows "
+                             f"at {ref.get('llm_ticks')} ticks, not "
+                             f"{LLM_TICKS}")
     for name, backend, kernel in LLM_FILES_KERNELS:
         sc = load_any(name)
         out = {}
@@ -2085,7 +2175,7 @@ def run_serve_sim(torch, tf, kernels, ops, get_config) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cfg, m = sc.fleet_metrics(device=cuda, stats=st,
-                                      filter_backend=fb)
+                                      filter_backend=fb, n_ticks=LLM_TICKS)
             wall = time.perf_counter() - t0 - st.setup_s
             if st.replays == 0:
                 raise AssertionError(f"phase 14: {name} {fb} replayed no "
@@ -2127,7 +2217,8 @@ def run_serve_sim(torch, tf, kernels, ops, get_config) -> dict:
         st = fused.GraphStats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cfg, m = sc.fleet_metrics(device=cuda, stats=st, filter_backend=fb)
+        cfg, m = sc.fleet_metrics(device=cuda, stats=st, filter_backend=fb,
+                                  n_ticks=LLM_TICKS)
         wall = time.perf_counter() - t0 - st.setup_s
         if st.replays == 0:
             raise AssertionError(f"phase 14: coupled {fb} replayed no graph")
@@ -2850,6 +2941,80 @@ def check_train_launches(counts, n_fwd, n_bwd, label,
                                  f"{want}")
 
 
+def train_dense(torch, kernels, cfg, b, s, steps, label) -> dict:
+    """``cfg``, a dense decoder, through the train cell of
+    ``launch.steps.build_cell`` on the card's host mesh: the loss and
+    gradients of the first batch (every leaf a finite gradient, no
+    attention leaf all-zero, B3 launched twice a layer (forward and the
+    remat recompute) and its backward once), then ``steps`` AdamW
+    steps of ``b`` x ``s`` tokens, each with those launches, logged with
+    ms a step and peak memory.  Returns the launches summed over the
+    steps."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train import tree as ttree
+    from repro_torch.train.step import batch_on, loss_and_grads
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cell = build_cell(cfg, SHAPES["train_4k"], make_host_mesh())
+    state = cell.init_state(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in ttree.leaves(state.params))
+    log(f"{label}: {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads} kv heads, {n_params:,} float32 master "
+        f"parameters (bf16 activations), AdamW moments float32, remat "
+        f"{cfg.remat}: state built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b, seed=0))
+    batches = [data.batch(i) for i in range(steps)]
+    b0 = batch_on(batches[0], DEV)
+    reset(kernels)
+    loss, _, grads = loss_and_grads(cfg, state.params, b0)
+    paths = [p for p, _ in ttree.flatten(state.params)]
+    missing = [p for p, g in zip(paths, grads) if g is None]
+    bad = [p for p, g in zip(paths, grads)
+           if g is not None and not torch.isfinite(g).all()]
+    # attention's leaves, except the key bias, whose true gradient is
+    # zero (softmax ignores a shift common to all keys)
+    dead = [p for p, g in zip(paths, grads)
+            if "attn" in p and p[-1] != "bk" and float(g.abs().max()) == 0]
+    fwd, bwd = kernels["flash_attention"].launches, \
+        kernels["flash_attention_bwd"].launches
+    del grads
+    torch.cuda.empty_cache()
+    log(f"{label}: loss and gradients of one batch ({b} x {s} tokens): "
+        f"loss {float(loss):.6f}; {len(paths)} leaves, "
+        f"{len(missing)} without a gradient, {len(bad)} non-finite, "
+        f"{len(dead)} attention leaves all-zero; B3 launches {fwd} "
+        f"(forward and remat recompute), backward kernel launches {bwd}")
+    if missing or bad or dead or (fwd, bwd) != (2 * cfg.n_layers,
+                                                cfg.n_layers):
+        raise AssertionError(f"{label}: gradients: missing {missing[:3]}, "
+                             f"non-finite {bad[:3]}, zero {dead[:3]}, "
+                             f"launches {fwd} / {bwd}")
+    # the main path: reset, train, read the counts
+    reset(kernels)
+    state, losses, step_ms, counts = train_steps(
+        torch, cell.run, state, batches, kernels, label)
+    check_train_launches(counts, 2 * cfg.n_layers, cfg.n_layers, label)
+    log(f"{label}: {steps} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}, "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step (host clock, "
+        f"synchronised), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
+        f"{counts[0]['flash_attention']} B3 launches and "
+        f"{counts[0]['flash_attention_bwd']} of its backward (the train "
+        f"cell of build_cell, host mesh {cell.mesh.shape})")
+    del state, cell
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in counts) for n in counts[0]}
+
+
 def run_training(torch, kernels, get_config):
     """Phase 20: training on the card.  B3's backward kernel at the
     training shapes; qwen2.5-3b at full width and depth (3 AdamW steps);
@@ -2863,11 +3028,8 @@ def run_training(torch, kernels, get_config):
     from repro_torch import checkpoint as ckpt
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.configs import SHAPES
     from repro_torch.kernels import ref
     from repro_torch.launch import train as launch_train
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import build_cell
     from repro_torch.train import OptimizerConfig, make_train_step
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import batch_on, loss_and_grads
@@ -2891,66 +3053,12 @@ def run_training(torch, kernels, get_config):
 
     # (b) qwen2.5-3b at full width and depth, the train cell of
     # launch.steps.build_cell on the card's host mesh
-    cfg = get_config("qwen2.5-3b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cell = build_cell(cfg, SHAPES["train_4k"], make_host_mesh())
-    state = cell.init_state(0)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in ttree.leaves(state.params))
-    log(f"phase 20: {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params:,} float32 master parameters (bf16 "
-        f"activations), AdamW moments float32, remat full: state built in "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held")
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=QWEN_TRAIN_S,
-                                  global_batch=QWEN_TRAIN_B, seed=0))
-    batches = [data.batch(i) for i in range(QWEN_TRAIN_STEPS)]
-    reset(kernels)
-    loss, _, grads = loss_and_grads(cfg, state.params,
-                                    batch_on(batches[0], DEV))
-    paths = [p for p, _ in ttree.flatten(state.params)]
-    missing = [p for p, g in zip(paths, grads) if g is None]
-    bad = [p for p, g in zip(paths, grads)
-           if g is not None and not torch.isfinite(g).all()]
-    # attention's leaves, except the key bias, whose true gradient is
-    # zero (softmax ignores a shift common to all keys)
-    dead = [p for p, g in zip(paths, grads)
-            if "attn" in p and p[-1] != "bk" and float(g.abs().max()) == 0]
-    fwd, bwd = kernels["flash_attention"].launches, \
-        kernels["flash_attention_bwd"].launches
-    log(f"phase 20: loss and gradients of one batch ({QWEN_TRAIN_B} x "
-        f"{QWEN_TRAIN_S} tokens): loss {float(loss):.4f}; {len(grads)} "
-        f"leaves, {len(missing)} without a gradient, {len(bad)} non-finite,"
-        f" {len(dead)} attention leaves all-zero; B3 launches {fwd} "
-        f"(forward and remat recompute), backward kernel launches {bwd}")
-    if missing or bad or dead or (fwd, bwd) != (2 * cfg.n_layers,
-                                                cfg.n_layers):
-        raise AssertionError(f"phase 20: gradients: missing {missing[:3]}, "
-                             f"non-finite {bad[:3]}, zero {dead[:3]}, "
-                             f"launches {fwd} / {bwd}")
-    del grads
-    torch.cuda.empty_cache()
-    # the main path: reset, train, read the counts
-    reset(kernels)
-    state, losses, step_ms, counts = train_steps(
-        torch, cell.run, state, batches, kernels, "phase 20")
-    check_train_launches(counts, 2 * cfg.n_layers, cfg.n_layers,
-                         "phase 20")
-    qwen_launches = {n: sum(c[n] for c in counts) for n in counts[0]}
-    log(f"phase 20: {QWEN_TRAIN_STEPS} AdamW steps: losses "
-        f"{[round(x, 4) for x in losses]}, "
-        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step (host clock, "
-        f"synchronised), peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
-        f"{counts[0]['flash_attention']} B3 launches and "
-        f"{counts[0]['flash_attention_bwd']} of its backward (the train "
-        f"cell of build_cell, host mesh {cell.mesh.shape})")
-    del state, cell
-    torch.cuda.empty_cache()
+    qwen_launches = train_dense(torch, kernels, get_config("qwen2.5-3b"),
+                                QWEN_TRAIN_B, QWEN_TRAIN_S,
+                                QWEN_TRAIN_STEPS, "phase 20")
 
-    # (c) the 0.1 B model: 24 steps, a checkpoint at 12, a restart
+    # (c) the 0.1 B model: SMALL_STEPS steps, a checkpoint at SMALL_SAVE, a
+    # restart
     cfg = get_config("qwen2.5-3b").replace(**SMALL_TRAIN)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=10,
                           total_steps=SMALL_STEPS)
@@ -3571,6 +3679,62 @@ def check_lru_starts(torch, ref, lru_mod, case, seed):
     del y, leaves, kept, again, plain
 
 
+def leaf_rel(got, want) -> list[float]:
+    """Each leaf's max |diff| / max |grad|."""
+    return [((u - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+            for u, v in zip(got, want)]
+
+
+def step1_gates(torch, kernels, cfg, b0) -> dict:
+    """Step 1's gradients through the kernels against the plain step
+    (``attn_impl='xla'``) at ``cfg``'s width and (cut) depth on the batch
+    ``b0``, each leaf as :func:`leaf_rel`: in float32 activations
+    (``"k32"``, worst at ``"i32"``; the kernels' launches in that pass,
+    ``"launches"``) and in bf16 (``"kx"``), where a leaf is held
+    (``"held"``, worst at ``"w16"``) when the plain bf16 step lies within
+    MODEL_RTOL of the plain float32 one, and the others, which bf16 alone
+    moves by more, are listed by kind with their readings (``"left"``);
+    ``"losses"``: the bf16 losses through the kernels and the plain
+    attention."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.train import tree as ttree
+    from repro_torch.train.step import loss_and_grads
+
+    state = build_cell(cfg, SHAPES["train_4k"], make_host_mesh()).init_state(0)
+    paths = [p for p, _ in ttree.flatten(state.params)]
+    f32 = cfg.replace(dtype="float32")
+    reset(kernels)
+    g_k = loss_and_grads(f32, state.params, b0)[2]
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    g_x32 = loss_and_grads(f32.replace(attn_impl="xla"), state.params, b0)[2]
+    k32 = leaf_rel(g_k, g_x32)
+    del g_k
+    loss_k, _, g_k = loss_and_grads(cfg, state.params, b0)
+    loss_x, _, g_x = loss_and_grads(cfg.replace(attn_impl="xla"),
+                                    state.params, b0)
+    kx, xx = leaf_rel(g_k, g_x), leaf_rel(g_x, g_x32)
+    del g_k, g_x, g_x32, state
+    torch.cuda.empty_cache()
+    i32 = max(range(len(k32)), key=k32.__getitem__)
+    held = [i for i in range(len(kx)) if xx[i] <= MODEL_RTOL]
+    w16 = max(held, key=kx.__getitem__)
+    left = collections.defaultdict(list)
+    for i in range(len(kx)):
+        if xx[i] > MODEL_RTOL:
+            left[paths[i][-1]].append(i)
+    left_s = "; ".join(
+        f"{len(ix)} {k} (plain bf16 vs float32 "
+        f"{min(xx[i] for i in ix):.3g}-{max(xx[i] for i in ix):.3g}, "
+        f"kernels vs plain {min(kx[i] for i in ix):.3g}-"
+        f"{max(kx[i] for i in ix):.3g})"
+        for k, ix in sorted(left.items())) or "none"
+    return dict(paths=paths, k32=k32, kx=kx, i32=i32, held=held, w16=w16,
+                left=left_s, launches=launches,
+                losses=(float(loss_k), float(loss_x)))
+
+
 def run_griffin_training(torch, kernels, get_config):
     """Phase 22: B5's backward and B3's backward at head dim 256 (their
     builds' registers and spills, then their cases), then
@@ -3631,40 +3795,12 @@ def run_griffin_training(torch, kernels, get_config):
     batches = [data.batch(i) for i in range(GRIFFIN_TRAIN_STEPS)]
     b0 = batch_on(batches[0], DEV)
 
-    def rel(got, want):
-        """Each leaf's max |diff| / max |grad|."""
-        return [((u - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
-                for u, v in zip(got, want)]
-
-    c3 = cfg.replace(n_layers=GRIFFIN_GATE_LAYERS)
-    s3 = build_cell(c3, SHAPES["train_4k"], make_host_mesh()).init_state(0)
-    p3 = [p for p, _ in ttree.flatten(s3.params)]
-    f32 = c3.replace(dtype="float32")
-    reset(kernels)
-    g_k = loss_and_grads(f32, s3.params, b0)[2]
-    n32 = (kernels["flash_attention_bwd"].launches,
-           kernels["lru_scan_bwd"].launches)
-    g_x32 = loss_and_grads(f32.replace(attn_impl="xla"), s3.params, b0)[2]
-    k32 = rel(g_k, g_x32)
-    del g_k
-    g_k = loss_and_grads(c3, s3.params, b0)[2]
-    g_x = loss_and_grads(c3.replace(attn_impl="xla"), s3.params, b0)[2]
-    kx, xx = rel(g_k, g_x), rel(g_x, g_x32)
-    del g_k, g_x, g_x32, s3
-    torch.cuda.empty_cache()
-    i32 = max(range(len(k32)), key=k32.__getitem__)
-    held = [i for i in range(len(kx)) if xx[i] <= MODEL_RTOL]
-    w16 = max(held, key=kx.__getitem__)
-    left = collections.defaultdict(list)
-    for i in range(len(kx)):
-        if xx[i] > MODEL_RTOL:
-            left[p3[i][-1]].append(i)
-    left_s = "; ".join(
-        f"{len(ix)} {k} (plain bf16 vs float32 "
-        f"{min(xx[i] for i in ix):.3g}-{max(xx[i] for i in ix):.3g}, "
-        f"kernels vs plain {min(kx[i] for i in ix):.3g}-"
-        f"{max(kx[i] for i in ix):.3g})"
-        for k, ix in sorted(left.items())) or "none"
+    g = step1_gates(torch, kernels, cfg.replace(
+        n_layers=GRIFFIN_GATE_LAYERS), b0)
+    p3, k32, kx, i32, held, w16, left_s = (g[n] for n in (
+        "paths", "k32", "kx", "i32", "held", "w16", "left"))
+    n32 = (g["launches"]["flash_attention_bwd"],
+           g["launches"]["lru_scan_bwd"])
     log(f"phase 22: {cfg.name} at {GRIFFIN_GATE_LAYERS} layers (one (rec, "
         f"rec, attn) group, full width): step 1's gradients through B3, B5 "
         f"and their backward kernels vs the plain step (attn_impl='xla'), "
@@ -3750,6 +3886,143 @@ def run_griffin_training(torch, kernels, get_config):
     del state, cell
     torch.cuda.empty_cache()
     return lru_row, fa_rows, launches
+
+
+def sdpa_backends_ms(torch, fn, reps) -> str:
+    """``fn`` (an SDPA call, or one with its backward) timed under SDPA's
+    flash and cuDNN back ends, each alone, by :func:`cuda_ms`; a back end
+    that refuses the inputs is named with its reason.  A yardstick only:
+    no path of the port calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = []
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION"):
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                out.append(f"{name} {cuda_ms(fn, reps):.4f} ms")
+            except RuntimeError as e:
+                out.append(f"{name} refused "
+                           f"({str(e).splitlines()[0][:80]})")
+    return ", ".join(out)
+
+
+def check_attention_view(torch, ref, ops, case, view, label, seed) -> float:
+    """B3 against its plain version at ``case`` on the model's transposed
+    views or on views TMA cannot read in place (``view``); returns max
+    |diff|."""
+    causal, window, dtype = case[5:8]
+    q, k, v = qkv_on_card(torch, case, seed, transposed=True,
+                          misaligned=view == "misaligned")
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    d = (got.float() - want.float()).abs().max().item()
+    log(f"{label}: B3 vs plain at {case} ({view} views): max |diff| "
+        f"{d:.3g} (tolerance {FA_TOL[dtype]})")
+    if not d <= FA_TOL[dtype]:
+        raise AssertionError(f"{label}: B3 differs from its plain version "
+                             f"by {d} at {case} ({view} views)")
+    return d
+
+
+def run_phi3(torch, lm, kernels, get_config):
+    """Phase 23: B3 and its backward at head dim 96 (builds, phi3-mini's
+    shapes beside SDPA under its back ends, edge cases), then
+    phi3-mini-3.8b at full width and depth: prefill, decode and
+    consistency (:func:`run_model`), step 1's gates at
+    :data:`PHI3_GATE_LAYERS` layers (:func:`step1_gates`) and 3 AdamW
+    steps (:func:`train_dense`).  Returns B3's and its backward's rows at
+    phi3-mini's shapes and the launches of the prefill and the steps."""
+    import torch.nn.functional as F
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.train.step import batch_on
+
+    label = "phase 23"
+    # (a) the kernels at head dim 96: builds, phi3-mini's shapes, edges
+    builds = [("B3", fa_mod.wgmma_attributes(96))] + [
+        (f"B3's backward, its {k} kernel", a)
+        for k, a in fa_mod.bwd_wgmma_attributes(96).items()]
+    for what, a in builds:
+        log(f"{label}: {what} at head dim 96: {a['registers']} registers a "
+            f"thread (before setmaxnreg), {a['dynamic_smem']} B dynamic "
+            f"shared memory, {a['local_bytes']} B local (spill) a thread")
+        if a["local_bytes"]:
+            raise AssertionError(f"{label}: {what} spills at head dim 96: "
+                                 f"{a}")
+    fwd_row = check_attention_case(torch, ref, ops, PHI3_FA, label, seed=2300)
+    q, k, v = qkv_on_card(torch, PHI3_FA, seed=2300)
+    kw = dict(attn_mask=None, is_causal=True, enable_gqa=False)
+    log(f"{label}: SDPA at phi3-mini's prefill shape took "
+        f"{sdpa_backend(torch, q, k, v, **kw)}; by back end: "
+        + sdpa_backends_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 20))
+    del q, k, v
+    err = max(check_attention_view(torch, ref, ops, case, view, label,
+                                   seed=2310 + i)
+              for i, (case, view) in enumerate(PHI3_EDGE_CASES))
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], err)
+    bwd_row = None
+    for i, (case, view) in enumerate([(PHI3_BWD, "transposed"),
+                                      (PHI3_BWD_F32, "transposed")]
+                                     + list(PHI3_EDGE_CASES)):
+        r = check_attention_bwd(torch, ref, fa_mod, case, label,
+                                seed=2320 + i, view=view)
+        bwd_row = bwd_row or r
+    q, k, v = qkv_on_card(torch, PHI3_BWD, seed=2320, transposed=True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    g = torch.Generator(device=DEV).manual_seed(2321)
+    do = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
+
+    def sdpa_fwd_bwd():
+        y = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(y, leaves, do)
+    log(f"{label}: SDPA's forward and backward at phi3-mini's training "
+        f"shape by back end (3 calls each): "
+        f"{sdpa_backends_ms(torch, sdpa_fwd_bwd, 3)}")
+    del q, k, v, leaves, do
+    torch.cuda.empty_cache()
+
+    # (b) inference at full width and depth, as phase 7
+    _, params, prefill_launches = run_model(torch, lm, kernels, get_config,
+                                            PHI3, label)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) training: step 1's gates at PHI3_GATE_LAYERS layers, then the
+    # whole depth
+    cfg = get_config(PHI3)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=PHI3_TRAIN_S,
+                                  global_batch=PHI3_TRAIN_B, seed=0))
+    gate = step1_gates(torch, kernels, cfg.replace(
+        n_layers=PHI3_GATE_LAYERS), batch_on(data.batch(0), DEV))
+    p2, k32, kx, i32, held, w16, left = (gate[n] for n in (
+        "paths", "k32", "kx", "i32", "held", "w16", "left"))
+    loss_k, loss_x = gate["losses"]
+    loss_rel = abs(loss_k - loss_x) / abs(loss_x)
+    n32 = gate["launches"]["flash_attention_bwd"]
+    log(f"{label}: {cfg.name} at {PHI3_GATE_LAYERS} layers (full width): "
+        f"step 1's bf16 loss {loss_k:.6f} through B3 and its backward, "
+        f"{loss_x:.6f} through the plain attention (attn_impl='xla'): "
+        f"{loss_rel:.3g} relative (tolerance {SSD_TRAIN_LOSS_RTOL}); "
+        f"gradients of {len(p2)} leaves in float32 activations (B3's "
+        f"backward launched {n32} times) worst max |diff| / max |grad| "
+        f"{k32[i32]:.3g} at {p2[i32]} (tolerance {MODEL_RTOL}); in bf16 "
+        f"{len(held)} leaves held, worst {kx[w16]:.3g} at {p2[w16]} "
+        f"(tolerance {MODEL_RTOL}), left out: {left}")
+    if not loss_rel <= SSD_TRAIN_LOSS_RTOL or not k32[i32] <= MODEL_RTOL \
+            or not kx[w16] <= MODEL_RTOL or n32 != PHI3_GATE_LAYERS:
+        raise AssertionError(f"{label}: step 1 at {PHI3_GATE_LAYERS} "
+                             f"layers: loss {loss_rel:.3g}, float32 "
+                             f"{k32[i32]:.3g} at {p2[i32]}, bf16 "
+                             f"{kx[w16]:.3g} at {p2[w16]}, backward "
+                             f"launches {n32}")
+    return fwd_row, bwd_row, prefill_launches, train_dense(
+        torch, kernels, cfg, PHI3_TRAIN_B, PHI3_TRAIN_S, PHI3_TRAIN_STEPS,
+        label)
 
 
 def main() -> int:
@@ -4084,6 +4357,16 @@ def main() -> int:
                                  f"{n}")
     log(f"phase 22 ended at {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 23: B3 and its backward at head dim 96, phi3-mini-3.8b's
+    # prefill, decode and training ------------------------------------------
+    (rows["flash_attention_d96"], rows["flash_attention_bwd_d96"],
+     phi3_prefill, phi3_launches) = run_phi3(torch, lm, kernels, get_config)
+    for n in ("flash_attention", "flash_attention_bwd"):
+        if not phi3_launches[n] or not phi3_prefill:
+            raise AssertionError(f"phase 23: the phi3-mini runs launched no "
+                                 f"{n}")
+    log(f"phase 23 ended at {time.perf_counter() - t_start:.1f} s")
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -4133,15 +4416,23 @@ def main() -> int:
                 # the float32 gate's pass of mamba2-370m, the path it takes
                 "ssd_scan_bwd_step": step_launches,
                 "lru_scan": lru_launches,
-                "lru_scan_bwd": griffin_launches["lru_scan_bwd"]}
+                "lru_scan_bwd": griffin_launches["lru_scan_bwd"],
+                # B3 and its backward at phi3-mini's shapes (head dim 96):
+                # phase 23's prefill and its 3 train steps
+                "flash_attention_d96": phi3_prefill,
+                "flash_attention_bwd_d96":
+                phi3_launches["flash_attention_bwd"]}
+    of = {n: n for n in kernels}
+    of.update(flash_attention_d96="flash_attention",
+              flash_attention_bwd_d96="flash_attention_bwd")
     line = {"kernels": [
-        {"name": n, "route": "cuda", "source": sources[n],
-         "replaces": replaces[n], "launches": launches[n],
+        {"name": n, "route": "cuda", "source": sources[of[n]],
+         "replaces": replaces[of[n]], "launches": launches[n],
          "max_abs_err": rows[n]["max_abs_err"], "ms": rows[n]["ms"],
          "plain_ms": rows[n]["plain_ms"], "bound_ms": rows[n]["bound_ms"],
          "bound_by": rows[n]["bound_by"],
          "library_ms": rows[n].get("library_ms")}
-        for n in kernels]}
+        for n in of]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)

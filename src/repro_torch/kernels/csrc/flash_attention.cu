@@ -21,23 +21,36 @@
 // pair, 2.75e11 FLOP on 151 MB of q, k, v and out: 0.278 ms at 989 TFLOP/s
 // against 0.045 ms at 3.35 TB/s.  recurrentgemma-9b's local attention (H=16,
 // one kv head, S=4096, D=256, window 2048) does 4.13e11 FLOP: 0.417 ms.
+// phi3-mini's causal prefill (B=4, H=32, S=4096, D=96) does 4.12e11 FLOP:
+// 0.417 ms too.
 // Only the tensor cores reach that rate, and only through `wgmma`.  Two
 // kernels, chosen by the wrapper from the inputs:
 //
-// * `flash_attention_wgmma_kernel` (bf16 at head dims 64, 128 and 256: every
-//   prefill of the port) is built for Hopper.  A CTA of three warpgroups
-//   owns 128 query rows of one (batch, head).  Warpgroup 2 is the producer:
-//   one of its threads loads Q once and keeps a two-stage ring of K and V
-//   tiles (128 keys, or 64 at D 256) full with TMA, on full/empty
-//   `mbarrier`s, so loads overlap the products.  Warpgroups 0 and 1 each
-//   own 64 rows: S = Q·Kᵀ is a `wgmma` with both operands in shared
-//   memory, the online softmax runs in registers, and O += P·V is a
+// * `flash_attention_wgmma_kernel` (bf16 at head dims 64, 96, 128 and 256:
+//   every prefill of the port) is built for Hopper.  A CTA of three
+//   warpgroups owns 128 query rows of one (batch, head).  Warpgroup 2 is
+//   the producer: one of its threads loads Q once and keeps a ring of K
+//   and V tiles (128 keys, or 64 at D 256; two stages, three at D 96,
+//   four at D 64) full with TMA, on full/empty `mbarrier`s, so loads
+//   overlap the products.  Warpgroups 0 and 1 each own 64 rows: S = Q·Kᵀ
+//   is a `wgmma` with both operands in shared memory, the online softmax
+//   runs in registers, and O += P·V is a
 //   `wgmma` with P taken from S's accumulators (rounded to bf16, as
 //   attention_ref rounds it) and V read MN-major through the transpose-B
 //   flag.  `setmaxnreg` moves the producer's registers to the consumers (O
 //   is 64 x 256 float32 at D 256, 128 registers a thread).  Tiles are
 //   128-byte-swizzled slabs of 64 columns, the layout TMA writes and
-//   `wgmma` reads.  Under grad the epilogue also writes each row's
+//   `wgmma` reads (`Slabs` in tma.cuh).  Head dim 96 (phi3-mini's) is 192
+//   bytes a row, no whole number of 128-byte slabs.  Of the two ways
+//   round that, padding each row to 128 columns in shared memory (TMA
+//   zero-fills columns 96-127) or 64-byte-swizzled slabs of 32 columns,
+//   three a row, this takes the second: every operand is then one of
+//   `wgmma`'s canonical layouts (P·V reads V MN-major as one n96 product
+//   over three whole 32-column atoms, where the padded rows would need 1.5
+//   128-byte atoms or an n64 and an n32 product on a part of one), S runs
+//   the 6 k16 steps that hold data, and shared memory holds no padding (a
+//   third ring stage fits instead).  The cost is a third TMA box a tile.
+//   Under grad the epilogue also writes each row's
 //   log-sum-exp, which it holds as m and l, for the backward
 //   (flash_attention_bwd.cu); inference passes a null pointer and runs the
 //   same work.  The tensor cores are kept busy two ways, together
@@ -52,7 +65,7 @@
 //   through shared memory and a TMA store.  The tile schedule is mirrored
 //   in Python by `tile_schedule` in kernels/flash_attention.py, which the
 //   CPU tests check.
-// * `flash_attention_kernel` (float32, and bf16 at head dims 16, 32 and 96,
+// * `flash_attention_kernel` (float32, and bf16 at head dims 16 and 32,
 //   which no path of the port runs): the tiles are staged in shared memory
 //   as float32 and every product is a scalar FMA on a 4 x 2 (scores) and
 //   4 x D/16 (output) register tile per thread, so it runs on the CUDA
@@ -246,18 +259,21 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 // Shared memory of one CTA at head dim D: Q (128 rows), then a ring of
-// STAGES K tiles and STAGES V tiles of BK keys, each stored as D / 64 slabs
-// of (rows x 128 bytes), 128-byte swizzled; then the mbarriers.
+// STAGES K tiles and STAGES V tiles of BK keys, each stored as `Slabs<D>`
+// (D / 64 slabs of rows x 128 bytes, 128-byte swizzled; at D 96 three of
+// rows x 64 bytes, 64-byte swizzled); then the mbarriers.
 template <int D>
 struct WgmmaTile {
-  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "head dim 64, 96, 128 or 256");
+  using S = Slabs<D>;
   static constexpr int BK = D == 256 ? 64 : 128;  // keys per tile
-  static constexpr int SLABS = D / kSlabCols;
-  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int SLABS = S::COUNT;
+  static constexpr int STAGES = D == 64 ? 4 : (D == 96 ? 3 : 2);
   static constexpr uint32_t Q_BYTES = kCtaRows * D * 2;
   static constexpr uint32_t KV_BYTES = BK * D * 2;   // one K or one V tile
-  static constexpr uint32_t Q_SLAB = kCtaRows * kRowBytes;
-  static constexpr uint32_t KV_SLAB = BK * kRowBytes;
+  static constexpr uint32_t Q_SLAB = kCtaRows * S::ROW_BYTES;
+  static constexpr uint32_t KV_SLAB = BK * S::ROW_BYTES;
   static constexpr int N_BARS = 1 + 4 * STAGES;
   // + 1024: the slabs start on a 1024-byte boundary (the swizzle's period)
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 8 * N_BARS +
@@ -347,15 +363,16 @@ struct Consumer {
   // S = Q·Kᵀ of tile `it` (64 x BK, K-major operands, 16 columns of D a
   // step), one wgmma group
   __device__ void issue_s(float (&s)[BK / 2], int it) const {
+    using S = typename T::S;
     const uint32_t k_st = k_s + stage(it) * T::KV_BYTES;
 #pragma unroll
     for (int j = 0; j < T::SLABS; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < kSlabCols / 16; ++kk) {
-        const uint64_t a =
-            smem_desc(q_wg + j * T::Q_SLAB + kk * 32, 16, 1024);
-        const uint64_t b =
-            smem_desc(k_st + j * T::KV_SLAB + kk * 32, 16, 1024);
+      for (int kk = 0; kk < S::COLS / 16; ++kk) {
+        const uint64_t a = smem_desc(q_wg + j * T::Q_SLAB + kk * 32, 16,
+                                     S::ATOM, S::LAYOUT);
+        const uint64_t b = smem_desc(k_st + j * T::KV_SLAB + kk * 32, 16,
+                                     S::ATOM, S::LAYOUT);
         wgmma_ss<BK>(s, a, b, (j | kk) != 0);
       }
     }
@@ -363,15 +380,17 @@ struct Consumer {
   }
 
   // O += P·V of tile `it`: V [key][d] is MN-major for this product; 16
-  // keys a step (2,048 bytes into every slab), the next 64 columns one
+  // keys a step (16 rows into every slab), the next slab's columns one
   // slab on; one wgmma group
   __device__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[BK / 16][4],
                            int it) const {
+    using S = typename T::S;
     const uint32_t v_st = v_s + stage(it) * T::KV_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs_tb<D>(o, p[kk],
-                     smem_desc(v_st + kk * 16 * kRowBytes, T::KV_SLAB, 1024),
+                     smem_desc(v_st + kk * 16 * S::ROW_BYTES, T::KV_SLAB,
+                               S::ATOM, S::LAYOUT),
                      1);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
@@ -490,7 +509,7 @@ __device__ __forceinline__ void wgmma_consumer(
   const int group = lane / 4;
   Consumer<D> c;
   c.bars = bars;
-  c.q_wg = q_s + wg * kWgRows * kRowBytes;
+  c.q_wg = q_s + wg * kWgRows * T::S::ROW_BYTES;
   c.k_s = k_s;
   c.v_s = v_s;
   c.kb_lo = kb_lo;
@@ -584,13 +603,14 @@ __device__ __forceinline__ void wgmma_consumer(
       if (c.row0 + 8 * r < sq)
         lse[c.row0 + 8 * r] = (m[r] + log2f(l[r])) * kLn2;
   }
+  constexpr int CHUNKS = T::S::COLS / 8;  // 16-byte chunks a slab row
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = warp * 16 + group + 8 * r;
-      const uint32_t addr = c.q_wg + (j / 8) * T::Q_SLAB + row * kRowBytes +
-                            (((j % 8) ^ (row % 8)) * 16) + c.tig * 4;
+      const uint32_t addr = c.q_wg + (j / CHUNKS) * T::Q_SLAB +
+                            T::S::at(row, j % CHUNKS) + c.tig * 4;
       const uint32_t val = pack_bf16(o[4 * j + 2 * r] * inv[r],
                                      o[4 * j + 2 * r + 1] * inv[r]);
       asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(val)
@@ -603,7 +623,7 @@ __device__ __forceinline__ void wgmma_consumer(
   if (tid == 0) {
 #pragma unroll
     for (int j = 0; j < T::SLABS; ++j)
-      tma_store(o_map, o_order, c.q_wg + j * T::Q_SLAB, j * kSlabCols,
+      tma_store(o_map, o_order, c.q_wg + j * T::Q_SLAB, j * T::S::COLS,
                 c.r_lo, h, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -660,9 +680,9 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
     for (int j = 0; j < T::SLABS; ++j)
 #pragma unroll
       for (int w = 0; w < 2; ++w)
-        tma_load(q_s + j * T::Q_SLAB + w * kWgRows * kRowBytes, &q_map,
-                 orders.x, bars.q_full(), j * kSlabCols, q0 + w * kWgRows, h,
-                 b);
+        tma_load(q_s + j * T::Q_SLAB + w * kWgRows * T::S::ROW_BYTES, &q_map,
+                 orders.x, bars.q_full(), j * T::S::COLS, q0 + w * kWgRows,
+                 h, b);
     for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
       const int st = it % T::STAGES;
       const uint32_t ph = (it / T::STAGES) & 1;  // a fresh ring is empty
@@ -671,13 +691,13 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
 #pragma unroll
       for (int j = 0; j < T::SLABS; ++j)
         tma_load(k_s + st * T::KV_BYTES + j * T::KV_SLAB, &k_map, orders.y,
-                 bars.k_full(st), j * kSlabCols, kb * BK, hk, b);
+                 bars.k_full(st), j * T::S::COLS, kb * BK, hk, b);
       mbar_wait(bars.v_empty(st), ph ^ 1);
       mbar_expect_tx(bars.v_full(st), T::KV_BYTES);
 #pragma unroll
       for (int j = 0; j < T::SLABS; ++j)
         tma_load(v_s + st * T::KV_BYTES + j * T::KV_SLAB, &v_map, orders.z,
-                 bars.v_full(st), j * kSlabCols, kb * BK, hk, b);
+                 bars.v_full(st), j * T::S::COLS, kb * BK, hk, b);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -705,6 +725,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return (int)cudaGetLastError();
 }
 
+// launches of the TMA + wgmma kernel since the library was loaded: the
+// route this dispatch took (flash_attention_wgmma_launches reads it)
+long long g_wgmma_launches = 0;
+
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int batch, int n_heads, int n_kv_heads, int sq,
@@ -712,20 +736,21 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  const int64_t* st, float sm_scale, int causal, int window,
                  cudaStream_t stream) {
   using T = WgmmaTile<D>;
+  constexpr int RB = T::S::ROW_BYTES;
   CUtensorMap maps[4];
   int orders[4];
   const int64_t out_st[3] = {(int64_t)n_heads * sq * D, (int64_t)sq * D, D};
   int e = encode_map(&maps[0], &orders[0], q, batch, n_heads, sq, D, st,
-                     kWgRows);
+                     kWgRows, RB);
   if (!e)
     e = encode_map(&maps[1], &orders[1], k, batch, n_kv_heads, skv, D,
-                   st + 3, T::BK);
+                   st + 3, T::BK, RB);
   if (!e)
     e = encode_map(&maps[2], &orders[2], v, batch, n_kv_heads, skv, D,
-                   st + 6, T::BK);
+                   st + 6, T::BK, RB);
   if (!e)
     e = encode_map(&maps[3], &orders[3], out, batch, n_heads, sq, D, out_st,
-                   kWgRows);
+                   kWgRows, RB);
   if (e) return e;
   auto kern = flash_attention_wgmma_kernel<D>;
   const cudaError_t a = cudaFuncSetAttribute(
@@ -736,7 +761,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
       maps[0], maps[1], maps[2], maps[3], lse,
       make_int4(orders[0], orders[1], orders[2], orders[3]),
       n_heads / n_kv_heads, sq, skv, sm_scale * kLog2e, causal, window);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++g_wgmma_launches;
+  return (int)err;
 }
 
 template <typename T>
@@ -751,13 +778,13 @@ int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
   switch (d) {
     FA_CASE(16)
     FA_CASE(32)
-    FA_CASE(96)
     default:
       break;
   }
   if constexpr (std::is_same<T, float>::value) {  // bf16 here: TMA + wgmma
     switch (d) {
       FA_CASE(64)
+      FA_CASE(96)
       FA_CASE(128)
       FA_CASE(256)
       default:
@@ -772,7 +799,7 @@ int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 float32, 1 bfloat16.  strides: q, k, v each (batch, head, seq),
 // in elements; the head-dim stride is 1.  window < 0: no window.  bf16 at
-// head dim 64, 128 or 256 takes the TMA + wgmma kernel, which needs the
+// head dim 64, 96, 128 or 256 takes the TMA + wgmma kernel, which needs the
 // base addresses of q, k and v and their strides in multiples of 16 bytes,
 // and no stride 0 on a dim longer than 1 (the wrapper sees to it).  lse:
 // null, or (B, H, Sq) float32 that the TMA + wgmma kernel fills with each
@@ -788,7 +815,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window, void* stream) {
   if (batch == 0 || n_heads == 0 || sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool wgmma = dtype == 1 && (d == 64 || d == 128 || d == 256);
+  const bool wgmma =
+      dtype == 1 && (d == 64 || d == 96 || d == 128 || d == 256);
   if (lse != nullptr && !wgmma) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_dim<float>(d, q, k, v, out, batch, n_heads, n_kv_heads, sq,
@@ -799,6 +827,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                              n_kv_heads, sq, skv, strides, sm_scale,       \
                              causal, window, s);
   FA_WGMMA(64)
+  FA_WGMMA(96)
   FA_WGMMA(128)
   FA_WGMMA(256)
 #undef FA_WGMMA
@@ -809,9 +838,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The TMA + wgmma kernel's build at head dim d (64, 128 or 256): attrs gets
-// registers a thread, static shared bytes, the dynamic shared bytes it is
-// launched with, local (spill) bytes a thread, and max threads a block.
+// Launches of the TMA + wgmma kernel since the library was loaded.
+extern "C" long long flash_attention_wgmma_launches() {
+  return g_wgmma_launches;
+}
+
+// The TMA + wgmma kernel's build at head dim d (64, 96, 128 or 256): attrs
+// gets registers a thread, static shared bytes, the dynamic shared bytes it
+// is launched with, local (spill) bytes a thread, and max threads a block.
 extern "C" int flash_attention_wgmma_attributes(int d, int* attrs) {
   cudaFuncAttributes fa;
   cudaError_t e;
@@ -819,6 +853,9 @@ extern "C" int flash_attention_wgmma_attributes(int d, int* attrs) {
   if (d == 64) {
     e = cudaFuncGetAttributes(&fa, flash_attention_wgmma_kernel<64>);
     dyn = WgmmaTile<64>::SMEM;
+  } else if (d == 96) {
+    e = cudaFuncGetAttributes(&fa, flash_attention_wgmma_kernel<96>);
+    dyn = WgmmaTile<96>::SMEM;
   } else if (d == 128) {
     e = cudaFuncGetAttributes(&fa, flash_attention_wgmma_kernel<128>);
     dyn = WgmmaTile<128>::SMEM;

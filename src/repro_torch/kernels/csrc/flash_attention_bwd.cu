@@ -21,8 +21,8 @@
 // kv heads, S 4,096, D 128, causal), 0.348 ms at the bf16 tensor cores'
 // 989 TFLOP/s; only `wgmma` reaches that rate.
 //
-// bf16 at head dims 64, 128 and 256 (every backward the port trains) runs
-// on the tensor cores, in three kernels:
+// bf16 at head dims 64, 96, 128 and 256 (every backward the port trains)
+// runs on the tensor cores, in three kernels:
 // * `fa_bwd_prep`: D = rowsum(dO ∘ O) a row, and the forward's row
 //   log-sum-exp (written by the Hopper forward's epilogue under grad, so
 //   no score product is spent on it) times log2(e), both into buffers
@@ -39,18 +39,19 @@
 //   dSᵀ·Q with Pᵀ and dSᵀ as `wgmma`'s register A operand: the
 //   accumulator layout of Sᵀ is the A layout of the next product, so
 //   nothing goes through shared memory.  dK and dV stay in registers (64
-//   + 64 floats a thread at D 128; `setmaxnreg` gives the consumers the
-//   producer's registers); at the end the two warpgroups' sums are added
-//   in a fixed order through shared memory and written once.  Dealing one
-//   key block's tiles to two warpgroups, rather than giving each its own
-//   keys, halves the longest CTA: under a causal mask the first key block
-//   meets every query tile, the last one only the diagonal.
+//   + 64 floats a thread at D 128, 48 + 48 at D 96; `setmaxnreg` gives the
+//   consumers the producer's registers); at the end the two warpgroups'
+//   sums are added in a fixed order through shared memory and written
+//   once.  Dealing one key block's tiles to two warpgroups, rather than
+//   giving each its own keys, halves the longest CTA: under a causal mask
+//   the first key block meets every query tile, the last one only the
+//   diagonal.
 // * `fa_bwd_dq_wgmma`: a CTA owns 128 query rows of one (batch, head), two
 //   consumer warpgroups of 64; Q and dO stay in shared memory, the
 //   producer streams (K, V) tiles of 64 keys over the band through a ring
-//   of three stages (four at D 64).  S = Q·Kᵀ and dP = dO·Vᵀ (`wgmma`,
-//   shared memory), P and dS in registers, then dQ += dS·K with K read
-//   MN-major through the transpose-B flag, as the forward reads V.
+//   of three stages (four at D 64 and 96).  S = Q·Kᵀ and dP = dO·Vᵀ
+//   (`wgmma`, shared memory), P and dS in registers, then dQ += dS·K with
+//   K read MN-major through the transpose-B flag, as the forward reads V.
 // At head dim 256 the registers and shared memory of that design do not
 // fit (dK and dV of 64 keys would take 256 accumulators a thread, a (Q,
 // dO) stage 64 KB), so the two passes split their work otherwise (SPLIT
@@ -70,7 +71,12 @@
 // take turns on the tensor cores instead).  That is seven products where five would do (S and dP are
 // computed in both passes): the price of summing dQ without atomics.
 // Tiles are 128-byte-swizzled slabs of 64 columns, the layout TMA writes
-// and `wgmma` reads; TMA zero-fills rows past Sq and keys past Skv, which
+// and `wgmma` reads; at head dim 96 (phi3-mini's), 64-byte-swizzled slabs
+// of 32 columns, three a row, as the forward's (`Slabs` in tma.cuh): Sᵀ,
+// dPᵀ, S and dP contract over 96 in 6 k16 steps, and dV, dK and dQ are
+// n96 products over three whole MN-major atoms (bound at phi3-mini's
+// training shape, q, k, v (2, 32, 4,096, 96), causal: 5.16e11 FLOP,
+// 0.521 ms).  TMA zero-fills rows past Sq and keys past Skv, which
 // then add nothing that is stored, so only tiles that the causal or window
 // band's edge crosses are masked.  Under a causal mask the CTAs with the
 // longest band start first (the first key blocks of the dK/dV pass, the
@@ -80,11 +86,11 @@
 // check.
 //
 // float32 (which the tensor cores would round to TF32) keeps three scalar
-// kernels: `fa_bwd_stats` (the row log-sum-exp, recomputed from q·kᵀ, and
-// D), `fa_bwd_dkdv` (a CTA a (batch, kv head, 64 keys)) and `fa_bwd_dq` (a
-// CTA a (batch, head, 64 rows)), every product a float32 FMA on tiles
-// staged in shared memory; at head dim 256 their tiles are 32 rows, so
-// four of them fit.
+// kernels, at the same head dims: `fa_bwd_stats` (the row log-sum-exp,
+// recomputed from q·kᵀ, and D), `fa_bwd_dkdv` (a CTA a (batch, kv head, 64
+// keys)) and `fa_bwd_dq` (a CTA a (batch, head, 64 rows)), every product a
+// float32 FMA on tiles staged in shared memory; at head dim 256 their
+// tiles are 32 rows, so four of them fit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -586,32 +592,38 @@ __device__ __forceinline__ void to_a_fragments(const float (&s)[32],
       f[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-// acc = A·Bᵀ over D: A 64 rows from `a`, B 64 rows from `b`, each D / 64
-// slabs `a_slab` and `b_slab` bytes apart, K-major; one wgmma group.
+// acc = A·Bᵀ over D: A 64 rows from `a`, B 64 rows from `b`, each as
+// `Slabs<D>`, slabs `a_slab` and `b_slab` bytes apart, K-major; one wgmma
+// group.
 template <int D>
 __device__ __forceinline__ void product_abt(float (&acc)[32], uint32_t a,
                                             uint32_t a_slab, uint32_t b,
                                             uint32_t b_slab) {
+  using S = Slabs<D>;
 #pragma unroll
-  for (int j = 0; j < D / kSlabCols; ++j)
+  for (int j = 0; j < S::COUNT; ++j)
 #pragma unroll
-    for (int kk = 0; kk < kSlabCols / 16; ++kk)
-      wgmma_ss<64>(acc, smem_desc(a + j * a_slab + kk * 32, 16, 1024),
-                   smem_desc(b + j * b_slab + kk * 32, 16, 1024),
+    for (int kk = 0; kk < S::COLS / 16; ++kk)
+      wgmma_ss<64>(acc,
+                   smem_desc(a + j * a_slab + kk * 32, 16, S::ATOM, S::LAYOUT),
+                   smem_desc(b + j * b_slab + kk * 32, 16, S::ATOM, S::LAYOUT),
                    (j | kk) != 0);
   wgmma_commit();
 }
 
-// acc += F·X: F the 64 x 64 A fragments, X 64 rows of D columns at `x`
-// (slabs `x_slab` bytes apart) read MN-major, 16 rows a k-step; one wgmma
-// group.
-template <int D>
-__device__ __forceinline__ void product_fx(float (&acc)[D / 2],
+// acc += F·X: F the 64 x 64 A fragments, X 64 rows of N columns at `x`
+// (slabs of a D-column tile, `Slabs<D>`, `x_slab` bytes apart) read
+// MN-major, 16 rows a k-step; one wgmma group.
+template <int D, int N = D>
+__device__ __forceinline__ void product_fx(float (&acc)[N / 2],
                                            const uint32_t (&f)[4][4],
                                            uint32_t x, uint32_t x_slab) {
+  using S = Slabs<D>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_tb<D>(acc, f[kk], smem_desc(x + kk * 16 * kRowBytes, x_slab, 1024),
+    wgmma_rs_tb<N>(acc, f[kk],
+                   smem_desc(x + kk * 16 * S::ROW_BYTES, x_slab, S::ATOM,
+                             S::LAYOUT),
                    1);
   wgmma_commit();
 }
@@ -675,13 +687,16 @@ fa_bwd_prep(const __nv_bfloat16* __restrict__ o,
 
 // Shared memory of a dK/dV CTA at head dim D: K and V (64 keys each); for
 // each of the two consumer warpgroups a ring of STAGES (Q, dO) tiles of 64
-// query rows (at D 256 one ring the two share: SPLIT), each stored as D /
-// 64 slabs of (rows x 128 bytes), 128-byte swizzled; the rings' LSE and D
-// rows; the mbarriers (K and V full, then full and empty for each stage).
+// query rows (at D 256 one ring the two share: SPLIT), each stored as
+// `Slabs<D>` (D / 64 slabs of rows x 128 bytes, 128-byte swizzled; at D 96
+// three of rows x 64 bytes, 64-byte swizzled); the rings' LSE and D rows;
+// the mbarriers (K and V full, then full and empty for each stage).
 template <int D>
 struct DkdvTile {
-  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
-  static constexpr int SLABS = D / kSlabCols;
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "head dim 64, 96, 128 or 256");
+  using S = Slabs<D>;
+  static constexpr int SLABS = S::COUNT;
   static constexpr int NWG = 2;  // consumer warpgroups
   // D 256: both warpgroups compute every item, each for its half of dK's
   // and dV's columns (64 + 64 accumulators a thread, as at D 128); two
@@ -691,9 +706,9 @@ struct DkdvTile {
   static constexpr int STAGES = 2;              // a ring's
   static constexpr int SLOTS = SPLIT ? STAGES : NWG * STAGES;
   static constexpr int RELEASERS = SPLIT ? 2 * 4 : 4;  // warps a slot waits
-  static constexpr uint32_t KV_SLAB = kWgRows * kRowBytes;
+  static constexpr uint32_t KV_SLAB = kWgRows * S::ROW_BYTES;
   static constexpr uint32_t KV_BYTES = SLABS * KV_SLAB;
-  static constexpr uint32_t T_SLAB = kTileRows * kRowBytes;
+  static constexpr uint32_t T_SLAB = kTileRows * S::ROW_BYTES;
   static constexpr uint32_t T_BYTES = SLABS * T_SLAB;
   static constexpr uint32_t SLOT_BYTES = 2 * T_BYTES;        // Q, then dO
   static constexpr uint32_t STAT_BYTES = 2 * kTileRows * 4;  // LSE, then D
@@ -764,9 +779,9 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int j = 0; j < T::SLABS; ++j) {
       tma_load(k_s + j * T::KV_SLAB, &k_map, a.orders.y, kv_full,
-               j * kSlabCols, k0, hk, b);
+               j * T::S::COLS, k0, hk, b);
       tma_load(v_s + j * T::KV_SLAB, &v_map, a.orders.z, kv_full,
-               j * kSlabCols, k0, hk, b);
+               j * T::S::COLS, k0, hk, b);
     }
     for (int it = 0; it < n_items; ++it) {
       const int h = hk * a.group + it / n_tiles;
@@ -780,9 +795,9 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int j = 0; j < T::SLABS; ++j) {
         tma_load(dst + j * T::T_SLAB, &q_map, a.orders.x, full + 8 * slot,
-                 j * kSlabCols, q0, h, b);
+                 j * T::S::COLS, q0, h, b);
         tma_load(dst + T::T_BYTES + j * T::T_SLAB, &do_map, a.orders.w,
-                 full + 8 * slot, j * kSlabCols, q0, h, b);
+                 full + 8 * slot, j * T::S::COLS, q0, h, b);
       }
       const int64_t row = ((int64_t)b * a.n_heads + h) * a.sq_pad + q0;
       const uint32_t sd = stats + slot * T::STAT_BYTES;
@@ -811,7 +826,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   // this warpgroup's n-th item is the ring's item wg + NWG·n (SPLIT: n),
   // and its columns of dO and Q start `cols` bytes into a tile
   const int n_mine = T::SPLIT ? n_items : (n_items - wg + NWG - 1) / NWG;
-  const uint32_t cols = T::SPLIT ? wg * (DC / kSlabCols) * T::T_SLAB : 0;
+  const uint32_t cols = T::SPLIT ? wg * (DC / T::S::COLS) * T::T_SLAB : 0;
   auto slot = [&](int n) {
     return (T::SPLIT ? 0 : wg * T::STAGES) + n % T::STAGES;
   };
@@ -860,7 +875,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     to_a_fragments(s, pf);
     wgmma_fence();
-    product_fx<DC>(dv_acc, pf, do_st + cols, T::T_SLAB);  // dV += Pᵀ·dO
+    product_fx<D, DC>(dv_acc, pf, do_st + cols, T::T_SLAB);  // dV += Pᵀ·dO
     wgmma_wait_all_but_one();                     // dPᵀ
     fence_regs(dp);
 #pragma unroll
@@ -870,7 +885,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     to_a_fragments(dp, df);
     wgmma_fence();
-    product_fx<DC>(dk_acc, df, q_st + cols, T::T_SLAB);  // dK += dSᵀ·Q
+    product_fx<D, DC>(dk_acc, df, q_st + cols, T::T_SLAB);  // dK += dSᵀ·Q
     if (n + 1 < n_mine) issue_s(n + 1);
   }
   if (n_mine > 0) {
@@ -920,22 +935,24 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
 }
 
 // Shared memory of a dQ CTA at head dim D: Q and dO (ROWS rows each), then
-// a ring of STAGES (K, V) tiles of 64 keys, each as D / 64 slabs; the
+// a ring of STAGES (K, V) tiles of 64 keys, each as `Slabs<D>`; the
 // mbarriers (Q and dO full, then full and empty for each stage).
 template <int D>
 struct DqTile {
-  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
-  static constexpr int SLABS = D / kSlabCols;
+  static_assert(D == 64 || D == 96 || D == 128 || D == 256,
+                "head dim 64, 96, 128 or 256");
+  using S = Slabs<D>;
+  static constexpr int SLABS = S::COUNT;
   // D 256: 64 rows a CTA, whose (K, V) tiles are dealt to the two
   // warpgroups in turn, each summing a whole dQ (128 accumulators a
   // thread) over its own; 128 rows would leave room for one 64 KB stage
   static constexpr bool SPLIT = D == 256;
   static constexpr int ROWS = SPLIT ? kWgRows : 2 * kWgRows;
-  static constexpr int STAGES = SPLIT ? 2 : (D == 64 ? 4 : 3);
+  static constexpr int STAGES = SPLIT ? 2 : (D == 128 ? 3 : 4);
   static constexpr int RELEASERS = SPLIT ? 4 : 2 * 4;  // warps a stage waits
-  static constexpr uint32_t Q_SLAB = ROWS * kRowBytes;
+  static constexpr uint32_t Q_SLAB = ROWS * S::ROW_BYTES;
   static constexpr uint32_t Q_BYTES = SLABS * Q_SLAB;  // Q or dO
-  static constexpr uint32_t KV_SLAB = kTileRows * kRowBytes;
+  static constexpr uint32_t KV_SLAB = kTileRows * S::ROW_BYTES;
   static constexpr uint32_t KV_BYTES = SLABS * KV_SLAB;  // K or V
   static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;  // K, then V
   static constexpr int THREADS = 3 * kWgThreads;
@@ -995,10 +1012,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int j = 0; j < T::SLABS; ++j)
 #pragma unroll
       for (int w = 0; w < T::ROWS / kWgRows; ++w) {
-        const uint32_t at = j * T::Q_SLAB + w * kWgRows * kRowBytes;
-        tma_load(q_s + at, &q_map, a.orders.x, q_full, j * kSlabCols,
+        const uint32_t at = j * T::Q_SLAB + w * kWgRows * T::S::ROW_BYTES;
+        tma_load(q_s + at, &q_map, a.orders.x, q_full, j * T::S::COLS,
                  q0 + w * kWgRows, h, b);
-        tma_load(do_s + at, &do_map, a.orders.w, q_full, j * kSlabCols,
+        tma_load(do_s + at, &do_map, a.orders.w, q_full, j * T::S::COLS,
                  q0 + w * kWgRows, h, b);
       }
     for (int kb = kb_lo, it = 0; kb < kb_hi; ++kb, ++it) {
@@ -1009,9 +1026,9 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int j = 0; j < T::SLABS; ++j) {
         tma_load(dst + j * T::KV_SLAB, &k_map, a.orders.y, full + 8 * st,
-                 j * kSlabCols, kb * kTileRows, hk, b);
+                 j * T::S::COLS, kb * kTileRows, hk, b);
         tma_load(dst + T::KV_BYTES + j * T::KV_SLAB, &v_map, a.orders.z,
-                 full + 8 * st, j * kSlabCols, kb * kTileRows, hk, b);
+                 full + 8 * st, j * T::S::COLS, kb * kTileRows, hk, b);
       }
     }
     return;
@@ -1024,8 +1041,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   // this warpgroup's first row (SPLIT: the CTA's)
   const int r_lo = q0 + (T::SPLIT ? 0 : wg * kWgRows);
   const bool live = r_lo < a.sq;
-  const uint32_t q_wg = q_s + (T::SPLIT ? 0 : wg * kWgRows * kRowBytes);
-  const uint32_t do_wg = do_s + (T::SPLIT ? 0 : wg * kWgRows * kRowBytes);
+  const uint32_t q_wg =
+      q_s + (T::SPLIT ? 0 : wg * kWgRows * T::S::ROW_BYTES);
+  const uint32_t do_wg =
+      do_s + (T::SPLIT ? 0 : wg * kWgRows * T::S::ROW_BYTES);
   const Band band{a.causal, a.window};
   // this thread's rows: row0 and row0 + 8 (the padded buffers hold them)
   const int row0 = r_lo + warp * 16 + group;
@@ -1207,18 +1226,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
   a.window = window;
   CUtensorMap maps[4];
   int orders[4];
+  constexpr int RB = Slabs<D>::ROW_BYTES;
   const int64_t do_st[3] = {(int64_t)n_heads * sq * D, (int64_t)sq * D, D};
   int e = encode_map(&maps[0], &orders[0], q, batch, n_heads, sq, D, st,
-                     kTileRows);
+                     kTileRows, RB);
   if (!e)
     e = encode_map(&maps[1], &orders[1], k, batch, n_kv_heads, skv, D,
-                   st + 3, kTileRows);
+                   st + 3, kTileRows, RB);
   if (!e)
     e = encode_map(&maps[2], &orders[2], v, batch, n_kv_heads, skv, D,
-                   st + 6, kTileRows);
+                   st + 6, kTileRows, RB);
   if (!e)
     e = encode_map(&maps[3], &orders[3], dout, batch, n_heads, sq, D, do_st,
-                   kTileRows);
+                   kTileRows, RB);
   if (e) return e;
   a.orders = make_int4(orders[0], orders[1], orders[2], orders[3]);
 
@@ -1285,7 +1305,7 @@ int attributes_d(int which, int* attrs) {
 // dtype 1 bf16 (TMA + wgmma; q, k and v 16-byte aligned, their strides
 // multiples of 16 bytes): lse is the forward's row log-sum-exp (B, H, Sq)
 // float32, scratch 2 x (B, H, Sq rounded up to 128) float32.  Head dim
-// 64, 128 or 256.  Returns 0, a cudaError_t, or (TMA map encoding)
+// 64, 96, 128 or 256.  Returns 0, a cudaError_t, or (TMA map encoding)
 // kNoEncoder / kEncodeFailed + CUresult.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -1303,6 +1323,7 @@ extern "C" int flash_attention_bwd_launch(
                              n_heads, n_kv_heads, sq, skv, strides, sm_scale, \
                              causal, window, s);
     FA_BWD_WGMMA(64)
+    FA_BWD_WGMMA(96)
     FA_BWD_WGMMA(128)
     FA_BWD_WGMMA(256)
 #undef FA_BWD_WGMMA
@@ -1330,6 +1351,9 @@ extern "C" int flash_attention_bwd_launch(
   if (d == 64)
     return launch_scalar<64>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
                              (float*)scratch, a, s);
+  if (d == 96)
+    return launch_scalar<96>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
+                             (float*)scratch, a, s);
   if (d == 128)
     return launch_scalar<128>(q, k, v, o, dout, dq, dk, dv, (float*)lse,
                               (float*)scratch, a, s);
@@ -1339,12 +1363,13 @@ extern "C" int flash_attention_bwd_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernels' build at head dim d (64, 128 or 256): which 0 the
-// dK/dV kernel, 1 the dQ kernel.  attrs gets registers a thread, static
-// shared bytes, the dynamic shared bytes it is launched with, local
+// The tensor-core kernels' build at head dim d (64, 96, 128 or 256): which
+// 0 the dK/dV kernel, 1 the dQ kernel.  attrs gets registers a thread,
+// static shared bytes, the dynamic shared bytes it is launched with, local
 // (spill) bytes a thread, and max threads a block.
 extern "C" int flash_attention_bwd_attributes(int d, int which, int* attrs) {
   if (d == 64) return attributes_d<64>(which, attrs);
+  if (d == 96) return attributes_d<96>(which, attrs);
   if (d == 128) return attributes_d<128>(which, attrs);
   if (d == 256) return attributes_d<256>(which, attrs);
   return (int)cudaErrorInvalidValue;

@@ -3,7 +3,9 @@
 //
 // Tiles live in shared memory as 128-byte-swizzled slabs of 64 bf16
 // columns (rows x 128 bytes, the layout TMA writes and wgmma reads); a
-// slab starts on a 1024-byte boundary, the swizzle's period.  Tensors are
+// slab starts on a 1024-byte boundary, the swizzle's period.  A width that
+// is no whole number of 64 columns (head dim 96) takes 64-byte-swizzled
+// slabs of 32 columns instead (`Slabs`).  Tensors are
 // described to TMA as 4-D maps by `encode_map`: the unit-stride inner dim,
 // then the logical dims sequence, head and batch in the order of their
 // strides.  `cuTensorMapEncodeTiled` is reached through the runtime's
@@ -19,6 +21,31 @@ namespace {
 
 constexpr int kSlabCols = 64;   // bf16 columns of a 128-byte slab
 constexpr int kRowBytes = 128;  // one row of a slab
+
+// The slabs a bf16 tile of D columns is stored as.  64, 128 and 256
+// columns are whole 64-column slabs, 128 bytes a row, 128-byte swizzled.
+// 96 columns (192 bytes a row) are not: they are three 32-column slabs, 64
+// bytes a row, 64-byte swizzled.  That is the layout TMA writes under
+// CU_TENSOR_MAP_SWIZZLE_64B and `wgmma` reads with descriptor layout type
+// 2, and a canonical one for both operand majors: K-major, a 16-deep step
+// is half a row; MN-major, 96 columns are three whole 32-column atoms.
+template <int D>
+struct Slabs {
+  static constexpr int ROW_BYTES = D % kSlabCols == 0 ? kRowBytes : 64;
+  static constexpr int COLS = ROW_BYTES / 2;  // bf16 columns of a slab
+  static constexpr int COUNT = D / COLS;
+  // 8 rows: the swizzle's period, and a descriptor's stride byte offset
+  static constexpr uint32_t ATOM = 8 * ROW_BYTES;
+  static constexpr uint32_t LAYOUT = ROW_BYTES == 128 ? 1 : 2;
+  static_assert(D % COLS == 0, "a whole number of slabs");
+  // Byte offset of 16-byte chunk c of row r in a slab that starts on an
+  // ATOM boundary: the swizzle XORs the chunk with address bits 7 and up
+  // (row % 8 at 128 bytes a row, (row / 2) % 4 at 64).
+  __device__ static uint32_t at(int r, int c) {
+    return r * ROW_BYTES +
+           ((c ^ ((r * ROW_BYTES >> 7) & (ROW_BYTES / 16 - 1))) << 4);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -91,14 +118,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, int order,
       : "memory");
 }
 
-// A wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (in 16-byte units), and
-// layout type 1 (128-byte swizzle) in bits 62-63.
+// A wgmma shared-memory matrix descriptor for a swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), and the
+// layout type in bits 62-63: 1 (128-byte swizzle) or 2 (64-byte).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint32_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -171,14 +200,16 @@ EncodeTiled encoder() {
 // (b, h, s) and a unit-stride inner dim of d columns, as a 4-D TMA map: dim
 // 0 is the inner dim, dims 1-3 are s, h and b in the order of their
 // strides, increasing (for the model's transposed (B, S, H, D) views that
-// is h, s, b).  The box is 64 columns x `rows` rows of one head and batch,
-// 128-byte swizzled; rows past S read as zeros and are not stored.  A dim
+// is h, s, b).  The box is `row_bytes` / 2 columns x `rows` rows of one
+// head and batch, swizzled over `row_bytes` (128: 64 columns; 64: 32, see
+// `Slabs`); rows past S read as zeros and are not stored.  A dim
 // of stride 0 and extent > 1 (a broadcast) is described with extent 1 and
 // flagged, so `at_dim` reads it at 0.  *order gets the logical dim (0 s, 1
 // h, 2 b) at TMA dims 1-3, two bits each, and bit 6 + dim for each
 // broadcast dim.
 int encode_map(CUtensorMap* map, int* order, const void* ptr, int batch,
-               int heads, int seq, int d, const int64_t* st, int rows) {
+               int heads, int seq, int d, const int64_t* st, int rows,
+               int row_bytes = kRowBytes) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kNoEncoder;
   uint64_t ext[3] = {(uint64_t)seq, (uint64_t)heads, (uint64_t)batch};
@@ -207,14 +238,15 @@ int encode_map(CUtensorMap* map, int* order, const void* ptr, int batch,
     }
   cuuint64_t dims[4] = {(cuuint64_t)d, ext[idx[0]], ext[idx[1]], ext[idx[2]]};
   cuuint64_t strides[3] = {bytes[idx[0]], bytes[idx[1]], bytes[idx[2]]};
-  cuuint32_t box[4] = {kSlabCols, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)row_bytes / 2, 1, 1, 1};
   for (int i = 0; i < 3; ++i)
     if (idx[i] == 0) box[1 + i] = rows;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        row_bytes == kRowBytes ? CU_TENSOR_MAP_SWIZZLE_128B
+                                               : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return kEncodeFailed + (int)r;

@@ -3,11 +3,13 @@
 Port of the TPU kernel ``repro.kernels.flash_attention``: blocked
 online-softmax attention with causal and/or sliding-window masks and GQA by
 index.  ``csrc/flash_attention.cu`` holds two kernels, and
-:func:`kernel_for` says which one takes an input: bf16 at head dims 64, 128
-and 256 (every prefill of the port) runs on the Hopper kernel, which loads
-tiles with TMA and multiplies with ``wgmma`` on the tensor cores (128 query
-rows a CTA, its kv tiles as :func:`tile_schedule` lists them); float32,
-and bf16 at the other head dims, run on the scalar-FMA kernel.  On a CPU
+:func:`kernel_for` says which one takes an input: bf16 at head dims 64, 96,
+128 and 256 (every prefill of the port) runs on the Hopper kernel, which
+loads tiles with TMA and multiplies with ``wgmma`` on the tensor cores (128
+query rows a CTA, its kv tiles as :func:`tile_schedule` lists them; at head
+dim 96 the tiles are 64-byte-swizzled slabs of 32 columns, three a row);
+float32 at every head dim, and bf16 at 16 and 32, run on the scalar-FMA
+kernel.  On a CPU
 tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.attention_ref`); on a CUDA tensor it
 launches the kernel or raises.
@@ -48,11 +50,11 @@ _I = ctypes.c_int
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 #: head dims the backward kernel is built for (whisper-tiny's 64,
-#: qwen2.5-3b's 128, recurrentgemma-9b's and gemma-7b's 256)
-BWD_HEAD_DIMS = (64, 128, 256)
+#: phi3-mini's 96, qwen2.5-3b's 128, recurrentgemma-9b's and gemma-7b's 256)
+BWD_HEAD_DIMS = (64, 96, 128, 256)
 #: bf16 at these head dims runs on the TMA + ``wgmma`` kernel; every other
 #: input on the scalar-FMA kernel
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the Hopper kernel's blocks: query rows per consumer warpgroup, two
 #: warpgroups a CTA
@@ -91,15 +93,15 @@ def bwd_kernel_for(dtype: torch.dtype, d: int) -> str:
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention's backward kernel is built for head dims "
-            f"{BWD_HEAD_DIMS}, not {d} (ROADMAP.md queue B item 3: B3 at "
-            f"head dim 96)")
+            f"{BWD_HEAD_DIMS} (every full-width arch's), not {d}; a model "
+            f"this narrow trains through the plain version on the CPU")
     return "wgmma" if dtype == torch.bfloat16 else "scalar"
 
 
 def block_k(d: int) -> int:
-    """Keys per kv tile of the Hopper kernel at head dim ``d``: 128, or 64
-    at head dim 256, where O takes 128 registers a thread and K and V
-    tiles 32 KB each."""
+    """Keys per kv tile of the Hopper kernel at head dim ``d``: 128 (at
+    64, 96 and 128), or 64 at head dim 256, where O takes 128 registers a
+    thread and K and V tiles 32 KB each."""
     return 64 if d == 256 else 128
 
 
@@ -173,8 +175,8 @@ def bwd_dq_rows(d: int) -> int:
 def bwd_tile_schedule(sq: int, skv: int, d: int, causal: bool,
                       window: int | None, group: int) -> dict:
     """The tensor-core backward's schedule, as ``fa_bwd_dkdv_wgmma`` and
-    ``fa_bwd_dq_wgmma`` compute it, in launch order.  Head dims 64 and 128
-    share one schedule; at :data:`BWD_SPLIT_D` the warpgroups split the
+    ``fa_bwd_dq_wgmma`` compute it, in launch order.  Head dims 64, 96 and
+    128 share one schedule; at :data:`BWD_SPLIT_D` the warpgroups split the
     work otherwise (``SPLIT`` in ``csrc/flash_attention_bwd.cu``).
 
     ``"dkdv"``: a CTA a key block ``kb`` of :data:`BWD_TILE` keys (of one
@@ -183,12 +185,12 @@ def bwd_tile_schedule(sq: int, skv: int, d: int, causal: bool,
     one meets the band); for each of its :data:`BWD_DKDV_WARPGROUPS`
     consumer warpgroups the items it computes as ``(g, qt, masked)``, and
     ``"columns"`` the ``[c0, c1)`` of dK and dV it sums: the items dealt in
-    turn, every column (64, 128), or every item, half the columns each
+    turn, every column (64, 96, 128), or every item, half the columns each
     (256).  ``"dq"``: a CTA a query block ``qb`` of :func:`bwd_dq_rows`
     rows, its key tiles ``[kb_lo, kb_hi)``, and for each of its two
     warpgroups its ``"rows"`` ``[r0, r1)`` and the tiles it computes as
     ``(kb, masked)``: 64 rows a warpgroup over every tile of its band (64,
-    128), or the CTA's 64 rows over the tiles dealt in turn, the two sums
+    96, 128), or the CTA's 64 rows over the tiles dealt in turn, the two sums
     added (256).  A tile wholly outside the band is skipped; one wholly
     inside it runs without the mask."""
     w = -1 if window is None else window
@@ -248,7 +250,17 @@ def _lib():
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_wgmma_attributes.argtypes = [_I, _P]
     lib.flash_attention_wgmma_attributes.restype = _I
+    lib.flash_attention_wgmma_launches.argtypes = []
+    lib.flash_attention_wgmma_launches.restype = ctypes.c_longlong
     return lib
+
+
+def wgmma_launches() -> int:
+    """Launches of the TMA + ``wgmma`` forward kernel since its library
+    was loaded, as ``flash_attention_launch``'s C dispatch counts them:
+    the route the card took, which :func:`kernel_for` only predicts.
+    Builds the kernels on first use (the card only)."""
+    return _lib().flash_attention_wgmma_launches()
 
 
 @functools.cache
@@ -267,8 +279,8 @@ _ATTRIBUTE_NAMES = ("registers", "static_smem", "dynamic_smem", "local_bytes",
 
 
 def wgmma_attributes(d: int) -> dict:
-    """The TMA + ``wgmma`` kernel's build at head dim ``d`` (64, 128 or
-    256), from ``cudaFuncGetAttributes``: registers a thread, static and
+    """The TMA + ``wgmma`` kernel's build at head dim ``d`` (64, 96, 128
+    or 256), from ``cudaFuncGetAttributes``: registers a thread, static and
     dynamic shared memory, local (spill) bytes a thread, max threads a
     block.  Needs a card."""
     lib = _lib()
@@ -281,8 +293,8 @@ def wgmma_attributes(d: int) -> dict:
 
 
 def bwd_wgmma_attributes(d: int) -> dict:
-    """The backward's tensor-core kernels at head dim ``d`` (64, 128 or
-    256), as :func:`wgmma_attributes` reports them: ``"dkdv"`` and
+    """The backward's tensor-core kernels at head dim ``d`` (64, 96, 128
+    or 256), as :func:`wgmma_attributes` reports them: ``"dkdv"`` and
     ``"dq"``.  Needs a card."""
     lib = _bwd_lib()
     out = {}

@@ -505,8 +505,13 @@ def test_flash_attention_keeps_the_reference_contract():
 
 #: (sq, skv, d, causal, window): causal at both tile sizes, windows
 #: narrower than a tile and wider than the sequence, bidirectional, a
-#: ragged 255 rows, and bidirectional cross-length attention
+#: ragged 255 rows, and bidirectional cross-length attention; head dim 96
+#: (phi3-mini's: 128-key tiles) causal, ragged under a narrow window, and
+#: bidirectional cross-length
 SCHEDULE_CASES = [
+    (512, 512, 96, True, None),
+    (300, 300, 96, True, 16),
+    (200, 700, 96, False, None),
     (512, 512, 128, True, None),
     (512, 512, 256, True, None),
     (512, 512, 64, True, 16),
@@ -575,12 +580,13 @@ def test_tile_schedule_skips_tiles_outside_the_band():
 @pytest.mark.parametrize("dtype,d,kernel", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "scalar"),
-    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 96, "scalar"),
+    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 96, "wgmma"),
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
-    (torch.float32, 256, "scalar")])
+    (torch.float32, 256, "scalar"), (torch.float32, 96, "scalar")])
 def test_kernel_routing(dtype, d, kernel):
-    """Which CUDA kernel each dtype and head dim goes to: bf16 at 64, 128
-    and 256 to the TMA + wgmma kernel, everything else to the scalar one."""
+    """Which CUDA kernel each dtype and head dim goes to: bf16 at 64, 96,
+    128 and 256 to the TMA + wgmma kernel, everything else to the scalar
+    one."""
     assert fa_mod.kernel_for(dtype, d) == kernel
 
 
@@ -609,8 +615,13 @@ def test_tma_alignment_checks():
 #: causal at both head dims, ragged 255 rows, a window of 16 with a group
 #: of 8, a window wider than a tile, whisper's cross-attention (448 rows
 #: over 1,500 keys) and encoder, bidirectional Sq != Skv both ways, a
-#: window without the causal mask, a 4-token sequence
+#: window without the causal mask, a 4-token sequence; head dim 96
+#: (phi3-mini's MHA, causal; ragged under a window narrower than a tile;
+#: bidirectional Sq != Skv)
 BWD_SCHEDULE_CASES = [
+    (512, 512, 96, True, None, 1),
+    (300, 300, 96, True, 16, 2),
+    (200, 700, 96, False, None, 1),
     (512, 512, 128, True, None, 8),
     (512, 512, 64, True, None, 1),
     (255, 255, 128, True, None, 2),
@@ -714,15 +725,16 @@ def test_bwd_tile_schedule_starts_the_longest_band(sq, window):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "scalar"),
-    (torch.bfloat16, 96, None), (torch.float32, 96, None)])
+    (torch.bfloat16, 96, "wgmma"), (torch.float32, 96, "scalar"),
+    (torch.bfloat16, 32, None), (torch.float32, 16, None)])
 def test_bwd_kernel_routing(dtype, d, kernel):
-    """Which backward each dtype and head dim goes to: bf16 at 64, 128 and
-    256 to the TMA + wgmma kernels, float32 to the scalar ones; other head
-    dims have none and raise ``NotImplementedError`` naming the ROADMAP
-    item."""
+    """Which backward each dtype and head dim goes to: bf16 at 64, 96, 128
+    and 256 to the TMA + wgmma kernels, float32 to the scalar ones; the
+    smoke widths 16 and 32 have none and raise ``NotImplementedError``
+    naming the head dims that are built."""
     if kernel is None:
         with pytest.raises(NotImplementedError,
-                           match="head dims .* queue B item 3"):
+                           match=r"head dims \(64, 96, 128, 256\)"):
             fa_mod.bwd_kernel_for(dtype, d)
     else:
         assert fa_mod.bwd_kernel_for(dtype, d) == kernel
@@ -831,14 +843,44 @@ def test_attention_bwd_plain_at_head_dim_256_matches_jax_vjp(causal, window,
         assert err <= FA_BWD_RTOL[dtype], err
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 24), (True, None)])
+def test_attention_bwd_plain_at_head_dim_96_matches_jax_vjp(causal, window,
+                                                            dtype):
+    """The backward's plain version at head dim 96 with 32 heads over 32,
+    phi3-mini's heads, with a window narrower than the sequence and
+    without one, against ``jax.vjp`` of the reference's ``attention_ref``:
+    each gradient within FA_BWD_RTOL of its max |value|."""
+    jnp = pytest.importorskip("jax.numpy")
+    b, h, hkv, s, d = 1, 32, 32, 72, 96
+    arrs, ts = _qkv(b, h, hkv, s, d, dtype, seed=96)
+    rng = np.random.default_rng(9)
+    do_np = torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    jd = getattr(jnp, dtype)
+    want = _jattention_vjp(causal, window)(
+        *(jnp.asarray(a, jd) for a in arrs),
+        jnp.asarray(do_np.float().numpy(), jd))
+    out = ref.attention_ref(*ts, causal=causal, window=window)
+    before = fa_mod.flash_attention_bwd.launches
+    got = fa_mod.flash_attention_bwd(*ts, out, do_np, causal=causal,
+                                     window=window)
+    assert fa_mod.flash_attention_bwd.launches == before
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape and g.dtype == ts[0].dtype
+        err = np.abs(g.float().numpy() - w).max() / np.abs(w).max()
+        assert err <= FA_BWD_RTOL[dtype], err
+
+
 def test_bwd_raises_one_way_at_an_unbuilt_head_dim():
-    """Head dim 96 has no backward kernel: ``bwd_kernel_for`` raises
-    ``NotImplementedError`` naming the ROADMAP item, and
+    """Head dim 32 has no backward kernel: ``bwd_kernel_for`` raises
+    ``NotImplementedError`` naming the head dims that are built, and
     ``flash_attention_bwd`` raises through it on a CUDA tensor (checked on
     the card); on CPU tensors the plain version takes any head dim."""
-    with pytest.raises(NotImplementedError, match="queue B item 3"):
-        fa_mod.bwd_kernel_for(torch.bfloat16, 96)
-    q, k, v, do = _bwd_inputs(1, 2, 2, 16, 16, 96, "float32", seed=2)
+    with pytest.raises(NotImplementedError, match="plain version on the CPU"):
+        fa_mod.bwd_kernel_for(torch.bfloat16, 32)
+    q, k, v, do = _bwd_inputs(1, 2, 2, 16, 16, 32, "float32", seed=2)
     out = ref.attention_ref(q, k, v)
     dq, dk, dv = fa_mod.flash_attention_bwd(q, k, v, out, do)
     assert dq.shape == q.shape and dk.shape == k.shape
@@ -894,6 +936,14 @@ FA_CUDA_CASES = FA_CASES + [
     (1, 4, 2, 300, 128, True, None, "float32"),
     (1, 4, 2, 384, 64, True, None, "float32"),
     (1, 4, 2, 300, 96, True, None, "bfloat16"),
+    # head dim 96 (phi3-mini's) on the TMA + wgmma kernel: MHA causal,
+    # ragged under a window narrower than a tile, GQA bidirectional, a
+    # 4-token prompt; and on the scalar kernel in float32
+    (1, 32, 32, 512, 96, True, None, "bfloat16"),
+    (1, 4, 4, 300, 96, True, 16, "bfloat16"),
+    (2, 8, 2, 384, 96, False, None, "bfloat16"),
+    (2, 4, 4, 4, 96, True, None, "bfloat16"),
+    (1, 4, 4, 300, 96, True, 100, "float32"),
 ]
 
 
@@ -906,10 +956,12 @@ def test_cuda_flash_attention_matches_plain_version(b, h, hkv, s, d, causal,
     torch.backends.cuda.matmul.allow_tf32 = False
     _, ts = _qkv(b, h, hkv, s, d, dtype, seed=s + d)
     q, k, v = (t.cuda() for t in ts)
-    before = flash_attention.launches
+    before = flash_attention.launches, fa_mod.wgmma_launches()
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    routed = fa_mod.kernel_for(q.dtype, d) == "wgmma"
+    assert (flash_attention.launches, fa_mod.wgmma_launches()) == (
+        before[0] + 1, before[1] + routed)
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
@@ -919,7 +971,8 @@ def test_cuda_flash_attention_matches_plain_version(b, h, hkv, s, d, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,hkv", [("bfloat16", 128, 2),
                                          ("float32", 128, 2),
-                                         ("bfloat16", 256, 1)])
+                                         ("bfloat16", 256, 1),
+                                         ("bfloat16", 96, 16)])
 def test_cuda_flash_attention_reads_transposed_views(dtype, d, hkv):
     """The model passes q, k, v as ``(B, S, H, D)`` tensors transposed to
     ``(B, H, S, D)``; the kernel reads them through their strides."""
@@ -940,7 +993,7 @@ def test_cuda_flash_attention_reads_transposed_views(dtype, d, hkv):
 # ------------------------------------------------------- B3's backward -----
 #: the masks B3's backward takes: causal (GQA and MHA), a sliding window,
 #: non-causal with Sq != Skv and a ragged last tile (whisper's
-#: cross-attention), at the two head dims it is built for
+#: cross-attention), at the head dims it is built for
 FA_BWD_CASES = [
     (1, 4, 4, 256, 256, 64, True, None, "float32"),
     (2, 8, 2, 200, 200, 128, True, None, "float32"),
@@ -951,6 +1004,8 @@ FA_BWD_CASES = [
     (2, 6, 6, 448, 1500, 64, False, None, "bfloat16"),
     (1, 8, 1, 300, 300, 256, True, 100, "float32"),   # 32-row scalar tiles
     (1, 16, 1, 512, 512, 256, True, 128, "bfloat16"),  # recurrentgemma's
+    (1, 4, 4, 300, 300, 96, True, 100, "float32"),     # phi3-mini's width
+    (1, 32, 32, 384, 384, 96, True, None, "bfloat16"),
 ]
 #: the backward against autograd through ``attention_ref``, max |diff| over
 #: max |grad| of each gradient: float32 sums in another order; bf16 also
@@ -1055,6 +1110,13 @@ FA_BWD_WGMMA_CASES = [
     (1, 4, 2, 300, 300, 256, True, 16, "bfloat16"),
     (1, 2, 2, 200, 700, 256, False, None, "bfloat16"),
     (2, 4, 2, 4, 4, 256, True, None, "bfloat16"),
+    # head dim 96: phi3-mini's MHA causal, ragged, a window narrower than a
+    # tile with GQA, bidirectional Sq != Skv, a 4-token sequence
+    (1, 32, 32, 512, 512, 96, True, None, "bfloat16"),
+    (1, 4, 4, 255, 255, 96, True, None, "bfloat16"),
+    (2, 8, 2, 300, 300, 96, True, 16, "bfloat16"),
+    (1, 4, 2, 200, 700, 96, False, None, "bfloat16"),
+    (2, 4, 4, 4, 4, 96, True, None, "bfloat16"),
 ]
 
 
@@ -1114,7 +1176,8 @@ def test_cuda_flash_attention_bwd_reads_misaligned_views():
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,causal,window", [(64, True, None),
                                              (128, True, 16),
-                                             (256, False, None)])
+                                             (256, False, None),
+                                             (96, True, 100)])
 def test_cuda_flash_attention_lse_matches_logsumexp(d, causal, window):
     """The log-sum-exp the Hopper forward writes under grad against
     ``torch.logsumexp`` of the plain scores; the output is the kernel's
@@ -1138,13 +1201,13 @@ def test_cuda_flash_attention_without_grad_records_nothing():
     backward is not built for raises only when a gradient is needed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
-    q, k, v, do = _bwd_inputs(1, 4, 4, 128, 128, 96, "bfloat16", seed=3,
+    q, k, v, do = _bwd_inputs(1, 4, 4, 128, 128, 32, "bfloat16", seed=3,
                               device="cuda")
     assert flash_attention(q, k, v).grad_fn is None
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     with torch.no_grad():
         assert flash_attention(*leaves).grad_fn is None
-    with pytest.raises(NotImplementedError, match="queue B item 3"):
+    with pytest.raises(NotImplementedError, match="plain version on the CPU"):
         flash_attention(*leaves)
-    with pytest.raises(NotImplementedError, match="queue B item 3"):
+    with pytest.raises(NotImplementedError, match="plain version on the CPU"):
         fa_mod.flash_attention_bwd(q, k, v, flash_attention(q, k, v), do)

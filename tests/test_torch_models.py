@@ -367,8 +367,20 @@ def test_other_dense_archs_match_reference(arch):
     """The other dense configs (GeGLU and scaled embeddings, qk-norm, MHA,
     head dim 32): forward, prefill and one decode step against the
     reference, float32 logits to 1e-4."""
-    cfg_r = ref_get_config(arch, smoke=True)
-    cfg = get_config(arch, smoke=True)
+    _dense_matches_reference(arch)
+
+
+def test_phi3_at_its_own_head_dim_matches_reference():
+    """phi3-mini's smoke config at the arch's own head dim, 96 (32 columns
+    past the 64-column slabs of B3's other tensor-core builds): forward,
+    prefill and one decode step against the reference, float32 logits to
+    1e-4."""
+    _dense_matches_reference("phi3-mini-3.8b", head_dim=96)
+
+
+def _dense_matches_reference(arch, **overrides):
+    cfg_r = ref_get_config(arch, smoke=True, **overrides)
+    cfg = get_config(arch, smoke=True, **overrides)
     tree = _noisy(ref_lm.init_params(cfg_r, jax.random.PRNGKey(5)), seed=5)
     p_ref = jax.tree.map(jnp.asarray, tree)
     p = convert.params_from_numpy(cfg, tree)

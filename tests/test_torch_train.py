@@ -55,7 +55,8 @@ B, S = 2, 32
 #: not divide S (the whole sequence then) for RG-LRU, one chunk elsewhere;
 #: RG-LRU at 4 layers, one stacked period of 3 and one epilogue layer, and
 #: once more at recurrentgemma-9b's head dim 256 (smoke widths otherwise,
-#: one (rec, rec, attn) period, a window of 12 under S = 32)
+#: one (rec, rec, attn) period, a window of 12 under S = 32); phi3-mini at
+#: its own head dim 96 (MHA, smoke widths otherwise)
 FAMILIES = {"dense": ("qwen2.5-3b", 48, 16, {}),
             "mamba2": ("mamba2-370m", S, 512, {}),
             "rglru": ("recurrentgemma-9b", S, 12, {"n_layers": 4}),
@@ -63,7 +64,8 @@ FAMILIES = {"dense": ("qwen2.5-3b", 48, 16, {}),
                          {"n_layers": 3, "head_dim": 256, "window": 12}),
             "moe": ("deepseek-moe-16b", S, 512, {}),
             "mla": ("deepseek-v2-lite-16b", S, 512, {}),
-            "whisper": ("whisper-tiny", S, 512, {})}
+            "whisper": ("whisper-tiny", S, 512, {}),
+            "phi3_96": ("phi3-mini-3.8b", S, 512, {"head_dim": 96})}
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10, weight_decay=0.1,
            clip_norm=1.0)
 GRAD_RTOL = 1e-4

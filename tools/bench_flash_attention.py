@@ -6,27 +6,34 @@ beside the same kernel source of another checkout.
     PYTHONPATH=src python tools/bench_flash_attention.py --bwd [--parent DIR]
 
 Prints the card (name and power limit), the TMA + wgmma kernel's build
-(registers, shared memory, spill bytes) at head dims 64, 128 and 256, and
-its largest difference from the plain version (``attention_ref``) on small
-edge cases at each of them.  Then it times B3 with CUDA events at
-qwen2.5-3b's and recurrentgemma-9b's prefill shapes beside PyTorch's SDPA
-(causal; at recurrentgemma's shape also with the band as a boolean mask),
-and at qwen2.5-3b's shape without the causal mask, where every CTA does
-the same work.  ``--parent DIR`` names another checkout (say the parent
-commit, unpacked with ``git archive``): its ``flash_attention.cu`` is
+(registers, shared memory, spill bytes) at head dims 64, 96, 128 and 256,
+and its largest difference from the plain version (``attention_ref``) on
+small edge cases at each of them.  Then it times B3 with CUDA events at
+qwen2.5-3b's, recurrentgemma-9b's and phi3-mini's (head dim 96) prefill
+shapes beside PyTorch's SDPA (causal; at recurrentgemma's shape also with
+the band as a boolean mask; at phi3-mini's also under its flash and cuDNN
+back ends), and at qwen2.5-3b's shape without the causal mask, where every
+CTA does the same work.  ``--parent DIR`` names another checkout (say the
+parent commit, unpacked with ``git archive``): its ``flash_attention.cu`` is
 built too, with the same flags and the same C interface, and timed in
-turns with this one (parent, this, this, parent) in the same process.
+turns with this one (parent, this, this, parent) in the same process
+(a parent before the head-dim-96 kernel runs phi3-mini's shape on its
+scalar-FMA kernel).
 
 ``--bwd`` checks and times B3's backward instead: the tensor-core kernels'
-build (registers, shared memory, spill bytes) at head dims 64 and 128,
-their largest difference from autograd through ``attention_ref`` on edge
-cases, and two calls held bit-equal; then each of ``chip_smoke.py``'s
-phase-20 shapes timed beside SDPA's backward, the bound, and, with
-``--parent DIR``, the other checkout's ``flash_attention_bwd.cu`` (before
-the tensor-core redesign, the scalar kernels, through their own C
-interface) in turns (parent, this, this, parent).  At qwen2.5-3b's training shape it also
-profiles one call (device time by kernel) and times the forward with and
-without the log-sum-exp output.
+build (registers, shared memory, spill bytes) at head dims 64, 96, 128
+and 256, their largest difference from autograd through ``attention_ref``
+on edge cases, and two calls held bit-equal; then each of
+``chip_smoke.py``'s phase-20 shapes and phi3-mini's training shape (head
+dim 96) timed beside SDPA's backward (at phi3-mini's also under its flash
+and cuDNN back ends), the bound, and, with ``--parent DIR``, the other
+checkout's ``flash_attention_bwd.cu`` (through its own C interface; each
+of its bf16 calls also runs the forward for its log-sum-exp and copies
+q, k, v contiguous) in turns (parent, this, this, parent), at the head
+dims that checkout builds (a parent before this kernel has no backward
+at 96).  At qwen2.5-3b's training shape it also profiles one call (device
+time by kernel) and times the forward with and without the log-sum-exp
+output.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +51,9 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as fa
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import sdpa_backends_ms  # noqa: E402
+
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 #: (b, h, hkv, s, d, causal, window): the edge cases of each head dim
 CHECK_CASES = (
@@ -50,9 +61,12 @@ CHECK_CASES = (
     (1, 4, 4, 256, 64, False, None), (1, 16, 2, 255, 128, True, None),
     (1, 4, 2, 512, 128, True, 128), (1, 4, 4, 1024, 128, False, None),
     (1, 4, 1, 512, 256, True, 128), (1, 4, 1, 255, 256, True, None),
-    (1, 4, 1, 512, 256, False, None), (1, 2, 1, 1024, 256, True, 300))
+    (1, 4, 1, 512, 256, False, None), (1, 2, 1, 1024, 256, True, 300),
+    (1, 32, 32, 512, 96, True, None), (1, 4, 4, 300, 96, True, 16),
+    (2, 8, 2, 384, 96, False, None))
 QWEN = (4, 16, 2, 4096, 128, True, None)
 GRIFFIN = (4, 16, 1, 4096, 256, True, 2048)
+PHI3 = (4, 32, 32, 4096, 96, True, None)
 #: qwen2.5-3b's shape without the causal mask: every CTA does the same
 #: work, so per-CTA set-up and the causal tail weigh less
 QWEN_BIDIR = (4, 16, 2, 4096, 128, False, None)
@@ -65,12 +79,15 @@ BWD_CHECK_CASES = (
     (1, 16, 2, 512, 512, 128, True, None), (2, 6, 6, 448, 1500, 64, False,
                                              None),
     (1, 4, 4, 300, 300, 64, True, None), (1, 2, 2, 512, 512, 128, True, 100),
-    (1, 4, 2, 1024, 1024, 128, False, None))
+    (1, 4, 2, 1024, 1024, 128, False, None),
+    (1, 32, 32, 384, 384, 96, True, None), (2, 8, 2, 300, 300, 96, True, 16),
+    (1, 4, 2, 200, 700, 96, False, None))
 #: chip_smoke.py's phase-20 shapes (b, h, hkv, sq, skv, d, causal, window,
 #: dtype): qwen2.5-3b's training step, whisper-tiny's encoder and cross,
-#: a float32 GQA window
+#: a float32 GQA window; and phase 23's phi3-mini training step
 BWD_SHAPES = (
     ("qwen2.5-3b", (2, 16, 2, 4096, 4096, 128, True, None, "bfloat16")),
+    ("phi3-mini", (2, 32, 32, 4096, 4096, 96, True, None, "bfloat16")),
     ("whisper encoder", (2, 6, 6, 1500, 1500, 64, False, None, "bfloat16")),
     ("whisper cross", (2, 6, 6, 448, 1500, 64, False, None, "bfloat16")),
     ("float32 window", (2, 8, 2, 512, 512, 128, True, 128, "float32")))
@@ -191,6 +208,8 @@ def parent_backward(root: Path):
         if err:
             raise RuntimeError(f"parent backward failed: {err}")
         return dq, dk, dv
+    fn.head_dims = {int(x) for x in re.findall(r"FA_BWD_WGMMA\((\d+)\)",
+                                                src)}
     return fn
 
 
@@ -294,7 +313,7 @@ def main_bwd(parent_dir) -> int:
             return fa.flash_attention_bwd(q, k, v, out, do, causal=causal,
                                           window=window, lse=lse)
         runs = [("this", this)]
-        if parent is not None:
+        if parent is not None and case[5] in parent.head_dims:
             par = ("parent", lambda: parent(q, k, v, out, do, causal, window))
             want = this()
             err = rel_err(par[1](), want)
@@ -320,6 +339,17 @@ def main_bwd(parent_dir) -> int:
         sdpa = cuda_ms(lambda: torch.autograd.grad(y, leaves, do,
                                                    retain_graph=True), reps)
         print(f"{label}: SDPA's backward {sdpa:.4f} ms", flush=True)
+        if label == "phi3-mini":
+            def sdpa_fwd_bwd():
+                z = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, is_causal=True)
+                return torch.autograd.grad(z, leaves, do)
+            fwd = cuda_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(*leaves,
+                                                        is_causal=True), reps)
+            print(f"{label}: SDPA's forward and backward by back end: "
+                  f"{sdpa_backends_ms(torch, sdpa_fwd_bwd, reps)} (the forward "
+                  f"alone, default back end, {fwd:.4f} ms)", flush=True)
         if label == "qwen2.5-3b":
             print(f"{label}: one call's kernels (device us, profiler): "
                   f"{profile_kernels(this)}", flush=True)
@@ -367,6 +397,7 @@ def main() -> int:
 
     parent = parent_forward(args.parent) if args.parent else None
     for label, case in (("qwen2.5-3b", QWEN), ("recurrentgemma-9b", GRIFFIN),
+                        ("phi3-mini", PHI3),
                         ("qwen2.5-3b bidirectional", QWEN_BIDIR)):
         q, k, v = qkv(case, seed=7)
         causal, window = case[5:]
@@ -392,6 +423,11 @@ def main() -> int:
             q, k, v, is_causal=causal, enable_gqa=True), reps)
         print(f"{label}: SDPA {'causal' if causal else 'bidirectional'} "
               f"{sdpa:.4f} ms", flush=True)
+        if label == "phi3-mini":
+            print(f"{label}: SDPA by back end: " + sdpa_backends_ms(
+                torch, lambda: torch.nn.functional
+                .scaled_dot_product_attention(q, k, v, is_causal=True),
+                reps), flush=True)
         if window is not None:
             i = torch.arange(q.shape[2], device="cuda")
             band = (i[None, :] <= i[:, None]) & (i[None, :] >= i[:, None]

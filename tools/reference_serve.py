@@ -9,7 +9,8 @@ writes, under ``jax.threefry_partitionable(False)`` (the goldens' PRNG
 stream, ROADMAP C0):
 
 * ``llm_rows``: the ``FleetResult`` of the library's ``llm_gemma7b`` and
-  ``llm_moe_hetero`` at their full 4,000 ticks (``Scenario.run_fleetsim``);
+  ``llm_moe_hetero`` over their first ``LLM_TICKS`` ticks (2,000 of
+  their 4,000; ``Scenario.run_fleetsim``);
 * ``coupled_rows``: the same for ``llm_gemma7b`` at ``batch_coupling``
   0.5, the batch stage's float path (its decode speed falls with the
   slots in use; the library files run at coupling 0, where it is 1);
@@ -40,6 +41,9 @@ import numpy as np
 
 #: ticks of trace_burst that phase 15 traces (its file runs 40,000)
 TRACE_TICKS = 1_000
+#: ticks of the llm library files that phase 14 runs (their files run
+#: 4,000)
+LLM_TICKS = 2_000
 #: serve_equivalence's horizon in phase 14: its default
 SERVE_TICKS = 1_500
 #: the batch coupling of ``coupled_rows``
@@ -72,15 +76,16 @@ def main(argv=None) -> int:
     from repro.scenarios import load_any
 
     out: dict = {"jax": jax.__version__, "trace_ticks": args.trace_ticks,
-                 "serve_ticks": SERVE_TICKS}
+                 "llm_ticks": LLM_TICKS, "serve_ticks": SERVE_TICKS}
     with jax.threefry_partitionable(False):
         t0 = time.perf_counter()
         out["llm_rows"] = {name: dataclasses.asdict(
-            load_any(name).run_fleetsim())
+            load_any(name).run_fleetsim(n_ticks=LLM_TICKS))
             for name in ("llm_gemma7b", "llm_moe_hetero")}
         out["coupled_rows"] = {f"llm_gemma7b@{COUPLING}": dataclasses.asdict(
             dataclasses.replace(load_any("llm_gemma7b"),
-                                batch_coupling=COUPLING).run_fleetsim())}
+                                batch_coupling=COUPLING).run_fleetsim(
+                                    n_ticks=LLM_TICKS))}
         print(f"llm rows: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         checks = serve_equivalence(horizon=SERVE_TICKS)
