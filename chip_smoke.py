@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU and check it: FleetSim's sweep,
 the model stack (qwen2.5-3b, mamba2-370m, recurrentgemma-9b,
-deepseek-moe-16b, deepseek-v2-lite-16b, whisper-tiny, phi3-mini-3.8b), the
-NetClone serving tier, ServeSim, FleetScope telemetry, the sharded sweep
+deepseek-moe-16b, deepseek-v2-lite-16b, whisper-tiny, phi3-mini-3.8b,
+gemma-7b, codeqwen1.5-7b, chameleon-34b), the NetClone serving tier, ServeSim, FleetScope telemetry, the sharded sweep
 runner and training.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
@@ -107,7 +107,7 @@ Phases (each fails the run on error; nothing is caught):
 14. ServeSim: (a) ``llm_service("gemma-7b")`` from gemma-7b's full config
     counted on the meta device (no device memory allocated) equals both
     llm library files' ``params``; (b) ``llm_gemma7b.json`` (1 rack, B2)
-    and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) over 2,000
+    and ``llm_moe_hetero.json`` (2 racks with a slow rack, B1) over 1,024
     of their 4,000 ticks on the batch server, fused, bit-identical to
     ``vectorized``, each row equal to the reference's CPU row
     (``tools/serve_reference.json``), and each one's first 64 ticks
@@ -232,7 +232,22 @@ Phases (each fails the run on error; nothing is caught):
     1e-2, each leaf in float32 activations and, by phase 21's rule, in
     bf16), and at 32 layers through the train cell of ``build_cell``: a
     gradient on every leaf, 3 AdamW steps of 2 x 4,096 tokens (64 B3 and
-    32 backward launches a step), ms a step and peak memory.
+    32 backward launches a step), ms a step and peak memory;
+24. gemma-7b (head dim 256, MHA), codeqwen1.5-7b (128, MHA) and
+    chameleon-34b (128, 64 heads over 8, qk-norm), each through phase 23's
+    code (:func:`run_dense_arch`): B3 at its prefill shape (4 x 4,096)
+    against its plain version beside bound and SDPA by back end, B3's
+    backward at its training shape (2 x 4,096) against autograd through
+    ``attention_ref`` beside SDPA's backward (gemma-7b's is phase 22's own
+    case, left to it); the arch at full width and depth (28, 32 and 48
+    layers: 28, 32 and 48 B3 launches a prefill, all on the TMA +
+    ``wgmma`` kernel) as phase 7, chameleon-34b's plain prefill at 1 x
+    2,048 tokens, the most its plain attention's float32 scores fit beside
+    its 63.9 GiB of weights; step 1's gates at 2 layers (chameleon-34b's
+    on 1 x 2,048 tokens, qk-norm's scales among the leaves held); 3 AdamW
+    steps of 2 x 4,096 tokens at the deepest depth that leaves 6 GiB of
+    the card free (``GEMMA_TRAIN_LAYERS``, ``CODEQWEN_TRAIN_LAYERS``,
+    ``CHAMELEON_TRAIN_LAYERS``), ms a step and peak memory.
 
 The line before the last but one is a JSON object with one entry per
 kernel, and B3 and its backward once more at phi3-mini's shapes
@@ -323,8 +338,9 @@ LLM_FILES_KERNELS = (("llm_gemma7b", "tickfuse", "tickfuse_response_path"),
                      ("llm_moe_hetero", "pallas", "fingerprint_filter"))
 LLM_COUPLING = 0.5
 # phase 14 (b): the llm files' and the coupled run's ticks, their 4,000 cut
-# to 2,000 for phase 23 (the reference's rows are made at these ticks)
-LLM_TICKS = 2_000
+# to 2,000 for phase 23 and to 1,024 (16 whole graphs of 64 ticks, no
+# staged tail) for phase 24 (the reference's rows are made at these ticks)
+LLM_TICKS = 1_024
 BATCH_CHECK_TICKS = 500
 # phase 14 (c): the batch sweep's ticks, llm_gemma7b's 4,000 cut to 2,000
 # for phase 22
@@ -378,8 +394,13 @@ FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # time limit; 8 decode steps after it (every model's; cut from 16 for
 # phase 22)
 PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 4096, 8
-#: full-size prefills timed after the counted one (phases 7 and 23)
+#: full-size prefills timed after the counted one (phases 7, 23 and 24)
 PREFILL_TIMED = 3
+#: decode steps a profile records (phases 7, 10, 11, 16-17, 23-24; the
+#: profile runs them twice, the first its warm-up): the profiler's cost
+#: grows with the kernels it records, 2,200-7,700 a step; cut from 4 to 1
+#: for phase 24 (phases 16-17 recorded 1 from the start)
+DECODE_PROFILED = 1
 QWEN_FA = (PREFILL_B, 16, 2, PREFILL_S, 128, True, None, "bfloat16")
 # whole-model bf16 comparisons: max |diff| within this share of the
 # reference's max |value| (36 layers round to bf16 at different points)
@@ -529,30 +550,78 @@ BWD_256_CASES = (
     ((1, 16, 1, 512, 256, True, None, "bfloat16"), "misaligned"),
 )
 
+# phases 23-24: the dense decoders' training shape (2 x 4,096 tokens:
+# train_4k's batch of 256 cut to 2 by the run's time, as qwen2.5-3b's), 3
+# AdamW steps, and step 1 held to the plain step at DENSE_GATE_LAYERS
+# layers: the bf16 loss within SSD_TRAIN_LOSS_RTOL, each leaf within
+# MODEL_RTOL in float32 activations and, by phase 21's rule, in bf16
+DENSE_TRAIN_B, DENSE_TRAIN_S, DENSE_TRAIN_STEPS = 2, 4096, 3
+DENSE_GATE_LAYERS = 2
 # phase 23: phi3-mini-3.8b (32 layers, 32 heads of head dim 96 over 32 kv
 # heads) at full width and depth: B3 at its prefill shape (PREFILL_B x
-# PREFILL_S) beside SDPA, B3's backward at its training shape (2 x 4,096),
-# both at head dim 96's edge cases (a ragged 300 rows, a window narrower
-# than a tile with GQA, views TMA cannot read in place, a float32 window on
-# the scalar kernels); the model's prefill, decode and consistency as in
-# phase 7; 3 AdamW steps of 2 x 4,096 tokens (train_4k's batch of 256 cut
-# to 2 by the run's time, as qwen2.5-3b's), step 1 held to the plain step
-# at PHI3_GATE_LAYERS layers: the bf16 loss within SSD_TRAIN_LOSS_RTOL,
-# each leaf within MODEL_RTOL in float32 activations and, by phase 21's
-# rule, in bf16
+# PREFILL_S) beside SDPA, B3's backward at its training shape, both at head
+# dim 96's edge cases (a ragged 300 rows, a window narrower than a tile
+# with GQA, views TMA cannot read in place, a float32 window on the scalar
+# kernels); the model's prefill, decode and consistency as in phase 7;
+# training as above, at all 32 layers
 PHI3 = "phi3-mini-3.8b"
 PHI3_FA = (PREFILL_B, 32, 32, PREFILL_S, 96, True, None, "bfloat16")
-PHI3_TRAIN_B, PHI3_TRAIN_S, PHI3_TRAIN_STEPS = 2, 4096, 3
-PHI3_GATE_LAYERS = 2
 PHI3_EDGE_CASES = (
     ((1, 32, 32, 300, 96, True, None, "bfloat16"), "transposed"),
     ((1, 8, 2, 512, 96, True, 16, "bfloat16"), "transposed"),
     ((1, 32, 32, 512, 96, True, None, "bfloat16"), "misaligned"),
     ((1, 8, 8, 512, 96, True, 128, "float32"), "transposed"),
 )
-PHI3_BWD = (PHI3_TRAIN_B, 32, 32, PHI3_TRAIN_S, 96, True, None, "bfloat16")
-# the same shape in float32, on the scalar kernels
-PHI3_BWD_F32 = PHI3_BWD[:7] + ("float32",)
+PHI3_BWD = (DENSE_TRAIN_B, 32, 32, DENSE_TRAIN_S, 96, True, None,
+            "bfloat16")
+
+# phase 24: gemma-7b (28 layers, 16 x 16 heads of 256, GeGLU, tied and
+# sqrt(d_model)-scaled embeddings), codeqwen1.5-7b (32 layers, 32 x 32 heads
+# of 128, QKV bias) and chameleon-34b (48 layers, 64 heads of 128 over 8,
+# qk-norm) as phase 23 runs phi3-mini: B3 at the prefill shape and its
+# backward at the training shape (2 x 4,096, as every train step here);
+# inference at full width and depth; step 1's gates; 3 AdamW steps.  The
+# train depths: the deepest that leaves at least 6 GiB of the card's 79.2
+# (as torch counts it) free at the step's peak: 16 B a trained parameter
+# (float32 master, gradient, two AdamW moments) plus the step's
+# activations, which do not grow with depth under remat (a dev run at 12,
+# 14 and 4 layers peaked at 70.1, 65.4 and 65.3 GiB: H100 80GB HBM3, 700 W):
+# - gemma-7b: 0.786 B tied embedding (11.7 GiB) + 0.277 B a layer (4.12
+#   GiB): 12 layers 61.2 GiB of state, peak 70.1 (13: 74.2, 5.0 free);
+# - codeqwen1.5-7b: 2 x 0.379 B untied embeddings (11.3 GiB) + 0.232 B a
+#   layer (3.46 GiB): 16 layers 66.6 GiB of state, peak 72.4 (17: 75.8,
+#   3.4 free);
+# - chameleon-34b: 2 x 0.537 B embeddings (16.0 GiB) + 0.692 B a layer
+#   (10.31 GiB): 4 layers 57.3 GiB of state, peak 65.3 (5: 75.6, 3.6
+#   free).
+# chameleon's 63.9 GiB of bf16 weights leave no room for the plain
+# attention's float32 scores of a 4 x 4,096 prefill (4 x 64 x 4,096^2
+# floats, 17 GB a copy): its B3 prefill is held to the plain one at
+# CHAMELEON_COMPARE tokens (1.1 GB a copy); its step-1 gates hold a train
+# state and three float32 gradient trees (2 layers: 29.5 + 29.5 GB), beside
+# which the plain attention's float32 scores and their autograd copies fit
+# at CHAMELEON_GATE (1 x 2,048 tokens), not at 2 x 4,096 (8.6 GB a copy)
+GEMMA_TRAIN_LAYERS = 12
+CODEQWEN_TRAIN_LAYERS = 16
+CHAMELEON_TRAIN_LAYERS = 4
+CHAMELEON_COMPARE = (1, 2048)
+CHAMELEON_GATE = (1, 2048)
+#: (arch, B3's prefill case, B3's backward case, train layers, gate batch
+#: and length, the plain prefill's batch and length or None for the
+#: whole prefill, first seed)
+DENSE_ARCHS = (
+    ("gemma-7b", (PREFILL_B, 16, 16, PREFILL_S, 256, True, None, "bfloat16"),
+     (DENSE_TRAIN_B, 16, 16, DENSE_TRAIN_S, 256, True, None, "bfloat16"),
+     GEMMA_TRAIN_LAYERS, (DENSE_TRAIN_B, DENSE_TRAIN_S), None, 2400),
+    ("codeqwen1.5-7b",
+     (PREFILL_B, 32, 32, PREFILL_S, 128, True, None, "bfloat16"),
+     (DENSE_TRAIN_B, 32, 32, DENSE_TRAIN_S, 128, True, None, "bfloat16"),
+     CODEQWEN_TRAIN_LAYERS, (DENSE_TRAIN_B, DENSE_TRAIN_S), None, 2440),
+    ("chameleon-34b",
+     (PREFILL_B, 64, 8, PREFILL_S, 128, True, None, "bfloat16"),
+     (DENSE_TRAIN_B, 64, 8, DENSE_TRAIN_S, 128, True, None, "bfloat16"),
+     CHAMELEON_TRAIN_LAYERS, CHAMELEON_GATE, CHAMELEON_COMPARE, 2480),
+)
 
 
 def log(msg: str) -> None:
@@ -1049,12 +1118,15 @@ def worst_rel(got, want) -> float:
 
 
 def run_model(torch, lm, kernels, get_config, arch="qwen2.5-3b",
-              label="phase 7"):
-    """Phase 7 (and 23): ``arch``, a dense decoder, at full width and
+              label="phase 7", compare=None):
+    """Phase 7 (and 23, 24): ``arch``, a dense decoder, at full width and
     depth: a prefill through B3, every launch on the TMA + ``wgmma``
-    kernel, held to the plain-attention prefill; a 300-token prompt; decode
-    steps; prefill/decode consistency.  Returns the config, the bf16
-    weights (phase 8 serves qwen2.5-3b's) and B3's launches per prefill."""
+    kernel, held to the plain-attention prefill (or, where the plain
+    attention's float32 scores of the whole prefill do not fit beside the
+    weights, both prefills of its first ``compare`` = (batch, length)
+    tokens); a 300-token prompt; decode steps; prefill/decode consistency.
+    Returns the config, the bf16 weights (phase 8 serves qwen2.5-3b's) and
+    B3's launches per prefill."""
     from repro_torch.kernels.flash_attention import wgmma_launches
 
     cfg = get_config(arch)
@@ -1110,21 +1182,36 @@ def run_model(torch, lm, kernels, get_config, arch="qwen2.5-3b",
         f"each timed prefill {mallocs}, device memory reserved "
         f"{torch.cuda.memory_reserved() / 2**30:.1f} GiB")
 
-    # the same prefill through the plain attention, on the card
-    logits_p, caches_p = lm.prefill(cfg.replace(attn_impl="xla"), params,
-                                    tokens, s_max=s_max, device=DEV)
-    r_logits = worst_rel(logits, logits_p)
+    # the same prefill through the plain attention, on the card; where its
+    # float32 scores of the whole prefill do not fit beside the weights,
+    # both prefills of the first ``compare`` tokens
+    plain = cfg.replace(attn_impl="xla")
+    if compare is None:
+        lg_k, c_k, shape = logits, caches, ""
+        logits_p, caches_p = lm.prefill(plain, params, tokens, s_max=s_max,
+                                        device=DEV)
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        b, s = compare
+        lg_k, c_k = lm.prefill(cfg, params, tokens[:b, :s], device=DEV)
+        logits_p, caches_p = lm.prefill(plain, params, tokens[:b, :s],
+                                        device=DEV)
+        shape = (f" of the first {b} x {s} tokens (both paths; the plain "
+                 f"attention's float32 scores of the whole prefill do not "
+                 f"fit beside the weights), peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    r_logits = worst_rel(lg_k, logits_p)
     r_cache = max(max(worst_rel(a.k, b.k), worst_rel(a.v, b.v))
-                  for a, b in zip(caches, caches_p))
-    agree = (logits.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
-    log(f"{label}: B3 prefill vs plain-attention prefill: logits max "
+                  for a, b in zip(c_k, caches_p))
+    agree = (lg_k.argmax(-1) == logits_p.argmax(-1)).float().mean().item()
+    log(f"{label}: B3 prefill vs plain-attention prefill{shape}: logits max "
         f"|diff| / max |logit| {r_logits:.3g}, KV caches "
         f"({cfg.n_layers} layers) {r_cache:.3g}, argmax agreement "
         f"{agree:.2f} (tolerance {MODEL_RTOL})")
     if not (r_logits <= MODEL_RTOL and r_cache <= MODEL_RTOL):
         raise AssertionError(f"{label}: B3 prefill differs from the plain "
                              "prefill")
-    del logits_p, caches_p
+    del logits_p, caches_p, lg_k, c_k
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{label}: non-finite prefill logits")
 
@@ -1487,7 +1574,7 @@ def profile_prefill(torch, lm, cfg, params, tokens, s_max, label):
 
 
 def decode_steps(torch, lm, cfg, params, caches, nxt, start, steps, label,
-                 profiled: int = 4):
+                 profiled: int = DECODE_PROFILED):
     """``steps`` greedy decode steps from position ``start``; returns the
     caches and ms per step (host clock, steps after the first), and logs
     the device's share of a profile of ``profiled`` steps."""
@@ -2629,7 +2716,7 @@ def run_deepseek(torch, lm, kernels, get_config, arch, batch, label):
     reset(kernels)
     caches = decode_steps(torch, lm, cfg, params, caches,
                           logits[:, -1].argmax(-1)[:, None], PREFILL_S,
-                          DECODE_STEPS, label, profiled=1)
+                          DECODE_STEPS, label)
     if {n: fn.launches for n, fn in kernels.items()} != only(kernels):
         raise AssertionError(f"{label}: decode launched a kernel")
     del caches, logits
@@ -3925,14 +4012,27 @@ def check_attention_view(torch, ref, ops, case, view, label, seed) -> float:
     return d
 
 
-def run_phi3(torch, lm, kernels, get_config):
-    """Phase 23: B3 and its backward at head dim 96 (builds, phi3-mini's
-    shapes beside SDPA under its back ends, edge cases), then
-    phi3-mini-3.8b at full width and depth: prefill, decode and
-    consistency (:func:`run_model`), step 1's gates at
-    :data:`PHI3_GATE_LAYERS` layers (:func:`step1_gates`) and 3 AdamW
-    steps (:func:`train_dense`).  Returns B3's and its backward's rows at
-    phi3-mini's shapes and the launches of the prefill and the steps."""
+def run_dense_arch(torch, lm, kernels, get_config, arch, label, fa_case,
+                   bwd_case, train_layers, gate_batch, compare=None, *,
+                   seed, build_dim=None, edge_cases=(), bwd_f32=False):
+    """Phases 23-24: ``arch``, a dense decoder, on the card.  (a) B3 at its
+    prefill shape ``fa_case`` against the plain version, beside its bound
+    and SDPA (the back end SDPA takes, and its flash and cuDNN back ends);
+    B3's backward at its training shape ``bwd_case`` (and, with
+    ``bwd_f32``, the same shape in float32 on the scalar kernels) against
+    autograd through the plain version, beside SDPA's backward, unless
+    phase 22 runs that very case; SDPA's forward and backward there by
+    back end; with ``build_dim``, the builds at that head dim first (spills
+    fail) and ``edge_cases`` through both.  (b) Inference at full width and
+    depth (:func:`run_model`, ``compare`` its plain prefill's shape).  (c)
+    Step 1's gates at :data:`DENSE_GATE_LAYERS` layers on ``gate_batch``
+    = (batch, length) tokens (:func:`step1_gates`: the bf16 loss within
+    SSD_TRAIN_LOSS_RTOL, float32 leaves and bf16 leaves by phase 21's rule
+    within MODEL_RTOL; qk-norm's scales, where the arch has them, among
+    them), then 3 AdamW steps of 2 x 4,096 tokens at ``train_layers``
+    layers (:func:`train_dense`).  Returns B3's and its backward's rows
+    (``None`` for a backward left to phase 22) and the launches of
+    the prefill and the steps."""
     import torch.nn.functional as F
 
     from repro_torch.data import DataConfig, SyntheticLM
@@ -3940,46 +4040,56 @@ def run_phi3(torch, lm, kernels, get_config):
     from repro_torch.kernels import ops, ref
     from repro_torch.train.step import batch_on
 
-    label = "phase 23"
-    # (a) the kernels at head dim 96: builds, phi3-mini's shapes, edges
-    builds = [("B3", fa_mod.wgmma_attributes(96))] + [
-        (f"B3's backward, its {k} kernel", a)
-        for k, a in fa_mod.bwd_wgmma_attributes(96).items()]
-    for what, a in builds:
-        log(f"{label}: {what} at head dim 96: {a['registers']} registers a "
-            f"thread (before setmaxnreg), {a['dynamic_smem']} B dynamic "
-            f"shared memory, {a['local_bytes']} B local (spill) a thread")
-        if a["local_bytes"]:
-            raise AssertionError(f"{label}: {what} spills at head dim 96: "
-                                 f"{a}")
-    fwd_row = check_attention_case(torch, ref, ops, PHI3_FA, label, seed=2300)
-    q, k, v = qkv_on_card(torch, PHI3_FA, seed=2300)
-    kw = dict(attn_mask=None, is_causal=True, enable_gqa=False)
-    log(f"{label}: SDPA at phi3-mini's prefill shape took "
+    cfg = get_config(arch)
+    # (a) the kernels at the arch's shapes
+    if build_dim is not None:
+        builds = [("B3", fa_mod.wgmma_attributes(build_dim))] + [
+            (f"B3's backward, its {k} kernel", a)
+            for k, a in fa_mod.bwd_wgmma_attributes(build_dim).items()]
+        for what, a in builds:
+            log(f"{label}: {what} at head dim {build_dim}: "
+                f"{a['registers']} registers a thread (before setmaxnreg), "
+                f"{a['dynamic_smem']} B dynamic shared memory, "
+                f"{a['local_bytes']} B local (spill) a thread")
+            if a["local_bytes"]:
+                raise AssertionError(f"{label}: {what} spills at head dim "
+                                     f"{build_dim}: {a}")
+    fwd_row = check_attention_case(torch, ref, ops, fa_case, label, seed=seed)
+    q, k, v = qkv_on_card(torch, fa_case, seed=seed)
+    gqa = k.shape[1] < q.shape[1]
+    kw = dict(attn_mask=None, is_causal=True, enable_gqa=gqa)
+    log(f"{label}: SDPA at {cfg.name}'s prefill shape took "
         f"{sdpa_backend(torch, q, k, v, **kw)}; by back end: "
         + sdpa_backends_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 20))
+            q, k, v, is_causal=True, enable_gqa=gqa), 20))
     del q, k, v
-    err = max(check_attention_view(torch, ref, ops, case, view, label,
-                                   seed=2310 + i)
-              for i, (case, view) in enumerate(PHI3_EDGE_CASES))
-    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], err)
+    if edge_cases:
+        err = max(check_attention_view(torch, ref, ops, case, view, label,
+                                       seed=seed + 10 + i)
+                  for i, (case, view) in enumerate(edge_cases))
+        fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], err)
     bwd_row = None
-    for i, (case, view) in enumerate([(PHI3_BWD, "transposed"),
-                                      (PHI3_BWD_F32, "transposed")]
-                                     + list(PHI3_EDGE_CASES)):
+    bwd = [(bwd_case, "transposed")]
+    if bwd_f32:
+        bwd.append((bwd_case[:7] + ("float32",), "transposed"))
+    for i, (case, view) in enumerate(bwd + list(edge_cases)):
+        if (case, view) in BWD_256_CASES:
+            log(f"{label}: B3's backward at {case} ({view} views) left to "
+                f"phase 22, which runs this very case")
+            continue
         r = check_attention_bwd(torch, ref, fa_mod, case, label,
-                                seed=2320 + i, view=view)
+                                seed=seed + 20 + i, view=view)
         bwd_row = bwd_row or r
-    q, k, v = qkv_on_card(torch, PHI3_BWD, seed=2320, transposed=True)
+    q, k, v = qkv_on_card(torch, bwd_case, seed=seed + 20, transposed=True)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    g = torch.Generator(device=DEV).manual_seed(2321)
+    g = torch.Generator(device=DEV).manual_seed(seed + 21)
     do = torch.randn(q.shape, generator=g, device=DEV).to(q.dtype)
 
     def sdpa_fwd_bwd():
-        y = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        y = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=gqa)
         return torch.autograd.grad(y, leaves, do)
-    log(f"{label}: SDPA's forward and backward at phi3-mini's training "
+    log(f"{label}: SDPA's forward and backward at {cfg.name}'s training "
         f"shape by back end (3 calls each): "
         f"{sdpa_backends_ms(torch, sdpa_fwd_bwd, 3)}")
     del q, k, v, leaves, do
@@ -3987,24 +4097,32 @@ def run_phi3(torch, lm, kernels, get_config):
 
     # (b) inference at full width and depth, as phase 7
     _, params, prefill_launches = run_model(torch, lm, kernels, get_config,
-                                            PHI3, label)
+                                            arch, label, compare)
     del params
     torch.cuda.empty_cache()
 
-    # (c) training: step 1's gates at PHI3_GATE_LAYERS layers, then the
-    # whole depth
-    cfg = get_config(PHI3)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=PHI3_TRAIN_S,
-                                  global_batch=PHI3_TRAIN_B, seed=0))
+    # (c) training: step 1's gates at DENSE_GATE_LAYERS layers, then
+    # train_layers layers
+    gb, gs = gate_batch
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=gs,
+                                  global_batch=gb, seed=0))
     gate = step1_gates(torch, kernels, cfg.replace(
-        n_layers=PHI3_GATE_LAYERS), batch_on(data.batch(0), DEV))
+        n_layers=DENSE_GATE_LAYERS), batch_on(data.batch(0), DEV))
     p2, k32, kx, i32, held, w16, left = (gate[n] for n in (
         "paths", "k32", "kx", "i32", "held", "w16", "left"))
     loss_k, loss_x = gate["losses"]
     loss_rel = abs(loss_k - loss_x) / abs(loss_x)
     n32 = gate["launches"]["flash_attention_bwd"]
-    log(f"{label}: {cfg.name} at {PHI3_GATE_LAYERS} layers (full width): "
+    qk = [i for i, p in enumerate(p2) if p[-1] in ("q_norm", "k_norm")]
+    qk_s = ""
+    if cfg.qk_norm:
+        qk_held = [i for i in qk if i in held]
+        qk_s = (f"; qk-norm's {len(qk)} scales: float32 worst "
+                f"{max(k32[i] for i in qk):.3g}, in bf16 {len(qk_held)} "
+                f"held" + (f", worst {max(kx[i] for i in qk_held):.3g}"
+                           if qk_held else ""))
+    log(f"{label}: {cfg.name} at {DENSE_GATE_LAYERS} layers (full width) on "
+        f"{gb} x {gs} tokens: "
         f"step 1's bf16 loss {loss_k:.6f} through B3 and its backward, "
         f"{loss_x:.6f} through the plain attention (attn_impl='xla'): "
         f"{loss_rel:.3g} relative (tolerance {SSD_TRAIN_LOSS_RTOL}); "
@@ -4012,17 +4130,18 @@ def run_phi3(torch, lm, kernels, get_config):
         f"backward launched {n32} times) worst max |diff| / max |grad| "
         f"{k32[i32]:.3g} at {p2[i32]} (tolerance {MODEL_RTOL}); in bf16 "
         f"{len(held)} leaves held, worst {kx[w16]:.3g} at {p2[w16]} "
-        f"(tolerance {MODEL_RTOL}), left out: {left}")
+        f"(tolerance {MODEL_RTOL}), left out: {left}{qk_s}")
     if not loss_rel <= SSD_TRAIN_LOSS_RTOL or not k32[i32] <= MODEL_RTOL \
-            or not kx[w16] <= MODEL_RTOL or n32 != PHI3_GATE_LAYERS:
-        raise AssertionError(f"{label}: step 1 at {PHI3_GATE_LAYERS} "
+            or not kx[w16] <= MODEL_RTOL or n32 != DENSE_GATE_LAYERS \
+            or len(qk) != (2 * DENSE_GATE_LAYERS if cfg.qk_norm else 0):
+        raise AssertionError(f"{label}: step 1 at {DENSE_GATE_LAYERS} "
                              f"layers: loss {loss_rel:.3g}, float32 "
                              f"{k32[i32]:.3g} at {p2[i32]}, bf16 "
                              f"{kx[w16]:.3g} at {p2[w16]}, backward "
-                             f"launches {n32}")
+                             f"launches {n32}, qk-norm leaves {len(qk)}")
     return fwd_row, bwd_row, prefill_launches, train_dense(
-        torch, kernels, cfg, PHI3_TRAIN_B, PHI3_TRAIN_S, PHI3_TRAIN_STEPS,
-        label)
+        torch, kernels, cfg.replace(n_layers=train_layers), DENSE_TRAIN_B,
+        DENSE_TRAIN_S, DENSE_TRAIN_STEPS, label)
 
 
 def main() -> int:
@@ -4360,12 +4479,34 @@ def main() -> int:
     # -- phase 23: B3 and its backward at head dim 96, phi3-mini-3.8b's
     # prefill, decode and training ------------------------------------------
     (rows["flash_attention_d96"], rows["flash_attention_bwd_d96"],
-     phi3_prefill, phi3_launches) = run_phi3(torch, lm, kernels, get_config)
+     phi3_prefill, phi3_launches) = run_dense_arch(
+        torch, lm, kernels, get_config, PHI3, "phase 23", PHI3_FA, PHI3_BWD,
+        get_config(PHI3).n_layers, (DENSE_TRAIN_B, DENSE_TRAIN_S),
+        seed=2300, build_dim=96, edge_cases=PHI3_EDGE_CASES, bwd_f32=True)
     for n in ("flash_attention", "flash_attention_bwd"):
         if not phi3_launches[n] or not phi3_prefill:
             raise AssertionError(f"phase 23: the phi3-mini runs launched no "
                                  f"{n}")
     log(f"phase 23 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 24: gemma-7b, codeqwen1.5-7b and chameleon-34b's prefill,
+    # decode and training --------------------------------------------------
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    for arch, fa_case, bwd_case, layers, gate, compare, seed in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        _, _, n_prefill, n_train = run_dense_arch(
+            torch, lm, kernels, get_config, arch, "phase 24", fa_case,
+            bwd_case, layers, gate, compare, seed=seed)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not n_prefill or not all(n_train[n] for n in (
+                "flash_attention", "flash_attention_bwd")):
+            raise AssertionError(f"phase 24: {arch}'s runs launched no B3 or "
+                                 f"no B3 backward: {n_prefill}, {n_train}")
+        log(f"phase 24: {arch}: training at {layers} layers peaked at "
+            f"{peak:.1f} GiB of the card's {card_gib:.1f}: "
+            f"{card_gib - peak:.1f} GiB free; {time.perf_counter() - t0:.1f} "
+            f"s for the arch")
+    log(f"phase 24 ended at {time.perf_counter() - t_start:.1f} s")
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -25,6 +25,7 @@ from repro.models import lm as ref_lm
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import attention, common, convert, ffn, lm, whisper
 from repro_torch.models import family_of
+from repro_torch.train import tree as ttree
 from test_torch_common import _one_torch_thread  # noqa: F401
 
 
@@ -328,6 +329,35 @@ def test_params_carry_across_one_to_one(model):
 
 def test_full_config_counts_3_086b_parameters():
     assert get_config(ARCH).n_params() == 3_085_938_688
+
+
+#: the cast trees ``chip_smoke.py``'s phase 24 holds on the card: (arch,
+#: parameters, GiB of the bf16 tree to one decimal)
+CAST_FITS = (("gemma-7b", 8_537_680_896, 15.9),
+             ("codeqwen1.5-7b", 8_190_038_016, 15.3),
+             ("chameleon-34b", 34_293_436_416, 63.9))
+
+
+@pytest.mark.parametrize("arch,n,gib", CAST_FITS)
+def test_full_config_cast_tree_fits_the_card(arch, n, gib):
+    """The full config's ``init_params(cast=True)`` tree, on the ``meta``
+    device: every leaf of two or more dims in bf16 but
+    ``lm.FLOAT32_LEAVES``, the vectors (norm scales, qk-norm) in float32,
+    and the bytes those make, which set what fits beside it on an 80 GB
+    card."""
+    cfg = get_config(arch)
+    flat = ttree.flatten(lm.init_params(cfg, 0, device="meta", cast=True))
+    leaves = [t for _, t in flat]
+    assert all(t.device.type == "meta" for t in leaves)
+    for path, t in flat:
+        want = (torch.float32 if t.dim() < 2 or path[-1] in lm.FLOAT32_LEAVES
+                else torch.bfloat16)
+        assert t.dtype == want, path
+    assert sum(t.numel() for t in leaves) == n == cfg.n_params() \
+        == ref_get_config(arch).n_params()
+    assert round(sum(t.numel() * t.element_size() for t in leaves) / 2**30,
+                 1) == gib
+
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -3,7 +3,10 @@ the models' ``loss_fn``) against the JAX reference, on the CPU.
 
 For one smoke config of each family — dense (qwen2.5-3b), mamba2, RG-LRU
 (recurrentgemma-9b), MoE with capacity routing (deepseek-moe-16b), MLA
-(deepseek-v2-lite-16b) and whisper — the reference draws the weights (plus
+(deepseek-v2-lite-16b), whisper, phi3-mini (MHA at head dim 96), gemma-7b
+(an all-attention stack with GeGLU and tied embeddings scaled by
+sqrt(d_model)) and chameleon-34b (qk-norm under RoPE and GQA's repeat) —
+the reference draws the weights (plus
 numpy noise, so the zero-init norm scales take part), ``convert.
 params_from_numpy`` carries them across, and both packages take the loss
 and its gradient on the same numpy batch; each reference call is jitted
@@ -24,6 +27,10 @@ reference's gradients in both layouts.  Tolerances:
   2`` on its stacked tree;
 * compression: bit for bit, with one absmax scale a stacked reference
   leaf; the schedule ``rtol`` 1e-6; the data batches bit for bit.
+
+codeqwen1.5-7b has no family of its own: its training path (QKV bias,
+SiLU GLU, untied embeddings) is the dense family's code, and untied
+embeddings are phi3-mini's too.
 """
 
 import jax
@@ -56,7 +63,9 @@ B, S = 2, 32
 #: RG-LRU at 4 layers, one stacked period of 3 and one epilogue layer, and
 #: once more at recurrentgemma-9b's head dim 256 (smoke widths otherwise,
 #: one (rec, rec, attn) period, a window of 12 under S = 32); phi3-mini at
-#: its own head dim 96 (MHA, smoke widths otherwise)
+#: its own head dim 96 (MHA, smoke widths otherwise); gemma-7b in two
+#: chunks, so its tied embedding's gradient sums the lookup's and two CE
+#: chunks'; chameleon-34b's smoke config (qk-norm, 8 heads over 2)
 FAMILIES = {"dense": ("qwen2.5-3b", 48, 16, {}),
             "mamba2": ("mamba2-370m", S, 512, {}),
             "rglru": ("recurrentgemma-9b", S, 12, {"n_layers": 4}),
@@ -65,7 +74,9 @@ FAMILIES = {"dense": ("qwen2.5-3b", 48, 16, {}),
             "moe": ("deepseek-moe-16b", S, 512, {}),
             "mla": ("deepseek-v2-lite-16b", S, 512, {}),
             "whisper": ("whisper-tiny", S, 512, {}),
-            "phi3_96": ("phi3-mini-3.8b", S, 512, {"head_dim": 96})}
+            "phi3_96": ("phi3-mini-3.8b", S, 512, {"head_dim": 96}),
+            "gemma": ("gemma-7b", S, 16, {}),
+            "chameleon": ("chameleon-34b", S, 512, {})}
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10, weight_decay=0.1,
            clip_norm=1.0)
 GRAD_RTOL = 1e-4
@@ -174,6 +185,27 @@ def test_gradients_match_jax_grad(name):
         diff = float((g - w).abs().max())
         assert diff <= max(GRAD_RTOL * scale, 1e-6 * top), (path, diff,
                                                             scale)
+
+
+def test_qk_norm_and_tied_embedding_gradients_are_live():
+    """The leaves only chameleon-34b and gemma-7b train among the families:
+    qk-norm's scales (each layer's ``q_norm`` and ``k_norm``) and gemma's
+    one tied, scaled embedding get gradients that are not zero and that
+    hold to ``jax.grad``'s leaf by leaf (as
+    :func:`test_gradients_match_jax_grad` holds every leaf)."""
+    for name, kinds in (("chameleon", ("q_norm", "k_norm")),
+                        ("gemma", ("tokens",))):
+        r = _family(name)
+        want = _port_grads(r["cfg"], r["grads_r"])
+        paths = [p for p, _ in ttree.flatten(r["params"])]
+        held = [(p, g, w) for p, g, w in zip(paths, r["grads"], want)
+                if p[-1] in kinds]
+        assert len(held) == len(kinds) * (r["cfg"].n_layers
+                                          if name == "chameleon" else 1)
+        for path, g, w in held:
+            scale = float(w.abs().max())
+            assert scale > 0 and float(g.abs().max()) > 0, path
+            assert float((g - w).abs().max()) <= GRAD_RTOL * scale, path
 
 
 # --------------------------------------------------------------- AdamW -----

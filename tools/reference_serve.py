@@ -9,7 +9,7 @@ writes, under ``jax.threefry_partitionable(False)`` (the goldens' PRNG
 stream, ROADMAP C0):
 
 * ``llm_rows``: the ``FleetResult`` of the library's ``llm_gemma7b`` and
-  ``llm_moe_hetero`` over their first ``LLM_TICKS`` ticks (2,000 of
+  ``llm_moe_hetero`` over their first ``LLM_TICKS`` ticks (1,024 of
   their 4,000; ``Scenario.run_fleetsim``);
 * ``coupled_rows``: the same for ``llm_gemma7b`` at ``batch_coupling``
   0.5, the batch stage's float path (its decode speed falls with the
@@ -43,7 +43,7 @@ import numpy as np
 TRACE_TICKS = 1_000
 #: ticks of the llm library files that phase 14 runs (their files run
 #: 4,000)
-LLM_TICKS = 2_000
+LLM_TICKS = 1_024
 #: serve_equivalence's horizon in phase 14: its default
 SERVE_TICKS = 1_500
 #: the batch coupling of ``coupled_rows``
