@@ -47,7 +47,7 @@ Phases (each fails the run on error; nothing is caught):
    median of 3 more, a 1 x 300-token prefill held the same way, 8 decode
    steps, and prefill/decode consistency (255 + 1 tokens against 256);
 8. the serving tier at full width: ``launch/serve.py``'s defaults (4
-   replicas of 2 slots, a 20-tick straggler; 18 requests over 30 ticks,
+   replicas of 2 slots, a 20-tick straggler; 12 requests over 20 ticks,
    cut from its 48 over 80)
    under ``netclone`` (B1 on every tick with completions, each launch
    replayed against the plain filter) and under ``baseline``;
@@ -129,21 +129,22 @@ Phases (each fails the run on error; nothing is caught):
     telemetry-off fused run, event counts reconciled with the counters,
     the decoded events and series equal to the reference's (digests,
     counts by kind, the row), ``write_run``'s bundle written to a
-    temporary directory, and ms a tick staged with telemetry against
-    without it;
+    temporary directory, and ms a tick staged with telemetry; the first
+    64 ticks staged without it, held to the same ticks replayed, and
+    their ms a tick (another window: not the cost of telemetry);
 16. deepseek-moe-16b at full width and depth (28 layers, 16.4 B
     parameters drawn from seed 0 in float32, each layer cast to bf16 as
     drawn): a 4 x 4,096-token prefill (28 B3 launches), held to the
     plain attention where B3 acts: each layer's attention sublayer on the
     same input and the float32-activation prefill's logits (the whole
     layers, the bf16 whole prefill and the float32 caches reported beside
-    the tokens a near top-k tie reroutes); 8 decode steps (dropless
+    the tokens a near top-k tie reroutes); 4 decode steps (dropless
     routing), prefill 255 + decode 1 against prefill 256 (float32 held,
     bf16 reported); B3 at the prefill's MHA shape (4, 16, 4096, 128)
     against its plain version, timed beside its bound and SDPA;
 17. deepseek-v2-lite-16b at full width and depth (27 layers, MLA and
     MoE): a 4 x 4,096-token prefill with no B3 launch (MLA pins the plain
-    attention), 16 absorbed decode steps and the consistency check as in
+    attention), 4 absorbed decode steps and the consistency check as in
     phase 16;
 18. whisper-tiny at full width: frames (4, 1500, 384) and a 4 x 64-token
     prompt, prefill through B3 (12 launches: 4 encoder, 4 causal self, 4
@@ -247,7 +248,28 @@ Phases (each fails the run on error; nothing is caught):
     on 1 x 2,048 tokens, qk-norm's scales among the leaves held); 3 AdamW
     steps of 2 x 4,096 tokens at the deepest depth that leaves 6 GiB of
     the card free (``GEMMA_TRAIN_LAYERS``, ``CODEQWEN_TRAIN_LAYERS``,
-    ``CHAMELEON_TRAIN_LAYERS``), ms a step and peak memory.
+    ``CHAMELEON_TRAIN_LAYERS``), ms a step and peak memory;
+25. deepseek-moe-16b and deepseek-v2-lite-16b training at full width
+    (:func:`run_deepseek_training`): B3's backward at deepseek-moe-16b's
+    training shape (2, 16, 4096, 128) against autograd through
+    ``attention_ref`` beside its bound and SDPA's backward; one MoE layer's
+    float32 gradients (dx, router, the stacked expert weights, the shared
+    experts) in capacity routing held to ``moe_dense_dispatch``'s (the
+    reference's one-hot dispatch) and under the remat checkpoint, whose
+    recompute must route as its forward; one MLA sublayer's float32
+    gradients held to an independent float64 MLA on the card; step 1 at 2
+    layers (deepseek-moe-16b held to the plain step with the tokens the
+    two passes route apart reported; deepseek-v2-lite-16b, whose passes
+    are one code, by its bf16 loss against float32 and finite leaves);
+    3 AdamW steps of 2 x 4,096 tokens at the deepest depth that leaves 6
+    GiB of the card free (``MOE_TRAIN_LAYERS``, ``MLA_TRAIN_LAYERS``),
+    each timed bare with its B3 launches and finite leaves, beside peak
+    memory, then a 4th step, untimed, with host syncs by site, the experts
+    that took no pair and every remat recompute routing as its forward;
+    one step of each at 2 layers profiled
+    (``tools/profile_train_step.py``: GEMMs, the expert loop's products, B3
+    and its backward, the rest; no select backward on an expert weight,
+    no slice write).
 
 The line before the last but one is a JSON object with one entry per
 kernel, and B3 and its backward once more at phi3-mini's shapes
@@ -261,12 +283,14 @@ reference package ``repro``.  ``tools/bench_flash_attention.py`` imports
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from dataclasses import replace
 from pathlib import Path
 
@@ -286,7 +310,9 @@ FULL_TICKS = 50_000
 SWEEP_TICKS = 500
 FUSED_SWEEP_TICKS = 2_000
 SCAN_CHECK_TICKS = 500
-PROFILE_TICKS = 20
+# phase 4's profiled window of staged ticks, cut from 20 to 10 for phase 25
+# (the profiler's cost grows with the ~680 kernels a tick it records)
+PROFILE_TICKS = 10
 # cut from 4,000 to 2,000 for phases 12c and 13, to 1,000 for 14-15 and
 # to 500 (its scan check's length) for 19-20
 RACK_TICKS = 500
@@ -394,6 +420,10 @@ FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # time limit; 8 decode steps after it (every model's; cut from 16 for
 # phase 22)
 PREFILL_B, PREFILL_S, DECODE_STEPS = 4, 4096, 8
+# phases 16-17's decode steps (ms a step over steps 2-4 of the two MoE
+# archs, whose steps take ~150-310 ms on the host), cut from 8 to pay for
+# phase 25
+MOE_DECODE_STEPS = 4
 #: full-size prefills timed after the counted one (phases 7, 23 and 24)
 PREFILL_TIMED = 3
 #: decode steps a profile records (phases 7, 10, 11, 16-17, 23-24; the
@@ -606,6 +636,41 @@ CODEQWEN_TRAIN_LAYERS = 16
 CHAMELEON_TRAIN_LAYERS = 4
 CHAMELEON_COMPARE = (1, 2048)
 CHAMELEON_GATE = (1, 2048)
+# phase 25: deepseek-moe-16b and deepseek-v2-lite-16b training at full
+# width.  (a) B3's backward at deepseek-moe-16b's training shape (16 x 16
+# heads of 128, 2 x 4,096 tokens, causal); (b) one deepseek-moe-16b MoE
+# FFN (571 M float32 parameters) on x of MOE_LAYER_TOKENS x 2,048 float32
+# in capacity routing, TF32 off: the gradients of (y . r).sum() + moe_aux +
+# router_z through moe_forward against moe_dense_dispatch's (the
+# reference's one-hot GShard dispatch: an oracle that shares only the
+# router), and through the remat checkpoint, whose recompute must route as
+# the forward did, each within LAYER_GRAD_RTOL of its max |grad|; (c) one
+# deepseek-v2-lite-16b MLA sublayer at that shape in float32 against an
+# independent float64 MLA on the card (the port's norm and plain attention
+# compute in float32 inside, so a float64 pass through them would not be
+# a float64 oracle), within LAYER_GRAD_RTOL; (d) step 1 at
+# DEEPSEEK_GATE_LAYERS layers (deepseek-moe-16b held to the plain step as
+# phases 22-24, the expert leaves of a layer with tokens rerouted between
+# the two passes (C10) reported, not held; deepseek-v2-lite-16b's kernel
+# and plain passes are the same code: its bf16 loss within 1e-2 of the
+# float32 pass's, every leaf finite); (e) 3 AdamW steps of 2 x 4,096
+# tokens at the deepest depth that leaves 6 GiB of the card's 79.2 free
+# (16 B a trained parameter: layer 0 dense, 0.50 B with the embeddings
+# (7.5 GiB), each later layer a MoE layer of 0.59 B (8.8 GiB); dev runs
+# of run_deepseek_training at other depths on an H100 80GB HBM3 at 700 W:
+# deepseek-moe-16b peaked at 63.4 and 72.1 GiB at 7 and 8 layers,
+# deepseek-v2-lite-16b, whose plain attention holds float32 scores, at
+# 67.6 GiB at 7 and ran out of memory at 8); (f) one profiled
+# step each at DEEPSEEK_GATE_LAYERS layers (tools/profile_train_step.py's
+# split; reading the profile of an 8-layer step took 15.6 s)
+MOE_ARCH, MLA_ARCH = "deepseek-moe-16b", "deepseek-v2-lite-16b"
+MOE_BWD = (DENSE_TRAIN_B, 16, 16, DENSE_TRAIN_S, 128, True, None,
+           "bfloat16")
+MOE_LAYER_TOKENS = (DENSE_TRAIN_B, DENSE_TRAIN_S)
+LAYER_GRAD_RTOL = 1e-4
+DEEPSEEK_GATE_LAYERS = 2
+MOE_TRAIN_LAYERS = 8
+MLA_TRAIN_LAYERS = 7
 #: (arch, B3's prefill case, B3's backward case, train layers, gate batch
 #: and length, the plain prefill's batch and length or None for the
 #: whole prefill, first seed)
@@ -683,10 +748,12 @@ def device_kernels(torch, fn, tries: int = 3):
 
 # the CUDA kernel behind each wrapper, as the profiler names it
 DEVICE_SYMBOL = {"fingerprint_filter": "fingerprint_filter_kernel",
-                 # both entry points of B2 launch tickfuse_kernel<...>
+                 # both entry points of B2 launch tickfuse_kernel<...>, and
+                 # the staged ticks count the masked one's launches under
+                 # tickfuse_response_path
                  "tickfuse_response_path": "tickfuse_kernel",
                  "tickfuse_masked": "MaskedLanes",
-                 "filter_floor": "filter_noop_kernel",
+                 "floor": "filter_noop_kernel",
                  "flash_attention": "flash_attention",
                  "ssd_scan": "ssd_scan",  # the step and chunked kernels
                  "lru_scan": "lru_fwd_chunked"}
@@ -729,16 +796,25 @@ def profile_replays(torch, blocks, n_replays: int, kernel: str, what: str,
                          f"launches in {ticks} replayed ticks")
 
 
-def device_us(torch, fn, name: str, reps: int) -> tuple[float, str]:
-    """Device microseconds per launch of ``name``'s kernel in ``fn`` (one
-    launch a call): from the profiler over ``reps`` calls, or, when the
-    profiler records none of its launches, from CUDA events around single
-    calls (the best of 5)."""
-    prof = device_kernels(torch, lambda: [fn() for _ in range(reps)])
-    if any(DEVICE_SYMBOL[name] in key for key in prof):
-        return device_us_per_launch(prof, DEVICE_SYMBOL[name]), "profiler"
-    return (1e3 * min(cuda_ms(fn, 1) for _ in range(5)),
-            "CUDA events around single launches; the profiler recorded none")
+def device_us(torch, timed, reps: int, symbol=DEVICE_SYMBOL) -> dict:
+    """Device microseconds per launch of each kernel of ``timed``, a list
+    of ``(name, fn)`` (one launch of ``symbol[name]`` a call of ``fn``),
+    all from one profiler session over ``reps`` calls of each (a session
+    costs ~3 s, most of it the profiler's own start and stop), or, for a
+    kernel the profiler recorded no launch of, from CUDA events around
+    single calls (the best of 5): ``{name: (us, source)}``."""
+    prof = device_kernels(torch, lambda: [fn() for _, fn in timed
+                                          for _ in range(reps)])
+    out = {}
+    for name, fn in timed:
+        if any(symbol[name] in key for key in prof):
+            out[name] = (device_us_per_launch(prof, symbol[name]),
+                         "profiler")
+        else:
+            out[name] = (1e3 * min(cuda_ms(fn, 1) for _ in range(5)),
+                         "CUDA events around single launches; the "
+                         "profiler recorded none")
+    return out
 
 
 def device_us_per_launch(kernels: dict, name: str) -> float:
@@ -916,8 +992,10 @@ def check_kernels(torch, inputs_mod, ref, ops):
                 for name, fn, plain, c in entries}
     graph_us["floor"] = 1e3 * cuda_ms(capture(torch, floor, drop).replay,
                                       20) / GRAPH_CALLS
-    dev = {name: device_us(torch, fn, "filter_floor" if name == "floor"
-                           else name, 200) for name, fn in timed}
+    # one session for the four: B2's entry points by their template's
+    # instances
+    dev = device_us(torch, timed, 200, symbol=dict(
+        DEVICE_SYMBOL, tickfuse_response_path="PlainLanes"))
     rows = {}
     for name, fn, plain, c in entries:
         plain_ms = cuda_ms(plain, 20)
@@ -1095,8 +1173,9 @@ def check_flash_attention(torch, ref, ops):
         del got, want
     q, k, v = qkv_on_card(torch, QWEN_FA, seed=7)
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
-    dev_us, dev_how = device_us(torch, lambda: ops.flash_attention(q, k, v),
-                                "flash_attention", 5)
+    dev_us, dev_how = device_us(torch, [(
+        "flash_attention", lambda: ops.flash_attention(q, k, v))],
+        5)["flash_attention"]
     plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
@@ -1251,10 +1330,10 @@ def run_model(torch, lm, kernels, get_config, arch="qwen2.5-3b",
 
 
 # phase 8: launch/serve.py's 48 requests over 80 ticks, cut to 24 over 40
-# to pay for phases 16-18
-# launch/serve.py's 48 requests over 80 ticks, cut to 24 over 40 and, for
-# phase 22, to 18 over 30
-SERVE_REQUESTS, SERVE_HORIZON = 18, 30
+# to pay for phases 16-18, to 18 over 30 for phase 22 and to 12 over 20 for
+# phase 25 (netclone still clones and filters there: the phase fails
+# otherwise)
+SERVE_REQUESTS, SERVE_HORIZON = 12, 20
 
 
 def serve_workload(cfg, n_requests=SERVE_REQUESTS, horizon=SERVE_HORIZON,
@@ -1497,7 +1576,7 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
             reps, plain_reps = 50, 3
         timed = args[:4] + [None] if kind == "ssd" else args[:2] + [None]
         ms = cuda_ms(fn, reps)
-        dev_us, dev_how = device_us(torch, fn, name, 3)
+        dev_us, dev_how = device_us(torch, [(name, fn)], 3)[name]
         plain_ms = cuda_ms(plain, plain_reps)
         chunked = kind == "ssd" and kernel == "chunked"
         bound, by, flops, nbytes = scan_bound(
@@ -1528,8 +1607,9 @@ def check_scans(torch, ref, ssd_scan, lru_scan, ops):
     del got, want
     ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                              window=window), 5)
-    dev_us, dev_how = device_us(torch, lambda: ops.flash_attention(
-        q, k, v, causal=True, window=window), "flash_attention", 2)
+    dev_us, dev_how = device_us(torch, [(
+        "flash_attention", lambda: ops.flash_attention(
+            q, k, v, causal=True, window=window))], 2)["flash_attention"]
     plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True,
                                                  window=window), 2)
     s = q.shape[2]
@@ -1995,7 +2075,6 @@ def torch_equal(x, y) -> bool:
 
 def run_scenario_layer(torch, tf, kernels, ops) -> None:
     """Phase 13: the Scenario layer and the optional stages on the card."""
-    import contextlib
     import io
 
     from repro_torch.fleetsim import engine, fused
@@ -2509,28 +2588,29 @@ def run_telemetry(torch, tf, kernels, ops) -> dict:
     with tempfile.TemporaryDirectory() as d:
         paths = write_run(d, sc.name, tel, summary=row.row())
         sizes = {k: p.stat().st_size for k, p in paths.items()}
-    # the same ticks staged without telemetry, through B2, for the cost
-    reset(kernels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m_st = engine.simulate(replace(cfg_on, telemetry=False), params,
-                           device=cuda, options=EngineOptions(
-                               backend="staged"))
-    torch.cuda.synchronize()
-    off_ms = (time.perf_counter() - t0) / TRACE_TICKS * 1e3
-    if not all(torch_equal(x, y) for x, y in zip(m_st, m_on)):
-        raise AssertionError("phase 15: staged telemetry-off != on")
+    # the first STAGED_WINDOW ticks staged without telemetry, through B2,
+    # held to the same ticks replayed from graphs (all TRACE_TICKS staged,
+    # held to telemetry on, until phase 25).  Its ms a tick covers another
+    # window than on_ms's (a telemetry run needs n_ticks >= the scenario's
+    # 1,000-tick window), so the two are logged, not compared
+    off_ms = staged_window(torch, tf, ops, kernels,
+                           replace(cfg_on, telemetry=False),
+                           engine.batched_params(params, cuda)[0],
+                           "tickfuse_response_path", "phase 15")
     log(f"phase 15: trace_burst, n_ticks cut from 40000 to {TRACE_TICKS}: "
         f"Metrics with telemetry on (staged, B2, {TRACE_TICKS} launches "
         f"counted by the wrapper) bit-identical to telemetry off (fused, "
-        f"vectorized, {st.replays} graph replays) and to off staged; "
+        f"vectorized, {st.replays} graph replays); its first "
+        f"{STAGED_WINDOW} ticks off staged ({STAGED_WINDOW} B2 launches "
+        f"counted) equal to the same ticks replayed; "
         f"{len(ev)} events ({ev.n_lost} lost) {kinds} reconcile with the "
         f"counters; events and series digests, counts and the row equal "
         f"the reference's ({digest['events_sha256'][:16]}, "
         f"{digest['series_sha256'][:16]}); write_run's bundle {sizes} B")
-    log(f"phase 15: staged ms/tick with telemetry {on_ms:.3f}, without "
-        f"{off_ms:.3f} ({100 * (on_ms / off_ms - 1):+.1f}%); "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"phase 15: staged ms/tick with telemetry {on_ms:.3f} (all "
+        f"{TRACE_TICKS} ticks), without {off_ms:.3f} (the first "
+        f"{STAGED_WINDOW} ticks only: another window, not the cost of "
+        f"telemetry); {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2621,16 +2701,12 @@ def compare_moe_layers(torch, lm, cfg, params, tokens):
                     for c in (cfg, plain))
         worst_a = max(worst_a, worst_rel(a_k, a_p))
         if spec[1] == "moe":
-            _, probs, _, ids_k, _ = ffn.route(
-                cfg, p["moe"], apply_norm(cfg, p["post_norm"], a_k), True)
-            ids_p = ffn.route(
-                cfg, p["moe"], apply_norm(cfg, p["post_norm"], a_p), True)[3]
-            differ = (ids_k.sort(-1).values
-                      != ids_p.sort(-1).values).any(-1)
-            moved += int(differ.sum())
-            if differ.any():
-                top = torch.sort(probs[differ], -1, descending=True).values
-                widest = max(widest, (top[:, k - 1] - top[:, k]).max().item())
+            r_k, r_p = (ffn.route(cfg, p["moe"], apply_norm(
+                cfg, p["post_norm"], a), True) for a in (a_k, a_p))
+            n, w = rerouted((r_k[3], None, r_k[1]), (r_p[3], None, r_p[1]),
+                            k)
+            moved += n
+            widest = max(widest, w)
         out_k, out_p = (lm._apply_layer(c, spec, p, x, positions, None,
                                         "prefill", None)[0]
                         for c in (cfg, plain))
@@ -2662,7 +2738,7 @@ def run_deepseek(torch, lm, kernels, get_config, arch, batch, label):
     g = torch.Generator(device=DEV).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, PREFILL_S),
                            generator=g, device=DEV)
-    s_max = PREFILL_S + DECODE_STEPS
+    s_max = PREFILL_S + MOE_DECODE_STEPS
     lm.prefill(cfg, params, tokens[:, :256], s_max=256, device=DEV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2716,7 +2792,7 @@ def run_deepseek(torch, lm, kernels, get_config, arch, batch, label):
     reset(kernels)
     caches = decode_steps(torch, lm, cfg, params, caches,
                           logits[:, -1].argmax(-1)[:, None], PREFILL_S,
-                          DECODE_STEPS, label)
+                          MOE_DECODE_STEPS, label)
     if {n: fn.launches for n, fn in kernels.items()} != only(kernels):
         raise AssertionError(f"{label}: decode launched a kernel")
     del caches, logits
@@ -2997,10 +3073,11 @@ def sdpa_backend(torch, q, k, v, **kw) -> str:
     return names.get(idx, f"backend {idx}")
 
 
-def train_steps(torch, step, state, batches, kernels, label):
+def train_steps(torch, step, state, batches, kernels, label, after=None):
     """Run ``step`` (state, batch) -> (state, metrics) once a batch, each
-    synchronised and timed, the kernels' counts reset before each; returns
-    ``(state, losses, ms a step, launches of each step)``."""
+    synchronised and timed, the kernels' counts reset before each, and
+    ``after(state)``, if given, called after each outside the timed window;
+    returns ``(state, losses, ms a step, launches of each step)``."""
     losses, step_ms, counts = [], [], []
     for batch in batches:
         reset(kernels)
@@ -3012,6 +3089,8 @@ def train_steps(torch, step, state, batches, kernels, label):
         losses.append(float(m["loss"]))
         if not all(math.isfinite(float(v)) for v in m.values()):
             raise AssertionError(f"{label}: non-finite metrics {m}")
+        if after is not None:
+            after(state)
     return state, losses, step_ms, counts
 
 
@@ -3028,40 +3107,54 @@ def check_train_launches(counts, n_fwd, n_bwd, label,
                                  f"{want}")
 
 
-def train_dense(torch, kernels, cfg, b, s, steps, label) -> dict:
-    """``cfg``, a dense decoder, through the train cell of
-    ``launch.steps.build_cell`` on the card's host mesh: the loss and
-    gradients of the first batch (every leaf a finite gradient, no
-    attention leaf all-zero, B3 launched twice a layer (forward and the
-    remat recompute) and its backward once), then ``steps`` AdamW
-    steps of ``b`` x ``s`` tokens, each with those launches, logged with
-    ms a step and peak memory.  Returns the launches summed over the
-    steps."""
+def train_decoder(torch, kernels, cfg, b, s, steps, label) -> dict:
+    """``cfg``, a decoder (dense, or MoE over MHA or MLA), through the train
+    cell of ``launch.steps.build_cell`` on the card's host mesh: the loss
+    and gradients of the first batch (every leaf a finite gradient, no
+    attention leaf all-zero, B3 launched twice an MHA layer (forward and
+    the remat recompute) and its backward once, never for MLA; in each MoE
+    layer each expert's weights a non-zero gradient exactly when it took a
+    kept pair, and every remat recompute routing as its forward), then
+    ``steps`` AdamW steps of ``b`` x ``s`` tokens, each with those launches
+    and every leaf finite after it, logged with ms a step and peak memory.
+    A MoE ``cfg`` then takes one more step, untimed, under the route spy
+    and torch's sync debug mode, logged with its host syncs by site, the
+    experts that took no kept pair and the recompute's routing.  Returns
+    the launches summed over the timed steps."""
     from repro_torch.configs import SHAPES
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_cell
+    from repro_torch.models import ffn, lm
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import batch_on, loss_and_grads
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cell = build_cell(cfg, SHAPES["train_4k"], make_host_mesh())
     state = cell.init_state(0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in ttree.leaves(state.params))
-    log(f"{label}: {cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
-        f"{cfg.n_kv_heads} kv heads, {n_params:,} float32 master "
-        f"parameters (bf16 activations), AdamW moments float32, remat "
-        f"{cfg.remat}: state built in {time.perf_counter() - t0:.1f} s, "
+    n_fa = sum(k == "attn" for k in cfg.layer_kinds)
+    moe_layers = [i for i, (_, f) in enumerate(lm.layer_specs(cfg))
+                  if f == "moe"]
+    n_moe = len(moe_layers)
+    heads = (f"{cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads} "
+             f"kv heads" if n_fa else f"{cfg.n_heads} MLA heads")
+    log(f"{label}: {cfg.name}: {cfg.n_layers} layers"
+        f"{f' ({n_moe} MoE)' if n_moe else ''}, d_model {cfg.d_model}, "
+        f"{heads}, {n_params:,} float32 master parameters (bf16 "
+        f"activations), AdamW moments float32, remat {cfg.remat}: state "
+        f"built in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held")
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
                                   global_batch=b, seed=0))
-    batches = [data.batch(i) for i in range(steps)]
+    batches = [data.batch(i) for i in range(steps + bool(n_moe))]
     b0 = batch_on(batches[0], DEV)
     reset(kernels)
-    loss, _, grads = loss_and_grads(cfg, state.params, b0)
+    with routes_logged(ffn) as seen:
+        loss, _, grads = loss_and_grads(cfg, state.params, b0)
     paths = [p for p, _ in ttree.flatten(state.params)]
     missing = [p for p, g in zip(paths, grads) if g is None]
     bad = [p for p, g in zip(paths, grads)
@@ -3070,33 +3163,78 @@ def train_dense(torch, kernels, cfg, b, s, steps, label) -> dict:
     # zero (softmax ignores a shift common to all keys)
     dead = [p for p, g in zip(paths, grads)
             if "attn" in p and p[-1] != "bk" and float(g.abs().max()) == 0]
+    # a MoE layer's expert weights: a gradient exactly where a pair was kept
+    wrong = []
+    for j, layer in enumerate(moe_layers):
+        ids, keep, _ = seen[j]
+        took = torch.zeros(cfg.moe.n_experts, dtype=torch.bool, device=DEV)
+        took[ids[keep]] = True
+        for p, g in zip(paths, grads):
+            if p[:3] == ("blocks", layer, "moe") and len(p) == 4 \
+                    and p[-1] in ("wi_gate", "wi_up", "wo"):
+                live = g.flatten(1).abs().amax(1) > 0
+                wrong += [(layer, p[-1], e) for e in
+                          (live != took).nonzero()[:, 0].tolist()]
+    alike = recompute_alike(seen, n_moe)
     fwd, bwd = kernels["flash_attention"].launches, \
         kernels["flash_attention_bwd"].launches
-    del grads
+    del grads, seen, b0
     torch.cuda.empty_cache()
+    experts = (f"; expert weights whose gradient is non-zero other than "
+               f"exactly when the expert took a kept pair: {len(wrong)}; "
+               f"remat recomputes routed as their forward: {alike} of "
+               f"{n_moe}" if n_moe else "")
     log(f"{label}: loss and gradients of one batch ({b} x {s} tokens): "
         f"loss {float(loss):.6f}; {len(paths)} leaves, "
         f"{len(missing)} without a gradient, {len(bad)} non-finite, "
-        f"{len(dead)} attention leaves all-zero; B3 launches {fwd} "
+        f"{len(dead)} attention leaves all-zero{experts}; B3 launches {fwd} "
         f"(forward and remat recompute), backward kernel launches {bwd}")
-    if missing or bad or dead or (fwd, bwd) != (2 * cfg.n_layers,
-                                                cfg.n_layers):
+    if missing or bad or dead or wrong or alike != n_moe \
+            or (fwd, bwd) != (2 * n_fa, n_fa):
         raise AssertionError(f"{label}: gradients: missing {missing[:3]}, "
                              f"non-finite {bad[:3]}, zero {dead[:3]}, "
+                             f"experts {wrong[:3]}, recompute {alike}, "
                              f"launches {fwd} / {bwd}")
+
+    def finite(st):
+        if not all(bool(torch.isfinite(p).all())
+                   for p in ttree.leaves(st.params)):
+            raise AssertionError(f"{label}: a leaf is not finite after an "
+                                 f"AdamW step")
+
     # the main path: reset, train, read the counts
     reset(kernels)
     state, losses, step_ms, counts = train_steps(
-        torch, cell.run, state, batches, kernels, label)
-    check_train_launches(counts, 2 * cfg.n_layers, cfg.n_layers, label)
+        torch, cell.run, state, batches[:steps], kernels, label, finite)
+    check_train_launches(counts, 2 * n_fa, n_fa, label)
     log(f"{label}: {steps} AdamW steps: losses "
         f"{[round(x, 4) for x in losses]}, "
         f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step (host clock, "
-        f"synchronised), peak device memory "
+        f"synchronised, nothing instrumented), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; each step "
         f"{counts[0]['flash_attention']} B3 launches and "
         f"{counts[0]['flash_attention_bwd']} of its backward (the train "
-        f"cell of build_cell, host mesh {cell.mesh.shape})")
+        f"cell of build_cell, host mesh {cell.mesh.shape}), every leaf "
+        f"finite after it")
+    if n_moe:
+        with routes_logged(ffn) as seen, syncs_counted(torch) as syncs:
+            state, m = cell.run(state, batch_on(batches[steps], DEV))
+        torch.cuda.synchronize()
+        idle = []
+        for j, layer in enumerate(moe_layers):
+            ids, keep, _ = seen[j]
+            took = set(ids[keep].unique().tolist())
+            idle += [f"{layer}:{e}" for e in range(cfg.moe.n_experts)
+                     if e not in took]
+        alike = recompute_alike(seen, n_moe)
+        log(f"{label}: step {steps + 1} (untimed, under the route spy and "
+            f"torch's sync debug mode): loss {float(m['loss']):.4f}; host "
+            f"syncs {sum(syncs.values())} ({dict(syncs)}); experts that "
+            f"took no kept pair (layer:expert) {idle or 'none'}; remat "
+            f"recomputes routed as their forward {alike} of {n_moe}")
+        if alike != n_moe or not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{label}: step {steps + 1}: loss "
+                                 f"{m['loss']}, recompute {alike}")
     del state, cell
     torch.cuda.empty_cache()
     return {n: sum(c[n] for c in counts) for n in counts[0]}
@@ -3140,9 +3278,9 @@ def run_training(torch, kernels, get_config):
 
     # (b) qwen2.5-3b at full width and depth, the train cell of
     # launch.steps.build_cell on the card's host mesh
-    qwen_launches = train_dense(torch, kernels, get_config("qwen2.5-3b"),
-                                QWEN_TRAIN_B, QWEN_TRAIN_S,
-                                QWEN_TRAIN_STEPS, "phase 20")
+    qwen_launches = train_decoder(torch, kernels, get_config("qwen2.5-3b"),
+                                  QWEN_TRAIN_B, QWEN_TRAIN_S,
+                                  QWEN_TRAIN_STEPS, "phase 20")
 
     # (c) the 0.1 B model: SMALL_STEPS steps, a checkpoint at SMALL_SAVE, a
     # restart
@@ -3782,30 +3920,65 @@ def step1_gates(torch, kernels, cfg, b0) -> dict:
     MODEL_RTOL of the plain float32 one, and the others, which bf16 alone
     moves by more, are listed by kind with their readings (``"left"``);
     ``"losses"``: the bf16 losses through the kernels and the plain
-    attention."""
+    attention.  For a MoE ``cfg`` each pass's routing is logged: every
+    recompute must route as its forward did, and the expert leaves of a
+    layer whose tokens the kernel and plain passes route apart (C10) are
+    neither held nor the worst, but listed in ``"moved"`` with the tokens
+    and their widest top-k margin, by precision."""
     from repro_torch.configs import SHAPES
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import build_cell
+    from repro_torch.models import ffn, lm
     from repro_torch.train import tree as ttree
     from repro_torch.train.step import loss_and_grads
 
     state = build_cell(cfg, SHAPES["train_4k"], make_host_mesh()).init_state(0)
     paths = [p for p, _ in ttree.flatten(state.params)]
+    moe = cfg.moe is not None
+    routes = []
+
+    def grads(c):
+        with routes_logged(ffn) if moe else contextlib.nullcontext([]) as r:
+            out = loss_and_grads(c, state.params, b0)
+        routes.append(r)
+        return out
+
     f32 = cfg.replace(dtype="float32")
     reset(kernels)
-    g_k = loss_and_grads(f32, state.params, b0)[2]
+    g_k = grads(f32)[2]
     launches = {n: fn.launches for n, fn in kernels.items()}
-    g_x32 = loss_and_grads(f32.replace(attn_impl="xla"), state.params, b0)[2]
+    g_x32 = grads(f32.replace(attn_impl="xla"))[2]
     k32 = leaf_rel(g_k, g_x32)
     del g_k
-    loss_k, _, g_k = loss_and_grads(cfg, state.params, b0)
-    loss_x, _, g_x = loss_and_grads(cfg.replace(attn_impl="xla"),
-                                    state.params, b0)
+    loss_k, _, g_k = grads(cfg)
+    loss_x, _, g_x = grads(cfg.replace(attn_impl="xla"))
     kx, xx = leaf_rel(g_k, g_x), leaf_rel(g_x, g_x32)
     del g_k, g_x, g_x32, state
     torch.cuda.empty_cache()
-    i32 = max(range(len(k32)), key=k32.__getitem__)
-    held = [i for i in range(len(kx)) if xx[i] <= MODEL_RTOL]
+    moved, exempt = {}, {"float32": set(), "bfloat16": set()}
+    if moe:
+        layers = [i for i, (_, f) in enumerate(lm.layer_specs(cfg))
+                  if f == "moe"]
+        for r in routes:
+            if recompute_alike(r, len(layers)) != len(layers):
+                raise AssertionError(f"step 1 of {cfg.name}: a remat "
+                                     f"recompute routed otherwise than its "
+                                     f"forward")
+        for prec, (a, b) in (("float32", routes[:2]),
+                             ("bfloat16", routes[2:])):
+            for j, layer in enumerate(layers):
+                n, widest = rerouted(a[j], b[j], cfg.moe.top_k)
+                if n:
+                    moved[(prec, layer)] = (n, widest)
+                    exempt[prec] |= {
+                        i for i, p in enumerate(paths)
+                        if p[:3] == ("blocks", layer, "moe")
+                        and p[-1] in ("wi_gate", "wi_up", "wo")
+                        and len(p) == 4}
+    i32 = max((i for i in range(len(k32)) if i not in exempt["float32"]),
+              key=k32.__getitem__)
+    held = [i for i in range(len(kx))
+            if xx[i] <= MODEL_RTOL and i not in exempt["bfloat16"]]
     w16 = max(held, key=kx.__getitem__)
     left = collections.defaultdict(list)
     for i in range(len(kx)):
@@ -3817,8 +3990,12 @@ def step1_gates(torch, kernels, cfg, b0) -> dict:
         f"kernels vs plain {min(kx[i] for i in ix):.3g}-"
         f"{max(kx[i] for i in ix):.3g})"
         for k, ix in sorted(left.items())) or "none"
+    moved_s = {(prec, layer): (n, widest, [
+        (paths[i][-1], round((k32 if prec == "float32" else kx)[i], 6))
+        for i in sorted(exempt[prec]) if paths[i][1] == layer])
+        for (prec, layer), (n, widest) in moved.items()}
     return dict(paths=paths, k32=k32, kx=kx, i32=i32, held=held, w16=w16,
-                left=left_s, launches=launches,
+                left=left_s, launches=launches, moved=moved_s,
                 losses=(float(loss_k), float(loss_x)))
 
 
@@ -4030,7 +4207,7 @@ def run_dense_arch(torch, lm, kernels, get_config, arch, label, fa_case,
     SSD_TRAIN_LOSS_RTOL, float32 leaves and bf16 leaves by phase 21's rule
     within MODEL_RTOL; qk-norm's scales, where the arch has them, among
     them), then 3 AdamW steps of 2 x 4,096 tokens at ``train_layers``
-    layers (:func:`train_dense`).  Returns B3's and its backward's rows
+    layers (:func:`train_decoder`).  Returns B3's and its backward's rows
     (``None`` for a backward left to phase 22) and the launches of
     the prefill and the steps."""
     import torch.nn.functional as F
@@ -4139,9 +4316,384 @@ def run_dense_arch(torch, lm, kernels, get_config, arch, label, fa_case,
                              f"{k32[i32]:.3g} at {p2[i32]}, bf16 "
                              f"{kx[w16]:.3g} at {p2[w16]}, backward "
                              f"launches {n32}, qk-norm leaves {len(qk)}")
-    return fwd_row, bwd_row, prefill_launches, train_dense(
+    return fwd_row, bwd_row, prefill_launches, train_decoder(
         torch, kernels, cfg.replace(n_layers=train_layers), DENSE_TRAIN_B,
         DENSE_TRAIN_S, DENSE_TRAIN_STEPS, label)
+
+
+# ---------------------------------------------------------------- phase 25 --
+@contextlib.contextmanager
+def routes_logged(ffn):
+    """A context in which every call of ``ffn.route`` (each MoE layer's
+    router: ``moe_forward``'s, its remat recompute's, ``moe_dense_
+    dispatch``'s) appends ``(expert ids (T, K), kept pairs (T, K) or None,
+    router probabilities (T, E))`` to the list it yields."""
+    real, seen = ffn.route, []
+
+    def spy(cfg, p, x, dropless):
+        out = real(cfg, p, x, dropless)
+        seen.append((out[3], out[4], out[1].detach()))
+        return out
+
+    ffn.route = spy
+    try:
+        yield seen
+    finally:
+        ffn.route = real
+
+
+@contextlib.contextmanager
+def syncs_counted(torch):
+    """A context under ``torch.cuda``'s sync debug mode; on leaving, the
+    Counter it yields holds the host syncs its code asked for, by file and
+    line."""
+    tally = collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield tally
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            tally[f"{Path(w.filename).name}:{w.lineno}"] += 1
+
+
+def rerouted(a, b, k: int) -> tuple[int, float]:
+    """The tokens whose top-``k`` expert set differs between two routings
+    (:func:`routes_logged` entries) and the widest top-k margin (k-th
+    minus (k+1)-th router probability, ``a``'s) among them."""
+    differ = (a[0].sort(-1).values != b[0].sort(-1).values).any(-1)
+    n = int(differ.sum())
+    if not n:
+        return 0, 0.0
+    top = a[2][differ].sort(-1, descending=True).values
+    return n, (top[:, k - 1] - top[:, k]).max().item()
+
+
+def recompute_alike(seen, n: int) -> int:
+    """Of a checkpointed pass's route calls (``n`` layers' forwards, then
+    their remat recomputes in reverse layer order), the recomputes that
+    route as their forward did: expert ids and kept pairs bit-equal."""
+    if len(seen) != 2 * n:
+        raise AssertionError(f"{len(seen)} route calls in a pass over {n} "
+                             f"MoE layers, not {2 * n}")
+    return sum(torch_equal(a[0], b[0]) and torch_equal(a[1], b[1])
+               for a, b in zip(seen[:n], seen[n:][::-1]))
+
+
+def moe_layer_gate(torch, get_config, label) -> None:
+    """Phase 25 (b): one deepseek-moe-16b MoE layer, float32, capacity
+    routing: dx and every leaf's gradient of ``(y . r).sum() + moe_aux +
+    router_z`` through ``moe_forward`` held to ``moe_dense_dispatch``'s
+    and to ``moe_forward``'s under the remat checkpoint, within
+    LAYER_GRAD_RTOL of each max |grad|; the dropped pairs, the tokens the
+    two dispatches route apart (the same router: 0) and the recompute's
+    routing against its forward's (bit-equal) logged.  The two dispatches
+    share the shared experts' code, so their leaves read 0 here: the CPU
+    test ``tests/test_torch_moe.py`` holds them, against ``jax.grad`` of
+    the reference's layer."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import ffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH).replace(dtype="float32")
+    b, s = MOE_LAYER_TOKENS
+    g = torch.Generator(device=DEV).manual_seed(2510)
+    p = ffn.init_moe(cfg, g, DEV)
+    names = ("x", "router", "wi_gate", "wi_up", "wo", "shared wi_gate",
+             "shared wi_up", "shared wo")
+    leaves = [p["router"], p["wi_gate"], p["wi_up"], p["wo"],
+              *(p["shared"][n] for n in ("wi_gate", "wi_up", "wo"))]
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=DEV)
+    r = torch.randn(x.shape, generator=g, device=DEV)
+    for t in [x] + leaves:
+        t.requires_grad_(True)
+
+    def remat(c, pp, xx, dropless):
+        return checkpoint(ffn.moe_forward, c, pp, xx, dropless,
+                          use_reentrant=False)
+
+    out, ms = [], []
+    with routes_logged(ffn) as seen:
+        for fn in (ffn.moe_forward, ffn.moe_dense_dispatch, remat):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = fn(cfg, p, x, False)
+            loss = (y * r).sum() + aux["moe_aux"] + aux["router_z"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out.append(torch.autograd.grad(loss, [x] + leaves))
+            torch.cuda.synchronize()
+            ms.append(f"{(t1 - t0) * 1e3:.1f} + "
+                      f"{(time.perf_counter() - t1) * 1e3:.1f}")
+            del y, aux, loss
+    g_s, g_d, g_c = out
+    dense, again = leaf_rel(g_s, g_d), leaf_rel(g_c, g_s)
+    same = all(torch.equal(u, v) for u, v in zip(g_c, g_s))
+    del out, g_s, g_d, g_c
+    (ids, keep, _), routed_d, fwd_c, re_c = seen
+    moved, widest = rerouted(seen[0], routed_d, cfg.moe.top_k)
+    alike = recompute_alike(seen[2:], 1)
+    dropped = int((~keep).sum())
+    log(f"{label}: one {MOE_ARCH} MoE layer ({sum(t.numel() for t in leaves):,} "
+        f"float32 parameters; {cfg.moe.n_experts} experts, top "
+        f"{cfg.moe.top_k}, {cfg.moe.n_shared} shared) on x {tuple(x.shape)} "
+        f"float32, capacity routing, TF32 off: {dropped} of {keep.numel()} "
+        f"(token, k) pairs dropped; gradients of (y . r).sum() + moe_aux + "
+        f"router_z through moe_forward vs moe_dense_dispatch (the one-hot "
+        f"GShard dispatch), max |diff| / max |grad|: "
+        + ", ".join(f"{n} {v:.3g}" for n, v in zip(names, dense))
+        + f" (tolerance {LAYER_GRAD_RTOL}; the shared experts are one code "
+        f"in both, held only by the CPU test against jax.grad); {moved} "
+        f"tokens routed apart by "
+        f"the two (widest margin {widest:.3g}); under the remat checkpoint "
+        f"worst {max(again):.3g} ({'bit-equal' if same else 'not bit-equal'}"
+        f"), its recompute routed as its forward: {alike} of 1; ms (host "
+        f"clock, forward + backward): sorted {ms[0]}, one-hot {ms[1]}, "
+        f"checkpointed {ms[2]}")
+    if not (max(dense) <= LAYER_GRAD_RTOL and max(again) <= LAYER_GRAD_RTOL
+            and moved == 0 and alike == 1 and dropped > 0):
+        raise AssertionError(f"{label}: the MoE layer's gradients: one-hot "
+                             f"{dense}, checkpointed {again}, rerouted "
+                             f"{moved}, recompute alike {alike}, dropped "
+                             f"{dropped}")
+    del p, leaves, x, r, seen
+    torch.cuda.empty_cache()
+
+
+def mla_f64(torch, cfg, p, x, positions):
+    """deepseek-v2-lite-16b's MLA sublayer written out from its formula,
+    in the dtype of ``p`` and ``x`` (float64 here): the queries and the
+    latent from x, the latent RMS-normed, the rope halves rotated by the
+    port's own float32 angle table (promoted: a table of the positions,
+    not arithmetic under test), per-head keys and values from the latent,
+    causal softmax attention, the output projection."""
+    from repro_torch.models.common import rope_angles
+
+    m = cfg.mla
+    cos, sin = (t.to(x.dtype)[:, :, None, :] for t in rope_angles(
+        positions, m.qk_rope_dim, cfg.rope_theta))
+
+    def rope(t):
+        h = t.shape[-1] // 2
+        return torch.cat([t[..., :h] * cos - t[..., h:] * sin,
+                          t[..., h:] * cos + t[..., :h] * sin], dim=-1)
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = torch.cat([q[..., :m.qk_nope_dim], rope(q[..., m.qk_nope_dim:])],
+                  dim=-1)
+    c = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    c = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + cfg.norm_eps) \
+        * (1 + p["kv_norm"])
+    k_rope = rope(torch.einsum("bsd,dr->bsr", x, p["w_kr"])[:, :, None])
+    k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"])
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3],
+                                         m.qk_rope_dim)], dim=-1)
+    s = x.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) \
+        * (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    pr = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", pr, v)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def mla_layer_gate(torch, get_config, label) -> None:
+    """Phase 25 (c): one deepseek-v2-lite-16b MLA sublayer
+    (``attention.mla_forward``, whose attention is the plain
+    ``attention_ref``) in float32 on the card, TF32 off: dx and every
+    leaf's gradient of ``(y . r).sum()`` held to autograd through
+    :func:`mla_f64` in float64 on the card, within LAYER_GRAD_RTOL of each
+    max |grad|."""
+    from repro_torch.models import attention as attn_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MLA_ARCH).replace(dtype="float32")
+    b, s = MOE_LAYER_TOKENS
+    g = torch.Generator(device=DEV).manual_seed(2520)
+    p = attn_mod.init_mla(cfg, g, DEV)
+    p["kv_norm"] = 0.1 * torch.randn(p["kv_norm"].shape, generator=g,
+                                     device=DEV)
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=DEV)
+    r = torch.randn(x.shape, generator=g, device=DEV)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=DEV)[None].expand(b, s)
+    names = ["x"] + list(p)
+    ins = [x] + list(p.values())
+    for t in ins:
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, _ = attn_mod.mla_forward(cfg, p, x, positions)
+    got = torch.autograd.grad((y * r).sum(), ins)
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    del y
+    ins64 = [t.detach().double().requires_grad_() for t in ins]
+    p64 = dict(zip(list(p), ins64[1:]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = mla_f64(torch, cfg, p64, ins64[0], positions)
+    want = torch.autograd.grad((y * r.double()).sum(), ins64)
+    torch.cuda.synchronize()
+    ms64 = (time.perf_counter() - t0) * 1e3
+    del y
+    rel = leaf_rel([u.double() for u in got], want)
+    log(f"{label}: one {MLA_ARCH} MLA sublayer ({cfg.n_heads} heads, q/k "
+        f"{cfg.mla.qk_nope_dim} + {cfg.mla.qk_rope_dim}, v "
+        f"{cfg.mla.v_head_dim}, latent {cfg.mla.kv_lora_rank}; "
+        f"{sum(t.numel() for t in ins[1:]):,} parameters) on x "
+        f"{tuple(x.shape)}: float32 gradients (mla_forward, {ms32:.1f} ms) "
+        f"vs autograd through an independent float64 MLA on the card "
+        f"({ms64:.1f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+        f" GiB), max |diff| / max |grad|: "
+        + ", ".join(f"{n} {v:.3g}" for n, v in zip(names, rel))
+        + f" (tolerance {LAYER_GRAD_RTOL})")
+    if not max(rel) <= LAYER_GRAD_RTOL:
+        raise AssertionError(f"{label}: the MLA sublayer's float32 "
+                             f"gradients differ from float64's: {rel}")
+    del p, p64, ins, ins64, got, want, x, r
+    torch.cuda.empty_cache()
+
+
+def mla_gate(torch, cfg, b0, label) -> None:
+    """Phase 25 (d) for deepseek-v2-lite-16b at ``cfg``'s (cut) depth: its
+    kernel and plain passes are the same code (MLA pins the plain
+    attention), so step 1 is held by the bf16 loss within
+    SSD_TRAIN_LOSS_RTOL of the float32 pass's, every leaf a finite
+    gradient in both, and every remat recompute routing as its
+    forward."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import ffn, lm
+    from repro_torch.train.step import loss_and_grads
+
+    state = build_cell(cfg, SHAPES["train_4k"], make_host_mesh()).init_state(0)
+    n_moe = sum(f == "moe" for _, f in lm.layer_specs(cfg))
+    losses, bad = [], 0
+    for c in (cfg.replace(dtype="float32"), cfg):
+        with routes_logged(ffn) as seen:
+            loss, _, grads = loss_and_grads(c, state.params, b0)
+        if recompute_alike(seen, n_moe) != n_moe:
+            raise AssertionError(f"{label}: a remat recompute routed "
+                                 f"otherwise than its forward")
+        losses.append(float(loss))
+        bad += sum(g is None or not bool(torch.isfinite(g).all())
+                   for g in grads)
+        del grads
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    log(f"{label}: {cfg.name} at {cfg.n_layers} layers (full width) on "
+        f"{tuple(b0['tokens'].shape)} tokens: the kernel and plain passes "
+        f"are the same code (MLA pins the plain attention: no B3); step "
+        f"1's loss in bf16 {losses[1]:.6f} vs float32 {losses[0]:.6f}: "
+        f"{rel:.3g} relative (tolerance {SSD_TRAIN_LOSS_RTOL}); {bad} "
+        f"leaves without a finite gradient in the two passes; every remat "
+        f"recompute routed as its forward ({n_moe} MoE layers a pass)")
+    if not rel <= SSD_TRAIN_LOSS_RTOL or bad:
+        raise AssertionError(f"{label}: step 1 of {cfg.name}: loss {rel}, "
+                             f"{bad} leaves without a finite gradient")
+    del state
+    torch.cuda.empty_cache()
+
+
+def run_deepseek_training(torch, kernels, get_config, moe_layers,
+                          mla_layers):
+    """Phase 25: (a) B3's backward at deepseek-moe-16b's training shape;
+    (b) the MoE layer's gradients against the one-hot dispatch's and under
+    remat; (c) the MLA sublayer's against float64; (d) step 1 of both
+    archs at DEEPSEEK_GATE_LAYERS layers; (e) ``moe_layers`` and
+    ``mla_layers`` layers of each through the train cell
+    (:func:`train_decoder`); (f) one step of each at DEEPSEEK_GATE_LAYERS
+    layers profiled (``tools/profile_train_step.py``'s
+    :func:`profile_arch`), with no select backward on an expert weight and
+    no slice write.  Returns B3's backward's row and deepseek-moe-16b's
+    step launches."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.train.step import batch_on
+
+    label = "phase 25"
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tools"))
+    row = check_attention_bwd(torch, ref, fa_mod, MOE_BWD, label, seed=2500)
+    torch.cuda.empty_cache()
+    log(f"{label}: (a) done at {time.perf_counter() - t_phase:.1f} s")
+    moe_layer_gate(torch, get_config, label)
+    log(f"{label}: (b) done at {time.perf_counter() - t_phase:.1f} s")
+    mla_layer_gate(torch, get_config, label)
+    log(f"{label}: (c) done at {time.perf_counter() - t_phase:.1f} s")
+
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    moe_cfg, mla_cfg = get_config(MOE_ARCH), get_config(MLA_ARCH)
+    data = SyntheticLM(DataConfig(vocab_size=moe_cfg.vocab_size,
+                                  seq_len=DENSE_TRAIN_S,
+                                  global_batch=DENSE_TRAIN_B, seed=0))
+    b0 = batch_on(data.batch(0), DEV)
+    # (d) step 1 at DEEPSEEK_GATE_LAYERS layers
+    gate = step1_gates(torch, kernels, moe_cfg.replace(
+        n_layers=DEEPSEEK_GATE_LAYERS), b0)
+    p2, k32, kx, i32, held, w16 = (gate[n] for n in (
+        "paths", "k32", "kx", "i32", "held", "w16"))
+    loss_k, loss_x = gate["losses"]
+    loss_rel = abs(loss_k - loss_x) / abs(loss_x)
+    n32 = gate["launches"]["flash_attention_bwd"]
+    moved = "; ".join(
+        f"{prec} layer {layer}: {n} tokens (widest top-k margin "
+        f"{widest:.3g}), expert leaves reported, not held: {leaves}"
+        for (prec, layer), (n, widest, leaves) in gate["moved"].items())
+    log(f"{label}: {MOE_ARCH} at {DEEPSEEK_GATE_LAYERS} layers (full width) "
+        f"on {DENSE_TRAIN_B} x {DENSE_TRAIN_S} tokens: step 1's bf16 loss "
+        f"{loss_k:.6f} through B3 and its backward, {loss_x:.6f} through "
+        f"the plain attention: {loss_rel:.3g} relative (tolerance "
+        f"{SSD_TRAIN_LOSS_RTOL}); gradients of {len(p2)} leaves in float32 "
+        f"activations (B3's backward launched {n32} times) worst max |diff| "
+        f"/ max |grad| {k32[i32]:.3g} at {p2[i32]} (tolerance {MODEL_RTOL}); "
+        f"in bf16 {len(held)} leaves held, worst {kx[w16]:.3g} at {p2[w16]} "
+        f"(tolerance {MODEL_RTOL}), left out: {gate['left']}; tokens "
+        f"rerouted between the kernel and plain passes (C10): "
+        f"{moved or '0 in either precision'}; every remat recompute routed "
+        f"as its forward")
+    if not loss_rel <= SSD_TRAIN_LOSS_RTOL or not k32[i32] <= MODEL_RTOL \
+            or not kx[w16] <= MODEL_RTOL or n32 != DEEPSEEK_GATE_LAYERS:
+        raise AssertionError(f"{label}: step 1 of {MOE_ARCH}: loss "
+                             f"{loss_rel:.3g}, float32 {k32[i32]:.3g} at "
+                             f"{p2[i32]}, bf16 {kx[w16]:.3g} at {p2[w16]}, "
+                             f"backward launches {n32}")
+    mla_gate(torch, mla_cfg.replace(n_layers=DEEPSEEK_GATE_LAYERS), b0,
+             label)
+    del b0
+    log(f"{label}: (d) done at {time.perf_counter() - t_phase:.1f} s")
+    # (e)-(f) the deepest depth that leaves 6 GiB of the card free
+    import profile_train_step as pts
+
+    launches = None
+    for cfg, layers in ((moe_cfg, moe_layers), (mla_cfg, mla_layers)):
+        t0 = time.perf_counter()
+        n = train_decoder(torch, kernels, cfg.replace(n_layers=layers),
+                          DENSE_TRAIN_B, DENSE_TRAIN_S, DENSE_TRAIN_STEPS,
+                          label)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = launches or n
+        small = cfg.replace(n_layers=DEEPSEEK_GATE_LAYERS)
+        split = pts.profile_arch(small)
+        for line in pts.describe(f"{label}: {cfg.name} at {small.n_layers} "
+                                 f"layers, one step profiled", split):
+            log(line)
+        if split["expert_selects"] or split["nodes"]["CopySlices"]:
+            raise AssertionError(f"{label}: the step ran {split['nodes']} "
+                                 f"and {split['expert_selects']} select "
+                                 f"backward calls on expert weights")
+        log(f"{label}: {cfg.name}: training at {layers} layers peaked at "
+            f"{peak:.1f} GiB of the card's {card_gib:.1f}: "
+            f"{card_gib - peak:.1f} GiB free; "
+            f"{time.perf_counter() - t0:.1f} s for the arch")
+    return row, launches
 
 
 def main() -> int:
@@ -4507,6 +5059,18 @@ def main() -> int:
             f"{card_gib - peak:.1f} GiB free; {time.perf_counter() - t0:.1f} "
             f"s for the arch")
     log(f"phase 24 ended at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 25: deepseek-moe-16b and deepseek-v2-lite-16b training (the
+    # MoE FFN's and MLA's backward, B3's backward at deepseek-moe-16b's
+    # training shape) -------------------------------------------------------
+    _, moe_launches = run_deepseek_training(torch, kernels, get_config,
+                                            MOE_TRAIN_LAYERS,
+                                            MLA_TRAIN_LAYERS)
+    for n in ("flash_attention", "flash_attention_bwd"):
+        if not moe_launches[n]:
+            raise AssertionError(f"phase 25: the {MOE_ARCH} steps launched "
+                                 f"no {n}")
+    log(f"phase 25 ended at {time.perf_counter() - t_start:.1f} s")
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -159,7 +159,9 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
     Costs a layer: one host sync (the pairs an expert takes), plus one in
     capacity mode (the kept pairs), and about six launches for each expert
-    that takes a pair.  On the ``meta`` device, which has no values to
+    that takes a pair (a checkpointed pass pays them again in its
+    recompute, which routes the same bits the same way).  On the ``meta``
+    device, which has no values to
     route by, :func:`moe_dense_dispatch` stands in (a dry-run lowering)."""
     if x.device.type == "meta":
         return moe_dense_dispatch(cfg, p, x, dropless)
@@ -175,15 +177,19 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
     pairs = pairs[torch.argsort(flat_e[pairs], stable=True)]
     counts = torch.bincount(flat_e[pairs], minlength=m.n_experts).tolist()
     rows = x.reshape(n_tok, d)[pairs // k]
-    out = torch.empty_like(rows)
     act = activation(cfg.act)
-    start = 0
-    for e, n in enumerate(counts):
-        if n:
-            xe = rows[start:start + n]
-            h = act(xe @ p["wi_gate"][e].to(dt)) * (xe @ p["wi_up"][e].to(dt))
-            out[start:start + n] = h @ p["wo"][e].to(dt)
-            start += n
+    # the stacked weights taken apart and the rows split once, the outputs
+    # joined once: the backward stacks each weight's gradient and joins the
+    # rows' (an index or slice write per expert would give each expert a
+    # zero-filled gradient of the whole stack, or of all the rows)
+    w_gate, w_up, w_out = (p[n].unbind(0) for n in ("wi_gate", "wi_up",
+                                                     "wo"))
+    outs = []
+    for e, xe in enumerate(rows.split(counts)):
+        if len(xe):
+            h = act(xe @ w_gate[e].to(dt)) * (xe @ w_up[e].to(dt))
+            outs.append(h @ w_out[e].to(dt))
+    out = torch.cat(outs) if outs else rows
     # combine: gate rounded to the activation dtype times the expert row
     # (exact in float32), summed over k in float32, rounded once
     w = gates.reshape(-1)[pairs].to(dt).float()

@@ -13,6 +13,7 @@ for whole-model logits, aux losses ``rtol`` 1e-6; bfloat16 logits 5e-2,
 as ``tests/test_torch_models.py`` states it.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -123,6 +124,137 @@ def test_moe_dense_dispatch_matches_moe_forward(layer, case):
     meta = ffn.moe_forward(cfg, convert._map(p, lambda t: t.to("meta")),
                            x.to("meta"), dropless=dropless)
     assert meta[0].shape == y.shape and meta[0].device.type == "meta"
+
+
+#: the published routing shape (deepseek-moe-16b's and deepseek-v2-lite's
+#: 64 experts, top 6, 2 shared) at the smoke width
+REAL_ROUTING = dict(n_experts=64, top_k=6, n_shared=2)
+
+#: (capacity factor, sequence length, routing overrides) of the gradient
+#: tests: capacity routing that drops a few pairs, one that drops a
+#: quarter or more, one group a sequence, and the real routing shape
+#: (capacity 4 a group and expert: about one pair in eight dropped)
+GRAD_CASES = {"capacity": (1.25, S, {}), "capacity_drops": (0.5, S, {}),
+              "one_group_a_sequence": (1.25, 600, {}),
+              "real_routing": (1.25, S, REAL_ROUTING)}
+
+#: the leaves whose gradients the tests hold, as (key, sub-key) paths
+GRAD_LEAVES = (("router",), ("wi_gate",), ("wi_up",), ("wo",),
+               ("shared", "wi_gate"), ("shared", "wi_up"), ("shared", "wo"))
+
+
+def _routing(cfg, cf, over):
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf,
+                                               **over))
+
+
+@pytest.fixture(scope="module")
+def real_layer():
+    """A layer at the real routing shape, drawn by the reference plus
+    noise, both ways."""
+    cfg_r = _routing(ref_get_config(ARCH, smoke=True), 1.25, REAL_ROUTING)
+    with jax.threefry_partitionable(False):
+        tree = _noisy(jax.jit(lambda k: ref_ffn.init_moe(cfg_r, k))(
+            jax.random.PRNGKey(2)), seed=2)
+    return (jax.tree.map(jnp.asarray, tree),
+            convert._map(tree, convert._tensor))
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _port_grads(fn, cfg, p, x, r):
+    """Gradients of ``(y * r).sum() + moe_aux + router_z`` through ``fn``
+    (a port MoE layer): dx, then :data:`GRAD_LEAVES`'."""
+    p = convert._map(p, lambda t: t.detach().clone().requires_grad_())
+    x = x.clone().requires_grad_()
+    y, aux = fn(cfg, p, x, dropless=False)
+    loss = (y * r).sum() + aux["moe_aux"] + aux["router_z"]
+    return torch.autograd.grad(loss, [x] + [_leaf(p, q) for q in GRAD_LEAVES])
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_moe_gradients_match_jax_grad(layer, real_layer, case):
+    """The capacity-routed layer's gradients, router and shared experts
+    included, with both aux losses in the loss: dx and every leaf within
+    1e-5 of its max |grad| of ``jax.grad`` of the reference's layer on the
+    same weights and x (float32 sums of ~20 in another order differ by a
+    few ulp); the one-hot dispatch's gradients equal the sorted
+    dispatch's within the same tolerance (the card's MoE layer gate uses
+    it as the oracle)."""
+    cf, s, over = GRAD_CASES[case]
+    p_ref, p = real_layer if over else layer
+    cfg_r = _routing(ref_get_config(ARCH, smoke=True), cf, over)
+    cfg = _routing(get_config(ARCH, smoke=True), cf, over)
+    x = _x((B, s, cfg.d_model), seed=s + 1)
+    r = _x((B, s, cfg.d_model), seed=s + 2)
+
+    def ref_loss(params, xx):
+        y, aux = ref_ffn.moe_forward(cfg_r, params, xx, False)
+        return jnp.sum(y * r) + aux["moe_aux"] + aux["router_z"]
+
+    with jax.threefry_partitionable(False):
+        g_p, g_x = jax.jit(jax.grad(ref_loss, argnums=(0, 1)))(
+            p_ref, jnp.asarray(x))
+    want = [g_x] + [_leaf(g_p, q) for q in GRAD_LEAVES]
+    xt, rt = torch.from_numpy(x), torch.from_numpy(r)
+    got = _port_grads(ffn.moe_forward, cfg, p, xt, rt)
+    dense = _port_grads(ffn.moe_dense_dispatch, cfg, p, xt, rt)
+    for name, g, d, w in zip(("x",) + GRAD_LEAVES, got, dense, want):
+        w = np.asarray(w, np.float32)
+        scale = float(np.abs(w).max())
+        assert scale > 0, name
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * scale, rtol=0,
+                                   err_msg=str(name))
+        np.testing.assert_allclose(d.numpy(), g.numpy(), atol=1e-5 * scale,
+                                   rtol=0, err_msg=str(name))
+    keep = ffn.route(cfg, p, xt, False)[-1]
+    dropped = int((~keep).sum())
+    if case == "capacity_drops":
+        assert dropped >= keep.numel() // 4
+    elif case != "one_group_a_sequence":    # 188 slots an expert: no drop
+        assert dropped > 0
+
+
+def _graph_nodes(out) -> collections.Counter:
+    """The autograd nodes behind ``out``, counted by type."""
+    seen, stack, kinds = set(), [out.grad_fn], collections.Counter()
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        kinds[type(fn).__name__] += 1
+        stack.extend(nf for nf, _ in fn.next_functions)
+    return kinds
+
+
+@pytest.mark.parametrize("dropless", [False, True],
+                         ids=["capacity", "dropless"])
+def test_moe_backward_builds_no_per_expert_gradient(real_layer, dropless):
+    """At the real routing shape the expert loop's graph takes each stacked
+    weight apart once (one ``unbind`` each, whose backward is one stack),
+    splits the rows once and joins the outputs once: no ``select`` of a
+    stacked weight (each would zero-fill a gradient of the whole stack)
+    and no slice write (``CopySlices``, a clone of the whole output's
+    gradient each)."""
+    _, p = real_layer
+    cfg = _routing(get_config(ARCH, smoke=True), 1.25, REAL_ROUTING)
+    p = convert._map(p, lambda t: t.detach().clone().requires_grad_())
+    x = torch.from_numpy(_x((B, S, cfg.d_model), seed=5)).requires_grad_()
+    y, _ = ffn.moe_forward(cfg, p, x, dropless=dropless)
+    kinds = _graph_nodes(y)
+    assert kinds["SelectBackward0"] == kinds["CopySlices"] == 0, kinds
+    assert kinds["UnbindBackward0"] == 3 and kinds["CatBackward0"] == 1
+    assert kinds["SplitWithSizesBackward0"] == 1
+    # one gated product for each expert that took a pair, and the shared
+    # experts'
+    ids, keep = ffn.route(cfg, p, x, dropless)[3:]
+    used = ids.flatten() if keep is None else ids[keep]
+    assert kinds["SiluBackward0"] == 1 + len(set(used.tolist()))
 
 
 def test_top_k_breaks_ties_toward_the_lower_index():
