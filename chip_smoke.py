@@ -269,7 +269,26 @@ Phases (each fails the run on error; nothing is caught):
     one step of each at 2 layers profiled
     (``tools/profile_train_step.py``: GEMMs, the expert loop's products, B3
     and its backward, the rest; no select backward on an expert weight,
-    no slice write).
+    no slice write);
+26. the port on a mesh of ranks (:func:`run_ranks`), in this process as a
+    one-rank NCCL world over a ``FileStore`` under ``build/``, whose
+    collectives run even at one rank: phase 4's 200-config sweep on the
+    rank path (one slab a rank, the histograms all-reduced, the rows
+    all-gathered), fused, at phase 4's ticks, every row and ``grid_hist``
+    bit-identical to phase 4's unsharded run, its B2 launches counted;
+    qwen2.5-3b at full width and ``RANK_TRAIN_LAYERS`` layers, 2 AdamW
+    steps of 2 x 4,096 tokens on the rank mesh (the FSDP hooks gathering
+    each layer's blocks and reduce-scattering their gradients; B3 and its
+    backward launched) and 2 unsharded from the same seed and batches:
+    the metrics and every leaf of the state bit-equal, the collectives
+    counted by kind, the steps timed; the 0.1 B model's state after one
+    rank-mesh step saved from the rank mesh and restored through
+    ``launch/train.py``'s ``restore_state`` bit for bit; and, on a host of
+    two or more cards only, the same sweep and a float32 step under
+    ``torchrun`` over ``min(4, cards)`` ranks (this file's ``--rank-check``
+    worker), the rows bit-identical and the step's metrics within the CPU
+    tests' ``rtol`` 1e-5 of one process's.  On one card that last check
+    does not run, and one line says so.
 
 The line before the last but one is a JSON object with one entry per
 kernel, and B3 and its backward once more at phi3-mini's shapes
@@ -306,17 +325,18 @@ FULL_TICKS = 50_000
 # to 4,000 for phases 12c and 13, to 1,000 for phases 14 and 15, and to
 # 500 (its scan check's length) for phase 22; phase 12b times the fused
 # sweep at 2,000 ticks (31 graph replays of 64 ticks and a 16-tick staged
-# tail; 4,000 until phase 22)
+# tail; 4,000 until phase 22); the scan check cut from 500 to 256 ticks
+# (four graphs of 64) for phase 26
 SWEEP_TICKS = 500
 FUSED_SWEEP_TICKS = 2_000
-SCAN_CHECK_TICKS = 500
+SCAN_CHECK_TICKS = 256
 # phase 4's profiled window of staged ticks, cut from 20 to 10 for phase 25
 # (the profiler's cost grows with the ~680 kernels a tick it records)
 PROFILE_TICKS = 10
-# cut from 4,000 to 2,000 for phases 12c and 13, to 1,000 for 14-15 and
-# to 500 (its scan check's length) for 19-20
-RACK_TICKS = 500
-RACK_CHECK_TICKS = 500
+# cut from 4,000 to 2,000 for phases 12c and 13, to 1,000 for 14-15, to
+# 500 (its scan check's length) for 19-20 and to 256 for phase 26
+RACK_TICKS = 256
+RACK_CHECK_TICKS = 256
 # graph replays (of a sweep's 64-tick graph) in the profiles of phases 12b
 # and 14c, cut from 8 to 2 for phases 14-15 (a profiler session of 8 takes
 # ~40 s) and to 1 for 19-20; phase 12b profiles a run long enough for up
@@ -449,8 +469,8 @@ WHISPER_FA = (
 
 # phase 19: shard_equivalence's ticks on validate_grid.json (an exact
 # comparison: the reference's CLI defaults to 6,000; cut from 1,000 to 500
-# to pay for phase 21)
-SHARD_TICKS = 500
+# to pay for phase 21, to 256 for phase 26)
+SHARD_TICKS = 256
 # phase 20: B3's backward at qwen2.5-3b's training shape (2 x 4,096 tokens),
 # whisper-tiny's encoder and cross-attention (Sq 448, the published
 # decoder's context, over 1,500 frames) and one float32 case (GQA, a
@@ -663,6 +683,13 @@ CHAMELEON_GATE = (1, 2048)
 # 67.6 GiB at 7 and ran out of memory at 8); (f) one profiled
 # step each at DEEPSEEK_GATE_LAYERS layers (tools/profile_train_step.py's
 # split; reading the profile of an 8-layer step took 15.6 s)
+# phase 26: the rank path, one rank: the sweep at phase 4's ticks, fused;
+# qwen2.5-3b at full width cut to RANK_TRAIN_LAYERS layers (two states and
+# their moments beside each other: 2 x 7.5 GB), RANK_TRAIN_STEPS steps of
+# 2 x 4,096 tokens each way; on a host of several cards, a float32 step of
+# RANK_CHECK_B x RANK_CHECK_S tokens (divisible over 2, 3 and 4 ranks)
+RANK_TRAIN_LAYERS, RANK_TRAIN_STEPS = 4, 2
+RANK_CHECK_B, RANK_CHECK_S = 12, 1024
 MOE_ARCH, MLA_ARCH = "deepseek-moe-16b", "deepseek-v2-lite-16b"
 MOE_BWD = (DENSE_TRAIN_B, 16, 16, DENSE_TRAIN_S, 128, True, None,
            "bfloat16")
@@ -4696,6 +4723,278 @@ def run_deepseek_training(torch, kernels, get_config, moe_layers,
     return row, launches
 
 
+
+# ---------------------------------------------------------------- phase 26 --
+def init_one_rank(torch):
+    """A one-rank NCCL world in this process over a ``FileStore`` under
+    ``build/`` (no network)."""
+    import torch.distributed as dist
+
+    store_dir = ROOT / "build" / "ranks"
+    store_dir.mkdir(parents=True, exist_ok=True)
+    path = store_dir / "store"
+    path.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(path), 1),
+                            rank=0, world_size=1)
+
+
+def same_tree(torch, a, b) -> bool:
+    from repro_torch.train import tree as ttree
+
+    la, lb = ttree.leaves(a), ttree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def rank_step_cfg(get_config, float32: bool = False):
+    """qwen2.5-3b at full width and RANK_TRAIN_LAYERS layers (float32
+    activations for the several-card check)."""
+    cfg = get_config("qwen2.5-3b").replace(n_layers=RANK_TRAIN_LAYERS)
+    return cfg.replace(dtype="float32") if float32 else cfg
+
+
+def run_ranks(torch, tf, kernels, sw, cfg, policies, loads, seeds,
+              get_config) -> dict:
+    """Phase 26: the rank path as a one-rank NCCL world in this process.
+    Returns the launches of its sweep and of its rank-mesh steps."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import collectives
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    init_one_rank(torch)
+    try:
+        mesh = make_host_mesh(device=DEV)
+        log(f"phase 26: a one-rank NCCL world over a FileStore: rank mesh "
+            f"{mesh.shape} on {mesh.device}, set up in "
+            f"{time.perf_counter() - t_phase:.2f} s")
+        if not mesh.ranks:
+            raise AssertionError("phase 26: make_host_mesh built no rank "
+                                 "mesh")
+
+        # (a) the sweep: one slab a rank, histograms all-reduced, rows
+        # all-gathered
+        reset(kernels)
+        collectives.calls.clear()
+        sh = tf.sweep_grid(cfg.service, policies, loads, seeds, cfg=cfg,
+                           shard=tf.ShardSpec(), device=DEV,
+                           engine=EngineOptions(backend="fused"))
+        sweep_counts = {n: fn.launches for n, fn in kernels.items()}
+        sweep_calls = dict(collectives.calls)
+        if (sh.backend != "fused" or sh.n_devices != 1
+                or len(sh.results) != len(sw.results)):
+            raise AssertionError(f"phase 26: the rank sweep ran "
+                                 f"{sh.backend} on {sh.n_devices} ranks")
+        for a, b in zip(sh.results, sw.results):
+            if json.dumps(a.__dict__) != json.dumps(b.__dict__):
+                raise AssertionError(f"phase 26: rank row {a.row()} != "
+                                     f"unsharded {b.row()}")
+        if not np.array_equal(sh.grid_hist, sw.grid_hist):
+            raise AssertionError("phase 26: the all-reduced grid_hist "
+                                 "differs")
+        if not sweep_counts["tickfuse_response_path"] or \
+                not sweep_calls.get("all-reduce") or \
+                not sweep_calls.get("all-gather"):
+            raise AssertionError(f"phase 26: the rank sweep launched "
+                                 f"{sweep_counts} and issued {sweep_calls}")
+        log(f"phase 26: {sh.n_configs} configs x {cfg.n_ticks} ticks on the "
+            f"rank path (fused): all {len(sh.results)} rows and grid_hist "
+            f"bit-identical to phase 4's unsharded sweep; "
+            f"{sh.wall_clock_s / cfg.n_ticks * 1e3:.3f} ms a tick, set-up "
+            f"{sh.compile_s:.3f} s; B2 launches as the wrappers count them "
+            f"(warm-up and capture; the graphs' replays are not counted) "
+            f"{sweep_counts['tickfuse_response_path']}; collectives "
+            f"{sweep_calls}")
+
+        # (b) qwen2.5-3b at full width: the rank mesh and one process, the
+        # same seed and batches
+        torch.cuda.empty_cache()
+        tcfg = rank_step_cfg(get_config)
+        data = SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size,
+                                      seq_len=QWEN_TRAIN_S,
+                                      global_batch=QWEN_TRAIN_B, seed=0))
+        batches = [data.host_batch(i, mesh.rank, mesh.shape["data"])
+                   for i in range(RANK_TRAIN_STEPS)]
+        ranked = make_train_step(tcfg, DEV, OptimizerConfig(), mesh=mesh)
+        plain = make_train_step(tcfg, DEV, OptimizerConfig())
+        n_sharded = sum(ranked.layout.sharded)
+        collectives.calls.clear()
+        s_rank, l_rank, ms_rank, c_rank = train_steps(
+            torch, ranked.step_fn, ranked.init_state_fn(0), batches,
+            kernels, "phase 26")
+        step_calls = dict(collectives.calls)
+        s_plain, l_plain, ms_plain, c_plain = train_steps(
+            torch, plain.step_fn, plain.init_state_fn(0), batches, kernels,
+            "phase 26")
+        for c in c_rank:
+            if not c["flash_attention"] or not c["flash_attention_bwd"]:
+                raise AssertionError(f"phase 26: a rank-mesh step launched "
+                                     f"{c}")
+        if c_rank != c_plain:
+            raise AssertionError(f"phase 26: launches {c_rank} on the rank "
+                                 f"mesh, {c_plain} in one process")
+        if not all(step_calls.get(k) for k in ("all-gather",
+                                               "reduce-scatter",
+                                               "all-reduce")):
+            raise AssertionError(f"phase 26: the rank-mesh steps issued "
+                                 f"{step_calls}")
+        same_loss = l_rank == l_plain
+        same_state = same_tree(torch, s_rank, s_plain)
+        log(f"phase 26: {tcfg.name} at full width, {RANK_TRAIN_LAYERS} "
+            f"layers ({n_sharded} of {len(ranked.layout.sharded)} leaves "
+            f"cut over data as two ranks would cut them, each block the "
+            f"whole leaf): {RANK_TRAIN_STEPS} steps of {QWEN_TRAIN_B} x "
+            f"{QWEN_TRAIN_S} tokens on the rank mesh, losses {l_rank}, "
+            f"{', '.join(f'{t:.1f}' for t in ms_rank)} ms a step; in one "
+            f"process {l_plain}, {', '.join(f'{t:.1f}' for t in ms_plain)} "
+            f"ms a step; losses {'equal' if same_loss else 'DIFFER'}, every "
+            f"leaf of the state {'equal' if same_state else 'DIFFERS'} bit "
+            f"for bit; launches a step {c_rank[0]}; collectives over the "
+            f"steps {step_calls}")
+        if not (same_loss and same_state):
+            raise AssertionError("phase 26: the one-rank step differs from "
+                                 "the step in one process")
+        del s_rank, s_plain, ranked, plain
+        torch.cuda.empty_cache()
+
+        # (c) save from the rank mesh, restore onto it: the 0.1 B model
+        scfg = get_config("qwen2.5-3b").replace(**SMALL_TRAIN)
+        bundle = make_train_step(scfg, DEV, OptimizerConfig(), mesh=mesh)
+        sdata = SyntheticLM(DataConfig(vocab_size=scfg.vocab_size,
+                                       seq_len=SMALL_S, global_batch=SMALL_B,
+                                       seed=0))
+        state, _ = bundle.step_fn(bundle.init_state_fn(0),
+                                  sdata.host_batch(0, mesh.rank,
+                                                   mesh.shape["data"]))
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            t0 = time.perf_counter()
+            ckpt.save(state, tmp, 1, mesh=mesh, specs=bundle.layout.specs)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, at = launch_train.restore_state(scfg, tmp, DEV, mesh=mesh)
+            t_restore = time.perf_counter() - t0
+        same = at == 1 and same_tree(torch, state, back)
+        log(f"phase 26: the 0.1 B model's state after a rank-mesh step "
+            f"saved from the rank mesh ({t_save:.2f} s) and restored onto it "
+            f"through restore_state ({t_restore:.2f} s): "
+            f"{'equal' if same else 'DIFFERS'} bit for bit")
+        if not same:
+            raise AssertionError("phase 26: the restored state differs")
+        del state, back, bundle
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (d) several cards: the same sweep and a step over min(4, cards) ranks
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        run_rank_check(torch, tf, sw, cfg, get_config, min(4, n_cards))
+    else:
+        log(f"phase 26: the several-card check (the sweep and a step under "
+            f"torchrun over min(4, cards) NCCL ranks) did not run: this host "
+            f"has {n_cards} CUDA device; it needs 2 or more")
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"sweep": sweep_counts, "train": c_rank}
+
+
+def rank_check_batches(get_config):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    tcfg = rank_step_cfg(get_config, float32=True)
+    return tcfg, SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size,
+                                        seq_len=RANK_CHECK_S,
+                                        global_batch=RANK_CHECK_B, seed=0))
+
+
+def run_rank_check(torch, tf, sw, cfg, get_config, n_ranks) -> None:
+    """Phase 26 (d), on a host of several cards: this file's
+    ``--rank-check`` worker under ``torchrun`` over ``n_ranks`` NCCL ranks
+    runs phase 4's sweep and ``RANK_TRAIN_STEPS`` float32 steps of
+    qwen2.5-3b at RANK_TRAIN_LAYERS layers; the rows must equal phase 4's
+    bit for bit, the step's loss, ce and grad_norm one process's within
+    ``rtol`` 1e-5."""
+    import tempfile
+
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--standalone", f"--nproc-per-node={n_ranks}",
+             str(ROOT / "chip_smoke.py"), "--rank-check", out],
+            capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"phase 26: the {n_ranks}-rank check "
+                                 f"failed:\n{run.stdout[-4000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        got = json.loads((Path(out) / "rank_check.json").read_text())
+    rows = [json.dumps(r.__dict__) for r in sw.results]
+    if got["rows"] != rows or got["grid_hist"] != sw.grid_hist.tolist():
+        raise AssertionError(f"phase 26: the sweep over {n_ranks} ranks "
+                             f"differs from phase 4's")
+    tcfg, data = rank_check_batches(get_config)
+    one = make_train_step(tcfg, DEV, OptimizerConfig())
+    state = one.init_state_fn(0)
+    for i, mets in enumerate(got["mets"]):
+        state, m = one.step_fn(state, data.batch(i))
+        for k in ("loss", "ce", "grad_norm"):
+            if not math.isclose(mets[k], float(m[k]), rel_tol=1e-5):
+                raise AssertionError(f"phase 26: step {i}'s {k} over "
+                                     f"{n_ranks} ranks {mets[k]} vs one "
+                                     f"process's {float(m[k])}")
+    log(f"phase 26: over {n_ranks} NCCL ranks under torchrun: the sweep's "
+        f"rows and grid_hist bit-identical to phase 4's, {len(got['mets'])} "
+        f"float32 steps' loss, ce and grad_norm within 1e-5 of one "
+        f"process's ({time.perf_counter() - t0:.1f} s)")
+
+
+def rank_check_worker(out: str, device: str = DEV) -> int:
+    """``torchrun ... chip_smoke.py --rank-check OUT``: phase 26 (d) on
+    this rank (``device``: CUDA, NCCL; the CPU, gloo, rehearses it); rank
+    0 writes ``OUT/rank_check.json``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.fleetsim as tf
+    from repro_torch.configs import get_config
+    from repro_torch.fleetsim.options import EngineOptions
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import close_ranks, init_ranks
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    dev = init_ranks(device)
+    try:
+        cfg = tf.FleetConfig(filter_backend="tickfuse", n_ticks=SWEEP_TICKS)
+        sh = tf.sweep_grid(cfg.service, SWEEP_POLICIES, SWEEP_LOADS,
+                           SWEEP_SEEDS, cfg=cfg, shard=tf.ShardSpec(),
+                           device=dev, engine=EngineOptions(backend="fused"))
+        mesh = make_host_mesh(device=dev)
+        tcfg, data = rank_check_batches(get_config)
+        bundle = make_train_step(tcfg, dev, OptimizerConfig(), mesh=mesh)
+        state, mets = bundle.init_state_fn(0), []
+        for i in range(RANK_TRAIN_STEPS):
+            state, m = bundle.step_fn(state, data.host_batch(
+                i, mesh.rank, mesh.shape["data"]))
+            mets.append({k: float(v) for k, v in m.items()})
+        if dist.get_rank() == 0:
+            (Path(out) / "rank_check.json").write_text(json.dumps({
+                "rows": [json.dumps(r.__dict__) for r in sh.results],
+                "grid_hist": sh.grid_hist.tolist(), "mets": mets}))
+    finally:
+        close_ranks()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5072,6 +5371,14 @@ def main() -> int:
                                  f"no {n}")
     log(f"phase 25 ended at {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 26: the port on a mesh of ranks (a one-rank NCCL world) ------
+    rank_launches = run_ranks(torch, tf, kernels, sw, sweep_cfg, policies,
+                              loads, seeds, get_config)
+    log(f"phase 26: launches on the rank path: the sweep "
+        f"{rank_launches['sweep']}, each rank-mesh step "
+        f"{rank_launches['train'][0]}")
+    log(f"phase 26 ended at {time.perf_counter() - t_start:.1f} s")
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -5148,4 +5455,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-check"]:
+        sys.exit(rank_check_worker(sys.argv[2]))
     sys.exit(main())

@@ -16,6 +16,14 @@ renamed).  :class:`AsyncCheckpointer` copies the tree to host memory
 before it returns, so the caller may update the tree in place at once,
 and writes on a background thread.  numpy has no bfloat16: such a leaf is
 stored as float32 (exact) with ``"bfloat16"`` in the manifest.
+
+On a rank mesh (:func:`repro_torch.launch.mesh.make_rank_mesh`) a tree
+holds this rank's blocks: ``save(..., mesh=, specs=)`` all-gathers each
+sharded leaf and rank 0 writes it whole, in the same format, once;
+``restore(..., mesh=)`` reads each whole leaf and keeps this rank's block
+for the mesh's W (:func:`repro_torch.sharding.rules.local_shard` by the
+rules' spec of the whole leaf), whatever W saved it: the reference's
+elastic reshard.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.train.tree import flatten, unflatten_like
+from repro_torch.sharding import collectives
+from repro_torch.sharding.rules import fsdp_dim, local_shard, param_shardings
+from repro_torch.train.tree import flatten, spec_list, unflatten_like
 
 def _leaf_id(path) -> str:
     return "__".join(str(k) for k in path) or "leaf"
@@ -81,14 +91,46 @@ def _write(items: list, directory: Path, step: int,
     return final
 
 
-def _snapshot(tree) -> list:
-    return [(lid, _host(leaf), _dtype_name(leaf)) for lid, leaf in _ids(tree)]
+def _whole(tree, mesh, specs) -> list[tuple[str, torch.Tensor]]:
+    """``(id, leaf)`` of ``tree`` with every leaf whole: on a rank mesh
+    each leaf its spec shards over ``data`` all-gathered from the ranks'
+    blocks (a copy at one rank)."""
+    ids = _ids(tree)
+    if not getattr(mesh, "ranks", False):
+        return ids
+    if specs is None:
+        raise ValueError("saving from a rank mesh needs the specs its "
+                         "blocks were cut by")
+    out = []
+    for (lid, leaf), spec in zip(ids, spec_list(specs, tree)):
+        dim = fsdp_dim(spec)
+        if dim is not None:
+            leaf = collectives.all_gather(leaf.detach(), dim, mesh.group)
+        out.append((lid, leaf))
+    return out
+
+
+def _snapshot(tree, mesh=None, specs=None) -> list | None:
+    """The tree's leaves whole on the host, as ``(id, array, dtype
+    name)``; ``None`` on a rank other than 0, which writes nothing."""
+    ids = _whole(tree, mesh, specs)
+    if getattr(mesh, "rank", 0) != 0:
+        return None
+    return [(lid, _host(leaf), _dtype_name(leaf)) for lid, leaf in ids]
 
 
 def save(tree, directory: str | Path, step: int,
-         metadata: dict | None = None) -> Path:
-    """Synchronous atomic save of a tree of tensors (or numpy arrays)."""
-    return _write(_snapshot(tree), Path(directory), step, metadata)
+         metadata: dict | None = None, mesh=None, specs=None) -> Path:
+    """Synchronous atomic save of a tree of tensors (or numpy arrays).  On
+    a rank ``mesh`` every rank calls it with its blocks and the spec tree
+    they were cut by (``specs``, the tree's structure); rank 0 writes."""
+    items = _snapshot(tree, mesh, specs)
+    path = Path(directory) / f"step_{step:08d}"
+    if items is not None:
+        path = _write(items, Path(directory), step, metadata)
+    if getattr(mesh, "ranks", False):
+        torch.distributed.barrier(group=mesh.group)
+    return path
 
 
 def _step_dir(directory: Path, step: int | None) -> Path:
@@ -100,12 +142,15 @@ def _step_dir(directory: Path, step: int | None) -> Path:
 
 
 def restore(tree_like, directory: str | Path, step: int | None = None,
-            device=None):
+            device=None, mesh=None):
     """Restore into the structure of ``tree_like`` (shapes checked; its
     leaves may live on the ``meta`` device), each leaf in ``tree_like``'s
     dtype on ``device`` (the CPU unless named).  Returns ``(tree,
     manifest)``; a leaf of ``tree_like`` that requires grad comes back
-    requiring grad."""
+    requiring grad.  On a rank ``mesh`` each leaf comes back as this rank's
+    block of it: cut by the rules' spec of the whole leaf at the mesh's
+    ``rules_mesh`` (a train state's moments and residuals then follow their
+    parameters, as ``train.step.state_specs`` lays them out)."""
     d = _step_dir(Path(directory), step)
     manifest = json.loads((d / "manifest.json").read_text())
     have = {m["id"] for m in manifest["leaves"]}
@@ -114,15 +159,21 @@ def restore(tree_like, directory: str | Path, step: int | None = None,
         raise ValueError(f"checkpoint has {len(have)} leaves, target has "
                          f"{len(want)}")
     dev = torch.device("cpu" if device is None else device)
+    ranks = getattr(mesh, "ranks", False)
+    specs = (spec_list(param_shardings(tree_like, mesh.rules_mesh),
+                       tree_like) if ranks else [None] * len(want))
     out = []
-    for lid, leaf in want:
+    for (lid, leaf), spec in zip(want, specs):
         if lid not in have:
             raise ValueError(f"checkpoint has no leaf {lid}")
         arr = np.load(d / f"{lid}.npy")
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(f"{lid}: shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")
-        t = torch.from_numpy(arr).to(dev, dtype=leaf.dtype)
+        t = torch.from_numpy(arr)
+        if ranks:
+            t = local_shard(t, spec, mesh)
+        t = t.to(dev, dtype=leaf.dtype)
         if leaf.requires_grad:
             t.requires_grad_(True)
         out.append(t)
@@ -164,8 +215,14 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
 
-    def save(self, tree, step: int, metadata: dict | None = None):
-        items = _snapshot(tree)
+    def save(self, tree, step: int, metadata: dict | None = None,
+             mesh=None, specs=None):
+        """Snapshot ``tree`` (on a rank ``mesh``: every rank, its blocks
+        gathered as :func:`save` does) and write it on rank 0 in the
+        background."""
+        items = _snapshot(tree, mesh, specs)
+        if items is None:
+            return
         self.wait()
 
         def work():

@@ -22,15 +22,22 @@ Three pieces, as in the reference:
   latency histograms of its own masked rows on its device, and the slabs'
   sums are added on the first device: the counterpart of the reference's
   ``psum`` over the mesh axis;
-* **devices** — on a card, ``devices=0`` takes every visible CUDA device
-  and ``devices=n`` the first ``n``, but more than one CUDA device is
-  refused (:data:`MAX_CUDA_DEVICES`) until a multi-card host has run the
-  path; a caller that asks for the CPU may pass ``devices=n`` and gets
-  ``n`` CPU slabs, so the CPU tests exercise pad → split → run → strip →
-  merge, as the reference's forced XLA host devices do.  Slabs run one
-  after another from one host thread, each under its own device guard
-  (so its placement, graph capture and replays use its device's streams):
-  more devices would not yet run faster.
+* **devices** — in one process, on a card, ``devices=0`` takes every
+  visible CUDA device and ``devices=n`` the first ``n``, but more than one
+  CUDA device is refused (:data:`MAX_CUDA_DEVICES`: several cards take one
+  process each); a caller that asks for the CPU may pass ``devices=n`` and
+  gets ``n`` CPU slabs, so the CPU tests exercise pad → split → run →
+  strip → merge, as the reference's forced XLA host devices do.  Those
+  slabs run one after another from one host thread, each under its own
+  device guard (so its placement, graph capture and replays use its
+  device's streams).
+* **ranks** — where a ``torch.distributed`` process group of W is up (one
+  process a device: ``torchrun``, NCCL on ``cuda:LOCAL_RANK`` or gloo on
+  the CPU), the mesh is the W ranks (``devices=0``; an explicit count must
+  be W): rank ``r`` runs slab ``r`` on its own device, the histogram merge
+  is an all-reduce of the masked local sums over the group (the
+  reference's ``psum``), and the slabs' :class:`Metrics` are all-gathered,
+  so every rank returns the same :class:`ShardedMetrics`, pad stripped.
 
 Each cell runs the same per-config program, so sharded results are
 bit-identical to the unsharded run per configuration
@@ -45,18 +52,21 @@ from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim.config import FleetConfig
 from repro_torch.fleetsim.engine import RunParams, batched_params, run_state
 from repro_torch.fleetsim.fused import GraphStats
 from repro_torch.fleetsim.state import Metrics
+from repro_torch.launch.ranks import on_ranks, rank_device
+from repro_torch.sharding import collectives
 
 #: default mesh-axis name the grid is sharded over
 GRID_AXIS = "grid"
 
-#: the most CUDA devices a sharded run takes: the path has run on one card
-#: only (ROADMAP A9-shard), so a mesh of several cards is refused
+#: the most CUDA devices a sharded run takes in one process; several cards
+#: run one process (rank) each
 MAX_CUDA_DEVICES = 1
 
 _TELEMETRY_ERROR = (
@@ -85,10 +95,13 @@ class ShardSpec:
             raise ValueError("ShardSpec.axis must be a non-empty string")
 
     def resolve_devices(self, device=None) -> list[torch.device]:
-        """The concrete device list this spec runs on (validated): the
-        first ``devices`` visible CUDA devices (all of them for 0), or, for
-        a run the caller put on the CPU, ``devices`` CPU slabs (one for
-        0)."""
+        """The concrete device list this spec runs on (validated): under a
+        process group, one entry a rank, each rank's its own device
+        (``devices`` must be 0 or W); else the first ``devices`` visible
+        CUDA devices (all of them for 0), or, for a run the caller put on
+        the CPU, ``devices`` CPU slabs (one for 0)."""
+        if on_ranks():
+            return [rank_device(device)] * self._ranks()
         dev = resolve_device(device)
         if dev.type == "cpu":
             return [dev] * (self.devices or 1)
@@ -103,10 +116,17 @@ class ShardSpec:
                 f"devices are visible")
         if n > MAX_CUDA_DEVICES:
             raise ValueError(
-                f"ShardSpec resolves to {n} CUDA devices, but the sharded "
-                f"runner has run on one card only; pass "
-                f"ShardSpec(devices=1)")
+                f"ShardSpec resolves to {n} CUDA devices in one process; run "
+                f"one process a card (python -m torch.distributed.run "
+                f"--nproc-per-node {n} ...) or pass ShardSpec(devices=1)")
         return devs[:n]
+
+    def _ranks(self) -> int:
+        w = dist.get_world_size()
+        if self.devices not in (0, w):
+            raise ValueError(f"ShardSpec wants {self.devices} devices; the "
+                             f"process group has {w} ranks (pass 0 or {w})")
+        return w
 
     def mesh(self, device=None) -> list[torch.device]:
         """The 1-D device mesh: the ordered device list, slab ``i`` on
@@ -224,17 +244,22 @@ class ShardedProgram:
     plan: GridPlan
     backend: str
     ticks_per_chunk: int
-    slabs: list = field(repr=False)        # [(device, RunParams, mask)]
+    #: ``[(device, RunParams, mask)]``: every slab in one process, this
+    #: rank's alone under a process group
+    slabs: list = field(repr=False)
     setup_s: float = 0.0
+    #: the ranks run one slab each (:func:`on_ranks`)
+    ranks: bool = False
 
     def __call__(self, stats: GraphStats | None = None) -> ShardedMetrics:
         """Run every slab and merge; ``stats`` receives the fused graphs'
-        set-up and replays over all slabs and the placement's seconds."""
+        set-up and replays over this process's slabs and the placement's
+        seconds."""
         from repro_torch.fleetsim.options import EngineOptions
 
         opts = EngineOptions(backend=self.backend,
                              ticks_per_chunk=self.ticks_per_chunk)
-        first = self.plan.mesh[0]
+        first = self.slabs[0][0]
         parts, hist, slab_stats = [], None, []
         for dev, p, m in self.slabs:
             st = GraphStats()
@@ -252,8 +277,16 @@ class ShardedProgram:
             slab_stats.append(st)
         if stats is not None:
             _merge_stats(stats, slab_stats, self.setup_s)
-        metrics = Metrics(*(torch.cat([x.to(first) for x in leaves])
-                            for leaves in zip(*parts)))
+        if self.ranks:
+            # the reference's psum over the mesh axis, and the whole grid's
+            # rows on every rank
+            with _on(first):
+                hist = collectives.all_reduce_sum(hist, None)
+                metrics = Metrics(*(collectives.all_gather(x, 0, None)
+                                    for x in parts[0]))
+        else:
+            metrics = Metrics(*(torch.cat([x.to(first) for x in leaves])
+                                for leaves in zip(*parts)))
         return ShardedMetrics(metrics=_strip_pad(self.plan, metrics),
                               grid_hist=hist)
 
@@ -270,8 +303,11 @@ def lower_sharded(cfg: FleetConfig, plan: GridPlan, backend: str = "staged",
     t0 = time.perf_counter()
     n = len(plan.mesh)
     rows = grid_size(plan.params) // n
+    ranks = on_ranks()
+    mine = [dist.get_rank()] if ranks else range(n)
     slabs = []
-    for i, dev in enumerate(plan.mesh):
+    for i in mine:
+        dev = plan.mesh[i]
         sl = slice(i * rows, (i + 1) * rows)
         with _on(dev):
             p, _ = batched_params(RunParams(*(a[sl] for a in plan.params)),
@@ -281,7 +317,7 @@ def lower_sharded(cfg: FleetConfig, plan: GridPlan, backend: str = "staged",
                 torch.cuda.synchronize(dev)
     return ShardedProgram(cfg=cfg, plan=plan, backend=backend,
                           ticks_per_chunk=ticks_per_chunk, slabs=slabs,
-                          setup_s=time.perf_counter() - t0)
+                          setup_s=time.perf_counter() - t0, ranks=ranks)
 
 
 def _strip_pad(plan: GridPlan, metrics: Metrics) -> Metrics:

@@ -456,11 +456,13 @@ def main(argv: list[str] | None = None) -> int:
     over ``N`` ticks, its replicas on ``--device`` too).  Exits non-zero if
     any point breaks the documented tolerances.  ``--shard N`` also checks
     the ``--grid`` sweep sharded over ``N`` devices (CPU slabs with
-    ``--device cpu``) against its unsharded run.
+    ``--device cpu``) against its unsharded run; ``--shard 0`` takes every
+    device, and under ``python -m torch.distributed.run`` every rank (one
+    slab a rank, NCCL or, with ``--device cpu``, gloo; rank 0 prints).
     """
     import argparse
-
-    from repro_torch.scenarios.spec import Scenario, SweepSpec
+    import contextlib
+    import io
 
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--requests", type=int, default=20_000,
@@ -473,10 +475,11 @@ def main(argv: list[str] | None = None) -> int:
                          "name); 'none' skips the trace check")
     ap.add_argument("--trace-ticks", type=int, default=None,
                     help="override the trace scenario's n_ticks")
-    ap.add_argument("--shard", type=int, default=0,
+    ap.add_argument("--shard", type=int, default=None,
                     help="also check sharded == unsharded on the --grid "
-                         "sweep over this many devices (0 skips; with "
-                         "--device cpu, this many CPU slabs)")
+                         "sweep over this many devices (0: every device, "
+                         "or every rank under torchrun; with --device "
+                         "cpu, this many CPU slabs)")
     ap.add_argument("--shard-ticks", type=int, default=6_000,
                     help="n_ticks for the shard-equivalence sweep (exact "
                          "comparison, so short runs suffice)")
@@ -500,6 +503,22 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where FleetSim runs: cuda (default) or cpu")
     args = ap.parse_args(argv)
+    from repro_torch.launch.ranks import init_ranks, launched
+
+    rank = 0
+    if launched():
+        import torch.distributed as dist
+
+        init_ranks(args.device)
+        rank = dist.get_rank()
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if rank
+             else contextlib.nullcontext())
+    with quiet:
+        return _main(args, write=rank == 0)
+
+
+def _main(args, write: bool) -> int:
+    from repro_torch.scenarios.spec import Scenario, SweepSpec
 
     checks = []
     shard_checks, shard_hist_ok = [], True
@@ -511,7 +530,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{spec.resolved_loads()} ==")
         checks = cross_validate_spec(spec, n_requests=args.requests,
                                      device=args.device)
-        if args.shard:
+        if args.shard is not None:
             print(f"== shard equivalence: grid x {args.shard} device(s), "
                   f"{args.shard_ticks} ticks ==")
             shard_checks, shard_hist_ok = shard_equivalence(
@@ -558,7 +577,7 @@ def main(argv: list[str] | None = None) -> int:
             print(("[PASS] " if c.ok else "[FAIL] ") + c.describe())
         print(f"{n_serve_ok}/{len(serve_checks)} serve points within "
               f"tolerance")
-    if args.out:
+    if args.out and write:
         import dataclasses
         import json
         from pathlib import Path

@@ -24,6 +24,7 @@ from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.shapes import ShapeSpec
@@ -39,11 +40,12 @@ from repro_torch.sharding import (
 )
 from repro_torch.sharding import context as sharding_ctx
 from repro_torch.sharding.rules import P, shard_bytes
-from repro_torch.train.optimizer import OptimizerConfig, OptState
+from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.step import (
     TrainState,
     make_train_state_shapes,
     make_train_step,
+    state_specs,
 )
 from repro_torch.train.tree import flatten
 
@@ -139,14 +141,6 @@ def lower(bundle: CellBundle) -> dict:
     }
 
 
-def state_specs(state: TrainState, mesh) -> TrainState:
-    """The train state's specs: params, both moments and the error feedback
-    as the parameters, the step count replicated."""
-    ps = param_shardings(state.params, mesh)
-    return TrainState(params=ps, opt=OptState(mu=ps, nu=ps, step=P()),
-                      ef=None if state.ef is None else type(state.ef)(ps))
-
-
 def build_train_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
                      use_compression: bool = False,
                      opt_cfg: OptimizerConfig | None = None) -> CellBundle:
@@ -156,7 +150,10 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,
     st_specs = state_specs(state, mesh)
 
     def make(c, device):
-        return make_train_step(c, device, opt_cfg, use_compression)
+        on_ranks = (getattr(mesh, "ranks", False)
+                    and torch.device(device).type != "meta")
+        return make_train_step(c, device, opt_cfg, use_compression,
+                               mesh=mesh if on_ranks else None)
 
     def out_specs(out):
         new_state, metrics = out

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, activation, dense_init
+from repro_torch.sharding import collectives
+from repro_torch.sharding import context as sharding_ctx
 
 
 # ------------------------------------------------------------ dense GLU ----
@@ -74,11 +76,18 @@ def capacity_groups(cfg: ModelConfig, b: int, s: int,
     """(tokens a group, groups, capacity a group and expert), the
     reference's rule: groups of ``min(512, s)`` tokens, one group a
     sequence where those do not tile ``b·s``; dropless capacity is the
-    group length (a token takes at most one slot of an expert)."""
+    group length (a token takes at most one slot of an expert).  On a rank
+    mesh ``b`` is this rank's rows: the group length is the one the whole
+    batch's ``B·s`` gives, and ``g`` counts this rank's groups, which must
+    tile its rows (the ranks' groups are then the unsharded run's)."""
     m = cfg.moe
+    w = sharding_ctx.data_ranks()
     tg = min(GROUP_SIZE, s)
-    if (b * s) % tg:
+    if (w * b * s) % tg:
         tg = s
+    if (b * s) % tg:
+        raise ValueError(f"a rank's {b} x {s} tokens are not a whole number "
+                         f"of the batch's {tg}-token capacity groups")
     g = (b * s) // tg
     if dropless:
         return tg, g, tg
@@ -141,13 +150,23 @@ def _aux_losses(cfg: ModelConfig, logits: torch.Tensor, probs: torch.Tensor,
                 counts: torch.Tensor) -> dict:
     """The reference's auxiliary losses from the pre-drop routing:
     Switch-style load balance (``counts``: the pairs routed to each
-    expert) and router z."""
+    expert) and router z.  Their means are over the whole batch: on a rank
+    mesh the sums and counts are summed over the ranks (the probabilities'
+    and the squared log-sum-exps' differentiably)."""
     m = cfg.moe
-    me = probs.mean(dim=0)
-    ce = counts.float() / probs.shape[0]
+    z = torch.logsumexp(logits, dim=-1) ** 2
+    sums, zsum = probs.sum(dim=0), z.sum()
+    n_tok = probs.shape[0]
+    group = sharding_ctx.data_group()
+    if group is not None:
+        sums = collectives.psum(sums, group)
+        zsum = collectives.psum(zsum, group)
+        counts = collectives.all_reduce_sum(counts, group)
+        n_tok *= sharding_ctx.data_ranks()
+    me = sums / n_tok
+    ce = counts.float() / n_tok
     return {"moe_aux": m.n_experts * torch.sum(me * ce) * m.aux_loss_coef,
-            "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-            * m.router_z_coef}
+            "router_z": zsum / n_tok * m.router_z_coef}
 
 
 def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -43,6 +43,7 @@ from repro_torch.models.common import (
     init_norm,
     unembed,
 )
+from repro_torch.sharding import collectives
 from repro_torch.sharding import context as sharding_ctx
 
 LayerSpec = tuple[str, str]  # (mixer, ffn)
@@ -261,7 +262,8 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
         if remat:
             x, nc, a = checkpoint(_apply_layer, cfg, spec,
                                   params["blocks"][i], x, positions, None,
-                                  mode, pos, use_reentrant=False)
+                                  mode, pos, use_reentrant=False,
+                                  context_fn=sharding_ctx.remat_context)
             new_cache.append(nc)
             if a is not None:
                 aux = aux + a
@@ -272,7 +274,9 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor,
         new_cache.append(nc)
         if a is not None:
             aux = aux + a
-    x = apply_norm(cfg, params["final_norm"], x)
+    # a gathered leaf on a rank mesh where its width shards it (the
+    # reference's partitioner gathers it there too)
+    x = apply_norm(cfg, sharding_ctx.fsdp_use(params["final_norm"]), x)
     keep = mode not in ("train", "eval")
     return x, (new_cache if keep else None), aux
 
@@ -381,7 +385,14 @@ def _chunked_ce(cfg: ModelConfig, embed_params: dict, x: torch.Tensor,
 
 def ce_metrics(sum_nll, n_valid, n_hit, aux):
     """``(loss, {"ce", "aux", "accuracy"})`` from the chunked CE's sums and
-    the auxiliary loss, as the reference's ``loss_fn`` forms them."""
+    the auxiliary loss, as the reference's ``loss_fn`` forms them.  On a
+    rank mesh the sums are the batch's, over every rank (the negative
+    log-likelihood's differentiably), as GSPMD's over the logical batch."""
+    group = sharding_ctx.data_group()
+    if group is not None:
+        sum_nll = collectives.psum(sum_nll, group)
+        n_valid = collectives.all_reduce_sum(n_valid, group)
+        n_hit = collectives.all_reduce_sum(n_hit, group)
     n_valid = torch.clamp(n_valid, min=1)
     ce = sum_nll / n_valid
     return ce + aux, {"ce": ce, "aux": aux, "accuracy": n_hit / n_valid}

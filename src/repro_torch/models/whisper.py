@@ -131,7 +131,8 @@ def _encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     for p in params["enc"]:
         if remat:
             x = checkpoint(_enc_layer, cfg, p, x, positions,
-                           use_reentrant=False)
+                           use_reentrant=False,
+                           context_fn=sharding_ctx.remat_context)
         else:
             x = _enc_layer(cfg, p, x, positions)
     return apply_norm(cfg, params["enc_final_norm"], x)
@@ -221,7 +222,8 @@ def _trunk(cfg: ModelConfig, params: dict, frames, tokens) -> torch.Tensor:
     for p in params["dec"]:
         if remat:
             x, _ = checkpoint(_dec_layer, cfg, p, x, positions, enc_out,
-                              "train", None, None, use_reentrant=False)
+                              "train", None, None, use_reentrant=False,
+                              context_fn=sharding_ctx.remat_context)
         else:
             x, _ = _dec_layer(cfg, p, x, positions, enc_out, "train", None,
                               None)

@@ -6,10 +6,21 @@ constraints: ``fsdp_use`` gathers a layer's FSDP-sharded weights at their
 use site (ZeRO-3), ``constrain_batch`` / ``constrain_seq`` /
 ``constrain_heads`` pin activations.  The port calls the same hooks at the
 same sites (``models/lm.py``, ``attention.py``, ``whisper.py``).  No
-partitioner runs here, so a hook does one of three things:
+partitioner runs here, so a hook does one of four things:
 
-* **no mesh, or a mesh whose axes are all 1** (every single-device run):
-  it returns its input, the same object, after one context-variable read;
+* **no mesh, or a one-device mesh without a process group** (every
+  single-device run): it returns its input, the same object, after one
+  context-variable read;
+* **a rank mesh** (:func:`repro_torch.launch.mesh.make_rank_mesh`: one
+  process a device over ``torch.distributed``, W × 1, even at W = 1):
+  ``fsdp_use`` casts each leaf whose spec shards it over ``data`` (as the
+  reference casts before its constraint) and all-gathers it from the ranks'
+  blocks, its gradient reduce-scattered in the backward
+  (:func:`repro_torch.sharding.collectives.gather_fsdp`); which leaves those
+  are, the caller names with :func:`use_blocks` (the train step does).  The
+  ``constrain_*`` hooks return their input: each rank holds its own rows,
+  and there is no ``model`` axis to reshard over.  :func:`data_group`
+  gives the group the statistics that span the batch are summed over;
 * **a dry-run lowering** (:func:`recording`, which
   :mod:`repro_torch.launch.dryrun` opens over a shape-only mesh): it records
   the collective the reference's constraint implies into the lowering's
@@ -24,9 +35,9 @@ partitioner runs here, so a hook does one of three things:
   ``constrain_heads`` an all-to-all of the head-sharded tensor;
   ``constrain_batch`` nothing (it pins the layout the batch arrives in).
   These are the port's own model of the traffic, not a partitioner's;
-* **a real mesh of more than one device**: raises ``NotImplementedError``
-  (ROADMAP A9-shard-multi; :func:`repro_torch.launch.mesh.make_host_mesh`
-  refuses to build one on CUDA).
+* **a mesh of several devices in one process**: raises
+  ``NotImplementedError``: one process a device is the path (ROADMAP
+  A9-shard-multi).
 """
 
 from __future__ import annotations
@@ -38,12 +49,14 @@ from collections import Counter
 
 import torch
 
-from repro_torch.sharding import rules
+from repro_torch.sharding import collectives, rules
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
 _RECORD: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_collectives", default=None)
+_BLOCKS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_blocks", default=None)
 
 
 @contextlib.contextmanager
@@ -57,6 +70,56 @@ def use_mesh(mesh):
 
 def current_mesh():
     return _MESH.get()
+
+
+def _rank_mesh():
+    mesh = _MESH.get()
+    return mesh if getattr(mesh, "group", None) is not None else None
+
+
+def data_group():
+    """The ``data`` process group of the rank mesh in use, else ``None``
+    (the statistics that span the batch are then this process's own)."""
+    mesh = _rank_mesh()
+    return None if mesh is None else mesh.group
+
+
+def data_ranks() -> int:
+    """The ranks the batch is split over: the rank mesh's ``data`` axis,
+    else 1."""
+    mesh = _rank_mesh()
+    return 1 if mesh is None else mesh.shape["data"]
+
+
+def remat_context():
+    """``torch.utils.checkpoint``'s ``context_fn`` for a layer: the
+    forward as it is, the recompute under the mesh, blocks and recorder the
+    forward saw.  Autograd runs a CUDA backward, and so the recompute, on a
+    thread of its own, where this module's context variables are unset."""
+    saved = [(var, var.get()) for var in (_MESH, _BLOCKS, _RECORD)]
+
+    @contextlib.contextmanager
+    def again():
+        toks = [(var, var.set(value)) for var, value in saved]
+        try:
+            yield
+        finally:
+            for var, tok in reversed(toks):
+                var.reset(tok)
+
+    return contextlib.nullcontext(), again()
+
+
+@contextlib.contextmanager
+def use_blocks(leaves, specs):
+    """On a rank mesh, name the spec of each parameter leaf (by identity:
+    this rank's block of it) for :func:`fsdp_use`: the specs the leaves
+    were cut by (:func:`repro_torch.sharding.rules.local_shard`)."""
+    tok = _BLOCKS.set({id(t): s for t, s in zip(leaves, specs)})
+    try:
+        yield
+    finally:
+        _BLOCKS.reset(tok)
 
 
 class Recorder(Counter):
@@ -84,16 +147,29 @@ def recording(weights_gathered: bool = False):
 
 
 def _active():
-    """``(mesh, counter)`` when a hook has work to do, else ``None``: no
-    mesh or a trivial one; raises on a real mesh of several devices."""
+    """``(mesh, counter)`` when a hook has work to do, else ``None``:
+    ``counter`` is ``None`` on a rank mesh (collectives run, even at one
+    rank) and a lowering's recorder on a shape-only mesh.  No mesh or a
+    trivial one without a group does nothing; raises on a mesh of several
+    devices in one process."""
     mesh = _MESH.get()
-    if mesh is None or all(n == 1 for n in mesh.shape.values()):
+    if mesh is None:
+        return None
+    if getattr(mesh, "group", None) is not None:
+        if mesh.shape.get(rules.TP_AXIS, 1) > 1:
+            raise NotImplementedError(
+                "a rank mesh with a model axis: tensor parallelism over "
+                "ranks is not written (ROADMAP.md queue A, A9-shard-multi's "
+                "TP part)")
+        return mesh, None
+    if all(n == 1 for n in mesh.shape.values()):
         return None
     if getattr(mesh, "devices", None):
         raise NotImplementedError(
-            "a mesh of more than one device runs no sharded step yet "
-            "(ROADMAP.md queue A, A9-shard-multi); dry-run lowerings use a "
-            "shape-only mesh")
+            "a mesh of several devices in one process runs no sharded step: "
+            "run one process a device (python -m torch.distributed.run) and "
+            "build the rank mesh with make_host_mesh() (ROADMAP.md queue A, "
+            "A9-shard-multi); dry-run lowerings use a shape-only mesh")
     counter = _RECORD.get()
     return None if counter is None else (mesh, counter)
 
@@ -143,10 +219,13 @@ def fsdp_use(layer_params, cast=None):
     tree off a mesh; under a lowering, the gathers recorded (``cast``: the
     dtype a float32 weight of two or more dims would be gathered in)."""
     act = _active()
-    if act is None or rules.FSDP_AXIS not in act[0].shape \
-            or act[1].weights_gathered:
+    if act is None or rules.FSDP_AXIS not in act[0].shape:
         return layer_params
     mesh, counter = act
+    if counter is None:
+        return _gather_blocks(mesh, layer_params, cast)
+    if counter.weights_gathered:
+        return layer_params
 
     def one(path, w):
         spec = rules.spec_for_param(path, w, mesh)
@@ -161,6 +240,29 @@ def fsdp_use(layer_params, cast=None):
             bwd["all-reduce"] = shard
         return _through(w, counter, {"all-gather": _bytes(
             w, itemsize, mesh, _drop_fsdp(spec))}, bwd)
+
+    return rules._map_with_path(one, layer_params)
+
+
+def _gather_blocks(mesh, layer_params, cast):
+    """:func:`fsdp_use` on a rank mesh: each leaf :func:`use_blocks` names
+    with a ``data`` dim, cast and all-gathered; the others as they are."""
+    blocks = _BLOCKS.get()
+    if blocks is None:
+        raise ValueError("fsdp_use on a rank mesh needs the specs its "
+                         "parameters were cut by: open use_blocks (the "
+                         "train step does)")
+
+    def one(path, w):
+        if id(w) not in blocks:
+            raise ValueError(f"{rules.path_str(path)}: a leaf use_blocks "
+                             "does not name")
+        dim = rules.fsdp_dim(blocks[id(w)])
+        if dim is None:
+            return w
+        if cast is not None and w.dim() >= 2 and w.dtype == torch.float32:
+            w = w.to(cast)
+        return collectives.gather_fsdp(w, dim, mesh.group)
 
     return rules._map_with_path(one, layer_params)
 
@@ -186,7 +288,7 @@ def constrain_heads(x):
     ``model``; under a lowering, the reshard is an all-to-all of the
     tensor's bytes a device."""
     act = _active()
-    if act is None or x.dim() != 4:
+    if act is None or act[1] is None or x.dim() != 4:
         return x
     mesh, counter = act
     tp = mesh.shape.get(rules.TP_AXIS, 1)
@@ -204,7 +306,7 @@ def constrain_seq(x):
     sequence does not divide the model axis.  Under a lowering, the layer's
     input is gathered over ``model`` (its gradient reduce-scattered)."""
     act = _active()
-    if act is None:
+    if act is None or act[1] is None:
         return x
     mesh, counter = act
     tp = mesh.shape.get(rules.TP_AXIS, 1)

@@ -30,6 +30,8 @@ from __future__ import annotations
 import math
 import re
 
+import torch
+
 FSDP_AXIS = "data"
 TP_AXIS = "model"
 BATCH_AXES = ("pod", "data")  # pod is absent on single-pod meshes
@@ -295,3 +297,38 @@ def shard_bytes(leaf, spec, mesh) -> int:
         if ax is not None:
             div *= _axis_size(mesh, ax)
     return leaf.numel() * leaf.element_size() // div
+
+
+# -- a rank's blocks ----------------------------------------------------------
+def fsdp_dim(spec) -> int | None:
+    """The dim ``spec`` shards over ``data`` (alone or in a tuple of axes),
+    or ``None``."""
+    for i, ax in enumerate(spec):
+        if ax == FSDP_AXIS or (isinstance(ax, tuple) and FSDP_AXIS in ax):
+            return i
+    return None
+
+
+def local_shard(leaf, spec, mesh):
+    """This rank's contiguous block of ``leaf`` (a tensor) along the dim
+    ``spec`` shards over ``data``: block ``mesh.rank`` of
+    ``mesh.shape["data"]`` equal blocks, a copy; the whole leaf (a copy)
+    where the spec has no ``data`` or the mesh one rank."""
+    dim = fsdp_dim(spec)
+    w = mesh.shape.get(FSDP_AXIS, 1)
+    if dim is None or w == 1:
+        return leaf.clone()
+    n = leaf.shape[dim]
+    if n % w:
+        raise ValueError(f"dim {dim} of {n} does not split into {w} blocks")
+    return leaf.narrow(dim, mesh.rank * (n // w), n // w).clone()
+
+
+def assemble(blocks: list, spec):
+    """The inverse of :func:`local_shard`: the whole leaf from every rank's
+    block, in rank order (the first block where the spec has no
+    ``data``)."""
+    dim = fsdp_dim(spec)
+    if dim is None or len(blocks) == 1:
+        return blocks[0]
+    return torch.cat(blocks, dim=dim)

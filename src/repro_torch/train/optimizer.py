@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.sharding import collectives
 from repro_torch.train.tree import leaves, tree_map
 
 
@@ -73,14 +74,30 @@ def init_opt_state(params) -> OptState:
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def global_norm(grads: list) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def global_norm(grads: list, group=None,
+                sharded: list[bool] | None = None) -> torch.Tensor:
+    """The norm of all of ``grads``.  On a rank mesh (``group``, the data
+    axis's), each leaf flagged in ``sharded`` is this rank's block, so its
+    squared sum is summed over the ranks; the others are whole on every
+    rank and count once.  The squares are added in leaf order either way
+    (one rank gives the bits one process does)."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads]
+    if group is not None:
+        idx = [i for i, s in enumerate(sharded) if s]
+        if idx:
+            summed = collectives.all_reduce_sum(
+                torch.stack([sq[i] for i in idx]), group)
+            for i, v in zip(idx, summed.unbind(0)):
+                sq[i] = v
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: list, max_norm: float, group=None,
+                        sharded: list[bool] | None = None) -> torch.Tensor:
     """Scale ``grads`` in place to a global norm of at most ``max_norm``;
-    returns the norm before clipping."""
-    norm = global_norm(grads)
+    returns the norm before clipping (``group``, ``sharded``: as for
+    :func:`global_norm`)."""
+    norm = global_norm(grads, group, sharded)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads:
         g.mul_(scale)
@@ -89,18 +106,21 @@ def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, params, grads: list[torch.Tensor],
-                 state: OptState, decay: list[bool]):
+                 state: OptState, decay: list[bool], group=None,
+                 sharded: list[bool] | None = None):
     """One AdamW step: ``grads`` (a list in
     :func:`~repro_torch.train.tree.flatten`'s order of ``params``) clipped,
     then every leaf updated, the leaves flagged in ``decay`` (same order;
     :func:`~repro_torch.train.tree.decay_mask`) with weight decay.  Updates
     ``params``, ``state.mu``/``nu`` and ``grads`` in place and returns
-    ``(params, new state, {"grad_norm", "lr"})``."""
+    ``(params, new state, {"grad_norm", "lr"})``.  On a rank mesh the
+    leaves are this rank's blocks where ``sharded`` flags them, and the
+    clipping norm is the whole model's (:func:`global_norm`)."""
     ps, ms, vs = leaves(params), leaves(state.mu), leaves(state.nu)
     if not len(grads) == len(decay) == len(ps):
         raise ValueError(f"{len(ps)} parameter leaves, {len(grads)} "
                          f"gradients and {len(decay)} decay flags")
-    gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    gnorm = clip_by_global_norm(grads, cfg.clip_norm, group, sharded)
     step = state.step + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

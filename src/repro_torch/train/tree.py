@@ -55,6 +55,15 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def spec_list(specs, like) -> list:
+    """The entries of a spec tree in :func:`flatten`'s order of ``like``,
+    the tree they describe (a partition spec is a tuple, so a spec tree
+    cannot be flattened alone)."""
+    out: list = []
+    tree_map(lambda _, spec: out.append(spec), like, specs)
+    return out
+
+
 def unflatten_like(tree, values: list):
     """``tree``'s structure with its leaves replaced, in :func:`flatten`'s
     order, by ``values``."""

@@ -447,6 +447,7 @@ import repro_torch.launch.train
 import repro_torch.sharding, repro_torch.launch.mesh
 import repro_torch.launch.specs, repro_torch.launch.steps
 import repro_torch.launch.dryrun
+import repro_torch.launch.ranks, repro_torch.sharding.collectives
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

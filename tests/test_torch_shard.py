@@ -74,9 +74,11 @@ def test_mesh_is_an_ordered_device_list():
 
 
 def test_more_than_one_cuda_device_is_refused(monkeypatch):
-    """The sharded runner has run on one card only: a spec that resolves
-    to several CUDA devices (explicitly, or ``devices=0`` on a multi-card
-    host) raises instead of running slabs it was never checked on."""
+    """In one process the sharded runner takes one card: a spec that
+    resolves to several CUDA devices (explicitly, or ``devices=0`` on a
+    multi-card host) raises, naming the path for several cards, one process
+    a card.  Under a process group the mesh is the ranks: ``devices`` must
+    be 0 or W (the rank path itself: ``tests/test_torch_ranks.py``)."""
     import repro_torch.fleetsim.shard as shard_mod
 
     monkeypatch.setattr(shard_mod, "resolve_device",
@@ -84,8 +86,15 @@ def test_more_than_one_cuda_device_is_refused(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert ShardSpec(devices=1).mesh() == [torch.device("cuda", 0)]
     for spec in (ShardSpec(), ShardSpec(devices=2)):
-        with pytest.raises(ValueError, match="one card only"):
+        with pytest.raises(ValueError, match="one process a card"):
             spec.mesh()
+    monkeypatch.undo()
+    monkeypatch.setattr(shard_mod, "on_ranks", lambda: True)
+    monkeypatch.setattr(shard_mod.dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(shard_mod.dist, "get_backend", lambda: "gloo")
+    assert ShardSpec().mesh("cpu") == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="2 ranks"):
+        ShardSpec(devices=3).mesh("cpu")
 
 
 def test_as_shard_normalization():

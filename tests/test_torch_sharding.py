@@ -495,13 +495,40 @@ def test_hooks_return_their_input_off_a_mesh():
         assert context.constrain_seq(x) is x
 
 
-def test_real_mesh_of_several_devices_is_refused():
+def test_real_mesh_of_several_devices_is_refused(monkeypatch):
+    """Several devices in one process are refused (one process a device is
+    the path: a rank mesh, ``tests/test_torch_ranks.py``), and so is a rank
+    mesh with a ``model`` axis; a shape-only mesh still records."""
+    import repro_torch.launch.mesh as mesh_mod
+    from repro_torch.launch.mesh import make_rank_mesh
+
     with pytest.raises(ValueError):
         make_host_mesh(data=2, device=CPU)
     fake = Mesh({"data": 2, "model": 1}, devices=("cpu", "cpu"))
     with context.use_mesh(fake), pytest.raises(NotImplementedError,
                                                match="A9-shard-multi"):
         context.fsdp_use({"w": torch.zeros(2)})
+    # a CUDA mesh of several devices in one process
+    monkeypatch.setattr(mesh_mod, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert make_host_mesh(data=1).devices == (torch.device("cuda", 0),)
+    with pytest.raises(NotImplementedError, match="one process a device"):
+        make_host_mesh(data=2)
+    monkeypatch.undo()
+    # tensor parallelism over ranks is not written
+    with pytest.raises(NotImplementedError, match="A9-shard-multi's TP"):
+        make_rank_mesh(model=2, device=CPU)
+    tp = Mesh({"data": 1, "model": 2}, devices=("cpu",), group=object())
+    with context.use_mesh(tp), pytest.raises(NotImplementedError,
+                                             match="A9-shard-multi's TP"):
+        context.constrain_heads(torch.zeros(1, 2, 2, 4))
+    # a shape-only mesh records under a lowering, as before
+    with context.use_mesh(SMOKE_MESH), context.recording() as coll:
+        w = torch.zeros(64, 2, 16)
+        assert context.fsdp_use({"attn": {"wq": w}})["attn"]["wq"] is w
+    assert coll["all-gather"] > 0
     mesh = make_production_mesh(multi_pod=True)
     assert mesh.shape == {"pod": 2, "data": 16, "model": 16}
     assert mesh.devices is None and math.prod(mesh.shape.values()) == 512
